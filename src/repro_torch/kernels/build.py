@@ -1,0 +1,89 @@
+"""Build the port's CUDA kernels at first use.
+
+Each kernel source under ``kernels/*/csrc/`` is compiled by ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface, loaded with
+``ctypes``.  Libraries go to ``build/repro_torch/`` at the repository root
+(git-ignored), named by a hash of the source and flags, so an edited source
+rebuilds and an unchanged one loads at once.  Importing this module builds
+nothing.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+BUILD_DIR = PACKAGE_DIR.parent.parent / "build" / "repro_torch"
+
+
+@dataclasses.dataclass
+class Built:
+    """A loaded kernel library and what its build reported."""
+    lib: ctypes.CDLL
+    path: Path
+    ptxas_log: str       # nvcc's -Xptxas -v report ('' when loaded from cache)
+    seconds: float       # build wall time (0.0 when loaded from cache)
+
+
+_LOADED: dict[str, Built] = {}
+_LOCK = threading.Lock()
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _digest(source: Path) -> str:
+    h = hashlib.sha256(source.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def load(source: Path) -> Built:
+    """Compile ``source`` (once per content hash) and load it."""
+    source = Path(source)
+    key = f"{source.stem}_{_digest(source)}"
+    with _LOCK:
+        built = _LOADED.get(key)
+        if built is not None:
+            return built
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        out = BUILD_DIR / f"{key}.so"
+        log, seconds = "", 0.0
+        if not out.exists():
+            tmp = BUILD_DIR / f"{key}.{os.getpid()}.tmp.so"
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            seconds = time.perf_counter() - t0
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(
+                    f"nvcc failed on {source.name} (exit {proc.returncode}):"
+                    f"\n{log}")
+            os.replace(tmp, out)   # atomic: concurrent builders never see
+            #                        a half-written library
+        built = Built(lib=ctypes.CDLL(str(out)), path=out, ptxas_log=log,
+                      seconds=seconds)
+        _LOADED[key] = built
+        return built
