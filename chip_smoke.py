@@ -2,16 +2,20 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It drives the port's alignment main path (``run_pairs`` -> plan -> K1 fill
--> batched traceback -> harvest) on the card, holds every CUDA kernel
-against its plain PyTorch version, times K1, and prints one JSON line per
-kernel and, last, ``{"ok": true, "device": {...}}``.  Any failed check
-exits non-zero without that last line, and so does a machine without CUDA
-or a directory without the ``src/repro_torch`` package.
+It drives the port's two main paths on the card: the alignment path
+(``run_pairs`` -> plan -> K1 fill -> batched traceback -> harvest) and the
+read mapper (``ReadMapper.map_reads``: index, seed, chain, the screen on K2,
+banded extension on K1, SAM).  It holds every CUDA kernel against its plain
+PyTorch version at the shapes those paths give it, times K1 and K2, and
+prints one JSON line listing the kernels and, last,
+``{"ok": true, "device": {...}}``.  Any failed check exits non-zero without
+that last line, and so does a machine without CUDA or a directory without
+the ``src/repro_torch`` package.
 
 Phases:
   1. card identity (name, count, power limit, SM clock);
-  2. build K1 with nvcc and report ptxas registers / spills;
+  2. build K1 and K2 with nvcc, both at once, and report ptxas registers /
+     spills;
   3. K1 vs its plain version, every ported zoo kernel and pointer packing,
      at buckets 64 (batch 16, mixed lengths), 256 (batch 64), 1024 (batch 4);
   4. main path: ``run_pairs`` with global affine (#2) on 8192 short DNA
@@ -23,7 +27,19 @@ Phases:
   6. K1 vs its plain version on the fullest block of every bucket shape
      that phases 4 and 5 gave K1 (batch 1024 and 256), then K1 alone timed
      at the main path's largest shape, beside its plain version and its
-     lower bound on this card.
+     lower bound on this card;
+  7. K2 vs its plain version: #16 and #17, buckets 64, 256 and 1024 (1, 4
+     and 16 words) at batch 64, random and 8 %-mutated pairs with lengths
+     below the bucket (q_len 1 included), k in {-1, 0, bucket / 10};
+  8. the mapper at a real size: a 4,641,652-base random reference (the
+     length of E. coli K-12 MG1655, NCBI RefSeq NC_000913.3) with 16 runs of
+     200 N, 32,768 simulated 150-base reads at 5 % error plus 4,096 random
+     junk reads, ``ReadMapper(ref, block=1024, screen_block=1024)``; checks
+     the launch counts, the accuracy bars and 256 records against the CPU
+     path, holds K1 and K2 to their plain versions on the path's blocks, and
+     times each stage;
+  9. K2 alone timed at the screen's fullest block, beside its plain version
+     and its lower bound on this card.
 """
 from __future__ import annotations
 
@@ -32,10 +48,12 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
+DEVICE = "cuda"
 MEM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_LANES_PER_SM = 64            # Hopper: 4 partitions x 16 INT32 lanes
 # int32 ALU operations of one PE cell, counted from the functors in
@@ -44,7 +62,23 @@ INT32_LANES_PER_SM = 64            # Hopper: 4 partitions x 16 INT32 lanes
 PE_OPS = {("linear", False): 11, ("linear", True): 14,
           ("affine", False): 21, ("affine", True): 24,
           ("two_piece", False): 39}
+# int32 lane operations K2's work needs, counted from the word step in
+# src/repro_torch/kernels/myers/csrc/myers.cu at the fewest Hopper
+# instructions: LOP3 does any three-input logic per 32-bit half, IADD3 and
+# IADD3.X the 64-bit add, LEA (low half, with the carry-in bit) and
+# SHF.L.U64.HI (high half) a shift by one.  Per live word-column: xv,
+# eq & vp, the add, xh, ph, mh, ph << 1, mh << 1, vp and vn at 2 each, and
+# hin's -1 into eq's low half at 1.  Per word that hands hout to the word
+# above: the top bits of ph and mh, 1 each.  Per column of the search the
+# screen runs: the score's two bit extracts (a shift and a mask each), one
+# IADD3, and the argmin (a compare and two selects).
+K2_OPS_PER_WORD_COLUMN = 21
+K2_OPS_PER_HANDOFF = 2
+K2_OPS_PER_COLUMN = 8
 PORTED = [1, 2, 3, 4, 5, 6, 7, 11, 12, 13, 15]
+E_COLI_LEN = 4_641_652             # E. coli K-12 MG1655, NC_000913.3
+N_READS, N_JUNK, READ_LEN = 32768, 4096, 150
+MAPPER_BLOCK = 1024
 FIELDS = ("score", "end_i", "end_j", "start_i", "start_j", "n_moves",
           "moves")
 
@@ -94,18 +128,25 @@ def phase_identity():
 
 
 def phase_build():
+    """One nvcc per kernel source, all started together."""
     from repro_torch.kernels import build
-    from repro_torch.kernels.wavefront import kernel as K
-    built = build.load(K.SOURCE)
-    log = built.ptxas_log
-    regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
-    spills = [int(a) + int(b) for a, b in re.findall(
-        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
-    print(f"[2] built {built.path.name} in {built.seconds:.1f} s: "
-          f"{len(regs)} kernel instantiations, registers "
-          f"{min(regs) if regs else '?'}-{max(regs) if regs else '?'} per "
-          f"thread, spill bytes {sum(spills)}", flush=True)
-    check(regs, "ptxas reported no kernels")
+    from repro_torch.kernels.myers import kernel as K2
+    from repro_torch.kernels.wavefront import kernel as K1
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        built = list(pool.map(build.load, (K1.SOURCE, K2.SOURCE)))
+    for name, b in zip(("K1", "K2"), built):
+        log = b.ptxas_log
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(a) + int(c) for a, c in re.findall(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
+        print(f"[2] {name}: built {b.path.name} in {b.seconds:.1f} s: "
+              f"{len(regs)} kernel instantiations, registers "
+              f"{min(regs) if regs else '?'}-{max(regs) if regs else '?'} "
+              f"per thread, spill bytes {sum(spills)}", flush=True)
+        check(regs, f"ptxas reported no {name} kernels")
+    print(f"    both builds: {time.perf_counter() - t0:.1f} s wall",
+          flush=True)
     return built
 
 
@@ -321,7 +362,7 @@ def _hold_to_plain(spec, params, block, what):
     import torch
     from repro_torch.kernels.wavefront import kernel as K
     (bq, br), qs, rs, ql, rl = block
-    args = _fill_args(spec, params, qs, rs, ql, rl, "cuda")
+    args = _fill_args(spec, params, qs, rs, ql, rl, DEVICE)
     got = K.wavefront_fill(spec, params, *args, tb_pack=spec.tb_pack)
     want = []
     plain_ms = cuda_time_ms(lambda: want.extend(K.wavefront_fill_plain(
@@ -383,6 +424,286 @@ def phase_path_shapes(main_blocks, long_blocks, card):
             "bound_by": bound_by, "max_abs_err": max_err}
 
 
+def _k2_args(qs, rs, ql, rl):
+    import numpy as np
+    import torch
+    lens = np.stack([ql, rl], axis=1).astype(np.int32)
+    return (torch.as_tensor(qs, device=DEVICE),
+            torch.as_tensor(rs, device=DEVICE),
+            torch.as_tensor(lens, device=DEVICE))
+
+
+def _k2_hold(q, r, lens, glob, k, what):
+    """K2 and its plain version on one batch (the plain sweep, which also
+    reports the columns each pair ran): those columns, the largest
+    |difference| and the plain version's ms."""
+    import torch
+    from repro_torch.core import myers as M
+    from repro_torch.kernels.myers import kernel as K2
+    got = K2.myers_fill(q, r, lens, glob=glob, k=k)
+    want = []
+    plain_ms = cuda_time_ms(lambda: want.extend(
+        M.sweep(q, r, lens, glob=glob, k=k)), 1)
+    err = max(int((g.long() - w.long()).abs().max())
+              for g, w in zip(got, want))
+    check(all(torch.equal(g, w) for g, w in zip(got, want[:3])),
+          f"K2 != plain: {what} (max |diff| {err})")
+    return want[3], err, plain_ms
+
+
+def _k_exit_rows(trail, lens, glob, k):
+    """The rows the provable-k exit stops, from the plain version's k = -1
+    score trail: a row stops at the first column j <= r_len where
+    min(best before j, score after column j - 1 - columns left) > k."""
+    import numpy as np
+    from repro_torch.core import types as T
+    if k < 0:
+        return np.zeros(len(lens), bool)
+    s = trail.astype(np.int64)
+    B, n_cols = s.shape[0], s.shape[1] - 1
+    r_len = lens[:, 1].astype(np.int64)[:, None]
+    j = np.arange(1, n_cols + 1)[None, :]
+    sent = np.full((B, 1), T.INT_SENTINEL, np.int64)
+    best = (np.broadcast_to(sent, (B, n_cols)) if glob else
+            np.minimum.accumulate(np.concatenate([sent, s[:, 1:-1]], 1), 1))
+    reach = np.minimum(best, s[:, :-1] - (r_len - (j - 1)))
+    return ((reach > k) & (j <= r_len)).any(1)
+
+
+def phase_k2_vs_plain(rng):
+    """K2 at k -1, 0 and bucket / 10 against one plain sweep per case at
+    k = -1: a row the exit rule stops on the plain version's score trail
+    expects the sentinel, every other row the plain answer."""
+    import numpy as np
+    import torch
+    from repro_torch.core import alphabets
+    from repro_torch.core import myers as M
+    from repro_torch.core import types as T
+    from repro_torch.kernels.myers import kernel as K2
+    t0 = time.perf_counter()
+    max_err, n = 0, 0
+    for kid in (16, 17):
+        for bucket in (64, 256, 1024):
+            B = 64
+            for kind in ("random", "mutated"):
+                qs = rng.integers(0, 4, (B, bucket)).astype(np.uint8)
+                ql = rng.integers(bucket // 2, bucket + 1, B).astype(np.int32)
+                ql[0], ql[1] = 1, bucket
+                rs = rng.integers(0, 4, (B, bucket)).astype(np.uint8)
+                rl = rng.integers(bucket // 2, bucket + 1, B).astype(np.int32)
+                if kind == "mutated":
+                    for b in range(B):
+                        m = alphabets.mutate(rng, qs[b, :ql[b]], 0.08)[:bucket]
+                        m = m if len(m) else qs[b, :1]
+                        rs[b, :len(m)] = m
+                        rl[b] = len(m)
+                args = _k2_args(qs, rs, ql, rl)
+                glob = kid == 16
+                *plain, _, trail = M.sweep(*args, glob=glob, k=-1, trace=True)
+                lens = args[2].cpu().numpy()
+                for k in (-1, 0, bucket // 10):
+                    stop = torch.as_tensor(
+                        _k_exit_rows(trail.cpu().numpy(), lens, glob, k),
+                        device=DEVICE)
+                    want = [torch.where(stop, fill, p) for p, fill in
+                            zip(plain, (T.INT_SENTINEL, T.INT_SENTINEL, 0))]
+                    got = K2.myers_fill(*args, glob=glob, k=k)
+                    err = max(int((g.long() - w.long()).abs().max())
+                              for g, w in zip(got, want))
+                    max_err = max(max_err, err)
+                    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                          f"K2 != plain: #{kid}, bucket {bucket}, {kind}, "
+                          f"k {k} (max |diff| {err})")
+                    n += 1
+    print(f"[7] K2 == plain on {n} cases (#16/#17 x buckets 64/256/1024 x "
+          f"random/mutated x k -1/0/bucket/10; score, best, best_j "
+          f"bit-equal; k >= 0 from the k = -1 sweep's score trail) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return max_err
+
+
+def _mapper_inputs():
+    """The reference, the simulated reads with their truth, and the reads
+    the mapper gets (simulated first, then junk), all from SEED."""
+    import numpy as np
+    from repro_torch.core import alphabets
+    from repro_torch.data.synthetic import sample_reads
+    rng = np.random.default_rng(SEED)
+    ref = alphabets.random_dna(rng, E_COLI_LEN)
+    for s in rng.integers(0, E_COLI_LEN - 200, 16):
+        ref[s:s + 200] = 4
+    rs = sample_reads(ref, N_READS, READ_LEN, error_rate=0.05, seed=SEED)
+    reads = [rs.reads[i, :rs.lens[i]] for i in range(N_READS)]
+    reads += [alphabets.random_dna(rng, READ_LEN) for _ in range(N_JUNK)]
+    return ref, rs, reads
+
+
+def _staged_run(mapper, ref, reads, names):
+    """map_reads again, one stage at a time in its order, each stage's time
+    on the host clock between synchronisations; returns the records, the
+    stage times, the screened and the extended jobs."""
+    import torch
+    from repro_torch.mapping import index as index_mod
+    sync = torch.cuda.synchronize
+    t = {}
+    t0 = time.perf_counter()
+    index_mod.build_index(ref, k=mapper.index.k, w=mapper.index.w,
+                          device=DEVICE)
+    sync()
+    t1 = time.perf_counter()
+    t["index build"] = t1 - t0
+    read_list = mapper._as_read_list(reads, None)
+    fwd, rc = mapper._chain_reads(read_list)
+    sync()
+    t2 = time.perf_counter()
+    t["seed+chain"] = t2 - t1
+    jobs, meta, recs = mapper._plan_jobs(read_list, names, fwd, rc)
+    t3 = time.perf_counter()
+    screened = jobs
+    jobs, meta = mapper._screen(jobs, meta, recs, read_list, names)
+    sync()
+    t4 = time.perf_counter()
+    t["screen (K2)"] = t4 - t3
+    ext = mapper._extend(jobs)
+    sync()
+    t5 = time.perf_counter()
+    t["extension (K1 + walk)"] = t5 - t4
+    recs = mapper._emit(ext, meta, recs, read_list, names)
+    t["host/SAM"] = (t3 - t2) + (time.perf_counter() - t5)
+    return recs, t, screened, jobs
+
+
+def phase_mapper():
+    """The read mapper at a real size on the card, its checks, and the K1
+    and K2 holds on its own blocks."""
+    import math
+    import torch
+    from repro_torch.kernels.myers import kernel as K2
+    from repro_torch.kernels.wavefront import kernel as K1
+    from repro_torch.mapping import ReadMapper
+    from repro_torch.mapping import extend as extend_mod
+    t_in = time.perf_counter()
+    ref, rs, reads = _mapper_inputs()
+    names = [f"read{i}" for i in range(len(reads))]
+    t_in = time.perf_counter() - t_in
+    mapper = ReadMapper(ref, block=MAPPER_BLOCK, screen_block=MAPPER_BLOCK,
+                        device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K1.launches = K2.launches = 0
+    t0 = time.perf_counter()
+    records = mapper.map_reads(reads, names=names)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1_runs, k2_runs = K1.launches, K2.launches
+    peak = torch.cuda.max_memory_allocated()
+
+    hits = sum(rec.is_mapped and abs(rec.pos - 1 - int(p)) <= 5
+               and rec.is_reverse == bool(s)
+               for rec, p, s in zip(records, rs.pos, rs.strand))
+    junk = sum(rec.is_mapped for rec in records[N_READS:])
+    check(hits >= 0.95 * N_READS, f"mapper: {hits} of {N_READS} simulated "
+          f"reads within 5 bases on the right strand (< 95 %)")
+    check(junk <= 0.01 * N_JUNK, f"mapper: {junk} of {N_JUNK} junk reads "
+          f"mapped (> 1 %)")
+
+    staged, stages, screened, extended = _staged_run(mapper, ref, reads,
+                                                     names)
+    check([r.to_line() for r in staged] == [r.to_line() for r in records],
+          "mapper: the staged run differs from map_reads")
+    screen_blocks = _blocks([(j.read, j.window) for j in screened],
+                            MAPPER_BLOCK)
+    by_band = {}
+    for j in extended:
+        by_band.setdefault(j.band, []).append((j.read, j.window))
+    ext_blocks = {band: _blocks(pairs, MAPPER_BLOCK)
+                  for band, pairs in sorted(by_band.items())}
+    n_ext = sum(len(b) for b in ext_blocks.values())
+    check(k2_runs == len(screen_blocks), f"mapper launched K2 {k2_runs} "
+          f"times for {len(screen_blocks)} screen blocks")
+    check(k1_runs == n_ext, f"mapper launched K1 {k1_runs} times for "
+          f"{n_ext} extension blocks")
+
+    pick = list(range(224)) + list(range(N_READS, N_READS + 32))
+    cpu = ReadMapper(ref, device="cpu")
+    want = cpu.map_reads([reads[i] for i in pick],
+                         names=[names[i] for i in pick])
+    for i, w in zip(pick, want):
+        check(records[i].to_line() == w.to_line(),
+              f"mapper: read {i} differs from the CPU path")
+
+    print(f"[8] mapper: {len(reads)} reads ({N_READS} simulated, {N_JUNK} "
+          f"junk) on a {E_COLI_LEN}-base reference: map_reads {wall:.3f} s "
+          f"wall, {len(reads) / wall:.0f} reads/s; {hits} simulated reads "
+          f"({100 * hits / N_READS:.2f} %) within 5 bases on the right "
+          f"strand, {junk} junk reads mapped; input simulation {t_in:.1f} "
+          f"s", flush=True)
+    print(f"    launches: K2 {k2_runs} (= screen blocks), K1 {k1_runs} (= "
+          f"extension blocks over bands {sorted(ext_blocks)}); screen "
+          f"rejected {len(screened) - len(extended)} of {len(screened)} "
+          f"jobs; peak device memory {peak / 2**20:.1f} MiB; 256 records "
+          f"equal to the CPU path", flush=True)
+    print("    stages (staged run, host clock between synchronisations): "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items()),
+          flush=True)
+
+    k1_before, k2_before = K1.launches, K2.launches
+    k1_err, held = 0, []
+    for band, blocks in ext_blocks.items():
+        spec, params = extend_mod.extension_spec(band, mapper.gap_mode)
+        for block in _fullest_per_bucket(blocks):
+            _, err, _ = _hold_to_plain(spec, params, block,
+                                       f"mapper band-{band}")
+            k1_err = max(k1_err, err)
+            held.append(f"band {band} {block[0][0]}x{block[0][1]}")
+    print(f"    K1 == plain (tb, best, best_j bit-equal) on the fullest "
+          f"extension block of each shape: {', '.join(held)}", flush=True)
+    k = max(math.ceil(mapper.filter_k_frac * len(j.read)) for j in screened)
+    sblock = max(screen_blocks, key=_live_cells)
+    (bq, br), qs, rs_, ql, rl = sblock
+    args = _k2_args(qs, rs_, ql, rl)
+    cols, k2_err, plain_ms = _k2_hold(*args, False, k,
+                                      f"mapper screen block {bq}x{br}")
+    print(f"    K2 == plain (score, best, best_j bit-equal) on the fullest "
+          f"screen block {bq}x{br}, batch {qs.shape[0]}, k {k}", flush=True)
+    K1.launches, K2.launches = k1_before, k2_before
+    return {"k1_launches": k1_runs, "k2_launches": k2_runs,
+            "k1_err": k1_err, "k2_err": k2_err,
+            "screen": (sblock, args, k, cols, plain_ms)}
+
+
+def phase_k2_timing(screen, card):
+    """K2 alone at the screen's fullest block: CUDA events over 20 launches
+    after a warm-up, beside its plain version and its bound."""
+    from repro_torch.kernels.myers import kernel as K2
+    ((bq, br), qs, rs, ql, rl), (q, r, lens), k, cols, plain_ms = screen
+    before = K2.launches
+    for _ in range(3):
+        K2.myers_fill(q, r, lens, glob=False, k=k)
+    ms = cuda_time_ms(lambda: K2.myers_fill(q, r, lens, glob=False, k=k), 20)
+    K2.launches = before
+    B = qs.shape[0]
+    cols = cols.cpu().numpy().astype("int64")
+    words = (ql.astype("int64") - 1).clip(min=0) // 64 + 1
+    word_cols = int((cols * words).sum())
+    n_cols = int(cols.sum())
+    ops = (K2_OPS_PER_WORD_COLUMN * word_cols
+           + K2_OPS_PER_HANDOFF * (word_cols - n_cols)
+           + K2_OPS_PER_COLUMN * n_cols)
+    nbytes = B * bq + B * br + B * 8 + 3 * B * 4
+    ops_ms = ops / card["int32_ops_per_s"] * 1e3
+    bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    print(f"[9] K2 timed at batch {B}, {bq}x{br}, #17, k {k}: {ms:.4f} ms "
+          f"(CUDA events, mean of 20); plain {plain_ms:.1f} ms; bound "
+          f"{bound_ms:.4f} ms by {bound_by} (int32 ops {ops_ms:.4f} ms for "
+          f"{word_cols} live 64-bit word-columns, bytes {bytes_ms:.4f} ms "
+          f"for {nbytes} B)", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
 def main() -> int:
     try:
         import torch
@@ -411,6 +732,9 @@ def main() -> int:
         launches, blocks = phase_main_path(rng, genome)
         long_blocks = phase_long_reads(rng, genome)
         timing = phase_path_shapes(blocks, long_blocks, card)
+        k2_err = phase_k2_vs_plain(rng)
+        mapper = phase_mapper()
+        k2_timing = phase_k2_timing(mapper["screen"], card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -418,11 +742,21 @@ def main() -> int:
         "name": "wavefront_fill", "route": "cuda",
         "source": "src/repro_torch/kernels/wavefront/csrc/wavefront.cu",
         "replaces": "src/repro/kernels/wavefront/kernel.py:198",
-        "launches": launches, "parity": "exact",
-        "max_abs_err": max(max_err, timing["max_abs_err"]),
+        "launches": launches, "launches_mapper": mapper["k1_launches"],
+        "parity": "exact",
+        "max_abs_err": max(max_err, timing["max_abs_err"],
+                           mapper["k1_err"]),
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": None}]
+        "library_ms": None}, {
+        "name": "myers_fill", "route": "cuda",
+        "source": "src/repro_torch/kernels/myers/csrc/myers.cu",
+        "replaces": "src/repro/kernels/myers/kernel.py:112",
+        "launches": mapper["k2_launches"], "parity": "exact",
+        "max_abs_err": max(k2_err, mapper["k2_err"]),
+        "ms": k2_timing["ms"], "plain_ms": k2_timing["plain_ms"],
+        "bound_ms": k2_timing["bound_ms"],
+        "bound_by": k2_timing["bound_by"], "library_ms": None}]
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     print(card["smi"])
     print(json.dumps({"kernels": kernels}))

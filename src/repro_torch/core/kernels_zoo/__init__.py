@@ -1,16 +1,18 @@
 """The Table-1 DP kernels of the port: every int32 max-plus kernel of the
-three ``common.py`` PE families (#1-7, #11-13, #15).
+three ``common.py`` PE families (#1-7, #11-13, #15), which kernel K1 runs,
+and the unit-cost edit kernels #16/#17, which the ``myers`` engine (kernel
+K2) runs.
 
 Registry keys match the paper's '#' indices, as in ``repro.core.kernels_zoo``.
-The float and min-plus kernels are not ported yet; ``make`` names the
-ROADMAP item that ports each of them.
+The float kernels and sdtw are not ported yet; ``make`` names the ROADMAP
+item that ports each of them.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from . import dna_affine, dna_linear, dna_two_piece, protein
+from . import dna_affine, dna_linear, dna_two_piece, edit, protein
 
 # kernel_id -> (name, make_spec(**kw), default_params())
 KERNELS = {
@@ -25,19 +27,18 @@ KERNELS = {
     12: ("banded_local_affine",    dna_affine.banded_local_affine,  dna_affine.default_params),
     13: ("banded_global_two_piece", dna_two_piece.banded_global_two_piece, dna_two_piece.default_params),
     15: ("protein_local",          protein.protein_local,           protein.default_params),
+    16: ("edit_distance",          edit.edit_distance,              edit.default_params),
+    17: ("edit_search",            edit.edit_search,                edit.default_params),
 }
 
 _FLOAT_ITEM = ("ROADMAP queue 1, 'K1 float families' (profile #8, dtw #9, "
                "viterbi #10)")
-_MINPLUS_ITEM = ("ROADMAP queue 1, 'K1 min-plus families' (sdtw #14, "
-                 "edit_distance #16, edit_search #17)")
+_MINPLUS_ITEM = "ROADMAP queue 1, 'K1 min-plus families' (sdtw #14)"
 NOT_PORTED = {
     8: ("profile", _FLOAT_ITEM),
     9: ("dtw", _FLOAT_ITEM),
     10: ("viterbi_pairhmm", _FLOAT_ITEM),
     14: ("sdtw", _MINPLUS_ITEM),
-    16: ("edit_distance", _MINPLUS_ITEM),
-    17: ("edit_search", _MINPLUS_ITEM),
 }
 
 BY_NAME = {name: (mk, dp) for (name, mk, dp) in KERNELS.values()}

@@ -1,5 +1,6 @@
-"""Kernels #2 (global affine / Gotoh), #4 (local affine / SWG) and
-#12 (banded local affine, no traceback) — affine gap penalty, N_LAYERS=3."""
+"""Kernels #2 (global affine / Gotoh), #4 (local affine / SWG), #12
+(banded local affine, no traceback) and the mapper's semi-global Gotoh —
+affine gap penalty, N_LAYERS=3."""
 from __future__ import annotations
 
 from .. import types as T
@@ -30,6 +31,18 @@ def local_affine(**kw) -> T.DPKernelSpec:
         region=T.REGION_ALL, traceback=C.affine_tb(T.STOP_PTR_END),
         ptr_bits=C.AFFINE_PTR_BITS,
         family=T.PEFamily(T.FAMILY_AFFINE, T.SUB_DNA, True), **kw)
+
+
+def semiglobal_affine(**kw) -> T.DPKernelSpec:
+    """Semi-global Gotoh: the query end to end against a reference substring
+    with affine gaps, the read mapper's extension under ``gap_mode='affine'``.
+    Row 0 is the free start along the reference (zero H, dead gap layers)."""
+    return T.DPKernelSpec(
+        name="semiglobal_affine", n_layers=3, pe=C.affine_pe(C.dna_sub),
+        init_row=C.local_affine_init, init_col=C.affine_init_col,
+        region=T.REGION_LAST_ROW, traceback=C.affine_tb(T.STOP_TOP_ROW),
+        ptr_bits=C.AFFINE_PTR_BITS,
+        family=T.PEFamily(T.FAMILY_AFFINE, T.SUB_DNA, False), **kw)
 
 
 def banded_local_affine(band: int = 16, **kw) -> T.DPKernelSpec:

@@ -4,8 +4,9 @@ Each kernel source under ``kernels/*/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, loaded with
 ``ctypes``.  Libraries go to ``build/repro_torch/`` at the repository root
 (git-ignored), named by a hash of the source and flags, so an edited source
-rebuilds and an unchanged one loads at once.  Importing this module builds
-nothing.
+rebuilds and an unchanged one loads at once.  Two sources build
+concurrently when called from two threads (one lock per library).  Importing
+this module builds nothing.
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ class Built:
 
 
 _LOADED: dict[str, Built] = {}
+_LOCKS: dict[str, threading.Lock] = {}
 _LOCK = threading.Lock()
 
 
@@ -63,6 +65,8 @@ def load(source: Path) -> Built:
     source = Path(source)
     key = f"{source.stem}_{_digest(source)}"
     with _LOCK:
+        lock = _LOCKS.setdefault(key, threading.Lock())
+    with lock:
         built = _LOADED.get(key)
         if built is not None:
             return built

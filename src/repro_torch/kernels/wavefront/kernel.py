@@ -37,10 +37,10 @@ launches = 0
 
 def supports(spec: T.DPKernelSpec):
     """None when K1 can fill ``spec``, else the reason it cannot."""
-    if spec.family is None:
-        return f"kernel {spec.name} has no compiled PE family yet"
     if spec.objective != "max" or spec.score_dtype != torch.int32:
         return f"kernel {spec.name}: K1 implements int32 max-plus only"
+    if spec.family is None:
+        return f"kernel {spec.name} has no compiled PE family yet"
     if spec.primary_layer != 0 or spec.char_shape != ():
         return f"kernel {spec.name}: K1 scores layer 0 of scalar codes"
     return None

@@ -154,6 +154,16 @@ def validate_int_option(name: str, value, *,
     return value
 
 
+def validate_pow2_option(name: str, value) -> int:
+    """An integer option that must also be a power of two (block-shaped
+    knobs such as the mapper's ``screen_block``)."""
+    v = validate_int_option(name, value, minimum=1)
+    if v & (v - 1):
+        raise ValueError(
+            f"option {name!r} must be a power of two, got {v}")
+    return v
+
+
 def resolve_engine_options(spec: T.DPKernelSpec, engine_name: str,
                            requested: Optional[dict] = None) -> dict:
     """Resolve every option an engine declares against a request (``None``

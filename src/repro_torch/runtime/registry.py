@@ -7,7 +7,9 @@ pairs (the batch axis is written out where JAX vmaps a per-pair engine);
 register with a deferred loader, so importing this module imports no engine.
 
 Registered: ``wavefront`` — kernel K1 (CUDA on CUDA tensors, its plain
-version on CPU tensors), with the ``tb_pack`` option.
+version on CPU tensors), with the ``tb_pack`` option; ``myers`` — kernel K2,
+the bit-vector unit-cost engine for #16/#17 (score-only, no options), the
+same way.
 """
 from __future__ import annotations
 
@@ -96,3 +98,17 @@ def _wavefront_supports(spec) -> Optional[str]:
 # K1: CUDA anti-diagonal fill kernel (paper §5.1/§5.2)
 register_engine("wavefront", loader=_load_wavefront,
                 options={"tb_pack": None}, supports=_wavefront_supports)
+
+
+def _load_myers():
+    from repro_torch.kernels.myers import ops
+    return ops.run
+
+
+def _myers_supports(spec) -> Optional[str]:
+    from repro_torch.core import myers
+    return myers.supports(spec)
+
+
+# K2: CUDA bit-vector edit distance (Myers 1999), kernels #16/#17 only
+register_engine("myers", loader=_load_myers, supports=_myers_supports)

@@ -110,9 +110,9 @@ def test_plan_cache_reused_within_a_bucket(rng):
 
 
 def test_registry_and_option_errors():
-    assert registry.available_engines() == ["wavefront"]
+    assert registry.available_engines() == ["myers", "wavefront"]
     with pytest.raises(ValueError, match=r"unknown engine 'pallas'; have "
-                                         r"\['wavefront'\]"):
+                                         r"\['myers', 'wavefront'\]"):
         registry.get_engine("pallas")
     spec, _ = pzoo.make(2)
     with pytest.raises(ValueError, match="valid options: \\['tb_pack'\\]"):

@@ -1,0 +1,244 @@
+"""K2 of the PyTorch port and the ``myers`` engine vs the JAX package on the
+CPU: the plain version behind ``ops.run`` against ``repro.core.myers.run``,
+and ``align``/``run_pairs`` with ``engine_name="myers"`` against JAX's
+``myers`` and ``reference`` engines, for #16 and #17 on DNA, protein and
+codes up to 31, multiword queries, lengths below the bucket, empty and
+identical pairs, and the thresholds k = -1, 0, the exact distance and one
+below it.  Every comparison is exact.  On a GPU only, the CUDA kernel is
+held against its plain version.
+
+The JAX package is imported inside the CPU tests only, so that
+``pytest -m gpu`` runs this file on a GPU machine without JAX."""
+from __future__ import annotations
+
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import api
+from repro_torch.core import myers as M
+from repro_torch.core import kernels_zoo as pzoo
+from repro_torch.kernels.myers import kernel as K
+from repro_torch.kernels.myers import ops
+from repro_torch.kernels.wavefront import kernel as K1
+from repro_torch.runtime import dispatch, registry
+
+EDIT = ["edit_distance", "edit_search"]
+SENT = 1 << 30
+FIELDS = ("score", "end_i", "end_j")
+
+
+def _batch(rng, n_sym, B, Q, R):
+    """Pairs below the bucket, with an identical pair, a near-identical
+    one, one-row and one-column pairs, and empty pairs on either side."""
+    qs = rng.integers(0, n_sym, (B, Q)).astype(np.uint8)
+    rs = rng.integers(0, n_sym, (B, R)).astype(np.uint8)
+    ql = rng.integers(1, Q + 1, B).astype(np.int32)
+    rl = rng.integers(1, R + 1, B).astype(np.int32)
+    n = min(Q, R)
+    ql[0], rl[0] = n, n                      # identical pair
+    rs[0, :n] = qs[0, :n]
+    ql[1], rl[1] = n, R                      # query mutated inside the ref
+    rs[1, 3:3 + n - 6] = qs[1, 3:n - 3]
+    ql[2], rl[2] = 1, R
+    ql[3], rl[3] = Q, 1
+    ql[4] = 0
+    rl[5] = 0
+    return qs, rs, ql, rl
+
+
+def _jax_run(kname, k, qs, rs, ql, rl):
+    import jax
+    import jax.numpy as jnp
+    from repro.core import kernels_zoo as jzoo
+    from repro.core import myers as jmyers
+    jspec, _ = jzoo.make(kname)
+    params = {"max_dist": jnp.int32(k)}
+    out = jax.vmap(lambda q, r, a, b: jmyers.run(jspec, params, q, r, a, b))(
+        qs, rs, ql, rl)
+    return {f: np.asarray(getattr(out, f)) for f in FIELDS}
+
+
+def _port_run(kname, k, qs, rs, ql, rl):
+    spec, _ = pzoo.make(kname)
+    t = torch.as_tensor
+    before = K.launches
+    out = ops.run(spec, {"max_dist": k}, t(qs), t(rs), t(ql), t(rl))
+    assert K.launches == before      # CPU tensors never reach the kernel
+    return {f: getattr(out, f).numpy() for f in FIELDS}
+
+
+@pytest.mark.parametrize("n_sym", [4, 24, 32])    # DNA, protein, codes <= 31
+@pytest.mark.parametrize("kname", EDIT)
+def test_plain_engine_matches_jax_myers(kname, n_sym, rng):
+    B, Q, R = 12, 160, 96                          # 5 words of 32 bits
+    qs, rs, ql, rl = _batch(rng, n_sym, B, Q, R)
+    d = _jax_run(kname, -1, qs, rs, ql, rl)["score"][1]
+    assert 0 < d < SENT
+    for k in (-1, 0, int(d), int(d) - 1):
+        want = _jax_run(kname, k, qs, rs, ql, rl)
+        got = _port_run(kname, k, qs, rs, ql, rl)
+        for f in FIELDS:
+            np.testing.assert_array_equal(got[f], want[f],
+                                          err_msg=f"{kname} k={k}: {f}")
+        if k == int(d) - 1:
+            assert got["score"][1] == SENT     # one below the distance
+        if k == int(d):
+            assert got["score"][1] == d
+
+
+@pytest.mark.parametrize("kname", EDIT)
+def test_plain_fill_ignores_bucket_padding(kname, rng):
+    """The same pairs in buckets 64 and 128 with junk codes in the padding
+    give the same outputs, and codes >= 32 in the query match nothing while
+    reference codes clip to 31."""
+    qs, rs, ql, rl = _batch(rng, 4, 8, 40, 40)
+    qs[6, :5] = 200
+    rs[7, :5] = 255
+    lens = torch.as_tensor(np.stack([ql, rl], 1))
+    outs = []
+    for bucket in (64, 128):
+        q = rng.integers(0, 4, (8, bucket)).astype(np.uint8)
+        r = rng.integers(0, 4, (8, bucket)).astype(np.uint8)
+        q[:, :40], r[:, :40] = qs, rs
+        outs.append(K.myers_fill_plain(torch.as_tensor(q), torch.as_tensor(r),
+                                       lens, glob=kname == "edit_distance",
+                                       k=-1))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    want = _jax_run(kname, -1, qs, rs, ql, rl)
+    got = _port_run(kname, -1, qs, rs, ql, rl)
+    np.testing.assert_array_equal(got["score"], want["score"])
+
+
+def _pairs(rng, n_sym, n, lo, hi):
+    pairs = []
+    for _ in range(n):
+        q = rng.integers(0, n_sym, int(rng.integers(lo, hi))).astype(np.uint8)
+        r = rng.integers(0, n_sym, int(rng.integers(lo, hi))).astype(np.uint8)
+        pairs.append((q, r))
+    pairs[0] = (pairs[0][0], pairs[0][0].copy())           # identical
+    return pairs
+
+
+@pytest.mark.parametrize("kname", EDIT)
+def test_run_pairs_matches_jax_engines(kname, rng):
+    from repro.core import kernels_zoo as jzoo
+    from repro.runtime import dispatch as jdispatch
+    jspec, _ = jzoo.make(kname)
+    spec, _ = pzoo.make(kname)
+    pairs = _pairs(rng, 4, 9, 5, 150)                      # buckets 16-256
+    for k in (-1, 0, 12):
+        jparams = {"max_dist": np.int32(k)}
+        params = pzoo.from_reference_params(jparams)
+        got = dispatch.run_pairs(spec, params, pairs, engine_name="myers",
+                                 block=4, device="cpu")
+        want = jdispatch.run_pairs(jspec, jparams, pairs,
+                                   engine_name="myers", block=4)
+        exact = jdispatch.run_pairs(jspec, jparams, pairs,
+                                    engine_name="reference", block=4)
+        for g, w, e in zip(got, want, exact):
+            for f in FIELDS:
+                assert int(getattr(g, f)) == int(getattr(w, f)), f
+            # the reference engine has no threshold: saturate it at k
+            score = int(e.score)
+            if 0 <= k < score:
+                assert int(g.score) == SENT
+            else:
+                assert (int(g.score), int(g.end_i), int(g.end_j)) == \
+                    (score, int(e.end_i), int(e.end_j))
+
+
+@pytest.mark.parametrize("kname", EDIT)
+def test_align_matches_jax_myers(kname, rng):
+    from repro.core import api as japi
+    from repro.core import kernels_zoo as jzoo
+    jspec, jparams = jzoo.make(kname)
+    spec, params = pzoo.make(kname)
+    q = rng.integers(0, 4, 70).astype(np.uint8)
+    r = np.concatenate([rng.integers(0, 4, 9).astype(np.uint8), q[2:],
+                        rng.integers(0, 4, 5).astype(np.uint8)])
+    want = japi.align(jspec, jparams, q, r, engine_name="myers")
+    got = api.align(spec, params, q, r, engine_name="myers", device="cpu")
+    for f in FIELDS:
+        assert int(getattr(got, f)) == int(getattr(want, f)), f
+    assert got.moves is None
+
+
+def test_engine_admission_and_wrapper_checks(rng):
+    edit, _ = pzoo.make(16)
+    linear, _ = pzoo.make(7)
+    assert registry.engine_supports("myers", edit) is None
+    assert "unit-cost" in registry.engine_supports("myers", linear)
+    assert "max-plus" in K1.supports(edit)
+    with pytest.raises(ValueError, match="cannot run"):
+        api.align(edit, {"max_dist": -1}, np.zeros(8, np.uint8),
+                  np.zeros(8, np.uint8), device="cpu")
+    assert [K.n_words(q) for q in (1, 64, 65, 256, 1024)] == [1, 1, 2, 4, 16]
+    with pytest.raises(ValueError, match="1024"):
+        K.n_words(1025)
+    q = torch.zeros((2, 8), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="lens"):
+        K.myers_fill(q, q, torch.ones((2, 2), dtype=torch.int64),
+                     glob=True, k=-1)
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("kname", EDIT)
+def test_score_trail_gives_the_threshold_exit(kname, rng):
+    """The last-row score trail of an unthresholded sweep holds its answers,
+    and the exit rule chip_smoke.py applies to that trail picks exactly the
+    rows a thresholded sweep stops."""
+    glob = kname == "edit_distance"
+    qs, rs, ql, rl = _batch(rng, 4, 12, 160, 96)
+    lens = np.stack([ql, rl], 1)
+    args = (torch.as_tensor(qs), torch.as_tensor(rs), torch.as_tensor(lens))
+    score, best, best_j, _, trail = M.sweep(*args, glob=glob, k=-1,
+                                            trace=True)
+    t = trail.numpy()
+    live = (ql >= 1) & (rl >= 1)
+    for b in np.flatnonzero(live):
+        row = t[b, 1:rl[b] + 1]
+        if glob:
+            assert row[-1] == score[b]
+        else:
+            assert (row.min(), np.argmin(row) + 1) == (best[b], best_j[b])
+    exit_rows = _chip_smoke()._k_exit_rows
+    for k in (-1, 0, 5, 20, 60):
+        stopped = M.sweep(*args, glob=glob, k=k)[0].numpy() == SENT
+        np.testing.assert_array_equal(
+            exit_rows(t, lens, glob, k) | ~live, stopped, err_msg=f"k={k}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kname", EDIT)
+def test_cuda_kernel_matches_plain(kname):
+    """K2 on the card equals its plain version on the same card, at NW 1, 4
+    and 16 and every threshold case."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K2 is CUDA C++ with no CPU mode)")
+    rng = np.random.default_rng(1)
+    glob = kname == "edit_distance"
+    for Q in (64, 256, 1024):
+        qs, rs, ql, rl = _batch(rng, 4, 64, Q, Q)
+        dev = "cuda"
+        q, r = torch.as_tensor(qs, device=dev), torch.as_tensor(rs, device=dev)
+        lens = torch.as_tensor(np.stack([ql, rl], 1), device=dev)
+        for k in (-1, 0, Q // 8):
+            before = K.launches
+            got = K.myers_fill(q, r, lens, glob=glob, k=k)
+            assert K.launches == before + 1
+            want = K.myers_fill_plain(q, r, lens, glob=glob, k=k)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)

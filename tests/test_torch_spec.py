@@ -1,7 +1,8 @@
 """Spec layer of the PyTorch port vs the JAX package: sentinels, pointer
 packing, masks, PE cells, FSMs and boundary inits of every ported zoo
-kernel, and the refusal of the kernels not ported yet.  All ported kernels
-are int32, so every comparison is exact."""
+kernel (K1's max-plus kernels and the unit-cost edit kernels #16/#17), and
+the refusal of the kernels not ported yet.  All ported kernels are int32, so
+every comparison is exact."""
 from __future__ import annotations
 
 import jax
@@ -21,10 +22,13 @@ from repro_torch.core import types as PT
 from torch_parity import PORTED
 from torch_parity import kernel_pair as _pair
 
-UNPORTED = [8, 9, 10, 14, 16, 17]
+UNPORTED = [8, 9, 10, 14]
+# K1's kernels plus the edit kernels, which carry no PE family (the myers
+# engine hard-codes their recurrence)
+SPEC_KERNELS = PORTED + [16, 17]
 
 
-@pytest.mark.parametrize("kid", PORTED)
+@pytest.mark.parametrize("kid", SPEC_KERNELS)
 def test_declaration_matches(kid):
     jspec, jparams, spec, params = _pair(kid)
     assert spec.name == jspec.name
@@ -41,12 +45,12 @@ def test_declaration_matches(kid):
                 spec.traceback.initial_state) == \
             (jspec.traceback.n_states, jspec.traceback.stop,
              jspec.traceback.initial_state)
-    assert spec.family is not None
+    assert (spec.family is None) == (kid in (16, 17))
     for k, v in jparams.items():
         np.testing.assert_array_equal(np.asarray(params[k]), np.asarray(v))
 
 
-@pytest.mark.parametrize("kid", PORTED)
+@pytest.mark.parametrize("kid", SPEC_KERNELS)
 def test_band_and_region_masks(kid):
     jspec, _, spec, _ = _pair(kid)
     ii, jj = np.meshgrid(np.arange(41), np.arange(37), indexing="ij")
@@ -64,7 +68,7 @@ def test_band_and_region_masks(kid):
 
 def _random_cells(rng, spec, n):
     L = spec.n_layers
-    hi = 20 if spec.family.sub == PT.SUB_MATRIX else 4
+    hi = 20 if spec.family and spec.family.sub == PT.SUB_MATRIX else 4
     q = rng.integers(0, hi, n).astype(np.uint8)
     r = rng.integers(0, hi, n).astype(np.uint8)
     cells = []
@@ -78,7 +82,7 @@ def _random_cells(rng, spec, n):
     return q, r, cells, i, j
 
 
-@pytest.mark.parametrize("kid", PORTED)
+@pytest.mark.parametrize("kid", SPEC_KERNELS)
 def test_pe_cells_match(kid, rng):
     jspec, jparams, spec, params = _pair(kid)
     q, r, (diag, up, left), i, j = _random_cells(rng, spec, 512)
@@ -107,7 +111,7 @@ def test_fsm_matches(kid, rng):
         np.asarray(jn), (1024,)))
 
 
-@pytest.mark.parametrize("kid", PORTED)
+@pytest.mark.parametrize("kid", SPEC_KERNELS)
 def test_init_rows_and_columns(kid):
     jspec, jparams, spec, params = _pair(kid)
     k = np.arange(70, dtype=np.int32)
