@@ -2,12 +2,14 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It drives the port's two main paths on the card: the alignment path
-(``run_pairs`` -> plan -> K1 fill -> batched traceback -> harvest) and the
+It drives the port's three main paths on the card: the alignment path
+(``run_pairs`` -> plan -> K1 fill -> batched traceback -> harvest), the
 read mapper (``ReadMapper.map_reads``: index, seed, chain, the screen on K2,
-banded extension on K1, SAM).  It holds every CUDA kernel against its plain
-PyTorch version at the shapes those paths give it, times K1 and K2, and
-prints one JSON line listing the kernels and, last,
+banded extension on K1, SAM) and LM serving (``ServeSession``: per-slot
+prefill on K3 for olmo-1b and K4 for rwkv6-3b, batched greedy decode).  It
+holds every CUDA kernel against its plain PyTorch version at the shapes
+those paths give it, times K1-K4, and prints one JSON line listing the
+kernels and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero without
 that last line, and so does a machine without CUDA or a directory without
 the ``src/repro_torch`` package.
@@ -39,7 +41,30 @@ Phases:
      path, holds K1 and K2 to their plain versions on the path's blocks, and
      times each stage;
   9. K2 alone timed at the screen's fullest block, beside its plain version
-     and its lower bound on this card.
+     and its lower bound on this card;
+ 10. K3 vs its plain version: causal, causal with window 64, non-causal x
+     G 1 and 4 x S 77, 512, 1000 x f32 and bf16 x hd 64 and 128 (2e-5 in
+     f32, and one bf16 ulp more in bf16);
+ 11. K4 vs its plain version: decay scales 1 and 2 x S 77 and 1000, hd 64,
+     H 4 (y and the final state within 5e-4);
+ 12. olmo-1b at full width (1.18 B parameters, bf16, random from seed 0):
+     ``ServeSession(batch_slots=8, max_len=2048)``, greedy, 16 requests of
+     256-1536 random tokens, 32 new tokens each; wall time, time to first
+     token, prefill and decode tokens/s, peak memory; K3 launches = 16 x 16
+     over the serve run alone; K3 vs plain on layer 0 of the longest
+     prompt; prefill and first decode logits vs ``forward`` in bf16 (3x
+     the measured bf16 rounding) and in f32 (2e-3 / 1e-3, and a decode
+     from a cache with layer 0 zeroed must fail that check); K3's share of
+     prefill, and a torch.profiler view of one prefill and three decode
+     steps (device busy share, top kernels);
+ 13. rwkv6-3b at full width (3.10 B parameters with 48 padded heads), the
+     same traffic and checks on K4 (launches = 16 x 32);
+ 14. card vs CPU: both reduced configs in f32, 5 requests on 2 slots, 6 new
+     tokens: equal greedy tokens, every step's logits within 2e-3 / 1e-3;
+ 15. K3 at (1, 1536, 16, 128) bf16 causal and K4 at (1, 1536, 48, 64) timed
+     alone, beside their plain versions, their bounds on this card and, for
+     K3, ``scaled_dot_product_attention`` (a yardstick the port never
+     calls).
 """
 from __future__ import annotations
 
@@ -79,6 +104,18 @@ PORTED = [1, 2, 3, 4, 5, 6, 7, 11, 12, 13, 15]
 E_COLI_LEN = 4_641_652             # E. coli K-12 MG1655, NC_000913.3
 N_READS, N_JUNK, READ_LEN = 32768, 4096, 150
 MAPPER_BLOCK = 1024
+BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor cores
+F32_FLOPS = 67e12                  # H100 SXM f32 outside the tensor cores
+K3_SWEEP_S = (77, 512, 1000)
+K3_TIMED = (1, 1536, 16, 128)      # olmo-1b's heads at the longest prompts
+K4_TIMED = (1, 1536, 48, 64)       # rwkv6-3b's (padded) heads, the same
+# serving traffic of phases 12 and 13: OLMo-1B's published context is
+# 2048 tokens
+SERVE_REQUESTS, SERVE_SLOTS, SERVE_MAX_LEN = 16, 8, 2048
+PROMPT_LENS, MAX_NEW = (256, 1536), 32
+# bf16 prefill/decode logits vs forward: at most this many times the
+# RMS bf16 rounding error of forward (see _decode_vs_forward)
+LOGIT_FACTOR = 3.0
 FIELDS = ("score", "end_i", "end_j", "start_i", "start_j", "n_moves",
           "moves")
 
@@ -121,7 +158,9 @@ def phase_identity():
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"[1] device: {name}, count {count}, {sms} SMs, max SM clock "
           f"{clock_mhz:.0f} MHz; torch {torch.__version__}, CUDA "
-          f"{torch.version.cuda}", flush=True)
+          f"{torch.version.cuda}; TF32 off (matmul "
+          f"{torch.backends.cuda.matmul.allow_tf32}, cudnn "
+          f"{torch.backends.cudnn.allow_tf32})", flush=True)
     print(smi, flush=True)
     return {"name": name, "count": count, "smi": smi,
             "int32_ops_per_s": sms * INT32_LANES_PER_SM * clock_mhz * 1e6}
@@ -130,12 +169,16 @@ def phase_identity():
 def phase_build():
     """One nvcc per kernel source, all started together."""
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attn import kernel as K3
     from repro_torch.kernels.myers import kernel as K2
     from repro_torch.kernels.wavefront import kernel as K1
+    from repro_torch.kernels.wkv6 import kernel as K4
+    names = ("K1", "K2", "K3", "K4")
+    sources = (K1.SOURCE, K2.SOURCE, K3.SOURCE, K4.SOURCE)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        built = list(pool.map(build.load, (K1.SOURCE, K2.SOURCE)))
-    for name, b in zip(("K1", "K2"), built):
+    with ThreadPoolExecutor(len(sources)) as pool:
+        built = list(pool.map(build.load, sources))
+    for name, b in zip(names, built):
         log = b.ptxas_log
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
         spills = [int(a) + int(c) for a, c in re.findall(
@@ -145,8 +188,8 @@ def phase_build():
               f"{min(regs) if regs else '?'}-{max(regs) if regs else '?'} "
               f"per thread, spill bytes {sum(spills)}", flush=True)
         check(regs, f"ptxas reported no {name} kernels")
-    print(f"    both builds: {time.perf_counter() - t0:.1f} s wall",
-          flush=True)
+    print(f"    all {len(sources)} builds: {time.perf_counter() - t0:.1f} s "
+          f"wall", flush=True)
     return built
 
 
@@ -704,6 +747,616 @@ def phase_k2_timing(screen, card):
             "bound_by": bound_by}
 
 
+# ---------------------------------------------------------------------------
+# The LM serving path: K3 (flash attention) and K4 (WKV6)
+# ---------------------------------------------------------------------------
+def _bf16_ulp(x):
+    """One bf16 ulp at |x| (8 significant bits), elementwise, f32."""
+    import torch
+    x = x.abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(x)) - 7)
+
+
+def _k3_err(got, want, dtype):
+    """Largest |difference|, and whether it is within K3's tolerance:
+    atol/rtol 2e-5 in f32 (the repo's K3 tests); in bf16 that f32
+    tolerance plus one bf16 ulp of the output, since two f32 results within
+    2e-5 can round to bf16 values one ulp apart (and an output that cancels
+    to near 0 has an ulp far below 2e-5)."""
+    import torch
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max()) if g.numel() else 0.0
+    tol = 2e-5 + 2e-5 * w.abs()
+    if dtype != torch.float32:
+        tol = tol + _bf16_ulp(torch.maximum(g.abs(), w.abs()))
+    return err, bool(((g - w).abs() <= tol).all())
+
+
+def phase_k3_vs_plain(rng):
+    """K3 against its plain version: causal, causal with window 64 and
+    non-causal; G = 1 and 4; S in {77, 512, 1000}; f32 and bf16; hd in
+    {64, 128}."""
+    import torch
+    from repro_torch.kernels.flash_attn import kernel as K3
+    t0 = time.perf_counter()
+    max_err, n = 0.0, 0
+    for causal, window in ((True, None), (True, 64), (False, None)):
+        for G in (1, 4):
+            for S in K3_SWEEP_S:
+                for dtype in (torch.float32, torch.bfloat16):
+                    for hd in (64, 128):
+                        B, H = 2, 8
+                        q = torch.as_tensor(rng.normal(size=(B, S, H, hd)),
+                                            dtype=dtype, device=DEVICE)
+                        k, v = (torch.as_tensor(
+                            rng.normal(size=(B, S, H // G, hd)), dtype=dtype,
+                            device=DEVICE) for _ in range(2))
+                        got = K3.flash_fill(q, k, v, causal=causal,
+                                            window=window)
+                        want = K3.flash_attention_plain(
+                            q, k, v, causal=causal, window=window)
+                        torch.cuda.synchronize()
+                        err, ok = _k3_err(got, want, dtype)
+                        check(ok, f"K3 != plain: causal {causal}, window "
+                                  f"{window}, G {G}, S {S}, {dtype}, hd "
+                                  f"{hd} (max |diff| {err})")
+                        max_err = max(max_err, err)
+                        n += 1
+    print(f"[10] K3 == plain on {n} cases (causal / window 64 / non-causal "
+          f"x G 1, 4 x S {K3_SWEEP_S} x f32, bf16 x hd 64, 128; within "
+          f"2e-5, plus one ulp in bf16; max |diff| {max_err:.3g}) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return max_err
+
+
+def _k4_inputs(rng, B, S, H, hd, scale, dtype=None):
+    import numpy as np
+    import torch
+    r, k, v = (torch.as_tensor(rng.normal(size=(B, S, H, hd)),
+                               dtype=dtype or torch.float32, device=DEVICE)
+               for _ in range(3))
+    lw = torch.as_tensor(-np.exp(rng.normal(size=(B, S, H, hd)) * scale),
+                         dtype=torch.float32, device=DEVICE)
+    u = torch.as_tensor(rng.normal(size=(H, hd)), dtype=torch.float32,
+                        device=DEVICE)
+    return r, k, v, lw, u
+
+
+def _k4_hold(args, what):
+    """K4 and its plain version on one input: y and the final state
+    within rtol/atol 5e-4 (the repo's strong-decay tolerance); returns the
+    largest |difference|."""
+    import torch
+    from repro_torch.kernels.wkv6 import kernel as K4
+    got = K4.wkv6_fill(*args)
+    want = K4.wkv6_plain(*args)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    check(all(torch.allclose(g, w, rtol=5e-4, atol=5e-4)
+              for g, w in zip(got, want)),
+          f"K4 != plain: {what} (max |diff| {err})")
+    return err
+
+
+def phase_k4_vs_plain(rng):
+    """K4 against its plain version: decay scales 1 and 2, S in {77, 1000},
+    hd 64, H 4, batch 2, f32."""
+    t0 = time.perf_counter()
+    max_err, n = 0.0, 0
+    for scale in (1.0, 2.0):
+        for S in (77, 1000):
+            err = _k4_hold(_k4_inputs(rng, 2, S, 4, 64, scale),
+                           f"decay scale {scale}, S {S}")
+            max_err = max(max_err, err)
+            n += 1
+    print(f"[11] K4 == plain on {n} cases (decay scale 1, 2 x S 77, 1000; "
+          f"hd 64, H 4; y and final state within 5e-4; max |diff| "
+          f"{max_err:.3g}) in {time.perf_counter() - t0:.1f} s", flush=True)
+    return max_err
+
+
+def _reset_counts():
+    from repro_torch.kernels.flash_attn import kernel as K3
+    from repro_torch.kernels.myers import kernel as K2
+    from repro_torch.kernels.wavefront import kernel as K1
+    from repro_torch.kernels.wkv6 import kernel as K4
+    mods = (K1, K2, K3, K4)
+    for m in mods:
+        m.launches = 0
+    return mods
+
+
+def _serve_requests(cfg):
+    """SERVE_REQUESTS random prompts, lengths uniform in PROMPT_LENS, from
+    numpy seed SEED."""
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, SERVE_REQUESTS)
+    return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n)
+                    .astype(np.int32), max_new=MAX_NEW)
+            for i, n in enumerate(lens)]
+
+
+def _serve(cfg, params):
+    """Warm up, then serve the phase's traffic with every launch count at
+    0; returns the finished requests, the session, its wall time, the peak
+    device memory and the launch counts of K1-K4 over the run."""
+    import torch
+    from repro_torch.serve import Request, ServeSession
+    warm = ServeSession(cfg, params, batch_slots=1, max_len=64,
+                        device=DEVICE)
+    warm.run([Request(rid=-1, prompt=_serve_requests(cfg)[0].prompt[:32],
+                      max_new=2)])
+    del warm
+    sess = ServeSession(cfg, params, batch_slots=SERVE_SLOTS,
+                        max_len=SERVE_MAX_LEN, device=DEVICE)
+    reqs = _serve_requests(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mods = _reset_counts()
+    t0 = time.perf_counter()
+    done = sess.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = [m.launches for m in mods]
+    peak = torch.cuda.max_memory_allocated()
+    check(len(done) == len(reqs) and all(len(r.out) == MAX_NEW
+                                         for r in done),
+          f"{cfg.name}: {len(done)} of {len(reqs)} requests finished")
+    ttft = [r.t_first - t0 for r in done]
+    st = sess.stats
+    print(f"    {cfg.name} serving {len(reqs)} requests (prompts "
+          f"{min(len(r.prompt) for r in reqs)}-"
+          f"{max(len(r.prompt) for r in reqs)}, {MAX_NEW} new tokens each) "
+          f"on {SERVE_SLOTS} slots x {SERVE_MAX_LEN}: {wall:.3f} s wall; "
+          f"time to first token mean {sum(ttft) / len(ttft):.3f} s, max "
+          f"{max(ttft):.3f} s; prefill {st['prefill_tokens']} tokens in "
+          f"{st['prefill_s']:.3f} s "
+          f"({st['prefill_tokens'] / st['prefill_s']:.0f} tokens/s); decode "
+          f"{st['decode_tokens']} tokens in "
+          f"{st['steps']} steps, {st['decode_s']:.3f} s "
+          f"({st['decode_tokens'] / st['decode_s']:.1f} tokens/s); peak "
+          f"device memory {peak / 2**20:.1f} MiB; launches K1-K4 {counts}",
+          flush=True)
+    return {"done": done, "wall": wall, "peak": peak, "counts": counts,
+            "stats": dict(st), "ttft": ttft, "session": sess}
+
+
+def _device_profile(fn, what):
+    """Run ``fn`` under torch.profiler and report the device (CUDA kernel)
+    time it took, the host wall time of the profiled window, and the five
+    kernels with the most device time.  A measurement, not a check: when
+    the profiler sees no device activity it says so and the run goes on."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        cuda = torch.autograd.DeviceType.CUDA
+        by_name = {}
+        for ev in prof.events():
+            if getattr(ev, "device_type", None) == cuda:
+                us = ev.time_range.elapsed_us()
+                by_name[ev.name] = by_name.get(ev.name, 0.0) + us
+    except Exception as e:   # the profiler is a measurement aid only
+        print(f"    profile of {what}: torch.profiler failed ({e!r})",
+              flush=True)
+        return None
+    dev_ms = sum(by_name.values()) / 1e3
+    if not by_name:
+        print(f"    profile of {what}: torch.profiler saw no device time",
+              flush=True)
+        return None
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    print(f"    profile of {what}: device kernels {dev_ms:.3f} ms in a "
+          f"{wall_ms:.3f} ms window ({100 * dev_ms / wall_ms:.1f} % busy "
+          f"under the profiler); top: " + "; ".join(
+              f"{n[:60]} {us / 1e3:.3f} ms ({100 * us / 1e3 / dev_ms:.1f} %)"
+              for n, us in top), flush=True)
+    return {"device_ms": dev_ms, "wall_ms": wall_ms, "top": top}
+
+
+def _profile_serving(cfg, params, sess, longest):
+    """Profile one prefill of the longest prompt and three decode steps of
+    the session's cache (all 8 slots, at their final lengths)."""
+    import torch
+    from repro_torch.models import lm
+    toks = torch.as_tensor(longest, dtype=torch.int64, device=DEVICE)[None]
+    _device_profile(lambda: lm.prefill(cfg, params, {"tokens": toks}),
+                    f"one prefill ({toks.shape[1]} tokens)")
+    last = torch.as_tensor(sess.last_tok, device=DEVICE)
+    k_len = torch.as_tensor(sess.k_len, device=DEVICE)
+
+    def steps():
+        for i in range(3):
+            lm.decode_step(cfg, params, sess.cache, last, k_len + i)
+    prof = _device_profile(steps, f"3 decode steps ({sess.B} slots)")
+    if prof:
+        step_ms = 1e3 * sess.stats["decode_s"] / sess.stats["steps"]
+        print(f"    decode: {prof['device_ms'] / 3:.3f} ms of device kernels "
+              f"per step against {step_ms:.3f} ms per step in the serve "
+              f"run: the device is busy "
+              f"{100 * prof['device_ms'] / 3 / step_ms:.1f} % of a step",
+              flush=True)
+
+
+def _full_params(cfg):
+    import torch
+    from repro_torch.models.params import count_params, init_params
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    params = init_params(cfg, gen, DEVICE)
+    torch.cuda.synchronize()
+    n = count_params(cfg)
+    print(f"    {cfg.name}: {n:,} parameters ({n / 1e9:.2f} B), "
+          f"{cfg.param_dtype}, random from seed {SEED} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return params
+
+
+def _layer0_input(cfg, params, prompt):
+    """Layer 0's parameters and normed input for one prompt."""
+    import torch
+    from repro_torch.models import layers, lm
+    from repro_torch.models.params import tree_map
+    toks = torch.as_tensor(prompt, dtype=torch.int64, device=DEVICE)[None]
+    x = lm._embed(cfg, params, toks)
+    p0 = tree_map(lambda t: t[0], params["groups"][0])["sub0"]
+    return p0, layers.norm_apply(cfg, p0["norm1"], x)
+
+
+def _kernel_share(fn_for_len, lens, n_layers):
+    """Device time of one kernel over a serve run's prefills: each prompt
+    length's launch timed alone (CUDA events, mean of 3 after one warm-up)
+    times the layers that launch it."""
+    total = 0.0
+    for n in lens:
+        fn = fn_for_len(int(n))
+        fn()
+        total += cuda_time_ms(fn, 3) * n_layers
+    return total / 1e3
+
+
+def _rms(x):
+    return float(x.float().pow(2).mean().sqrt())
+
+
+def _prefill_decode(cfg, params, toks, nxt=None, spoil=False):
+    """Prefill logits of ``toks``, and the decode logits of ``nxt`` (by
+    default the greedy token) at the next position, and ``nxt``; ``spoil``
+    zeroes layer 0's first mixer cache leaf (the attention keys, or the
+    WKV state) before the decode step."""
+    import torch
+    from repro_torch.models import lm
+    Lp = toks.shape[1]
+    logits_p, cache, k_len = lm.prefill(cfg, params, {"tokens": toks})
+    if nxt is None:
+        nxt = torch.argmax(logits_p, -1)
+    cache = lm.grow_cache(cfg, cache, 1, Lp + 1)
+    if spoil:
+        leaves = cache[0]["sub0"]["mixer"]
+        leaves[next(iter(leaves))][0].zero_()
+    logits_d, _ = lm.decode_step(cfg, params, cache, nxt, k_len)
+    return logits_p[0], logits_d[0], nxt
+
+
+def _decode_vs_forward(cfg, params, prompt):
+    """Prefill ``prompt``, decode its greedy next token at position Lp, and
+    hold the prefill and decode logits against ``forward`` on prompt +
+    token at the same positions, twice.
+
+    In bf16 both sides round at other places (other matmul shapes; decode
+    attention casts p to bf16), so that tolerance is measured, not guessed:
+    the same ``forward`` in f32 (the weights upcast) gives each logit's bf16
+    rounding error, and the two bf16 paths may differ by at most
+    LOGIT_FACTOR times the RMS of that error.  That rounding is a large
+    share of the logits at full width, so the bf16 check catches only gross
+    faults.  The tight check runs the same prefill and decode in f32 (TF32
+    off) against the f32 ``forward``, within atol 2e-3, rtol 1e-3 (the
+    decode tolerance of tests/test_models.py), and shows that it can fail:
+    a decode from a cache whose layer-0 keys or WKV state are zeroed must
+    miss it."""
+    import dataclasses
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.models.params import tree_map
+    toks = torch.as_tensor(prompt, dtype=torch.int64, device=DEVICE)[None]
+    Lp = toks.shape[1]
+    logits_p, logits_d, nxt = _prefill_decode(cfg, params, toks)
+    batch = {"tokens": torch.cat([toks, nxt[:, None]], 1)}
+    full = lm.forward(cfg, params, batch)["logits"][0, Lp - 1:]
+    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32,
+                                compute_dtype=torch.float32)
+    params32 = tree_map(lambda t: t.float(), params)
+    ref = lm.forward(cfg32, params32, batch)["logits"][0, Lp - 1:]
+    out = []
+    for i, got in enumerate((logits_p, logits_d)):
+        want, exact = full[i], ref[i]
+        d, e = _rms(got - want), _rms(want - exact)
+        check(d <= LOGIT_FACTOR * e, f"{cfg.name}: bf16 logits at position "
+              f"{Lp - 1 + i} differ from forward by RMS {d:.4f}, more than "
+              f"{LOGIT_FACTOR} x the bf16 rounding RMS {e:.4f} (logit RMS "
+              f"{_rms(exact):.3f})")
+        out.append(f"position {Lp - 1 + i}: RMS {d:.4f} (max "
+                   f"{float((got - want).abs().max()):.4f}) against "
+                   f"{LOGIT_FACTOR} x {e:.4f}")
+    top = int(torch.argmax(logits_d)) == int(torch.argmax(full[1]))
+    print(f"    bf16 prefill and first decode logits vs forward (prompt "
+          f"{Lp}; bound from forward in f32, logit RMS {_rms(ref[1]):.3f}): "
+          f"{'; '.join(out)}; same top token: {top}", flush=True)
+
+    del logits_p, logits_d, full
+    got32 = _prefill_decode(cfg32, params32, toks, nxt)[:2]
+    errs = []
+    for i, got in enumerate(got32):
+        diff = float((got - ref[i]).abs().max())
+        check(torch.allclose(got, ref[i], atol=2e-3, rtol=1e-3),
+              f"{cfg.name}: f32 logits at position {Lp - 1 + i} differ from "
+              f"the f32 forward by up to {diff:.3g}")
+        errs.append(diff)
+    spoiled = _prefill_decode(cfg32, params32, toks, nxt, spoil=True)[1]
+    miss = float((spoiled - ref[1]).abs().max())
+    check(not torch.allclose(spoiled, ref[1], atol=2e-3, rtol=1e-3),
+          f"{cfg.name}: a decode from a spoiled cache passes the f32 check")
+    del params32, got32, spoiled
+    torch.cuda.empty_cache()
+    print(f"    f32 prefill and first decode logits vs the f32 forward "
+          f"(TF32 off; within 2e-3 / 1e-3): max |diff| {errs[0]:.3g} and "
+          f"{errs[1]:.3g}; a decode with layer 0's cache zeroed misses by "
+          f"{miss:.3g} and fails the check", flush=True)
+
+
+def phase_olmo():
+    """olmo-1b at full width serves the traffic on K3, then K3 is held to
+    its plain version on layer 0 of the longest prompt and the first
+    decode logits to ``forward``."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attn import kernel as K3
+    from repro_torch.models import mixers
+    cfg = configs.get("olmo-1b")
+    print("[12] olmo-1b at full width", flush=True)
+    params = _full_params(cfg)
+    run = _serve(cfg, params)
+    want = SERVE_REQUESTS * cfg.n_layers
+    check(run["counts"][2] == want, f"olmo-1b serving launched K3 "
+          f"{run['counts'][2]} times, not {want}")
+    check(run["counts"][3] == 0, "olmo-1b serving launched K4")
+
+    before = K3.launches
+    longest = max(run["done"], key=lambda r: len(r.prompt)).prompt
+    p0, h = _layer0_input(cfg, params, longest)
+    pos = torch.arange(len(longest), dtype=torch.int32, device=DEVICE)[None]
+    q, k, v = mixers.attn_qkv(cfg, p0["mixer"], h, pos)
+    got = K3.flash_fill(q, k, v, causal=True)
+    want_o = K3.flash_attention_plain(q, k, v, causal=True)
+    err, ok = _k3_err(got, want_o, q.dtype)
+    check(ok, f"K3 != plain on olmo-1b layer 0 (max |diff| {err})")
+    print(f"    K3 == plain (bf16: 2e-5 plus one ulp) on layer 0's q/k/v of "
+          f"the longest prompt {tuple(q.shape)}: max |diff| {err:.3g}",
+          flush=True)
+    _decode_vs_forward(cfg, params, longest)
+
+    H, hd = cfg.n_heads_eff, cfg.head_dim
+
+    def k3_at(n):
+        qkv = [torch.randn((1, n, H, hd), device=DEVICE,
+                           dtype=torch.bfloat16) for _ in range(3)]
+        return lambda: K3.flash_fill(*qkv, causal=True)
+    k3_s = _kernel_share(k3_at, [len(r.prompt) for r in run["done"]],
+                         cfg.n_layers)
+    _profile_serving(cfg, params, run["session"], longest)
+    K3.launches = before
+    st = run["stats"]
+    print(f"    where the time goes: prefill {st['prefill_s']:.3f} s "
+          f"({100 * st['prefill_s'] / run['wall']:.1f} % of wall; K3 "
+          f"{k3_s:.3f} s of it, {100 * k3_s / st['prefill_s']:.1f} %, from "
+          f"each prompt's K3 timed alone x {cfg.n_layers} layers), decode "
+          f"{st['decode_s']:.3f} s "
+          f"({100 * st['decode_s'] / run['wall']:.1f} %)", flush=True)
+    launches = run["counts"][2]
+    del params, run
+    torch.cuda.empty_cache()
+    return {"k3_launches": launches, "k3_err": err}
+
+
+def phase_rwkv():
+    """rwkv6-3b at full width serves the traffic on K4, then K4 is held to
+    its plain version on layer 0 of the longest prompt."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels.wkv6 import kernel as K4
+    from repro_torch.models import mixers
+    cfg = configs.get("rwkv6-3b")
+    print("[13] rwkv6-3b at full width", flush=True)
+    params = _full_params(cfg)
+    run = _serve(cfg, params)
+    want = SERVE_REQUESTS * cfg.n_layers
+    check(run["counts"][3] == want, f"rwkv6-3b serving launched K4 "
+          f"{run['counts'][3]} times, not {want}")
+    check(run["counts"][2] == 0, "rwkv6-3b serving launched K3")
+
+    before = K4.launches
+    longest = max(run["done"], key=lambda r: len(r.prompt)).prompt
+    p0, h = _layer0_input(cfg, params, longest)
+    r, k, v, _, lw, u = mixers.rwkv6_inputs(cfg, p0["mixer"], h,
+                                            mixers._shifted(h))
+    err = _k4_hold((r, k, v, lw, u), "rwkv6-3b layer 0")
+    print(f"    K4 == plain (y and state within 5e-4) on layer 0's "
+          f"r/k/v/lw/u of the longest prompt {tuple(r.shape)}, r/k/v "
+          f"{r.dtype}: max |diff| {err:.3g}", flush=True)
+    _decode_vs_forward(cfg, params, longest)
+
+    H, hd = cfg.rwkv_heads, cfg.head_dim
+
+    def k4_at(n):
+        args = (*(torch.randn((1, n, H, hd), device=DEVICE,
+                              dtype=torch.bfloat16) for _ in range(3)),
+                -torch.rand((1, n, H, hd), device=DEVICE),
+                torch.randn((H, hd), device=DEVICE))
+        return lambda: K4.wkv6_fill(*args)
+    k4_s = _kernel_share(k4_at, [len(x.prompt) for x in run["done"]],
+                         cfg.n_layers)
+    _profile_serving(cfg, params, run["session"], longest)
+    K4.launches = before
+    st = run["stats"]
+    print(f"    where the time goes: prefill {st['prefill_s']:.3f} s "
+          f"({100 * st['prefill_s'] / run['wall']:.1f} % of wall; K4 "
+          f"{k4_s:.3f} s of it, {100 * k4_s / st['prefill_s']:.1f} %, from "
+          f"each prompt's K4 timed alone x {cfg.n_layers} layers), decode "
+          f"{st['decode_s']:.3f} s "
+          f"({100 * st['decode_s'] / run['wall']:.1f} %)", flush=True)
+    launches = run["counts"][3]
+    del params, run
+    torch.cuda.empty_cache()
+    return {"k4_launches": launches, "k4_err": err}
+
+
+def phase_card_vs_cpu():
+    """Both reduced configs in f32 (TF32 off) served on the card and on the
+    CPU from the same weights: 5 requests on 2 slots, 6 new tokens; every
+    step's logits within atol 2e-3, rtol 1e-3 (the decode tolerance of
+    tests/test_models.py) and the greedy tokens equal."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.models.params import init_params, tree_map
+    from repro_torch.serve import Request, ServeSession
+    t0 = time.perf_counter()
+    worst = {}
+    for arch in ("olmo-1b", "rwkv6-3b"):
+        cfg = configs.get(arch, reduced=True)
+        cpu = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+        dev = tree_map(lambda t: t.to(DEVICE), cpu)
+        rng = np.random.default_rng(SEED)
+        prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+                   for n in rng.integers(4, 17, 5)]
+        outs = []
+        for where, params in ((DEVICE, dev), ("cpu", cpu)):
+            sess = ServeSession(cfg, params, batch_slots=2, max_len=48,
+                                device=where, record_logits=True)
+            done = sess.run([Request(rid=i, prompt=p, max_new=6)
+                             for i, p in enumerate(prompts)])
+            outs.append(([r.out for r in done], sess.logits_log))
+        (card_toks, card_log), (cpu_toks, cpu_log) = outs
+        check(card_toks == cpu_toks,
+              f"{arch}: greedy tokens on the card differ from the CPU's")
+        err = 0.0
+        for (slot_g, g), (slot_w, w) in zip(card_log, cpu_log):
+            check(slot_g == slot_w and g.shape == w.shape,
+                  f"{arch}: the card's and the CPU's steps differ")
+            check(np.allclose(g, w, atol=2e-3, rtol=1e-3),
+                  f"{arch}: logits differ from the CPU's by "
+                  f"{np.abs(g - w).max()}")
+            err = max(err, float(np.abs(g - w).max()))
+        worst[arch] = (err, len(card_log))
+    print(f"[14] card == CPU on the reduced configs in f32 (5 requests, 2 "
+          f"slots, 6 new tokens; greedy tokens equal; every step's logits "
+          f"within 2e-3 / 1e-3): " + ", ".join(
+              f"{a} max |diff| {e:.3g} over {n} calls"
+              for a, (e, n) in worst.items())
+          + f" in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def k3_pairs(S, causal, window, k_len):
+    """Unmasked (query, key) pairs of one head of K3's function, each 4 hd
+    operations of work (q . k and p v, an fma counting 2)."""
+    import numpy as np
+    q = np.arange(S)
+    hi = np.full(S, S if k_len is None else min(int(k_len), S))
+    if causal:
+        hi = np.minimum(hi, q + 1)
+    lo = np.zeros(S, np.int64) if window is None else np.maximum(
+        q - int(window) + 1, 0)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def k4_ops_per_step(hd):
+    """f32 operations of one step of one head of the WKV6 recurrence as the
+    function defines it, one step at a time (an fma counts 2, an exp 1):
+    y = r . state, hd^2 fmas; the u bonus (r * u) . k, a mul and an fma per
+    d, and y += bonus * v, an fma per d; the decay exp(lw), 1 per d; the
+    state w * state + k v^T, a mul and an fma per entry."""
+    return 5 * hd * hd + 6 * hd
+
+
+def phase_timing_k3_k4():
+    """K3 and K4 alone at the serving path's largest shapes, CUDA events
+    over 20 launches after a warm-up, beside the plain versions, the
+    bounds on this card and, for K3, scaled_dot_product_attention (a
+    yardstick the port never calls)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import kernel as K3
+    from repro_torch.kernels.wkv6 import kernel as K4
+    before = (K3.launches, K4.launches)
+    B, S, H, hd = K3_TIMED
+    q, k, v = (torch.randn((B, S, H, hd), device=DEVICE,
+                           dtype=torch.bfloat16) for _ in range(3))
+    for _ in range(3):
+        K3.flash_fill(q, k, v, causal=True)
+    ms = cuda_time_ms(lambda: K3.flash_fill(q, k, v, causal=True), 20)
+    K3.flash_attention_plain(q, k, v, causal=True)
+    plain_ms = cuda_time_ms(lambda: K3.flash_attention_plain(
+        q, k, v, causal=True), 3)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    for _ in range(3):
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), 20)
+    pairs = k3_pairs(S, True, None, None)
+    flops = pairs * 4 * hd * B * H
+    nbytes = 4 * B * S * H * hd * 2
+    ops_ms = flops / BF16_FLOPS * 1e3
+    bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    k3 = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+          "bound_ms": max(ops_ms, bytes_ms),
+          "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    print(f"[15] K3 timed at {K3_TIMED}, bf16, causal: {ms:.4f} ms (CUDA "
+          f"events, mean of 20); plain {plain_ms:.2f} ms; "
+          f"scaled_dot_product_attention {lib_ms:.4f} ms ({ms / lib_ms:.1f}"
+          f"x); bound {k3['bound_ms']:.4f} ms by {k3['bound_by']} "
+          f"({pairs} causal query-key pairs x {B * H} heads x 4 x {hd}: "
+          f"{flops / 1e9:.3f} GFLOP at 989 TFLOP/s bf16 = {ops_ms:.4f} ms; "
+          f"{nbytes} B of "
+          f"q/k/v/o = {bytes_ms:.4f} ms); {flops / ms / 1e9:.1f} TFLOP/s",
+          flush=True)
+
+    B, S, H, hd = K4_TIMED
+    args = (*(torch.randn((B, S, H, hd), device=DEVICE, dtype=torch.bfloat16)
+              for _ in range(3)),
+            -torch.rand((B, S, H, hd), device=DEVICE),
+            torch.randn((H, hd), device=DEVICE))
+    for _ in range(3):
+        K4.wkv6_fill(*args)
+    ms4 = cuda_time_ms(lambda: K4.wkv6_fill(*args), 20)
+    K4.wkv6_plain(*args)
+    plain4 = cuda_time_ms(lambda: K4.wkv6_plain(*args), 3)
+    ops = k4_ops_per_step(hd) * S * B * H
+    nbytes4 = (3 * B * S * H * hd * 2 + 2 * B * S * H * hd * 4 + H * hd * 4
+               + B * H * hd * hd * 4)
+    ops_ms4 = ops / F32_FLOPS * 1e3
+    bytes_ms4 = nbytes4 / MEM_BYTES_PER_S * 1e3
+    k4 = {"ms": ms4, "plain_ms": plain4, "library_ms": None,
+          "bound_ms": max(ops_ms4, bytes_ms4),
+          "bound_by": "operations" if ops_ms4 >= bytes_ms4 else "bytes"}
+    print(f"     K4 timed at {K4_TIMED}, r/k/v bf16: {ms4:.4f} ms (CUDA "
+          f"events, mean of 20); plain {plain4:.2f} ms; no single-call "
+          f"library equivalent; bound {k4['bound_ms']:.4f} ms by "
+          f"{k4['bound_by']} ({S} steps x {B * H} heads x "
+          f"{k4_ops_per_step(hd)} f32 operations = "
+          f"{ops / 1e9:.3f} G at 67 TFLOP/s = {ops_ms4:.4f} ms; {nbytes4} B "
+          f"of r/k/v/lw/u in, y/state out = {bytes_ms4:.4f} ms); "
+          f"{B * H} thread blocks on the card's SMs", flush=True)
+    K3.launches, K4.launches = before
+    return k3, k4
+
+
 def main() -> int:
     try:
         import torch
@@ -721,6 +1374,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
     from repro_torch.core import alphabets
+    # every f32 comparison on the card runs in full f32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
     try:
@@ -735,6 +1391,12 @@ def main() -> int:
         k2_err = phase_k2_vs_plain(rng)
         mapper = phase_mapper()
         k2_timing = phase_k2_timing(mapper["screen"], card)
+        k3_err = phase_k3_vs_plain(rng)
+        k4_err = phase_k4_vs_plain(rng)
+        olmo = phase_olmo()
+        rwkv = phase_rwkv()
+        phase_card_vs_cpu()
+        k3_timing, k4_timing = phase_timing_k3_k4()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -756,7 +1418,18 @@ def main() -> int:
         "max_abs_err": max(k2_err, mapper["k2_err"]),
         "ms": k2_timing["ms"], "plain_ms": k2_timing["plain_ms"],
         "bound_ms": k2_timing["bound_ms"],
-        "bound_by": k2_timing["bound_by"], "library_ms": None}]
+        "bound_by": k2_timing["bound_by"], "library_ms": None}, {
+        "name": "flash_fill", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",
+        "replaces": "src/repro/kernels/flash_attn/kernel.py:95",
+        "launches": olmo["k3_launches"],
+        "parity": "2e-5, plus one ulp in bf16",
+        "max_abs_err": max(k3_err, olmo["k3_err"]), **k3_timing}, {
+        "name": "wkv6_fill", "route": "cuda",
+        "source": "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/wkv6/kernel.py:80",
+        "launches": rwkv["k4_launches"], "parity": "5e-4",
+        "max_abs_err": max(k4_err, rwkv["k4_err"]), **k4_timing}]
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     print(card["smi"])
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,55 @@
+"""LM serving launcher (port of ``repro/launch/serve.py::serve_lm``).
+
+``python -m repro_torch.launch.serve --arch olmo-1b`` serves a few random
+requests with the reduced config on the card (``--device cpu`` on the
+CPU).
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch.models.params import init_params
+from repro_torch.serve import Request, ServeSession
+from repro_torch.serve.engine import resolve_device
+
+
+def serve_lm(arch: str, n_requests: int = 8, max_new: int = 16,
+             slots: int = 4, seed: int = 0, device="cuda", params=None):
+    """Serve ``n_requests`` random prompts of 4-16 tokens (the JAX
+    launcher's traffic, from the same numpy seed) on a ``slots``-slot
+    session of 128 positions.  ``params`` overrides the random weights
+    (e.g. carried across with ``models.params.from_jax``)."""
+    cfg = configs.get(arch, reduced=True)
+    dev = resolve_device(device)
+    if params is None:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = init_params(cfg, gen, dev)
+    rng = np.random.default_rng(seed)
+    sess = ServeSession(cfg, params, batch_slots=slots, max_len=128,
+                        device=dev)
+    reqs = [Request(rid=i,
+                    prompt=rng.integers(0, cfg.vocab_size, rng.integers(4, 17)
+                                        ).astype(np.int32),
+                    max_new=max_new)
+            for i in range(n_requests)]
+    done = sess.run(reqs)
+    for r in done:
+        print(f"req {r.rid}: prompt[{len(r.prompt)}] -> {r.out}")
+    return done
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="olmo-1b",
+                    choices=sorted(configs.ARCH_NAMES))
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args()
+    serve_lm(args.arch, device=args.device)
+
+
+if __name__ == "__main__":
+    main()
