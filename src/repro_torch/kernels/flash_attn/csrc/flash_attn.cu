@@ -5,34 +5,61 @@
 // function flash_fill (body _body), with its wrapper ops.py::flash, and
 // computes what they compute: softmax(q k^T * scale) v per (batch, head)
 // under causal, sliding-window and key-length masks, with the scores, the
-// running row maximum, the row sum, p and the accumulator in f32, and the
+// running row maximum, the row sum and the accumulator in f32, and the
 // output in q's type.  Masked scores take the finite sentinel -1e30 (never
 // -inf): a row whose first live tile is fully masked then sees
 // exp(s - m) = 1 there, and the first tile with a live key rescales that
 // by exp(-1e30 - m) = 0.  The sum is clamped at 1e-30 before the divide.
 //
-// Mapping.  One thread block of 256 threads per (64-row q-tile, head,
-// batch row); a loop over 64-row k-tiles inside the block takes the place
-// of the TPU's sequential ("arbitrary") k grid axis, and k-tiles that lie
-// wholly outside the causal or window band, or at or past k_len, are
-// skipped, as _body's pl.when(live) skips them.  Grouped-query attention
-// reads key/value head h / (H / Kh) directly (the Pallas wrapper repeats
-// k and v in device memory).  Rows and keys past S are loaded as zeros,
-// masked and not stored, so any S works (the Pallas kernel needs S to be
-// a multiple of its block).  In shared memory, as f32: the q- and k-tiles
-// transposed ([d][row], so a thread reads four rows as one float4), the
-// v-tile, the 64 x 64 score/p tile and the per-row max, sum and rescale.
-// Scores: each thread computes a 4 x 4 patch over hd.  Softmax: one warp
-// per 8 rows, shuffles for the row max and sum.  p v: each thread owns one
-// output column d and BQ * HD / 256 rows, accumulators in registers.
+// Two kernels, one per input type:
+//
+// * bf16 (flash_mma_kernel) is the serving path.  It runs on the tensor
+//   cores: q k^T and p v are mma.sync.m16n8k16 bf16 products with f32
+//   accumulators in registers.  p is summed into the row sum in f32 and
+//   rounded to bf16 for p v, as the JAX model path does
+//   (models/layers.py::_flash_fwd casts p to v's type); the Pallas kernel
+//   keeps p in f32.  One block of 4 warps per (64-row q-tile, head, batch
+//   row); each warp owns 16 query rows.  q, k and v stay bf16 in shared
+//   memory (rows padded by 16 bytes, so the 8 row addresses of an ldmatrix
+//   fall in distinct bank groups); the k- and v-tiles arrive by cp.async
+//   into a ring of two stages, the next tile loading while the current one
+//   is multiplied.  q's fragments are loaded once (ldmatrix), k's by
+//   ldmatrix and v's by ldmatrix.trans.  The score fragments become p's A
+//   fragments in registers (the m16n8 accumulator layout of two adjacent
+//   key octets is the m16n8k16 A layout), and the row max and sum stay in
+//   registers: each row lives in one quad of lanes, reduced by two
+//   shuffles.  The masks, the scale and the sentinel act on the f32 score
+//   fragments; an element's row and key follow the mma fragment layout.
+//   Shared memory is 87 KB at hd 128, so two blocks fit an SM.  The grid
+//   is (head, q-tile, batch row) with the last q-tile first, so under a
+//   causal mask the blocks with the most live k-tiles start first across
+//   the whole launch and the light ones fill the tail.
+//   mma.sync, not wgmma: wgmma's shared-memory descriptors must match the
+//   swizzle the tiles were written in, and a mismatch gives wrong numbers,
+//   not a fault; without a compiler or card to iterate on, the mma.sync
+//   fragment layouts were the ones that could be made right first.
+// * f32 (flash_kernel) is the correctness path, held to the Pallas kernel
+//   at 2e-5: the CUDA-core kernel of the first port, unchanged.  One block
+//   of 256 threads per (64-row q-tile, head, batch row), the tiles widened
+//   to f32 in shared memory (q and k transposed for float4 reads), a 4 x 4
+//   score patch per thread, one warp per 8 rows for the softmax, p kept in
+//   f32, and each thread owning one output column for p v.
+//
+// Common to both: a loop over 64-row k-tiles inside the block takes the
+// place of the TPU's sequential ("arbitrary") k grid axis, and k-tiles
+// that lie wholly outside the causal or window band, or at or past k_len,
+// are skipped, as _body's pl.when(live) skips them.  Grouped-query
+// attention reads key/value head h / (H / Kh) directly (the Pallas wrapper
+// repeats k and v in device memory).  Rows and keys past S are loaded as
+// zeros, masked and not stored, so any S works (the Pallas kernel needs S
+// to be a multiple of its block).
 //
 // What bounds it.  The work is 2 * S_live * hd multiply-adds per query row
 // (S_live its unmasked keys; q . k and p v) against one read of q, k, v
 // and one write of o: far above the card's bytes-to-operations balance,
-// so the arithmetic rate binds.  This first
-// kernel runs on the CUDA cores in f32 (67 TFLOP/s at most) and reads its
-// tiles with plain loads, where a fast one runs bf16 wgmma on the tensor
-// cores (989 TFLOP/s) fed by TMA; that redesign is later work.
+// so the arithmetic rate binds: 989 TFLOP/s of bf16 on the tensor cores
+// (wgmma's rate; mma.sync reaches a part of it), 67 TFLOP/s of f32 on the
+// CUDA cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,18 +69,24 @@ namespace {
 
 constexpr int BQ = 64;       // q-tile rows
 constexpr int BK = 64;       // k-tile rows
-constexpr int PAD = 4;       // row padding of the transposed tiles (floats)
-constexpr int THREADS = 256;
 constexpr float NEG_INF = -1e30f;
 
+__device__ __forceinline__ bool tile_live(int k0, int q0, int k_len,
+                                          int causal, int window) {
+  bool live = k0 < k_len;
+  if (causal) live = live && k0 <= q0 + BQ - 1;
+  if (window > 0) live = live && k0 + BK - 1 > q0 - window;
+  return live;
+}
+
+// ---------------------------------------------------------------------------
+// f32: the CUDA-core kernel (correctness path)
+// ---------------------------------------------------------------------------
+constexpr int PAD = 4;       // row padding of the transposed tiles (floats)
+constexpr int THREADS = 256;
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -127,10 +160,7 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(
 
   for (int kt = 0; kt < n_k; ++kt) {
     const int k0 = kt * BK;
-    bool live = k0 < k_len;
-    if (causal) live = live && k0 <= q0 + BQ - 1;
-    if (window > 0) live = live && k0 + BK - 1 > q0 - window;
-    if (!live) continue;   // the same for every thread of the block
+    if (!tile_live(k0, q0, k_len, causal, window)) continue;  // block-uniform
     __syncthreads();       // the previous tile's readers are done
     for (int e = tid; e < BK * HD; e += THREADS) {
       const int j = e % BK, d = e / BK;
@@ -223,33 +253,313 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int H, int Kh, int k_len, int causal, int window,
-           float scale, cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernel (serving path)
+// ---------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+constexpr int MMA_WARPS = 4;             // 16 query rows each
+constexpr int MMA_THREADS = 32 * MMA_WARPS;
+constexpr int SPAD = 8;                  // row padding (bf16): 16 bytes
+static_assert(BQ == 16 * MMA_WARPS && BQ == BK, "mma tiling");
+
+template <int HD>
+constexpr size_t mma_smem_bytes() {      // q-tile, then 2 stages of k and v
+  return (size_t)(BQ + 4 * BK) * (HD + SPAD) * sizeof(bf16);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory; src_bytes 0 writes zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// d += a b: a 16 x 16 (row), b 16 x 8 (col), bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats as a bf16 pair, lo in the low half (the lower column).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A 64-row tile of one head, rows row0 .. row0 + 63 of a (S, heads, HD)
+// slab with row_stride elements between rows, into shared memory [64][RS]
+// by cp.async; rows past S are zero-filled.
+template <int HD>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
+                                          size_t row_stride, int row0,
+                                          int S) {
+  constexpr int CPR = HD / 8;            // 16-byte chunks per row
+  constexpr int RS = HD + SPAD;
+  for (int e = threadIdx.x; e < BK * CPR; e += MMA_THREADS) {
+    const int row = e / CPR, ch = e % CPR;
+    const int pos = row0 + row;
+    const bool in = pos < S;
+    cp_async16(smem_addr(dst + row * RS + ch * 8),
+               src + (size_t)(in ? pos : 0) * row_stride + ch * 8,
+               in ? 16 : 0);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(MMA_THREADS, 2) flash_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ o, int S, int H, int Kh,
+    int k_len, int causal, int window, float scale) {
+  static_assert(HD % 16 == 0, "head width");
+  constexpr int RS = HD + SPAD;
+  constexpr int KSTEPS = HD / 16;        // k16 steps of q k^T
+  constexpr int NT = HD / 8;             // n8 tiles of the output
+  constexpr int ST = BK / 8;             // n8 tiles of the scores
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][RS]
+  bf16* Ks = Qs + BQ * RS;                         // [2][BK][RS]
+  bf16* Vs = Ks + 2 * BK * RS;                     // [2][BK][RS]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tig = lane % 4;  // fragment row, column pair
+  // Blocks start in order of x, then y: every head of the last q-tile
+  // first, so the heaviest blocks (most live k-tiles under a causal mask)
+  // start before the light ones across the whole launch.
+  const int h = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int b = blockIdx.z;
+  const int kh = h / (H / Kh);
+  const size_t q_stride = (size_t)H * HD;
+  const size_t kv_stride = (size_t)Kh * HD;
+  const bf16* qb = q + (size_t)b * S * q_stride + (size_t)h * HD;
+  const bf16* kb = k + (size_t)b * S * kv_stride + (size_t)kh * HD;
+  const bf16* vb = v + (size_t)b * S * kv_stride + (size_t)kh * HD;
+  bf16* ob = o + (size_t)b * S * q_stride + (size_t)h * HD;
+
+  // Each condition of tile_live is monotone in k0, so the live k-tiles
+  // are one run kt_lo .. kt_hi.
+  const int n_k = (S + BK - 1) / BK;
+  int kt_lo = n_k, kt_hi = -1;
+  for (int kt = 0; kt < n_k; ++kt)
+    if (tile_live(kt * BK, q0, k_len, causal, window)) {
+      kt_lo = min(kt_lo, kt);
+      kt_hi = kt;
+    }
+
+  load_tile<HD>(Qs, qb, q_stride, q0, S);
+  if (kt_lo <= kt_hi) {
+    load_tile<HD>(Ks, kb, kv_stride, kt_lo * BK, S);
+    load_tile<HD>(Vs, vb, kv_stride, kt_lo * BK, S);
+  }
+  cp_async_commit();
+
+  const int row_w = 16 * warp;           // the warp's first row in the tile
+  uint32_t qf[KSTEPS][4];
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+  float m_r[2] = {NEG_INF, NEG_INF};     // rows g and g + 8
+  float l_r[2] = {0.f, 0.f};             // this lane's share of the row sum
+
+  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
+    const int st = (kt - kt_lo) & 1;
+    if (kt < kt_hi) {                    // the next tile, into the other stage
+      load_tile<HD>(Ks + (st ^ 1) * BK * RS, kb, kv_stride, (kt + 1) * BK, S);
+      load_tile<HD>(Vs + (st ^ 1) * BK * RS, vb, kv_stride, (kt + 1) * BK, S);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (kt == kt_lo) {
+#pragma unroll
+      for (int ks = 0; ks < KSTEPS; ++ks)
+        ldmatrix_x4(qf[ks], smem_addr(Qs + (row_w + lane % 16) * RS +
+                                      ks * 16 + (lane / 16) * 8));
+    }
+    const bf16* Kt = Ks + st * BK * RS;
+    const bf16* Vt = Vs + st * BK * RS;
+
+    // s = q k^T: octet n of keys in s[n]
+    float s[ST][4];
+#pragma unroll
+    for (int n = 0; n < ST; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[n][c] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks)
+#pragma unroll
+      for (int n = 0; n < ST; n += 2) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, smem_addr(Kt + (n * 8 + lane % 8 + (lane / 16) * 8) * RS +
+                                  ks * 16 + ((lane / 8) % 2) * 8));
+        mma_bf16(s[n], qf[ks], kf[0], kf[1]);
+        mma_bf16(s[n + 1], qf[ks], kf[2], kf[3]);
+      }
+
+    // scale, mask (element c of octet n: row g + 8 (c / 2), key
+    // 8 n + 2 tig + c % 2), row max
+    const int k0 = kt * BK;
+    const bool edge = k0 + BK > k_len || (causal && k0 + BK - 1 > q0) ||
+                      (window > 0 && k0 <= q0 + BQ - 1 - window);
+    float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+    for (int n = 0; n < ST; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float x = s[n][c] * scale;
+        if (edge) {
+          const int qpos = q0 + row_w + g + 8 * (c / 2);
+          const int kpos = k0 + 8 * n + 2 * tig + c % 2;
+          bool ok = kpos < k_len;
+          if (causal) ok = ok && kpos <= qpos;
+          if (window > 0) ok = ok && kpos > qpos - window;
+          x = ok ? x : NEG_INF;
+        }
+        s[n][c] = x;
+        mx[c / 2] = fmaxf(mx[c / 2], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = expf(m_r[r] - mx[r]);
+      m_r[r] = mx[r];
+      l_r[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < ST; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float p = expf(s[n][c] - m_r[c / 2]);
+        s[n][c] = p;
+        l_r[c / 2] += p;               // the sum takes p in f32
+      }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+
+    // acc += p v, p rounded to bf16: keys 16 j .. 16 j + 15 are octets
+    // 2 j and 2 j + 1 of s
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
+                              pack_bf16(s[2 * j][2], s[2 * j][3]),
+                              pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
+                              pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+#pragma unroll
+      for (int n = 0; n < NT; n += 2) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, smem_addr(Vt + (16 * j + lane % 8 +
+                                              ((lane / 8) % 2) * 8) * RS +
+                                        n * 8 + (lane / 16) * 8));
+        mma_bf16(acc[n], pa, vf[0], vf[1]);
+        mma_bf16(acc[n + 1], pa, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();                     // stage st is free for the refill
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+    l_r[r] = fmaxf(l_r[r], 1e-30f);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int pos = q0 + row_w + g + 8 * r;
+    if (pos >= S) continue;
+    bf16* orow = ob + (size_t)pos * q_stride + 2 * tig;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) = __floats2bfloat162_rn(
+          acc[n][2 * r] / l_r[r], acc[n][2 * r + 1] / l_r[r]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+               int S, int H, int Kh, int k_len, int causal, int window,
+               float scale, cudaStream_t stream) {
   const size_t smem = smem_floats<HD>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel<float, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, Kh, k_len, causal,
-      window, scale);
+  flash_kernel<float, HD><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, H, Kh, k_len,
+      causal, window, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
-              int B, int S, int H, int Kh, int k_len, int causal, int window,
-              float scale, cudaStream_t s) {
-  switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, B, S, H, Kh, k_len, causal, window, scale, s);
-    case 32: return launch<T, 32>(q, k, v, o, B, S, H, Kh, k_len, causal, window, scale, s);
-    case 64: return launch<T, 64>(q, k, v, o, B, S, H, Kh, k_len, causal, window, scale, s);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, H, Kh, k_len, causal, window, scale, s);
-  }
+template <int HD>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
+                int S, int H, int Kh, int k_len, int causal, int window,
+                float scale, cudaStream_t stream) {
+  const size_t smem = mma_smem_bytes<HD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(H, (S + BQ - 1) / BQ, B);
+  flash_mma_kernel<HD><<<grid, MMA_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), S, H, Kh, k_len,
+      causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch(int dtype, const void* q, const void* k, const void* v, void* o,
+           int B, int S, int H, int Kh, int k_len, int causal, int window,
+           float scale, cudaStream_t s) {
+  if (dtype == 0)
+    return launch_f32<HD>(q, k, v, o, B, S, H, Kh, k_len, causal, window, scale, s);
+  if (dtype == 1)
+    return launch_bf16<HD>(q, k, v, o, B, S, H, Kh, k_len, causal, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -257,10 +567,11 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16 (q, k, v and o alike); hd: 16, 32, 64 or
-// 128; q/o (B, S, H, hd) and k/v (B, S, Kh, hd), contiguous; k_len <= S
-// keys are live; window <= 0: no window.  Returns the CUDA error code of
-// the launch (0 on success).
+// dtype: 0 float32 (CUDA-core kernel, p in f32), 1 bfloat16 (tensor-core
+// kernel, p rounded to bf16 for p v); q, k, v and o alike.  hd: 16, 32, 64
+// or 128; q/o (B, S, H, hd) and k/v (B, S, Kh, hd), contiguous, 16-byte
+// aligned; k_len <= S keys are live; window <= 0: no window.  One CUDA
+// launch.  Returns the CUDA error code of the launch (0 on success).
 int flash_fill_launch(int dtype, int hd, const void* q, const void* k,
                       const void* v, void* o, int B, int S, int H, int Kh,
                       int k_len, int causal, int window, float scale,
@@ -268,10 +579,12 @@ int flash_fill_launch(int dtype, int hd, const void* q, const void* k,
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   if (Kh <= 0 || H % Kh) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_hd<float>(hd, q, k, v, o, B, S, H, Kh, k_len, causal, window, scale, s);
-  if (dtype == 1)
-    return launch_hd<__nv_bfloat16>(hd, q, k, v, o, B, S, H, Kh, k_len, causal, window, scale, s);
+  switch (hd) {
+    case 16: return launch<16>(dtype, q, k, v, o, B, S, H, Kh, k_len, causal, window, scale, s);
+    case 32: return launch<32>(dtype, q, k, v, o, B, S, H, Kh, k_len, causal, window, scale, s);
+    case 64: return launch<64>(dtype, q, k, v, o, B, S, H, Kh, k_len, causal, window, scale, s);
+    case 128: return launch<128>(dtype, q, k, v, o, B, S, H, Kh, k_len, causal, window, scale, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

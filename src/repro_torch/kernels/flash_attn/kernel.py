@@ -8,6 +8,13 @@ layout, H a multiple of Kh (grouped-query attention), and returns
 itself.  A CUDA tensor goes to the CUDA kernel in ``csrc/flash_attn.cu``; a
 CPU tensor goes to ``flash_attention_plain``.  Nothing falls back from one
 to the other.
+
+``p_dtype`` is the type p (the softmax numerator) is rounded to before
+p v; ``None`` keeps it in f32, as the Pallas kernel does.  The row sum
+always takes p in f32.  On the card each input type has one kernel: f32
+keeps p in f32 (the CUDA-core kernel, the correctness path) and bf16 rounds
+p to bf16 (the tensor-core kernel, the serving path, as JAX's model path
+casts p to v's type); a ``p_dtype`` the kernel does not compute raises.
 """
 from __future__ import annotations
 
@@ -16,6 +23,8 @@ import math
 from pathlib import Path
 
 import torch
+
+from repro_torch.kernels import aligned16
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attn.cu"
 BLOCK = 64                   # the CUDA kernel's q- and k-tile rows
@@ -51,22 +60,26 @@ def _check_inputs(q, k, v, window, k_len):
 
 
 def flash_fill(q, k, v, *, causal: bool, window=None, k_len=None,
-               scale=None):
+               scale=None, p_dtype=None):
     """Attention of q over k/v with f32 scores, running max, sum and
     accumulator.  ``causal`` keeps key <= query, ``window`` keeps
     key > query - window, ``k_len`` keeps key < k_len; ``scale`` defaults to
-    1/sqrt(hd).  Both the CUDA kernel and the plain version work in
-    ``BLOCK``-row tiles."""
+    1/sqrt(hd); ``p_dtype`` as in the module note.  Both the CUDA kernels
+    and the plain version work in ``BLOCK``-row tiles."""
     _check_inputs(q, k, v, window, k_len)
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(
         q.shape[-1])
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     k_len=k_len, scale=scale)
+                                     k_len=k_len, scale=scale,
+                                     p_dtype=p_dtype)
     if q.device.type != "cuda":
         raise ValueError(f"K3 runs on CUDA or CPU tensors, not {q.device}")
-    return _launch(q.contiguous(), k.contiguous(), v.contiguous(),
-                   bool(causal), window, k_len, scale)
+    if (p_dtype or torch.float32) != q.dtype:
+        raise ValueError(f"K3's {q.dtype} kernel rounds p to {q.dtype}; it "
+                         f"does not compute p_dtype={p_dtype}")
+    return _launch(*map(aligned16, (q, k, v)), bool(causal), window, k_len,
+                   scale)
 
 
 _LIB = None
@@ -127,11 +140,15 @@ def live_block(q0: int, k0: int, blk: int, causal: bool, window, k_len):
 
 
 def flash_attention_plain(q, k, v, *, causal: bool, window=None, k_len=None,
-                          scale=None, blk: int = BLOCK):
+                          scale=None, blk: int = BLOCK, p_dtype=None):
     """Plain PyTorch version of ``flash_fill``: the blockwise loop of the
     JAX model path (``layers.py::_flash_fwd``) over ``blk``-row tiles,
-    skipping the tiles the kernel skips, with f32 scores, max, sum,
-    accumulator and ``p`` (as the Pallas kernel keeps ``p``)."""
+    skipping the tiles the kernel skips, with f32 scores, max, sum and
+    accumulator.  ``p`` is summed in f32, then rounded to ``p_dtype``
+    before p v (``None``: kept in f32, as the Pallas kernel keeps it).
+    Keys are zero-padded to whole tiles, as the kernels load them and the
+    model path pads them: a row with no live key in a visited tile then
+    counts the tile's padded keys too (p = 1 each, as for every key)."""
     _check_inputs(q, k, v, window, k_len)
     B, S, H, hd = q.shape
     Kh = k.shape[2]
@@ -140,7 +157,8 @@ def flash_attention_plain(q, k, v, *, causal: bool, window=None, k_len=None,
     kl = S if k_len is None else min(int(k_len), S)
     dev = q.device
     qf = q.float().reshape(B, S, Kh, G, hd)
-    kf, vf = k.float(), v.float()
+    pad = (0, 0, 0, 0, 0, (-S) % blk)
+    kf, vf = (torch.nn.functional.pad(t.float(), pad) for t in (k, v))
     out = torch.zeros((B, S, Kh, G, hd), dtype=torch.float32, device=dev)
     for q0 in range(0, S, blk):
         q1 = min(q0 + blk, S)
@@ -152,7 +170,7 @@ def flash_attention_plain(q, k, v, *, causal: bool, window=None, k_len=None,
         for k0 in range(0, S, blk):
             if not live_block(q0, k0, blk, causal, window, kl):
                 continue
-            k1 = min(k0 + blk, S)
+            k1 = k0 + blk
             s = torch.einsum("bqkgd,bskd->bqkgs", qb, kf[:, k0:k1]) * scale
             kpos = torch.arange(k0, k1, device=dev)[None, :]
             mask = kpos < kl
@@ -165,6 +183,8 @@ def flash_attention_plain(q, k, v, *, causal: bool, window=None, k_len=None,
             alpha = torch.exp(m - m_new)
             p = torch.exp(s - m_new[..., None])
             l = l * alpha + p.sum(-1)
+            if p_dtype is not None:
+                p = p.to(p_dtype).float()
             acc = acc * alpha[..., None] + torch.einsum(
                 "bqkgs,bskd->bqkgd", p, vf[:, k0:k1])
             m = m_new

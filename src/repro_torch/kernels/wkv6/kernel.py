@@ -5,9 +5,11 @@ wrapper ``ops.py::wkv6``).
 ``wkv6_fill`` takes r/k/v/lw (B, S, H, hd) in the model's layout and the
 bonus u (H, hd), and returns y (B, S, H, hd) f32 and the final state
 (B, H, hd, hd) f32 from a zero initial state.  Any S: steps past S are
-state-neutral.  A CUDA tensor goes to the CUDA kernel in
-``csrc/wkv6.cu``; a CPU tensor goes to ``wkv6_plain``.  Nothing falls
-back from one to the other.
+state-neutral.  A CUDA tensor goes to the CUDA kernels in
+``csrc/wkv6.cu`` (three launches on the current stream: chunk increments,
+the scan over chunk states, the output; ``launches`` counts the call
+once); a CPU tensor goes to ``wkv6_plain``.  Nothing falls back from one
+to the other.
 """
 from __future__ import annotations
 
@@ -16,13 +18,15 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import aligned16
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "wkv6.cu"
 CHUNK = 32                   # the CUDA kernel's chunk length
 HEAD_DIMS = (16, 32, 64)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# CUDA kernel launches since import (or since a caller reset it to 0); the
-# plain version does not count.
+# Calls that launched the CUDA kernels since import (or since a caller reset
+# it to 0), one per call; the plain version does not count.
 launches = 0
 
 
@@ -55,8 +59,7 @@ def wkv6_fill(r, k, v, lw, u, *, chunk: int = CHUNK):
     if chunk != CHUNK:
         raise ValueError(f"K4's CUDA kernel works in chunks of {CHUNK}, "
                          f"not {chunk}")
-    return _launch(r.contiguous(), k.contiguous(), v.contiguous(),
-                   lw.float().contiguous(), u.float().contiguous())
+    return _launch(*map(aligned16, (r, k, v, lw.float(), u.float())))
 
 
 _LIB = None
@@ -68,7 +71,7 @@ def _lib():
         from repro_torch.kernels import build
         lib = build.load(SOURCE).lib
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.wkv6_fill_launch.argtypes = [i, i] + [p] * 7 + [i] * 3 + [p]
+        lib.wkv6_fill_launch.argtypes = [i, i] + [p] * 9 + [i] * 3 + [p]
         lib.wkv6_fill_launch.restype = i
         _LIB = lib
     return _LIB
@@ -84,14 +87,20 @@ def _launch(r, k, v, lw, u):
         raise ValueError(f"K4 is instantiated for head widths {HEAD_DIMS}, "
                          f"not {hd}")
     lib = _lib()
-    y = torch.empty((B, S, H, hd), dtype=torch.float32, device=r.device)
-    state = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    f32 = dict(dtype=torch.float32, device=r.device)
+    nc = -(-S // CHUNK)
+    y = torch.empty((B, S, H, hd), **f32)
+    state = torch.empty((B, H, hd, hd), **f32)
+    # scratch: each chunk's state increment, overwritten by the scan with
+    # the chunk's incoming state, and each chunk's decay exp(L[C-1])
+    states = torch.empty((B, H, nc, hd, hd), **f32)
+    decay = torch.empty((B, H, nc, hd), **f32)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = lib.wkv6_fill_launch(
             DTYPES[r.dtype], hd, r.data_ptr(), k.data_ptr(), v.data_ptr(),
-            lw.data_ptr(), u.data_ptr(), y.data_ptr(), state.data_ptr(), B,
-            S, H, stream)
+            lw.data_ptr(), u.data_ptr(), y.data_ptr(), state.data_ptr(),
+            states.data_ptr(), decay.data_ptr(), B, S, H, stream)
     if err:
         raise RuntimeError(f"K4 wkv6_fill launch failed: CUDA error {err} "
                            f"(B={B}, S={S}, H={H}, hd={hd}, {r.dtype})")

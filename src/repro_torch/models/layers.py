@@ -83,9 +83,10 @@ def flash_attention(q, k, v, *, causal: bool, window: Optional[int],
     """q: (B, S, H, hd), k/v: (B, S, K, hd) with H = K * G (GQA); returns
     (B, S, H, hd) in q's dtype.  On a CUDA tensor this is one launch of K3,
     which masks the ragged edge itself; on a CPU tensor it is K3's plain
-    version, over the same 64-row tiles."""
+    version, over the same 64-row tiles.  p is rounded to v's dtype before
+    p v on both devices, as JAX's model path casts it."""
     return K3.flash_fill(q, k, v, causal=causal, window=window, k_len=k_len,
-                         scale=scale)
+                         scale=scale, p_dtype=v.dtype)
 
 
 def decode_attention(q, k_cache, v_cache, *, k_len, window=None,

@@ -134,14 +134,18 @@ def test_rejects_bad_shapes():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_kernel_matches_plain(dtype):
     """K4 on the card against its plain version on the same card, y and
-    the final state, rtol/atol 5e-4 (the strong-decay tolerance)."""
+    the final state, rtol/atol 5e-4 (the strong-decay tolerance), over
+    S in {1, 31, 32, 33, 1499} (one step, a chunk and its neighbours, many
+    chunks) at decay scales 1 and 2, hd 16-64."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (K4 is CUDA C++ with no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(4)
     for scale in (1.0, 2.0):
-        for B, S, H, hd in [(2, 77, 4, 64), (1, 64, 3, 16), (1, 100, 2, 32)]:
+        for B, S, H, hd in [(2, 1, 4, 64), (2, 31, 3, 16), (1, 32, 2, 32),
+                            (2, 33, 4, 64), (1, 1499, 3, 64),
+                            (1, 77, 2, 32), (1, 64, 3, 16)]:
             r, k, v, lw, u = (torch.as_tensor(t, device="cuda")
                               for t in _inputs(rng, B, S, H, hd, scale))
             r, k, v = (t.to(dtype) for t in (r, k, v))
