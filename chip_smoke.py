@@ -16,10 +16,12 @@ the ``src/repro_torch`` package.
 
 Phases:
   1. card identity (name, count, power limit, SM clock);
-  2. build K1 and K2 with nvcc, both at once, and report ptxas registers /
-     spills;
+  2. build K1-K4 with nvcc, all at once, and report ptxas registers /
+     spills (K1's instantiations for #2, #4 and the mapper's extension, and
+     every K2 instantiation, must not spill);
   3. K1 vs its plain version, every ported zoo kernel and pointer packing,
-     at buckets 64 (batch 16, mixed lengths), 256 (batch 64), 1024 (batch 4);
+     at buckets 64 (batch 16, mixed lengths), 256 (batch 64), 1024 (batch 4),
+     each output allocated on blocks the script left filled with 0xFF;
   4. main path: ``run_pairs`` with global affine (#2) on 8192 short DNA
      pairs (windows of 128-256 bases of a 1 Mb random reference, queries
      mutated at 8 %), block 1024, with traceback; checked against the CPU
@@ -28,20 +30,29 @@ Phases:
      256; checked against the CPU path on the first 16;
   6. K1 vs its plain version on the fullest block of every bucket shape
      that phases 4 and 5 gave K1 (batch 1024 and 256), then K1 alone timed
-     at the main path's largest shape, beside its plain version and its
-     lower bound on this card;
+     at the main path's largest shape and at the fullest long-read block,
+     beside its plain version and its lower bound on this card, and on
+     the largest shape without the pointer store and at batch 132, 264
+     and 528;
   7. K2 vs its plain version: #16 and #17, buckets 64, 256 and 1024 (1, 4
      and 16 words) at batch 64, random and 8 %-mutated pairs with lengths
-     below the bucket (q_len 1 included), k in {-1, 0, bucket / 10};
+     below the bucket (q_len 1 included), k in {-1, 0, bucket / 10}, each
+     output allocated on blocks left filled with 0xFF;
   8. the mapper at a real size: a 4,641,652-base random reference (the
      length of E. coli K-12 MG1655, NCBI RefSeq NC_000913.3) with 16 runs of
      200 N, 32,768 simulated 150-base reads at 5 % error plus 4,096 random
      junk reads, ``ReadMapper(ref, block=1024, screen_block=1024)``; checks
      the launch counts, the accuracy bars and 256 records against the CPU
-     path, holds K1 and K2 to their plain versions on the path's blocks, and
-     times each stage;
+     path, holds K1 and K2 to their plain versions on the path's blocks,
+     times each stage, and times K1 alone on the fullest extension block
+     (its bound counts the cells inside the band);
   9. K2 alone timed at the screen's fullest block, beside its plain version
-     and its lower bound on this card;
+     and its lower bound on this card, and at batch 128 and 8192 (the
+     block's pairs repeated);
+  (K1 and K2 are timed by kernel_device_ms: the device time of 20
+  launches captured in a CUDA graph and replayed between CUDA events, 5
+  rounds, median and range, with the CUDA-event ms of Python calls, the
+  host us per call and the kernel records one torch.profiler round held)
  10. K3 vs its plain version, p rounded to the inputs' type on both
      sides: causal, causal with window 64, non-causal x G 1 and 4 x S 77,
      512, 1000 x hd 64 and 128 x f32, bf16 on integer q/k (exact scores)
@@ -75,6 +86,7 @@ from __future__ import annotations
 import itertools
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -165,7 +177,129 @@ def cuda_time_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def kernel_device_ms(fn, kernel, rounds=None, launches=None):
+    """Time ``fn`` (one launch of a kernel whose name contains ``kernel``
+    per call) over ``rounds`` rounds of ``launches`` calls, after a
+    warm-up.  Each round gives three numbers per call: the device time,
+    the CUDA-event ms around the round's calls made from Python, and the
+    host us a call takes to return (its enqueue cost).  The device time is
+    that of ``launches`` calls captured once in a CUDA graph and replayed
+    between two CUDA events: the wrapper's host work stays out, and each
+    launch counts its kernel and the short gap a graph leaves between two
+    kernels.  It is not read from torch.profiler, whose CUDA activity on
+    the card drops kernel records (0-100 % of a round's, while it holds
+    every launch call) once the process has run the mapper; one profiler
+    round still counts the records it holds and their mean, for
+    comparison.  Returns the three lists, one entry per round, and
+    (records held, their mean ms or None).  The capture counts in the
+    wrapper's launch counter, so callers restore it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    rounds = rounds or ROUNDS
+    launches = launches or ROUND_LAUNCHES
+    cuda = torch.autograd.DeviceType.CUDA
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    dev, ev, host = [], [], []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        start.record()
+        graph.replay()
+        stop.record()
+        torch.cuda.synchronize()
+        dev.append(start.elapsed_time(stop) / launches)
+        ev.append(cuda_time_ms(fn, launches))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(launches):
+            fn()
+        host.append((time.perf_counter() - t0) / launches * 1e6)
+        torch.cuda.synchronize()
+    del graph
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e.time_range.elapsed_us() for e in prof.events()
+            if getattr(e, "device_type", None) == cuda and kernel in e.name]
+    check(len(hits) <= launches, f"torch.profiler held {len(hits)} records "
+          f"of {kernel} for {launches} calls")
+    return dev, ev, host, (len(hits),
+                           sum(hits) / len(hits) / 1e3 if hits else None)
+
+
 # ---------------------------------------------------------------------------
+def demangle(names):
+    tool = shutil.which("cu++filt") or (
+        "/usr/local/cuda/bin/cu++filt"
+        if Path("/usr/local/cuda/bin/cu++filt").exists() else None) \
+        or shutil.which("c++filt")
+    if not tool or not names:
+        return list(names)
+    out = subprocess.run([tool], input="\n".join(names), text=True,
+                         capture_output=True).stdout.splitlines()
+    return out if len(out) == len(names) else list(names)
+
+
+def ptxas_table(log):
+    """[kernel name, registers, spill bytes, stack frame bytes, mangled
+    name] per entry function of an ``nvcc -Xptxas -v`` log."""
+    rows, cur, spill, stack = [], None, 0, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur, spill, stack = m.group(1), 0, 0
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            stack = int(m.group(1))
+            spill = int(m.group(2)) + int(m.group(3))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            rows.append([cur, int(m.group(1)), spill, stack, cur])
+            cur = None
+    for row, name in zip(rows, demangle([r[0] for r in rows])):
+        row[0] = normal_name(name)
+    return rows
+
+
+def normal_name(name):
+    """One spelling for the two demanglers' (cu++filt, c++filt)."""
+    name = name.replace("(anonymous namespace)", "<unnamed>")
+    name = name.replace("(bool)0", "false").replace("(bool)1", "true")
+    return re.sub(r"\(int\)(\d+)", r"\1", name)
+
+
+def k1_instantiation(spec, mangled=False):
+    """The substring of K1's demangled (or mangled) kernel name for
+    ``spec``."""
+    from repro_torch.core import types as T
+    fam = spec.family
+    pe = {T.FAMILY_LINEAR: "LinearPE", T.FAMILY_AFFINE: "AffinePE",
+          T.FAMILY_TWO_PIECE: "TwoPiecePE"}[fam.family]
+    sub = "MatrixSub" if fam.sub == T.SUB_MATRIX else "DnaSub"
+    local = "" if fam.family == T.FAMILY_TWO_PIECE else \
+        f", {str(bool(fam.local)).lower()}"
+    region = {T.REGION_CORNER: 0, T.REGION_ALL: 1, T.REGION_LAST_ROW: 2,
+              T.REGION_LAST_ROW_COL: 3}[spec.region]
+    banded = str(spec.band is not None).lower()
+    if mangled:
+        loc = "" if not local else f"ELb{int(bool(fam.local))}"
+        return (f"{len(pe)}{pe}INS_{len(sub)}{sub}{loc}EEELi{region}"
+                f"ELb{int(spec.band is not None)}EE")
+    return f"{pe}<<unnamed>::{sub}{local}>, {region}, {banded}>"
+
+
 def phase_identity():
     import torch
     name = torch.cuda.get_device_name(0)
@@ -185,26 +319,41 @@ def phase_identity():
 
 def phase_build():
     """One nvcc per kernel source, all started together."""
+    from repro_torch.core import kernels_zoo
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attn import kernel as K3
     from repro_torch.kernels.myers import kernel as K2
     from repro_torch.kernels.wavefront import kernel as K1
     from repro_torch.kernels.wkv6 import kernel as K4
+    from repro_torch.mapping import extend as extend_mod
     names = ("K1", "K2", "K3", "K4")
     sources = (K1.SOURCE, K2.SOURCE, K3.SOURCE, K4.SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(build.load, sources))
+    tables = {}
     for name, b in zip(names, built):
-        log = b.ptxas_log
-        regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
-        spills = [int(a) + int(c) for a, c in re.findall(
-            r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
+        rows = ptxas_table(b.ptxas_log)
+        tables[name] = rows
+        regs = [r[1] for r in rows]
         print(f"[2] {name}: built {b.path.name} in {b.seconds:.1f} s: "
-              f"{len(regs)} kernel instantiations, registers "
+              f"{len(rows)} kernel instantiations, registers "
               f"{min(regs) if regs else '?'}-{max(regs) if regs else '?'} "
-              f"per thread, spill bytes {sum(spills)}", flush=True)
-        check(regs, f"ptxas reported no {name} kernels")
+              f"per thread, spill bytes {sum(r[2] for r in rows)}",
+              flush=True)
+        check(rows, f"ptxas reported no {name} kernels")
+    # the instantiations the main paths launch must not spill: K1 for #2
+    # (run_pairs), #4 (long reads) and the mapper's extension; every K2
+    main = [("#2", kernels_zoo.make(2)[0]), ("#4", kernels_zoo.make(4)[0]),
+            ("mapper extension", extend_mod.extension_spec(64, "linear")[0])]
+    for what, spec in main:
+        key, mkey = k1_instantiation(spec), k1_instantiation(spec, True)
+        hit = [r for r in tables["K1"] if key in r[0] or mkey in r[4]]
+        check(len(hit) == 1, f"no K1 instantiation {key}")
+        check(hit[0][2] == 0, f"K1 {what} spills {hit[0][2]} bytes")
+        print(f"    K1 {what} ({key}): {hit[0][1]} registers, no spills",
+              flush=True)
+    check(all(r[2] == 0 for r in tables["K2"]), "K2 spills registers")
     print(f"    all {len(sources)} builds: {time.perf_counter() - t0:.1f} s "
           f"wall", flush=True)
     return built
@@ -219,6 +368,19 @@ def _fill_args(spec, params, qs, rs, ql, rl, dev):
                               q_lens, r_lens)
     return (torch.as_tensor(qs, device=dev), torch.as_tensor(rs, device=dev),
             row, col, torch.stack([q_lens, r_lens], dim=1).contiguous())
+
+
+def _dirty_allocator(*like):
+    """Fill blocks of the sizes of ``like``'s tensors with 0xFF and hand
+    them back to the caching allocator, which gives them to the next
+    allocations of those sizes: a kernel's output then starts as 0xFF.
+    Returns the blocks' addresses."""
+    import torch
+    blocks = [torch.empty(t.numel() * t.element_size(), dtype=torch.uint8,
+                          device=DEVICE).fill_(0xFF) for t in like]
+    ptrs = {b.data_ptr() for b in blocks}
+    del blocks
+    return ptrs
 
 
 def phase_kernel_vs_plain(rng):
@@ -243,10 +405,13 @@ def phase_kernel_vs_plain(rng):
             rl = rl.astype(np.int32)
             args = _fill_args(spec, params, qs, rs, ql, rl, "cuda")
             for pack in sorted({spec.tb_pack, 1}):
-                got = K.wavefront_fill(spec, params, *args, tb_pack=pack)
                 want = K.wavefront_fill_plain(spec, params, *args,
                                               tb_pack=pack)
+                dirty = _dirty_allocator(*want)
+                got = K.wavefront_fill(spec, params, *args, tb_pack=pack)
                 torch.cuda.synchronize()
+                check(got[0].data_ptr() in dirty, "K1's pointer store did "
+                      "not land on the 0xFF block")
                 err = max(int((g.long() - w.long()).abs().max())
                           for g, w in zip(got, want))
                 max_err = max(max_err, err)
@@ -256,7 +421,8 @@ def phase_kernel_vs_plain(rng):
                             f"{err})")
                 n += 1
     print(f"[3] K1 == plain on {n} (kernel, bucket, tb_pack) cases "
-          f"(tb, best, best_j bit-equal) in {time.perf_counter() - t0:.1f} s",
+          f"(tb, best, best_j bit-equal; every output allocated on blocks "
+          f"left filled with 0xFF) in {time.perf_counter() - t0:.1f} s",
           flush=True)
     return max_err
 
@@ -436,36 +602,47 @@ def _hold_to_plain(spec, params, block, what):
     return args, err, plain_ms
 
 
-def phase_path_shapes(main_blocks, long_blocks, card):
-    """K1 vs plain on one block of every bucket shape the main path and the
-    long-read run gave K1, then K1 timed at the main path's largest one."""
-    from repro_torch.core import kernels_zoo
-    from repro_torch.kernels.wavefront import kernel as K
-    launches0 = K.launches
-    max_err, held = 0, []
-    for kid, blocks, what in ((2, main_blocks, "main path"),
-                              (4, long_blocks, "long-read")):
-        spec, params = kernels_zoo.make(kid)
-        for block in _fullest_per_bucket(blocks):
-            args, err, plain_ms = _hold_to_plain(spec, params, block, what)
-            max_err = max(max_err, err)
-            held.append(f"#{kid} {block[0][0]}x{block[0][1]}")
-            if kid == 2:
-                timed = (block, args, plain_ms)   # last = largest bucket
-    print(f"[6] K1 == plain (tb, best, best_j bit-equal) on the fullest block "
-          f"of each path shape: {', '.join(held)}", flush=True)
+def _live_in_band(ql, rl, band):
+    """Cells (i, j) with i <= q_len, j <= r_len and |i - j| <= band, summed
+    over the pairs (all of q_len x r_len when band is None)."""
+    import numpy as np
+    ql, rl = ql.astype("int64"), rl.astype("int64")
+    if band is None:
+        return int((ql * rl).sum())
+    total = 0
+    for q, r in zip(ql, rl):
+        i = np.arange(1, q + 1)
+        total += int((np.minimum(r, i + band)
+                      - np.maximum(1, i - band) + 1).clip(min=0).sum())
+    return total
 
-    spec, params = kernels_zoo.make(2)
+
+def _spread_line(dev, ev, host, prof):
+    held, mean = prof
+    seen = (f"torch.profiler held {held} of {ROUND_LAUNCHES} kernel records"
+            + (f", mean {mean:.4f} ms" if mean is not None else ""))
+    return (f"device {_spread(dev)} (CUDA graph of the launches between "
+            f"events); events {statistics.median(ev):.4f} ms/call; host "
+            f"{statistics.median(host):.1f} us/call; {seen}")
+
+
+def time_k1(spec, params, block, card, what, plain_ms=None):
+    """K1 alone on one padded block: device time over ROUNDS rounds of
+    ROUND_LAUNCHES launches (kernel_device_ms) and its bound on this card,
+    which counts the live cells inside the band only."""
+    from repro_torch.kernels.wavefront import kernel as K
+    (bq, br), qs, rs, ql, rl = block
+    args = _fill_args(spec, params, qs, rs, ql, rl, DEVICE)
     pack = spec.tb_pack
-    ((bq, br), qs, rs, ql, rl), args, plain_ms = timed
-    for _ in range(3):
-        K.wavefront_fill(spec, params, *args, tb_pack=pack)
-    ms = cuda_time_ms(lambda: K.wavefront_fill(spec, params, *args,
-                                               tb_pack=pack), 20)
-    K.launches = launches0
+    before = K.launches
+    dev, ev, host, prof = kernel_device_ms(
+        lambda: K.wavefront_fill(spec, params, *args, tb_pack=pack),
+        "wavefront")
+    K.launches = before
+    ms = statistics.median(dev)
     B, L = qs.shape[0], spec.n_layers
     C = bq // K.N_PE
-    cells = int((ql.astype("int64") * rl).sum())
+    cells = _live_in_band(ql, rl, spec.band)
     ops = PE_OPS[(spec.family.family, spec.family.local)] * cells
     nbytes = (B * bq + B * br + B * (br + 1) * L * 4 + B * (bq + 1) * L * 4
               + B * 8                                        # inputs
@@ -475,13 +652,63 @@ def phase_path_shapes(main_blocks, long_blocks, card):
     bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
-    print(f"    K1 timed at batch {B}, {bq}x{br}, #2, tb_pack {pack}: "
-          f"{ms:.4f} ms (CUDA events, mean of 20); plain {plain_ms:.1f} ms; "
-          f"bound {bound_ms:.4f} ms by {bound_by} (int32 ops {ops_ms:.4f} "
-          f"ms for {cells} live cells, bytes {bytes_ms:.4f} ms for "
-          f"{nbytes} B); {cells / ms / 1e6:.1f} GCUPS live", flush=True)
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "max_abs_err": max_err}
+    plain = f"plain {plain_ms:.1f} ms; " if plain_ms is not None else ""
+    print(f"    K1 timed at batch {B}, {bq}x{br}, {what}, tb_pack {pack}: "
+          f"{_spread_line(dev, ev, host, prof)}; {plain}bound "
+          f"{bound_ms:.4f} ms "
+          f"by {bound_by} (int32 ops {ops_ms:.4f} ms for {cells} live "
+          f"cells{'' if spec.band is None else ' in the band'}, bytes "
+          f"{bytes_ms:.4f} ms for {nbytes} B); {100 * bound_ms / ms:.1f} % "
+          f"of the bound; {cells / ms / 1e6:.1f} GCUPS live", flush=True)
+    return {"ms": ms, "ms_range": [min(dev), max(dev)],
+            "event_ms": statistics.median(ev),
+            "host_us": statistics.median(host), "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "profiler_records": prof[0]}
+
+
+def k1_experiments(spec, params, block):
+    """K1 on its timed block without the pointer store, and on the block's
+    first 132, 264 and 528 pairs (one pair per SM and more): what the store
+    costs, and whether the time follows the warps in flight."""
+    from repro_torch.kernels.wavefront import kernel as K
+    (bq, br), qs, rs, ql, rl = block
+    before = K.launches
+    for rows, with_tb in ((None, False), (132, True), (264, True),
+                          (528, True)):
+        args = _fill_args(spec, params, qs[:rows], rs[:rows], ql[:rows],
+                          rl[:rows], DEVICE)
+        dev, ev, host, prof = kernel_device_ms(
+            lambda: K.wavefront_fill(spec, params, *args,
+                                     tb_pack=spec.tb_pack, with_tb=with_tb),
+            "wavefront")
+        print(f"    K1 at batch {len(ql[:rows])}, {bq}x{br}, pointer store "
+              f"{'on' if with_tb else 'off'}: "
+              f"{_spread_line(dev, ev, host, prof)}", flush=True)
+    K.launches = before
+
+
+def phase_path_shapes(main_blocks, long_blocks, card):
+    """K1 vs plain on one block of every bucket shape the main path and the
+    long-read run gave K1, then K1 timed at the main path's largest one and
+    at the fullest long-read block."""
+    from repro_torch.core import kernels_zoo
+    max_err, held, timed = 0, [], {}
+    for kid, blocks, what in ((2, main_blocks, "main path"),
+                              (4, long_blocks, "long-read")):
+        spec, params = kernels_zoo.make(kid)
+        for block in _fullest_per_bucket(blocks):
+            _, err, plain_ms = _hold_to_plain(spec, params, block, what)
+            max_err = max(max_err, err)
+            held.append(f"#{kid} {block[0][0]}x{block[0][1]}")
+            timed[kid] = (spec, params, block, plain_ms)   # the largest
+    print(f"[6] K1 == plain (tb, best, best_j bit-equal) on the fullest block "
+          f"of each path shape: {', '.join(held)}", flush=True)
+    out = time_k1(*timed[2][:3], card, "#2", timed[2][3])
+    k1_experiments(*timed[2][:3])
+    out["long_read"] = time_k1(*timed[4][:3], card, "#4", timed[4][3])
+    out["max_abs_err"] = max_err
+    return out
 
 
 def _k2_args(qs, rs, ql, rl):
@@ -567,7 +794,10 @@ def phase_k2_vs_plain(rng):
                         device=DEVICE)
                     want = [torch.where(stop, fill, p) for p, fill in
                             zip(plain, (T.INT_SENTINEL, T.INT_SENTINEL, 0))]
+                    dirty = _dirty_allocator(*want)
                     got = K2.myers_fill(*args, glob=glob, k=k)
+                    check(got[0].data_ptr() in dirty, "K2's score did not "
+                          "land on the 0xFF block")
                     err = max(int((g.long() - w.long()).abs().max())
                               for g, w in zip(got, want))
                     max_err = max(max_err, err)
@@ -577,7 +807,8 @@ def phase_k2_vs_plain(rng):
                     n += 1
     print(f"[7] K2 == plain on {n} cases (#16/#17 x buckets 64/256/1024 x "
           f"random/mutated x k -1/0/bucket/10; score, best, best_j "
-          f"bit-equal; k >= 0 from the k = -1 sweep's score trail) in "
+          f"bit-equal on blocks left filled with 0xFF; k >= 0 from the "
+          f"k = -1 sweep's score trail) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return max_err
 
@@ -633,7 +864,7 @@ def _staged_run(mapper, ref, reads, names):
     return recs, t, screened, jobs
 
 
-def phase_mapper():
+def phase_mapper(card):
     """The read mapper at a real size on the card, its checks, and the K1
     and K2 holds on its own blocks."""
     import math
@@ -708,16 +939,23 @@ def phase_mapper():
           flush=True)
 
     k1_before, k2_before = K1.launches, K2.launches
-    k1_err, held = 0, []
+    k1_err, held, fullest = 0, [], None
     for band, blocks in ext_blocks.items():
         spec, params = extend_mod.extension_spec(band, mapper.gap_mode)
         for block in _fullest_per_bucket(blocks):
-            _, err, _ = _hold_to_plain(spec, params, block,
-                                       f"mapper band-{band}")
+            _, err, plain_ms = _hold_to_plain(spec, params, block,
+                                              f"mapper band-{band}")
             k1_err = max(k1_err, err)
             held.append(f"band {band} {block[0][0]}x{block[0][1]}")
+            cells = _live_in_band(block[3], block[4], band)
+            if fullest is None or cells > fullest[0]:
+                fullest = (cells, spec, params, block, plain_ms, band)
     print(f"    K1 == plain (tb, best, best_j bit-equal) on the fullest "
           f"extension block of each shape: {', '.join(held)}", flush=True)
+    _, spec, params, block, plain_ms, band = fullest
+    k1_ext = time_k1(spec, params, block, card,
+                     f"band-{band} semiglobal {mapper.gap_mode} (the "
+                     f"fullest extension block)", plain_ms)
     k = max(math.ceil(mapper.filter_k_frac * len(j.read)) for j in screened)
     sblock = max(screen_blocks, key=_live_cells)
     (bq, br), qs, rs_, ql, rl = sblock
@@ -728,19 +966,21 @@ def phase_mapper():
           f"screen block {bq}x{br}, batch {qs.shape[0]}, k {k}", flush=True)
     K1.launches, K2.launches = k1_before, k2_before
     return {"k1_launches": k1_runs, "k2_launches": k2_runs,
-            "k1_err": k1_err, "k2_err": k2_err,
+            "k1_err": k1_err, "k2_err": k2_err, "k1_extension": k1_ext,
             "screen": (sblock, args, k, cols, plain_ms)}
 
 
 def phase_k2_timing(screen, card):
-    """K2 alone at the screen's fullest block: CUDA events over 20 launches
-    after a warm-up, beside its plain version and its bound."""
+    """K2 alone at the screen's fullest block: device time over ROUNDS
+    rounds of ROUND_LAUNCHES launches (kernel_device_ms), beside its plain
+    version and its bound, then at fewer and more pairs."""
+    import numpy as np
     from repro_torch.kernels.myers import kernel as K2
     ((bq, br), qs, rs, ql, rl), (q, r, lens), k, cols, plain_ms = screen
     before = K2.launches
-    for _ in range(3):
-        K2.myers_fill(q, r, lens, glob=False, k=k)
-    ms = cuda_time_ms(lambda: K2.myers_fill(q, r, lens, glob=False, k=k), 20)
+    dev, ev, host, prof = kernel_device_ms(
+        lambda: K2.myers_fill(q, r, lens, glob=False, k=k), "myers")
+    ms = statistics.median(dev)
     K2.launches = before
     B = qs.shape[0]
     cols = cols.cpu().numpy().astype("int64")
@@ -755,13 +995,26 @@ def phase_k2_timing(screen, card):
     bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
-    print(f"[9] K2 timed at batch {B}, {bq}x{br}, #17, k {k}: {ms:.4f} ms "
-          f"(CUDA events, mean of 20); plain {plain_ms:.1f} ms; bound "
+    print(f"[9] K2 timed at batch {B}, {bq}x{br}, #17, k {k}: "
+          f"{_spread_line(dev, ev, host, prof)}; plain {plain_ms:.1f} ms; "
+          f"bound "
           f"{bound_ms:.4f} ms by {bound_by} (int32 ops {ops_ms:.4f} ms for "
           f"{word_cols} live 64-bit word-columns, bytes {bytes_ms:.4f} ms "
-          f"for {nbytes} B)", flush=True)
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+          f"for {nbytes} B); {100 * bound_ms / ms:.1f} % of the bound",
+          flush=True)
+    for n in (128, 8 * B):
+        rows = np.arange(n) % B
+        args = _k2_args(qs[rows], rs[rows], ql[rows], rl[rows])
+        d, e, h, pr = kernel_device_ms(
+            lambda: K2.myers_fill(*args, glob=False, k=k), "myers")
+        print(f"    K2 at batch {n} (the block's pairs, repeated): "
+              f"{_spread_line(d, e, h, pr)}", flush=True)
+    K2.launches = before
+    return {"ms": ms, "ms_range": [min(dev), max(dev)],
+            "event_ms": statistics.median(ev),
+            "host_us": statistics.median(host), "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "profiler_records": prof[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -1471,7 +1724,7 @@ def main() -> int:
         long_blocks = phase_long_reads(rng, genome)
         timing = phase_path_shapes(blocks, long_blocks, card)
         k2_err = phase_k2_vs_plain(rng)
-        mapper = phase_mapper()
+        mapper = phase_mapper(card)
         k2_timing = phase_k2_timing(mapper["screen"], card)
         k3_err = phase_k3_vs_plain(rng)
         k4_err = phase_k4_vs_plain(rng)
@@ -1488,19 +1741,17 @@ def main() -> int:
         "replaces": "src/repro/kernels/wavefront/kernel.py:198",
         "launches": launches, "launches_mapper": mapper["k1_launches"],
         "parity": "exact",
+        **{k: v for k, v in timing.items() if k != "max_abs_err"},
         "max_abs_err": max(max_err, timing["max_abs_err"],
                            mapper["k1_err"]),
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+        "mapper_extension": mapper["k1_extension"],
         "library_ms": None}, {
         "name": "myers_fill", "route": "cuda",
         "source": "src/repro_torch/kernels/myers/csrc/myers.cu",
         "replaces": "src/repro/kernels/myers/kernel.py:112",
         "launches": mapper["k2_launches"], "parity": "exact",
         "max_abs_err": max(k2_err, mapper["k2_err"]),
-        "ms": k2_timing["ms"], "plain_ms": k2_timing["plain_ms"],
-        "bound_ms": k2_timing["bound_ms"],
-        "bound_by": k2_timing["bound_by"], "library_ms": None}, {
+        **k2_timing, "library_ms": None}, {
         "name": "flash_fill", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",
         "replaces": "src/repro/kernels/flash_attn/kernel.py:95",

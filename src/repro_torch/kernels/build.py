@@ -32,7 +32,7 @@ class Built:
     """A loaded kernel library and what its build reported."""
     lib: ctypes.CDLL
     path: Path
-    ptxas_log: str       # nvcc's -Xptxas -v report ('' when loaded from cache)
+    ptxas_log: str       # nvcc's -Xptxas -v report (kept beside the library)
     seconds: float       # build wall time (0.0 when loaded from cache)
 
 
@@ -72,8 +72,11 @@ def load(source: Path) -> Built:
             return built
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         out = BUILD_DIR / f"{key}.so"
+        report = out.with_suffix(".ptxas.txt")
         log, seconds = "", 0.0
-        if not out.exists():
+        if out.exists() and report.exists():
+            log = report.read_text()
+        else:
             tmp = BUILD_DIR / f"{key}.{os.getpid()}.tmp.so"
             cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
             t0 = time.perf_counter()
@@ -85,6 +88,7 @@ def load(source: Path) -> Built:
                 raise RuntimeError(
                     f"nvcc failed on {source.name} (exit {proc.returncode}):"
                     f"\n{log}")
+            report.write_text(log)
             os.replace(tmp, out)   # atomic: concurrent builders never see
             #                        a half-written library
         built = Built(lib=ctypes.CDLL(str(out)), path=out, ptxas_log=log,

@@ -20,6 +20,11 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "myers.cu"
 # 64-bit words per column the CUDA kernel is instantiated for
 WORDS = (1, 2, 4, 8, 16)
 MAX_QUERY = 64 * WORDS[-1]
+# Steps between the kernel's tests of the provable-k exit (it also tests the
+# last column), a copy of csrc/myers.cu's CHECK_EVERY: min(best, score -
+# columns left) never falls again once it exceeds k, so a late test gives
+# the outputs of a test at every column.
+CHECK_EVERY = 8
 
 # CUDA kernel launches since import (or since a caller reset it to 0); the
 # plain version does not count.
@@ -85,7 +90,7 @@ def _lib():
         from repro_torch.kernels import build
         lib = build.load(SOURCE).lib
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.myers_fill_launch.argtypes = [i] * 3 + [p] * 7 + [i] * 3 + [p]
+        lib.myers_fill_launch.argtypes = [i] * 3 + [p] * 6 + [i] * 3 + [p]
         lib.myers_fill_launch.restype = i
         _LIB = lib
     return _LIB
@@ -98,8 +103,6 @@ def _launch(query, ref, lens, glob, k):
     B, Q = query.shape
     R = ref.shape[1]
     nw = n_words(Q)
-    # scratch Peq table [symbol][word][pair] of uint64 (int64 storage)
-    peq = torch.empty((M.N_SYMBOLS, nw, B), dtype=torch.int64, device=dev)
     score = torch.empty((B,), dtype=torch.int32, device=dev)
     best = torch.empty((B,), dtype=torch.int32, device=dev)
     best_j = torch.empty((B,), dtype=torch.int32, device=dev)
@@ -107,7 +110,7 @@ def _launch(query, ref, lens, glob, k):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.myers_fill_launch(
             nw, int(glob), k, query.data_ptr(), ref.data_ptr(),
-            lens.data_ptr(), peq.data_ptr(), score.data_ptr(),
+            lens.data_ptr(), score.data_ptr(),
             best.data_ptr(), best_j.data_ptr(), B, Q, R, stream)
     if err:
         raise RuntimeError(f"K2 myers_fill launch failed: CUDA error {err} "

@@ -21,7 +21,18 @@ from repro_torch.core.spec_utils import band_mask, region_mask
 from repro_torch.core.traceback import pack_lanes
 
 N_PE = 32               # lanes per strip: one warp, one lane per PE
-WARPS_PER_CTA = 4       # pairs per thread block (fewer when smem is short)
+STRIP_WARPS = 8         # most warps per pair: strips in flight at once
+WARPS_PER_SM = 32       # K1's resident warps per SM (64 registers a thread)
+# Strip c + 1 uses column x of strip c's bottom row at wavefront x - 1,
+# and strip c's lane 31 writes it at wavefront x + 30: the least number of
+# wavefronts by which a strip may trail the one above it.  The CUDA code
+# mirrors it (it signals a handoff chunk after wavefront
+# RING_CHUNK (k + 1) + STRIP_LAG - 2) and the launch checks that the two
+# agree.
+STRIP_LAG = N_PE
+RING_CHUNK = 16         # columns per handoff chunk (CH in the CUDA code)
+TILE_STRIDE = 36        # bytes per wavefront of a warp's pointer tile
+REF_PAD = 32            # slack bytes each side of the staged reference
 SOURCE = Path(__file__).resolve().parent / "csrc" / "wavefront.cu"
 
 FAMILY_IDS = {T.FAMILY_LINEAR: 0, T.FAMILY_AFFINE: 1, T.FAMILY_TWO_PIECE: 2}
@@ -46,13 +57,65 @@ def supports(spec: T.DPKernelSpec):
     return None
 
 
-def smem_bytes(spec: T.DPKernelSpec, r_bucket: int, warps: int = 1) -> int:
-    """Dynamic shared memory one thread block of K1 needs at a reference
-    bucket: one (R + 1) x n_layers int32 row buffer per warp, plus the
-    substitution matrix for matrix-scored kernels."""
+def strip_warps(q_bucket: int, batch: int, sms: int) -> int:
+    """Warps per pair (per thread block): up to STRIP_WARPS, halved while
+    the batch's warps would exceed what ``sms`` SMs hold at once (a strip
+    pipeline idles its warps for a few chunks at each end, so fewer warps
+    a pair and more pairs resident fill the card better), never below 2
+    where the pair has two strips."""
+    c = max(1, int(q_bucket) // N_PE)
+    g = min(c, STRIP_WARPS)
+    while g > 2 and int(batch) * g > sms * WARPS_PER_SM:
+        g //= 2
+    return g
+
+
+def ring_chunks(r_bucket: int, warps: int) -> int:
+    """Slots of each handoff ring, a power of two.
+
+    A warp runs its strips in order, so when the lowest unfinished strip
+    m runs, the warp of strip m + G (G warps) is still busy with it, and
+    strip m + G - 1 can hand over at most NCH chunks before it waits.  Each
+    strip above m then runs at most NCH chunks ahead of the one below it
+    (a strip blocked on chunk p has released the p chunks it read), so
+    strip m can write G * NCH chunks: with NCH >= ceil(chunks / G) + 1 it
+    never waits on a strip that cannot start.  Four slots otherwise keep
+    a producer clear of its consumer."""
+    chunks = -(-int(r_bucket) // RING_CHUNK)
+    need = max(4, -(-chunks // warps) + 1)
+    return 1 << (need - 1).bit_length()
+
+
+# Score layers each PE family reads from the cell above, by its layer
+# count (H; H and D for affine; H, D1 and D2 for two-piece): the layers K1
+# shuffles between lanes and holds in the handoff rings (PE::UP in
+# csrc/wavefront.cu).  Every family reads only H from the diagonal.
+UP_LAYERS = {1: (0,), 3: (0, 2), 5: (0, 2, 4)}
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def smem_bytes(spec: T.DPKernelSpec, q_bucket: int, r_bucket: int,
+               warps: int, with_tb: bool = True) -> int:
+    """Dynamic shared memory of one K1 thread block (one pair), laid out
+    as ``csrc/wavefront.cu::layout``: the rings' mbarriers (full and empty
+    per slot), the substitution matrix for matrix-scored kernels (at most
+    24 x 24), the handoff rings (warps x slots x RING_CHUNK columns x up
+    layers), the init row's up layers, a 32-wavefront pointer tile per
+    warp, and the pair's query and reference codes (the latter with
+    REF_PAD bytes each side)."""
+    q, r, g = int(q_bucket), int(r_bucket), int(warps)
+    nch = ring_chunks(r, g)
+    nu = len(UP_LAYERS[spec.n_layers])
     sub = 24 * 24 * 4 if spec.family and spec.family.sub == T.SUB_MATRIX \
         else 0
-    return sub + warps * (int(r_bucket) + 1) * spec.n_layers * 4
+    return (_align16(g * nch * 2 * 8) + _align16(sub)
+            + _align16(g * nch * RING_CHUNK * nu * 4)
+            + _align16((r + 1) * nu * 4)
+            + (g * N_PE * TILE_STRIDE if with_tb else 0)
+            + _align16(q) + _align16(r + 2 * REF_PAD))
 
 
 def _check_inputs(spec, query, ref, init_row, init_col, lens, tb_pack):
@@ -116,7 +179,7 @@ def _lib():
         lib = build.load(SOURCE).lib
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.wavefront_fill_launch.argtypes = (
-            [i] * 5 + [p] * 6 + [i] + [i] * 7 + [p] * 3 + [i] * 6 + [p])
+            [i] * 5 + [p] * 6 + [i] + [i] * 7 + [p] * 3 + [i] * 9 + [p])
         lib.wavefront_fill_launch.restype = i
         lib.wavefront_max_smem.argtypes = [i]
         lib.wavefront_max_smem.restype = i
@@ -132,15 +195,16 @@ def _launch(spec, params, query, ref, init_row, init_col, lens, tb_pack,
     B, Q = query.shape
     R = ref.shape[1]
     C = Q // N_PE
-    limit = lib.wavefront_max_smem(dev.index if dev.index is not None
-                                   else torch.cuda.current_device())
-    shared = smem_bytes(spec, R, 0)
-    per_warp = smem_bytes(spec, R, 1) - shared
-    warps = min(WARPS_PER_CTA, (limit - shared) // per_warp)
-    if warps < 1:
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    limit = lib.wavefront_max_smem(index)
+    warps = strip_warps(Q, B, torch.cuda.get_device_properties(
+        index).multi_processor_count)
+    need = smem_bytes(spec, Q, R, warps, with_tb)
+    if need > limit:
         raise ValueError(
             f"kernel {spec.name}: reference bucket {R} needs "
-            f"{shared + per_warp} bytes of shared memory per block; this "
+            f"{need} bytes of shared memory per block; this "
             f"device allows {limit}")
     fam = spec.family
     matrix = fam.sub == T.SUB_MATRIX
@@ -151,7 +215,8 @@ def _launch(spec, params, query, ref, init_row, init_col, lens, tb_pack,
                    or n_sub > 24):
         raise ValueError("substitution matrix must be square, at most 24")
     vals = [int(params.get(k, 0)) for k in _PARAM_NAMES]
-    tb = (torch.zeros((B, C, N_PE // tb_pack, N_PE + R - 1),
+    # the kernel writes every byte of the store, zeros included
+    tb = (torch.empty((B, C, N_PE // tb_pack, N_PE + R - 1),
                       dtype=torch.uint8, device=dev) if with_tb else None)
     best = torch.empty((B, C, N_PE), dtype=torch.int32, device=dev)
     best_j = torch.empty((B, C, N_PE), dtype=torch.int32, device=dev)
@@ -166,6 +231,7 @@ def _launch(spec, params, query, ref, init_row, init_col, lens, tb_pack,
             sub.data_ptr() if matrix else None, n_sub, *vals,
             tb.data_ptr() if with_tb else None, best.data_ptr(),
             best_j.data_ptr(), B, Q, R, tb_pack, int(with_tb), warps,
+            ring_chunks(R, warps).bit_length() - 1, STRIP_LAG, RING_CHUNK,
             stream)
     if err:
         raise RuntimeError(f"K1 wavefront_fill launch failed: CUDA error "

@@ -12,6 +12,7 @@ The JAX package is imported inside the CPU tests only, so that
 from __future__ import annotations
 
 import importlib.util
+import re
 from pathlib import Path
 
 import numpy as np
@@ -218,6 +219,143 @@ def test_score_trail_gives_the_threshold_exit(kname, rng):
         stopped = M.sweep(*args, glob=glob, k=k)[0].numpy() == SENT
         np.testing.assert_array_equal(
             exit_rows(t, lens, glob, k) | ~live, stopped, err_msg=f"k={k}")
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's schedule, emulated on the CPU.  csrc/myers.cu gives each
+# 64-bit word of a pair its own lane (32 / NW pairs a warp): at step t lane
+# w advances column t - w + 1 with the hin lane w - 1 produced one step
+# earlier, and the lane of the score word sw tests the k-exit every
+# CHECK_EVERY steps and at the last column, sending the answer to the
+# pair's lanes by a shuffle.  The 64-bit words are Python integers (torch
+# has no unsigned 64-bit arithmetic on the CPU).
+W64 = (1 << 64) - 1
+
+
+def _emulate_k2(qs, rs, lens, glob, k, nw, check_every):
+    B, Q = qs.shape
+    R = rs.shape[1]
+    P = 32 // nw
+    out = np.zeros((3, B), np.int64)
+    for b0 in range(0, B, P):
+        lanes = []
+        for lane in range(32):
+            b, w = b0 + lane // nw, lane % nw
+            q_len = min(max(int(lens[b, 0]), 0), Q) if b < B else 0
+            r_len = min(max(int(lens[b, 1]), 0), R) if b < B else 0
+            live = q_len >= 1 and r_len >= 1
+            sw = (q_len - 1) >> 6 if live else 0
+            peq = [0] * 32
+            for i in range(64 * w, min(q_len, 64 * w + 64)):
+                if qs[b, i] < 32:
+                    peq[qs[b, i]] |= 1 << (i - 64 * w)
+            lanes.append(dict(b=b, w=w, q_len=q_len, r_len=r_len, sw=sw,
+                              sb=(q_len - 1) & 63 if live else 0, peq=peq,
+                              vp=W64, vn=0, hout=0, score=q_len, best=SENT,
+                              bestj=0, prev=(q_len, SENT), stopped=False,
+                              done=not live,
+                              t_hi=r_len - 1 + w if live and w <= sw
+                              else -1,
+                              t_end=r_len - 1 + sw if live else -1))
+        t_max = max(x["t_end"] for x in lanes)
+        for t in range(t_max + 1):
+            if t % check_every == 0:
+                for x in lanes:     # the k-exit test before column j
+                    j = t - x["w"] + 1
+                    if (x["w"] == x["sw"] and x["w"] <= t <= x["t_hi"]
+                            and k >= 0 and min(x["best"], x["score"]
+                                               - (x["r_len"] - (j - 1)))
+                            > k):
+                        x["stopped"] = True
+                for lane, x in enumerate(lanes):
+                    if lanes[lane - x["w"] + x["sw"]]["stopped"]:
+                        x["done"], x["t_hi"] = True, -1
+                if all(x["done"] or t > x["t_end"] for x in lanes):
+                    break
+            hins = [0] + [x["hout"] for x in lanes[:-1]]   # __shfl_up_sync
+            for x, h in zip(lanes, hins):
+                if not x["w"] <= t <= x["t_hi"]:
+                    continue
+                j = t - x["w"] + 1
+                hin = (1 if glob else 0) if x["w"] == 0 else h
+                c = min(int(rs[x["b"], j - 1]), 31)
+                eq0, vp, vn = x["peq"][c], x["vp"], x["vn"]
+                hneg, hpos = int(hin < 0), int(hin > 0)
+                xv = eq0 | vn
+                eq = eq0 | hneg
+                xh = ((((eq & vp) + vp) & W64) ^ vp) | eq
+                ph = vn | (~(xh | vp) & W64)
+                mh = vp & xh
+                x["hout"] = (ph >> 63) - (mh >> 63)
+                x["prev"] = (x["score"], x["best"])
+                sb = x["sb"]
+                x["score"] += ((ph >> sb) & 1) - ((mh >> sb) & 1)
+                if not glob and x["score"] < x["best"]:
+                    x["best"], x["bestj"] = x["score"], j
+                phs = ((ph << 1) & W64) | hpos
+                mhs = ((mh << 1) & W64) | hneg
+                x["vp"] = mhs | (~(xv | phs) & W64)
+                x["vn"] = phs & xv
+        for x in lanes:     # the last column is always tested
+            s_prev, b_prev = x["prev"]
+            if (x["w"] == x["sw"] and not x["done"] and k >= 0
+                    and min(b_prev, s_prev - 1) > k):
+                x["stopped"] = True
+        for x in lanes:
+            if x["b"] < B and x["w"] == x["sw"]:
+                dead = not (x["q_len"] >= 1 and x["r_len"] >= 1) \
+                    or x["stopped"]
+                out[:, x["b"]] = ((SENT, SENT, 0) if dead else
+                                  (x["score"], x["best"], x["bestj"]))
+    return out
+
+
+def _k2_plain(qs, rs, ql, rl, glob, k):
+    lens = torch.as_tensor(np.stack([ql, rl], 1))
+    got = K.myers_fill_plain(torch.as_tensor(qs), torch.as_tensor(rs), lens,
+                             glob=glob, k=k)
+    return np.stack([g.numpy() for g in got]).astype(np.int64)
+
+
+@pytest.mark.parametrize("nw", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("kname", EDIT)
+def test_kernel_schedule_matches_plain(kname, nw, rng):
+    """The word-lane diagonal schedule equals the plain sweep at every
+    instantiation, in both modes, without and with thresholds."""
+    glob = kname == "edit_distance"
+    Q = 40 if nw == 1 else 64 * nw - 24        # n_words(Q) == nw
+    B = max(2 * (32 // nw), 8)                 # two warps of pairs
+    qs, rs, ql, rl = _batch(rng, 4, B, Q, 48)
+    assert K.n_words(Q) == nw
+    lens = np.stack([ql, rl], 1)
+    free = _k2_plain(qs, rs, ql, rl, glob, -1)
+    for k in (-1, 0, 5, int(np.median(free[0 if glob else 1][:6]))):
+        want = _k2_plain(qs, rs, ql, rl, glob, k)
+        got = _emulate_k2(qs, rs, lens, glob, k, nw, K.CHECK_EVERY)
+        np.testing.assert_array_equal(got, want, err_msg=f"k={k}")
+
+
+@pytest.mark.parametrize("every", [1, 4, 8])
+def test_late_k_exit_gives_the_same_outputs(every, rng):
+    """Testing the k-exit every 1, 4 or 8 steps (and at the last column)
+    gives the outputs of the plain sweep, which tests every column, for
+    every k from 0 to beyond the largest distance."""
+    qs, rs, ql, rl = _batch(rng, 4, 32, 100, 72)
+    lens = np.stack([ql, rl], 1)
+    for glob in (True, False):
+        for k in range(0, 80, 3):
+            want = _k2_plain(qs, rs, ql, rl, glob, k)
+            got = _emulate_k2(qs, rs, lens, glob, k, 2, every)
+            np.testing.assert_array_equal(got, want,
+                                          err_msg=f"glob={glob} k={k}")
+
+
+def test_check_every_is_the_kernels():
+    """kernel.py's CHECK_EVERY, the period the schedule test emulates, is
+    the constant csrc/myers.cu compiles in."""
+    m = re.search(r"constexpr int CHECK_EVERY = (\d+);",
+                  K.SOURCE.read_text())
+    assert m is not None and int(m.group(1)) == K.CHECK_EVERY
 
 
 @pytest.mark.gpu
