@@ -2,11 +2,13 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It drives the port's three main paths on the card: the alignment path
+It drives the port's four main paths on the card: the alignment path
 (``run_pairs`` -> plan -> K1 fill -> batched traceback -> harvest), the
 read mapper (``ReadMapper.map_reads``: index, seed, chain, the screen on K2,
-banded extension on K1, SAM) and LM serving (``ServeSession``: per-slot
-prefill on K3 for olmo-1b and K4 for rwkv6-3b, batched greedy decode).  It
+banded extension on K1, SAM), pair-HMM genotyping (``run_pairs`` on K1's
+logsumexp instantiation, ``prob.call_genotype``, ``prob.call_site``) and
+LM serving (``ServeSession``: per-slot prefill on K3 for olmo-1b and K4 for
+rwkv6-3b, batched greedy decode).  It
 holds every CUDA kernel against its plain PyTorch version at the shapes
 those paths give it, times K1-K4, and prints one JSON line listing the
 kernels and, last,
@@ -16,12 +18,19 @@ the ``src/repro_torch`` package.
 
 Phases:
   1. card identity (name, count, power limit, SM clock);
-  2. build K1-K4 with nvcc, all at once, and report ptxas registers /
-     spills (K1's instantiations for #2, #4 and the mapper's extension, and
-     every K2 instantiation, must not spill);
+  2. build K1 (two sources: the gap-model families and the others), K2,
+     K3 and K4 with nvcc, all at once, and report ptxas registers /
+     spills (K1's instantiations for #2, #4, the mapper's extension and
+     the pair-HMM forward at logsumexp, and every K2 instantiation, must
+     not spill; every other-family instantiation is listed);
   3. K1 vs its plain version, every ported zoo kernel and pointer packing,
      at buckets 64 (batch 16, mixed lengths), 256 (batch 64), 1024 (batch 4),
      each output allocated on blocks the script left filled with 0xFF;
+  3b. K1 vs its plain version for #8, #9, #10, #14, the pair-HMM forward
+     and backward at logsumexp and the forward at max-plus, at the same
+     buckets, on 0xFF blocks: integers bit-equal, float best within rtol
+     1e-5 (max/min) / 2e-5 (logsumexp), best_j and pointers exact
+     wherever best is bit-equal;
   4. main path: ``run_pairs`` with global affine (#2) on 8192 short DNA
      pairs (windows of 128-256 bases of a 1 Mb random reference, queries
      mutated at 8 %), block 1024, with traceback; checked against the CPU
@@ -49,6 +58,19 @@ Phases:
   9. K2 alone timed at the screen's fullest block, beside its plain version
      and its lower bound on this card, and at batch 128 and 8192 (the
      block's pairs repeated);
+  G. genotyping at GATK HaplotypeCaller's shapes: 1,024 sites of
+     ``sample_site`` (seeds 0-1023, 400-base haplotypes, 30 reads of 150
+     at 1 % error, genotypes cycling (0,0), (0,1), (1,1), every 8th site
+     three alternates and genotype (1, 3)); all 69,120 read x haplotype
+     pairs through one ``run_pairs`` (block 1024, logsumexp, score-only),
+     the calls per site; checks concordance >= 99 %, the first 64
+     likelihoods against the CPU path (rtol 2e-5) and ``call_site`` on
+     four sites; K1 held to its plain version (rtol 2e-5) and timed on the
+     fullest block, beside its bound (the MUFU and f32 operations that
+     the live cells and the last rows' cells need);
+  P. ``forward_backward`` on four 150 x 400 pairs on the card's reference
+     engine: log_z_backward within rel 1e-4 of log_z, rows summing to 1
+     within 5e-4, the CPU path within 1e-4;
   (K1 and K2 are timed by kernel_device_ms: the device time of 20
   launches captured in a CUDA graph and replayed between CUDA events, 5
   rounds, median and range, with the CUDA-event ms of Python calls, the
@@ -119,6 +141,27 @@ K2_OPS_PER_WORD_COLUMN = 21
 K2_OPS_PER_HANDOFF = 2
 K2_OPS_PER_COLUMN = 8
 PORTED = [1, 2, 3, 4, 5, 6, 7, 11, 12, 13, 15]
+# phase 3b: K1's other families (csrc/wavefront_ext.cu): the zoo's float and
+# min-plus kernels and the pair-HMM at both semirings
+EXT_CASES = [8, 9, 10, 14, ("forward", "logsumexp"), ("backward",
+             "logsumexp"), ("forward", "max")]
+# The pair-HMM forward's work, counted from PairHmmForwardPE in
+# csrc/wavefront_ext.cu at the fewest Hopper instructions.  A logaddexp is
+# one MUFU.EX2, one MUFU.LG2 and five f32 operations (max, a - b, the
+# scale into ex2, 1 + e, the fused m + ln2 lg2).  Every live cell needs
+# four (M's two, X, Y) and nine f32 adds of the transitions and emissions;
+# F = M + X is read only by the fold over the last row, so a live cell of
+# the last row needs two more (F and the fold) and nothing else does.
+PAIRHMM_MUFU_PER_CELL = 4 * 2
+PAIRHMM_F32_PER_CELL = 4 * 5 + 9
+PAIRHMM_MUFU_PER_LAST_ROW_CELL = 2 * 2
+PAIRHMM_F32_PER_LAST_ROW_CELL = 2 * 5
+MUFU_PER_SM_CLOCK = 16              # Hopper: 4 partitions x 4 SFU lanes
+F32_PER_SM_CLOCK = 128              # Hopper: 4 partitions x 32 FP32 lanes
+# genotyping phase: GATK HaplotypeCaller shapes (2 x 150 Illumina reads, an
+# assembly region of up to 300 bases plus 100 of padding, 30x depth)
+GT_SITES, GT_HAP_LEN, GT_READ_LEN, GT_READS = 1024, 400, 150, 30
+GT_BLOCK = 1024
 E_COLI_LEN = 4_641_652             # E. coli K-12 MG1655, NC_000913.3
 N_READS, N_JUNK, READ_LEN = 32768, 4096, 150
 MAPPER_BLOCK = 1024
@@ -313,7 +356,8 @@ def phase_identity():
           f"{torch.backends.cuda.matmul.allow_tf32}, cudnn "
           f"{torch.backends.cudnn.allow_tf32})", flush=True)
     print(smi, flush=True)
-    return {"name": name, "count": count, "smi": smi,
+    return {"name": name, "count": count, "smi": smi, "sms": sms,
+            "clock_hz": clock_mhz * 1e6,
             "int32_ops_per_s": sms * INT32_LANES_PER_SM * clock_mhz * 1e6}
 
 
@@ -326,8 +370,8 @@ def phase_build():
     from repro_torch.kernels.wavefront import kernel as K1
     from repro_torch.kernels.wkv6 import kernel as K4
     from repro_torch.mapping import extend as extend_mod
-    names = ("K1", "K2", "K3", "K4")
-    sources = (K1.SOURCE, K2.SOURCE, K3.SOURCE, K4.SOURCE)
+    names = ("K1", "K1 ext", "K2", "K3", "K4")
+    sources = (K1.SOURCE, K1.SOURCE_EXT, K2.SOURCE, K3.SOURCE, K4.SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(build.load, sources))
@@ -353,6 +397,16 @@ def phase_build():
         check(hit[0][2] == 0, f"K1 {what} spills {hit[0][2]} bytes")
         print(f"    K1 {what} ({key}): {hit[0][1]} registers, no spills",
               flush=True)
+    # K1's other families, one row per instantiation; the genotyping
+    # path's (pair-HMM forward, logsumexp, last row, unbanded) must not
+    # spill
+    for name, regs, spill, stack, _ in tables["K1 ext"]:
+        print(f"    K1 ext {name}: {regs} registers, {spill} spill bytes, "
+              f"{stack} stack bytes", flush=True)
+    hit = [r for r in tables["K1 ext"]
+           if "16PairHmmForwardPEILi2EEELi2ELb0EE" in r[4]]
+    check(len(hit) == 1, "no K1 instantiation for the pair-HMM forward")
+    check(hit[0][2] == 0, f"K1 pair-HMM forward spills {hit[0][2]} bytes")
     check(all(r[2] == 0 for r in tables["K2"]), "K2 spills registers")
     print(f"    all {len(sources)} builds: {time.perf_counter() - t0:.1f} s "
           f"wall", flush=True)
@@ -425,6 +479,313 @@ def phase_kernel_vs_plain(rng):
           f"left filled with 0xFF) in {time.perf_counter() - t0:.1f} s",
           flush=True)
     return max_err
+
+
+def _ext_case(case):
+    """(label, spec, params) of an EXT_CASES entry."""
+    from repro_torch import prob
+    from repro_torch.core import kernels_zoo
+    if isinstance(case, int):
+        spec, params = kernels_zoo.make(case)
+        return f"#{case}", spec, params
+    direction, objective = case
+    mk = prob.pairhmm if direction == "forward" else prob.pairhmm_backward
+    spec = mk(objective)
+    return spec.name, spec, prob.default_params()
+
+
+def _ext_codes(rng, spec, shape):
+    """Random characters of a spec's alphabet: profile columns, complex
+    samples, integer squiggles or DNA codes."""
+    import numpy as np
+    if spec.char_shape == (5,):
+        counts = rng.multinomial(8, [0.22, 0.22, 0.22, 0.22, 0.12],
+                                 size=shape)
+        return (counts / 8).astype(np.float32)
+    if spec.char_shape == (2,):
+        return rng.normal(size=shape + (2,)).astype(np.float32)
+    if str(spec.char_dtype) == "torch.int32":
+        return rng.integers(0, 128, shape).astype(np.int32)
+    return rng.integers(0, 4, shape).astype(np.uint8)
+
+
+def _ext_rtol(spec):
+    return 2e-5 if spec.is_sum else 1e-5
+
+
+def _hold_ext(spec, got, want, what):
+    """K1 against its plain version on one batch of a K1-ext family:
+    integer outputs bit-equal; float best within the family's rtol (1e-5
+    max/min, 2e-5 logsumexp) with the sentinel lanes equal; best_j and the
+    pointer store exact for every pair whose best is bit-equal.  Returns
+    (largest |diff| of best, its largest relative error, pairs whose best
+    is bit-equal, pairs)."""
+    import torch
+    tb, best, best_j = got
+    ptb, pbest, pbest_j = want
+    B = best.shape[0]
+    if not spec.score_dtype.is_floating_point:
+        err = int((best.long() - pbest.long()).abs().max())
+        check(all(torch.equal(g, w) for g, w in zip(got, want)
+                  if g is not None),
+              f"K1 != plain: {what} (max |diff| {err})")
+        return err, 0.0, B, B
+    sent = float(spec.sentinel())
+    dead = pbest == sent
+    check(torch.equal(dead, best == sent),
+          f"K1 and plain differ on which lanes are dead: {what}")
+    diff = (best.double() - pbest.double()).abs()
+    rel = torch.where(dead, 0.0, diff / pbest.double().abs().clamp(
+        min=1e-30))
+    err, rerr = float(torch.where(dead, 0.0, diff).max()), float(rel.max())
+    check(rerr <= _ext_rtol(spec), f"K1 != plain: {what} (largest relative "
+          f"error {rerr:.3g} > {_ext_rtol(spec)})")
+    same = (best == pbest).reshape(B, -1).all(dim=1)
+    check(torch.equal(best_j[same], pbest_j[same]),
+          f"K1 best_j != plain where best is bit-equal: {what}")
+    if tb is not None:
+        check(torch.equal(tb[same], ptb[same]),
+              f"K1 pointer store != plain where best is bit-equal: {what}")
+    return err, rerr, int(same.sum()), B
+
+
+def phase_ext_vs_plain(rng):
+    """3b: K1's f32 max-plus (#8, #10, pair-HMM Viterbi), min-plus (#9 f32,
+    #14 int32) and logsumexp (pair-HMM forward and backward)
+    instantiations against the plain version at the phase 3 buckets."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.wavefront import kernel as K
+    max_rel, n, equal, total = 0.0, 0, 0, 0
+    t0 = time.perf_counter()
+    for case in EXT_CASES:
+        label, spec, params = _ext_case(case)
+        for bucket, batch in ((64, 16), (256, 64), (1024, 4)):
+            qs = _ext_codes(rng, spec, (batch, bucket))
+            rs = _ext_codes(rng, spec, (batch, bucket))
+            ql = rng.integers(bucket // 2, bucket + 1, batch).astype(np.int32)
+            ql[0] = bucket
+            rl = rng.integers(bucket // 2, bucket + 1, batch).astype(np.int32)
+            args = _fill_args(spec, params, qs, rs, ql, rl, "cuda")
+            for pack in sorted({spec.tb_pack, 1}):
+                want = K.wavefront_fill_plain(spec, params, *args,
+                                              tb_pack=pack)
+                dirty = _dirty_allocator(*want)
+                got = K.wavefront_fill(spec, params, *args, tb_pack=pack)
+                torch.cuda.synchronize()
+                check(got[0].data_ptr() in dirty and
+                      got[1].data_ptr() in dirty, "K1's outputs did not land "
+                      "on the 0xFF blocks")
+                _, rerr, same, b = _hold_ext(
+                    spec, got, want, f"{label}, bucket {bucket}, batch "
+                    f"{batch}, tb_pack {pack}")
+                max_rel = max(max_rel, rerr)
+                equal, total, n = equal + same, total + b, n + 1
+    print(f"[3b] K1 == plain on {n} (kernel, bucket, tb_pack) cases of "
+          f"#8, #9, #10, #14 and the pair-HMM (forward and backward "
+          f"logsumexp, forward max-plus): integers bit-equal, float best "
+          f"within rtol 1e-5 (max/min) / 2e-5 (logsumexp), largest relative "
+          f"error {max_rel:.3g}; best bit-equal on {equal} of {total} pairs, "
+          f"best_j and pointers exact on those; every output allocated on "
+          f"blocks left filled with 0xFF; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return max_rel
+
+
+def _genotyping_sites():
+    """GT_SITES sites from sample_site(seed=s), genotypes cycling (0,0),
+    (0,1), (1,1); every 8th (s % 8 == 7) with three alternates and
+    genotype (1, 3)."""
+    from repro_torch.data.synthetic import sample_site
+    cycle = [(0, 0), (0, 1), (1, 1)]
+    sites = []
+    for s in range(GT_SITES):
+        multi = s % 8 == 7
+        sites.append(sample_site(
+            seed=s, hap_len=GT_HAP_LEN, read_len=GT_READ_LEN,
+            n_reads=GT_READS, error_rate=0.01,
+            genotype=(1, 3) if multi else cycle[s % 3],
+            n_alts=3 if multi else 1))
+    return sites
+
+
+def _pairhmm_bound_ms(block, card):
+    """The least time the pair-HMM forward takes on one block on this
+    card: its MUFU operations at MUFU_PER_SM_CLOCK per SM per clock, or its
+    f32 operations at F32_PER_SM_CLOCK, whichever is longer (the bytes a
+    block moves are a few MB at 3.35 TB/s, far less).  Counts the live
+    cells and the live cells of each pair's last row."""
+    cells = _live_cells(block)
+    last_row = int(block[4][block[3] > 0].astype("int64").sum())
+    mufu = (cells * PAIRHMM_MUFU_PER_CELL
+            + last_row * PAIRHMM_MUFU_PER_LAST_ROW_CELL)
+    f32 = (cells * PAIRHMM_F32_PER_CELL
+           + last_row * PAIRHMM_F32_PER_LAST_ROW_CELL)
+    rate = card["sms"] * card["clock_hz"]
+    mufu_ms = mufu / (MUFU_PER_SM_CLOCK * rate) * 1e3
+    f32_ms = f32 / (F32_PER_SM_CLOCK * rate) * 1e3
+    return max(mufu_ms, f32_ms), mufu_ms, f32_ms
+
+
+def phase_genotyping(card):
+    """Pair-HMM genotyping at GATK's shapes: every read x haplotype pair of
+    GT_SITES sites through one run_pairs on K1's logsumexp instantiation,
+    the calls per site, call_site on a few sites, and K1 held and timed on
+    the path's fullest block."""
+    import numpy as np
+    import torch
+    from repro_torch import prob
+    from repro_torch.core.spec_utils import params_on_device
+    from repro_torch.kernels.wavefront import kernel as K
+    from repro_torch.runtime import dispatch
+    t0 = time.perf_counter()
+    sites = _genotyping_sites()
+    pairs, spans = [], []
+    for site in sites:
+        spans.append((len(pairs), len(site.reads), len(site.haplotypes)))
+        pairs.extend((r, h) for r in site.reads for h in site.haplotypes)
+    setup_s = time.perf_counter() - t0
+    cells = sum(len(q) * len(r) for q, r in pairs)
+    spec, params = prob.cached_pairhmm(), prob.default_params()
+    blocks = _blocks(pairs, GT_BLOCK)
+
+    dispatch.run_pairs(spec, params, pairs[:GT_BLOCK], block=GT_BLOCK,
+                       with_traceback=False)                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.launches = 0
+    t1 = time.perf_counter()
+    outs = dispatch.run_pairs(spec, params, pairs, block=GT_BLOCK,
+                              with_traceback=False)
+    scores = np.asarray([float(o.score) for o in outs], np.float64)
+    wall = time.perf_counter() - t1
+    launches = K.launches
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == len(blocks), f"genotyping launched K1 {launches} "
+          f"times for {len(blocks)} blocks")
+    check(np.isfinite(scores).all() and (scores < 0).all(),
+          "genotyping: a likelihood is not a finite log-probability")
+
+    t2 = time.perf_counter()
+    calls, gq = [], []
+    for site, (start, n_r, n_h) in zip(sites, spans):
+        ll = scores[start:start + n_r * n_h].reshape(n_r, n_h)
+        ll = ll - np.log([max(len(h), 1) for h in site.haplotypes])[None, :]
+        out = prob.call_genotype(ll)
+        calls.append(out["GT"] == tuple(site.genotype))
+        gq.append(out["GQ"])
+    call_s = time.perf_counter() - t2
+    concord = sum(calls) / len(calls)
+    check(concord >= 0.99, f"genotype concordance {concord:.4f} < 0.99")
+
+    # the entry point itself on the card, on a few sites
+    K.launches = 0
+    for site in sites[:3] + sites[7:8]:
+        out = prob.call_site(site.reads, site.haplotypes, block=64)
+        check(out["GT"] == tuple(site.genotype),
+              f"call_site called {out['GT']} for {site.genotype}")
+    check(K.launches > 0, "call_site did not reach K1")
+    site_launches = K.launches
+
+    # the first 64 pairs against the CPU path
+    cpu = dispatch.run_pairs(spec, params, pairs[:64], block=64,
+                             with_traceback=False, device="cpu")
+    cpu = np.asarray([float(o.score) for o in cpu])
+    rel64 = float(np.max(np.abs(scores[:64] - cpu) / np.abs(cpu)))
+    check(rel64 <= 2e-5, f"genotyping: the first 64 likelihoods differ from "
+          f"the CPU path by {rel64:.3g} (> 2e-5)")
+    print(f"[G] genotyping: {len(sites)} sites ({GT_HAP_LEN}-base "
+          f"haplotypes, {GT_READS} reads of {GT_READ_LEN}, 1 % error; every "
+          f"8th site 3 alternates), {len(pairs)} read x haplotype pairs, "
+          f"{cells} cells, made in {setup_s:.1f} s; run_pairs (block "
+          f"{GT_BLOCK}, {len(blocks)} blocks, K1 logsumexp): {wall:.3f} s "
+          f"wall to the host read, {len(pairs) / wall:.0f} pairs/s, "
+          f"{len(sites) / wall:.1f} sites/s (calls {call_s:.3f} s more), "
+          f"{cells / wall / 1e9:.2f} GCUPS; K1 launches {launches}; "
+          f"concordance {concord:.4f} ({sum(calls)} of {len(calls)}); mean "
+          f"GQ {np.mean(gq):.1f}; peak device memory {peak / 2**20:.1f} MiB; "
+          f"call_site on 4 sites: right, {site_launches} K1 launches; first "
+          f"64 likelihoods within {rel64:.3g} of the CPU path", flush=True)
+
+    # K1 against its plain version, and timed, on the fullest block, with
+    # the parameters on the card as run_pairs holds them
+    block = max(blocks, key=_live_cells)
+    (bq, br), qs, rs, ql, rl = block
+    params = params_on_device(params, DEVICE)
+    args = _fill_args(spec, params, qs, rs, ql, rl, DEVICE)
+    before = K.launches
+    got = K.wavefront_fill(spec, params, *args, with_tb=False)
+    want = []
+    plain_ms = cuda_time_ms(lambda: want.extend(K.wavefront_fill_plain(
+        spec, params, *args, with_tb=False)), 1)
+    _, rerr, same, B = _hold_ext(spec, got, want,
+                                 f"genotyping block {bq}x{br}")
+    dev, ev, host, prof = kernel_device_ms(
+        lambda: K.wavefront_fill(spec, params, *args, with_tb=False),
+        "wavefront")
+    K.launches = before
+    ms = statistics.median(dev)
+    live = _live_cells(block)
+    bound_ms, mufu_ms, f32_ms = _pairhmm_bound_ms(block, card)
+    print(f"    K1 logsumexp timed at batch {B}, {bq}x{br} (the fullest "
+          f"block, {live} live cells): {_spread_line(dev, ev, host, prof)}; "
+          f"plain {plain_ms:.1f} ms; bound {bound_ms:.4f} ms by operations "
+          f"(MUFU {mufu_ms:.4f} ms at {PAIRHMM_MUFU_PER_CELL} a cell and "
+          f"{PAIRHMM_MUFU_PER_LAST_ROW_CELL} more on the last row, f32 "
+          f"{f32_ms:.4f} ms at {PAIRHMM_F32_PER_CELL} and "
+          f"{PAIRHMM_F32_PER_LAST_ROW_CELL}); "
+          f"{100 * bound_ms / ms:.1f} % of the bound; "
+          f"{live / ms / 1e6:.1f} GCUPS live; largest relative error vs "
+          f"plain {rerr:.3g} (best bit-equal on {same} of {B} pairs); "
+          f"phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"launches": launches, "ms": ms, "ms_range": [min(dev), max(dev)],
+            "event_ms": statistics.median(ev),
+            "host_us": statistics.median(host), "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "operations",
+            "max_rel_err": max(rerr, rel64), "pairs_per_s": len(pairs) / wall,
+            "sites_per_s": len(sites) / wall, "gcups": cells / wall / 1e9,
+            "concordance": concord, "profiler_records": prof[0],
+            "sites": sites}
+
+
+def phase_posterior(sites):
+    """forward_backward on four 150 x 400 pairs of the genotyping sites on
+    the card's reference engine, against its identities and the CPU
+    path."""
+    import numpy as np
+    import torch
+    from repro_torch import prob
+    params = prob.default_params()
+    worst = [0.0, 0.0, 0.0]
+    t0 = time.perf_counter()
+    dims = []
+    for site in sites[:4]:
+        read, hap = site.reads[0], site.haplotypes[0]
+        dims.append(f"{len(read)}x{len(hap)}")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = prob.forward_backward(params, read, hap)
+        ms = (time.perf_counter() - t1) * 1e3
+        cpu = prob.forward_backward(params, read, hap, device="cpu")
+        z = abs(got.log_z_backward - got.log_z) / abs(got.log_z)
+        rows = got.post_match.sum(axis=1) + got.post_ins.sum(axis=1)
+        row_err = float(np.abs(rows - 1.0).max())
+        cpu_err = max(float(np.abs(got.post_match - cpu.post_match).max()),
+                      float(np.abs(got.post_ins - cpu.post_ins).max()),
+                      abs(got.log_z - cpu.log_z) / abs(cpu.log_z))
+        check(z <= 1e-4, f"posterior: log_z_backward differs from log_z by "
+              f"rel {z:.3g}")
+        check(row_err <= 5e-4, f"posterior: a row sums to 1 +- {row_err:.3g}")
+        check(cpu_err <= 1e-4, f"posterior: card and CPU differ by "
+              f"{cpu_err:.3g}")
+        worst = [max(worst[0], z), max(worst[1], row_err),
+                 max(worst[2], cpu_err)]
+        dims[-1] += f" {ms:.0f} ms"
+    print(f"[P] posterior on the card's reference engine, pairs "
+          f"{', '.join(dims)} (forward and backward fill each): "
+          f"log_z_backward within rel {worst[0]:.3g} of log_z, rows sum to "
+          f"1 within {worst[1]:.3g}, CPU path within {worst[2]:.3g}; "
+          f"{time.perf_counter() - t0:.1f} s with the CPU path", flush=True)
 
 
 def _read_pairs(rng, genome, n, lo, hi, rate, max_len):
@@ -1719,6 +2080,7 @@ def main() -> int:
         phase_build()
         rng = np.random.default_rng(SEED)
         max_err = phase_kernel_vs_plain(rng)
+        ext_err = phase_ext_vs_plain(rng)
         genome = alphabets.random_dna(rng, 1_000_000)
         launches, blocks = phase_main_path(rng, genome)
         long_blocks = phase_long_reads(rng, genome)
@@ -1726,6 +2088,8 @@ def main() -> int:
         k2_err = phase_k2_vs_plain(rng)
         mapper = phase_mapper(card)
         k2_timing = phase_k2_timing(mapper["screen"], card)
+        geno = phase_genotyping(card)
+        phase_posterior(geno.pop("sites"))
         k3_err = phase_k3_vs_plain(rng)
         k4_err = phase_k4_vs_plain(rng)
         olmo = phase_olmo()
@@ -1745,6 +2109,10 @@ def main() -> int:
         "max_abs_err": max(max_err, timing["max_abs_err"],
                            mapper["k1_err"]),
         "mapper_extension": mapper["k1_extension"],
+        "ext_families_max_rel_err": ext_err,
+        "genotyping": {k: geno[k] for k in (
+            "launches", "ms", "ms_range", "bound_ms", "bound_by", "plain_ms",
+            "max_rel_err", "event_ms", "host_us", "profiler_records")},
         "library_ms": None}, {
         "name": "myers_fill", "route": "cuda",
         "source": "src/repro_torch/kernels/myers/csrc/myers.cu",

@@ -3,9 +3,9 @@ torch ops over a lane vector (counterpart of
 ``repro.core.kernels_zoo.common``).
 
 A PE here takes ``(N,)`` query/reference codes and ``(N, n_layers)``
-neighbour scores and returns ``(N, n_layers)`` int32 scores and ``(N,)``
-int32 pointers.  These are the plain versions of the CUDA functors in
-``repro_torch/kernels/wavefront/csrc/wavefront.cu``: both must follow the
+neighbour scores and returns ``(N, n_layers)`` scores of the spec's score
+type and ``(N,)`` int32 pointers.  These are the plain versions of the CUDA
+functors in ``repro_torch/kernels/wavefront/csrc/``: both must follow the
 same order of comparisons, because ties decide the stored pointer.
 """
 from __future__ import annotations
@@ -45,7 +45,8 @@ def linear_pe(sub_fn, local: bool = False):
         d = up[:, 0] + gap
         ins = left[:, 0] + gap
         best = m
-        ptr = torch.full_like(m, P_DIAG)
+        ptr = torch.full(m.shape, P_DIAG, dtype=torch.int32,
+                         device=m.device)
         ptr = torch.where(d > best, P_UP, ptr)
         best = torch.maximum(best, d)
         ptr = torch.where(ins > best, P_LEFT, ptr)

@@ -8,7 +8,7 @@ under (port of ``repro.core.semiring``).
 
 ``⊗`` is ``+`` in every case.  The unreachable-cell "zero" is the engines'
 large-magnitude sentinel (±1e30 in float32), which ``logaddexp`` absorbs
-bit-exactly.  No ported kernel uses log-sum-exp yet.
+bit-exactly.
 """
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
-"""Masks shared by every engine (counterpart of ``repro.core.spec_utils``)."""
+"""Masks and helpers shared by every engine (counterpart of
+``repro.core.spec_utils``)."""
 from __future__ import annotations
 
 import torch
@@ -53,3 +54,17 @@ def region_mask(spec: T.DPKernelSpec, i, j, q_len, r_len):
     else:
         raise ValueError(f"unknown region {spec.region!r}")
     return interior & sel & band_mask(spec, i, j)
+
+
+def batch_lens(x, n: int, dev):
+    """Effective lengths as an (n,) int32 tensor on ``dev``: a scalar is
+    broadcast, a sequence of n values kept."""
+    t = torch.as_tensor(x, device=dev).to(torch.int32).reshape(-1)
+    return t.expand(n).contiguous() if t.numel() == 1 else t.reshape(n)
+
+
+def params_on_device(params, dev):
+    """``params`` with every tensor on ``dev``, so that a PE called once per
+    diagonal reads its tables without a host-to-device copy each time."""
+    return {k: v.to(dev) if isinstance(v, torch.Tensor) else v
+            for k, v in params.items()}

@@ -8,8 +8,9 @@ The port reads the layout the wavefront kernel K1 emits,
 ``('chunk', n_pe[, pack])``: ``tb[chunk, lane // pack, w]`` with strip
 height ``n_pe``, ``lane = (i - 1) % n_pe`` and chunk-local wavefront
 ``w = lane + j - 1``; lane ``l`` lives in slot ``l % pack`` of its byte
-(8 // pack bits each).  The 'diag' and 'row' layouts come with the engines
-that emit them.
+(8 // pack bits each); and the reference engine's row-major ``'row'``
+store, ``tb[i, j]`` over the whole (Q+1, R+1) matrix.  The 'diag' layout
+comes with the engine that emits it.
 
 The walk is plain torch: the JAX package computes it outside any kernel.
 ``run_batched`` advances every row of a block with masked updates over a
@@ -65,15 +66,22 @@ def _chunk_layout(layout):
 
 
 def _make_reader(tb, layout):
-    """``read(i, j) -> ptr`` over a batched ``(B, C, n_pe/pack, W)`` store;
-    ``i``/``j`` are ``(B,)``.
+    """``read(i, j) -> ptr`` over a batched store: ``(B, C, n_pe/pack, W)``
+    for the chunk layout, ``(B, Q+1, R+1)`` for ``'row'``; ``i``/``j`` are
+    ``(B,)``.
 
     Boundary cells (i == 0 or j == 0) hold no pointer and read as END, as
-    in the reference engine's row-major store.  (JAX's chunk reader clamps
-    them onto a stored cell instead, which a local kernel's walk can reach
-    after a diagonal step out of row 1 or column 1.)"""
-    n_pe, pack = _chunk_layout(layout)
+    in the reference engine's row-major store, whose row 0 and column 0
+    hold 0.  (JAX's chunk reader clamps them onto a stored cell instead,
+    which a local kernel's walk can reach after a diagonal step out of row
+    1 or column 1.)"""
     rows = torch.arange(tb.shape[0], device=tb.device)
+    if layout == "row":
+        def read_row(i, j):
+            return tb[rows, i.clamp(0, tb.shape[1] - 1).long(),
+                      j.clamp(0, tb.shape[2] - 1).long()].to(torch.int32)
+        return read_row
+    n_pe, pack = _chunk_layout(layout)
 
     def read(i, j):
         c = torch.div(i - 1, n_pe, rounding_mode="floor").clamp(
@@ -89,6 +97,8 @@ def _make_reader(tb, layout):
 def default_max_len(tb_shape, layout) -> int:
     """Safe step budget from the (unbatched) store shape: an upper bound on
     Q + R, plus one for the terminating cell."""
+    if layout == "row":
+        return tb_shape[0] + tb_shape[1]
     n_pe, _ = _chunk_layout(layout)
     q = tb_shape[0] * n_pe
     r = tb_shape[2] - n_pe + 1

@@ -44,27 +44,70 @@ FLOAT_SENTINEL = 1e30       # magnitude of the float 'unreachable' score
 FAMILY_LINEAR = "linear"
 FAMILY_AFFINE = "affine"
 FAMILY_TWO_PIECE = "two_piece"
-SUB_DNA = "dna"
-SUB_MATRIX = "matrix"
+FAMILY_DTW = "dtw"                          # min objective, #9 and #14
+FAMILY_PROFILE = "profile"                  # sum-of-pairs columns, #8
+FAMILY_VITERBI = "viterbi"                  # 3-state M/I/D, #10
+FAMILY_PAIRHMM_FORWARD = "pairhmm_forward"  # prob.kernels.pairhmm
+FAMILY_PAIRHMM_BACKWARD = "pairhmm_backward"
+SUB_DNA = "dna"              # match / mismatch scalars
+SUB_MATRIX = "matrix"        # int substitution matrix
+SUB_COMPLEX = "complex"      # |q0 - r0| + |q1 - r1| of (2,) f32 samples
+SUB_ABS = "abs"              # |q - r| of int32 samples
+SUB_SOP = "sop"              # q @ S @ r of (5,) f32 profile columns
+SUB_EMISSION = "emission"    # 5 x 5 f32 log-emission table
+
+# family -> (substitution kinds it takes, layers read from the diagonal,
+# from the cell above, from the cell to the left)
+_FAMILIES = {
+    FAMILY_LINEAR: ((SUB_DNA, SUB_MATRIX), (0,), (0,), (0,)),
+    FAMILY_AFFINE: ((SUB_DNA, SUB_MATRIX), (0,), (0, 2), (0, 1)),
+    FAMILY_TWO_PIECE: ((SUB_DNA, SUB_MATRIX), (0,), (0, 2, 4), (0, 1, 3)),
+    FAMILY_DTW: ((SUB_COMPLEX, SUB_ABS), (0,), (0,), (0,)),
+    FAMILY_PROFILE: ((SUB_SOP,), (0,), (0,), (0,)),
+    FAMILY_VITERBI: ((SUB_EMISSION,), (0, 1, 2), (0, 2), (0, 1)),
+    FAMILY_PAIRHMM_FORWARD: ((SUB_EMISSION,), (0, 1, 2), (0, 1), (0, 2)),
+    FAMILY_PAIRHMM_BACKWARD: ((SUB_EMISSION,), (0,), (1,), (2,)),
+}
 
 
 @dataclasses.dataclass(frozen=True)
 class PEFamily:
-    """Which compiled PE functor computes a spec's ``pe``: the gap model
-    (``family``: linear / affine / two_piece), the substitution score
-    (``sub``: dna match/mismatch or a matrix) and whether scores clamp at
-    zero (``local``)."""
+    """Which compiled PE functor computes a spec's ``pe``: the recurrence
+    (``family``), the substitution score (``sub``) and whether scores
+    clamp at zero (``local``, linear and affine only).  The semiring, the
+    score type and the primary layer come from the spec itself.
+
+    ``diag_layers``, ``up_layers`` and ``left_layers`` are the score
+    layers the PE reads from each neighbour; a compiled kernel carries
+    ``ring_layers`` (up and diagonal) from one row to the next."""
     family: str
     sub: str
     local: bool = False
 
     def __post_init__(self):
-        if self.family not in (FAMILY_LINEAR, FAMILY_AFFINE, FAMILY_TWO_PIECE):
+        if self.family not in _FAMILIES:
             raise ValueError(f"unknown PE family {self.family!r}")
-        if self.sub not in (SUB_DNA, SUB_MATRIX):
-            raise ValueError(f"unknown substitution kind {self.sub!r}")
-        if self.local and self.family == FAMILY_TWO_PIECE:
-            raise ValueError("the two-piece PE has no local variant")
+        if self.sub not in _FAMILIES[self.family][0]:
+            raise ValueError(f"PE family {self.family!r} does not take "
+                             f"substitution kind {self.sub!r}")
+        if self.local and self.family not in (FAMILY_LINEAR, FAMILY_AFFINE):
+            raise ValueError(f"the {self.family} PE has no local variant")
+
+    @property
+    def diag_layers(self) -> tuple:
+        return _FAMILIES[self.family][1]
+
+    @property
+    def up_layers(self) -> tuple:
+        return _FAMILIES[self.family][2]
+
+    @property
+    def left_layers(self) -> tuple:
+        return _FAMILIES[self.family][3]
+
+    @property
+    def ring_layers(self) -> tuple:
+        return tuple(sorted(set(self.up_layers) | set(self.diag_layers)))
 
 
 @dataclasses.dataclass(frozen=True)

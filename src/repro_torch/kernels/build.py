@@ -3,8 +3,9 @@
 Each kernel source under ``kernels/*/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, loaded with
 ``ctypes``.  Libraries go to ``build/repro_torch/`` at the repository root
-(git-ignored), named by a hash of the source and flags, so an edited source
-rebuilds and an unchanged one loads at once.  Two sources build
+(git-ignored), named by a hash of the source, the headers beside it
+(``*.cuh``) and the flags, so an edited source or header rebuilds and an
+unchanged one loads at once.  Two sources build
 concurrently when called from two threads (one lock per library).  Importing
 this module builds nothing.
 """
@@ -56,6 +57,8 @@ def nvcc_path() -> str:
 
 def _digest(source: Path) -> str:
     h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 

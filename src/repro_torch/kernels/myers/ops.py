@@ -12,12 +12,8 @@ import torch
 
 from repro_torch.core import myers as M
 from repro_torch.core import types as T
+from repro_torch.core.spec_utils import batch_lens
 from . import kernel as K
-
-
-def _lens(x, n, dev):
-    t = torch.as_tensor(x, device=dev).to(torch.int32).reshape(-1)
-    return t.expand(n).contiguous() if t.numel() == 1 else t.reshape(n)
 
 
 def run(spec: T.DPKernelSpec, params, queries, refs, q_lens=None,
@@ -30,8 +26,8 @@ def run(spec: T.DPKernelSpec, params, queries, refs, q_lens=None,
     B, Q = queries.shape
     R = refs.shape[1]
     dev = queries.device
-    q_lens = _lens(Q if q_lens is None else q_lens, B, dev)
-    r_lens = _lens(R if r_lens is None else r_lens, B, dev)
+    q_lens = batch_lens(Q if q_lens is None else q_lens, B, dev)
+    r_lens = batch_lens(R if r_lens is None else r_lens, B, dev)
     k = int(params.get("max_dist", -1))
     glob = spec.region == T.REGION_CORNER
     lens = torch.stack([q_lens, r_lens], dim=1).contiguous()

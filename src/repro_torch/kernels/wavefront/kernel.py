@@ -5,19 +5,24 @@ plain PyTorch version (port of ``repro/kernels/wavefront/kernel.py``).
 32-row lane strip and whose boundary row and column are already masked by
 effective length and band (``ops.run`` prepares them), and returns the
 per-(pair, strip, lane) best score, its first column, and the
-``('chunk', 32, pack)`` pointer store.  A CUDA tensor goes to the CUDA
-kernel in ``csrc/wavefront.cu``; a CPU tensor goes to
-``wavefront_fill_plain``.  Nothing falls back from one to the other.
+``('chunk', 32, pack)`` pointer store; under a sum semiring the best is the
+lane's region mass folded with logaddexp.  A CUDA tensor goes to the CUDA
+kernel (``csrc/wavefront_kernel.cuh``, instantiated on the gap-model
+families by ``csrc/wavefront.cu`` and on the others by
+``csrc/wavefront_ext.cu``); a CPU tensor goes to ``wavefront_fill_plain``.
+Nothing falls back from one to the other.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from pathlib import Path
 
 import torch
 
+from repro_torch.core import reference
 from repro_torch.core import types as T
-from repro_torch.core.spec_utils import band_mask, region_mask
+from repro_torch.core.spec_utils import region_mask
 from repro_torch.core.traceback import pack_lanes
 
 N_PE = 32               # lanes per strip: one warp, one lane per PE
@@ -32,14 +37,50 @@ WARPS_PER_SM = 32       # K1's resident warps per SM (64 registers a thread)
 STRIP_LAG = N_PE
 RING_CHUNK = 16         # columns per handoff chunk (CH in the CUDA code)
 TILE_STRIDE = 36        # bytes per wavefront of a warp's pointer tile
-REF_PAD = 32            # slack bytes each side of the staged reference
-SOURCE = Path(__file__).resolve().parent / "csrc" / "wavefront.cu"
+REF_PAD = 32            # slack characters each side of the staged reference
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "wavefront.cu"          # the gap-model families
+SOURCE_EXT = CSRC / "wavefront_ext.cu"  # DTW, profile, Viterbi, pair-HMM
+SOURCES = (SOURCE, SOURCE_EXT)
 
+GAP_FAMILIES = (T.FAMILY_LINEAR, T.FAMILY_AFFINE, T.FAMILY_TWO_PIECE)
 FAMILY_IDS = {T.FAMILY_LINEAR: 0, T.FAMILY_AFFINE: 1, T.FAMILY_TWO_PIECE: 2}
+EXT_FAMILY_IDS = {T.FAMILY_DTW: 0, T.FAMILY_PROFILE: 1, T.FAMILY_VITERBI: 2,
+                  T.FAMILY_PAIRHMM_FORWARD: 3, T.FAMILY_PAIRHMM_BACKWARD: 4}
+EXT_SUB_IDS = {T.SUB_COMPLEX: 0, T.SUB_ABS: 1}
+OBJECTIVE_IDS = {"max": 0, "min": 1, "logsumexp": 2}
 REGION_IDS = {T.REGION_CORNER: 0, T.REGION_ALL: 1, T.REGION_LAST_ROW: 2,
               T.REGION_LAST_ROW_COL: 3}
 _PARAM_NAMES = ("match", "mismatch", "gap", "gap_open", "gap_extend",
                 "gap_open2", "gap_extend2")
+_FLOAT_PARAM_NAMES = ("log_lambda", "log_mu", "t_mm", "t_gm",
+                      "gap_emission", "gap")
+_F32, _I32, _U8 = torch.float32, torch.int32, torch.uint8
+
+# What csrc/wavefront_ext.cu instantiates, per (family, sub): the score
+# type, character shape and type, layer count and primary layer, and the
+# (objective, region, banded) combinations.  The gap-model families
+# (csrc/wavefront.cu) are int32 max-plus over byte codes at every region,
+# banded or not.
+_PAIRHMM = {(o, T.REGION_LAST_ROW, bd) for o in ("max", "logsumexp")
+            for bd in (False, True)}
+EXT_INSTANCES = {
+    (T.FAMILY_DTW, T.SUB_COMPLEX): (_F32, (2,), _F32, 1, 0,
+                                    {("min", T.REGION_CORNER, False)}),
+    (T.FAMILY_DTW, T.SUB_ABS): (_I32, (), _I32, 1, 0,
+                                {("min", T.REGION_LAST_ROW, False)}),
+    (T.FAMILY_PROFILE, T.SUB_SOP): (_F32, (5,), _F32, 1, 0,
+                                    {("max", T.REGION_CORNER, False)}),
+    (T.FAMILY_VITERBI, T.SUB_EMISSION): (_F32, (), _U8, 3, 0,
+                                         {("max", T.REGION_CORNER, False)}),
+    (T.FAMILY_PAIRHMM_FORWARD, T.SUB_EMISSION): (_F32, (), _U8, 4, 3,
+                                                 _PAIRHMM),
+    (T.FAMILY_PAIRHMM_BACKWARD, T.SUB_EMISSION): (_F32, (), _U8, 4, 3,
+                                                  _PAIRHMM),
+}
+_GAP_LAYERS = {T.FAMILY_LINEAR: 1, T.FAMILY_AFFINE: 3, T.FAMILY_TWO_PIECE: 5}
+TABLE_SIDE = 5          # the f32 table of profile, Viterbi and pair-HMM
+TABLE_PARAMS = {T.SUB_SOP: "sub_matrix", T.SUB_EMISSION: "emission"}
 
 # CUDA kernel launches since import (or since a caller reset it to 0); the
 # plain version does not count.
@@ -48,13 +89,42 @@ launches = 0
 
 def supports(spec: T.DPKernelSpec):
     """None when K1 can fill ``spec``, else the reason it cannot."""
-    if spec.objective != "max" or spec.score_dtype != torch.int32:
-        return f"kernel {spec.name}: K1 implements int32 max-plus only"
-    if spec.family is None:
-        return f"kernel {spec.name} has no compiled PE family yet"
-    if spec.primary_layer != 0 or spec.char_shape != ():
-        return f"kernel {spec.name}: K1 scores layer 0 of scalar codes"
+    fam = spec.family
+    if fam is None:
+        return (f"kernel {spec.name} has no compiled PE family (K1 "
+                f"compiles the int32 max-plus gap models, DTW and sDTW "
+                f"min-plus, profile, Viterbi and the pair-HMM)")
+    if fam.family in GAP_FAMILIES:
+        if spec.objective != "max" or spec.score_dtype != _I32:
+            return (f"kernel {spec.name}: K1's {fam.family} PE is int32 "
+                    f"max-plus")
+        want = (_GAP_LAYERS[fam.family], 0, (), _U8)
+    else:
+        dt, char, cdt, n_layers, primary, combos = \
+            EXT_INSTANCES[(fam.family, fam.sub)]
+        if spec.score_dtype != dt:
+            return (f"kernel {spec.name}: K1's {fam.family} PE scores in "
+                    f"{dt}, not {spec.score_dtype}")
+        combo = (spec.objective, spec.region, spec.band is not None)
+        if combo not in combos:
+            have = ", ".join(f"{o} over {r}{' banded' if bd else ''}"
+                             for o, r, bd in sorted(combos))
+            return (f"kernel {spec.name}: K1 instantiates the {fam.family} "
+                    f"PE as {have} only, not {combo[0]} over {combo[1]}"
+                    f"{' banded' if combo[2] else ''}")
+        want = (n_layers, primary, char, cdt)
+    got = (spec.n_layers, spec.primary_layer, tuple(spec.char_shape),
+           spec.char_dtype)
+    if got != want:
+        return (f"kernel {spec.name}: K1's {fam.family} PE takes (layers, "
+                f"primary layer, char shape, char dtype) {want}, the spec "
+                f"declares {got}")
     return None
+
+
+def char_bytes(spec: T.DPKernelSpec) -> int:
+    """Bytes of one staged character."""
+    return math.prod(spec.char_shape) * spec.char_dtype.itemsize
 
 
 def strip_warps(q_bucket: int, batch: int, sms: int) -> int:
@@ -86,11 +156,12 @@ def ring_chunks(r_bucket: int, warps: int) -> int:
     return 1 << (need - 1).bit_length()
 
 
-# Score layers each PE family reads from the cell above, by its layer
-# count (H; H and D for affine; H, D1 and D2 for two-piece): the layers K1
-# shuffles between lanes and holds in the handoff rings (PE::UP in
-# csrc/wavefront.cu).  Every family reads only H from the diagonal.
-UP_LAYERS = {1: (0,), 3: (0, 2), 5: (0, 2, 4)}
+def ring_layers(spec: T.DPKernelSpec) -> tuple:
+    """The score layers K1 carries from the row above: those the PE reads
+    from the cell above or the diagonal (``PEFamily.ring_layers``; SH in
+    csrc/wavefront_kernel.cuh).  K1 shuffles them between lanes and holds
+    them in the handoff rings and the staged init row."""
+    return spec.family.ring_layers
 
 
 def _align16(n: int) -> int:
@@ -100,22 +171,26 @@ def _align16(n: int) -> int:
 def smem_bytes(spec: T.DPKernelSpec, q_bucket: int, r_bucket: int,
                warps: int, with_tb: bool = True) -> int:
     """Dynamic shared memory of one K1 thread block (one pair), laid out
-    as ``csrc/wavefront.cu::layout``: the rings' mbarriers (full and empty
-    per slot), the substitution matrix for matrix-scored kernels (at most
-    24 x 24), the handoff rings (warps x slots x RING_CHUNK columns x up
-    layers), the init row's up layers, a 32-wavefront pointer tile per
-    warp, and the pair's query and reference codes (the latter with
-    REF_PAD bytes each side)."""
+    as ``csrc/wavefront_kernel.cuh::layout``: the rings' mbarriers (full
+    and empty per slot), the table (an int substitution matrix of at most
+    24 x 24, or the 5 x 5 f32 table of profile, Viterbi and pair-HMM), the
+    handoff rings (warps x slots x RING_CHUNK columns x ring layers, 4
+    bytes each), the init row's ring layers, a 32-wavefront pointer tile
+    per warp, and the pair's query and reference characters (the latter
+    with REF_PAD characters each side) at ``char_bytes`` each."""
     q, r, g = int(q_bucket), int(r_bucket), int(warps)
     nch = ring_chunks(r, g)
-    nu = len(UP_LAYERS[spec.n_layers])
-    sub = 24 * 24 * 4 if spec.family and spec.family.sub == T.SUB_MATRIX \
-        else 0
-    return (_align16(g * nch * 2 * 8) + _align16(sub)
+    nu = len(ring_layers(spec))
+    sub = spec.family.sub if spec.family else None
+    tab = (24 * 24 * 4 if sub == T.SUB_MATRIX else
+           TABLE_SIDE * TABLE_SIDE * 4 if sub in (T.SUB_SOP, T.SUB_EMISSION)
+           else 0)
+    cb = char_bytes(spec)
+    return (_align16(g * nch * 2 * 8) + _align16(tab)
             + _align16(g * nch * RING_CHUNK * nu * 4)
             + _align16((r + 1) * nu * 4)
             + (g * N_PE * TILE_STRIDE if with_tb else 0)
-            + _align16(q) + _align16(r + 2 * REF_PAD))
+            + _align16(q * cb) + _align16((r + 2 * REF_PAD) * cb))
 
 
 def _check_inputs(spec, query, ref, init_row, init_col, lens, tb_pack):
@@ -124,23 +199,25 @@ def _check_inputs(spec, query, ref, init_row, init_col, lens, tb_pack):
         raise ValueError(reason)
     if tb_pack not in (1, 2, 4, 8):
         raise ValueError(f"tb_pack must be 1, 2, 4 or 8, got {tb_pack}")
-    if query.dim() != 2 or ref.dim() != 2:
-        raise ValueError("query and ref must be (batch, length)")
-    B, Q = query.shape
+    char = tuple(spec.char_shape)
+    if query.dim() != 2 + len(char) or ref.dim() != 2 + len(char):
+        raise ValueError(f"query and ref must be (batch, length) + {char}")
+    B, Q = query.shape[:2]
     R = ref.shape[1]
     L = spec.n_layers
     if Q % N_PE:
         raise ValueError(f"query length {Q} is not a multiple of {N_PE}")
     if R < 1:
         raise ValueError("reference bucket must be at least 1")
-    want = {"query": (query, torch.uint8, (B, Q)),
-            "ref": (ref, torch.uint8, (B, R)),
-            "init_row": (init_row, torch.int32, (B, R + 1, L)),
-            "init_col": (init_col, torch.int32, (B, Q + 1, L)),
+    dt = spec.score_dtype
+    want = {"query": (query, spec.char_dtype, (B, Q) + char),
+            "ref": (ref, spec.char_dtype, (B, R) + char),
+            "init_row": (init_row, dt, (B, R + 1, L)),
+            "init_col": (init_col, dt, (B, Q + 1, L)),
             "lens": (lens, torch.int32, (B, 2))}
-    for name, (t, dt, shape) in want.items():
-        if t.dtype != dt or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: want {dt} {shape}, got {t.dtype} "
+    for name, (t, dtype, shape) in want.items():
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: want {dtype} {shape}, got {t.dtype} "
                              f"{tuple(t.shape)}")
         if t.device != query.device:
             raise ValueError(f"{name} is on {t.device}, query on "
@@ -151,11 +228,13 @@ def wavefront_fill(spec: T.DPKernelSpec, params, query, ref, init_row,
                    init_col, lens, tb_pack: int = 1, with_tb: bool = True):
     """Fill a batch of pairs.
 
-    query (B, Q) uint8 with Q a multiple of 32; ref (B, R) uint8; init_row
-    (B, R + 1, L) and init_col (B, Q + 1, L) int32, masked; lens (B, 2)
-    int32 effective lengths.  Returns ``(tb, best, best_j)``: tb
+    query (B, Q) + char_shape with Q a multiple of 32 and ref (B, R) +
+    char_shape, of the spec's char dtype; init_row (B, R + 1, L) and
+    init_col (B, Q + 1, L) of its score dtype, masked; lens (B, 2) int32
+    effective lengths.  Returns ``(tb, best, best_j)``: tb
     (B, Q/32, 32/tb_pack, 32 + R - 1) uint8 (None when ``with_tb`` is
-    False), best and best_j (B, Q/32, 32) int32.
+    False), best (B, Q/32, 32) of the score dtype and best_j (B, Q/32, 32)
+    int32.
     """
     _check_inputs(spec, query, ref, init_row, init_col, lens, tb_pack)
     if query.device.type == "cpu":
@@ -169,30 +248,46 @@ def wavefront_fill(spec: T.DPKernelSpec, params, query, ref, init_row,
                    lens.contiguous(), tb_pack, with_tb)
 
 
-_LIB = None
+_LIBS: dict = {}
 
 
-def _lib():
-    global _LIB
-    if _LIB is None:
+def _lib(source=SOURCE):
+    """The loaded library of one K1 source, built at its first use."""
+    lib = _LIBS.get(source)
+    if lib is None:
         from repro_torch.kernels import build
-        lib = build.load(SOURCE).lib
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.wavefront_fill_launch.argtypes = (
-            [i] * 5 + [p] * 6 + [i] + [i] * 7 + [p] * 3 + [i] * 9 + [p])
-        lib.wavefront_fill_launch.restype = i
+        lib = build.load(source).lib
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        if source == SOURCE:
+            lib.wavefront_fill_launch.argtypes = (
+                [i] * 5 + [p] * 6 + [i] + [i] * 7 + [p] * 3 + [i] * 9 + [p])
+            lib.wavefront_fill_launch.restype = i
+        else:
+            lib.wavefront_ext_fill_launch.argtypes = (
+                [i] * 5 + [p] * 6 + [i] + [f] * 6 + [p] * 3 + [i] * 9 + [p])
+            lib.wavefront_ext_fill_launch.restype = i
         lib.wavefront_max_smem.argtypes = [i]
         lib.wavefront_max_smem.restype = i
-        _LIB = lib
-    return _LIB
+        _LIBS[source] = lib
+    return lib
+
+
+def _table(params, name, dev):
+    tab = params[name].to(device=dev, dtype=torch.float32).contiguous()
+    if tuple(tab.shape) != (TABLE_SIDE, TABLE_SIDE):
+        raise ValueError(f"{name} must be {TABLE_SIDE} x {TABLE_SIDE}, got "
+                         f"{tuple(tab.shape)}")
+    return tab
 
 
 def _launch(spec, params, query, ref, init_row, init_col, lens, tb_pack,
             with_tb):
     global launches
-    lib = _lib()
+    fam = spec.family
+    gap_model = fam.family in GAP_FAMILIES
+    lib = _lib(SOURCE if gap_model else SOURCE_EXT)
     dev = query.device
-    B, Q = query.shape
+    B, Q = query.shape[:2]
     R = ref.shape[1]
     C = Q // N_PE
     index = dev.index if dev.index is not None else \
@@ -206,33 +301,45 @@ def _launch(spec, params, query, ref, init_row, init_col, lens, tb_pack,
             f"kernel {spec.name}: reference bucket {R} needs "
             f"{need} bytes of shared memory per block; this "
             f"device allows {limit}")
-    fam = spec.family
-    matrix = fam.sub == T.SUB_MATRIX
-    sub = (params["sub"].to(device=dev, dtype=torch.int32).contiguous()
-           if matrix else None)
-    n_sub = sub.shape[0] if matrix else 0
-    if matrix and (sub.dim() != 2 or sub.shape != (n_sub, n_sub)
-                   or n_sub > 24):
-        raise ValueError("substitution matrix must be square, at most 24")
-    vals = [int(params.get(k, 0)) for k in _PARAM_NAMES]
     # the kernel writes every byte of the store, zeros included
     tb = (torch.empty((B, C, N_PE // tb_pack, N_PE + R - 1),
                       dtype=torch.uint8, device=dev) if with_tb else None)
-    best = torch.empty((B, C, N_PE), dtype=torch.int32, device=dev)
+    best = torch.empty((B, C, N_PE), dtype=spec.score_dtype, device=dev)
     best_j = torch.empty((B, C, N_PE), dtype=torch.int32, device=dev)
     band = -1 if spec.band is None else int(spec.band)
+    data = (query.data_ptr(), ref.data_ptr(), init_row.data_ptr(),
+            init_col.data_ptr(), lens.data_ptr())
+    outs = (tb.data_ptr() if with_tb else None, best.data_ptr(),
+            best_j.data_ptr())
+    geometry = (B, Q, R, tb_pack, int(with_tb), warps,
+                ring_chunks(R, warps).bit_length() - 1, STRIP_LAG,
+                RING_CHUNK)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.wavefront_fill_launch(
-            FAMILY_IDS[fam.family], int(matrix), int(fam.local),
-            REGION_IDS[spec.region], band,
-            query.data_ptr(), ref.data_ptr(), init_row.data_ptr(),
-            init_col.data_ptr(), lens.data_ptr(),
-            sub.data_ptr() if matrix else None, n_sub, *vals,
-            tb.data_ptr() if with_tb else None, best.data_ptr(),
-            best_j.data_ptr(), B, Q, R, tb_pack, int(with_tb), warps,
-            ring_chunks(R, warps).bit_length() - 1, STRIP_LAG, RING_CHUNK,
-            stream)
+        if gap_model:
+            matrix = fam.sub == T.SUB_MATRIX
+            sub = (params["sub"].to(device=dev, dtype=torch.int32)
+                   .contiguous() if matrix else None)
+            n_sub = sub.shape[0] if matrix else 0
+            if matrix and (sub.dim() != 2 or sub.shape != (n_sub, n_sub)
+                           or n_sub > 24):
+                raise ValueError("substitution matrix must be square, at "
+                                 "most 24")
+            vals = [int(params.get(k, 0)) for k in _PARAM_NAMES]
+            err = lib.wavefront_fill_launch(
+                FAMILY_IDS[fam.family], int(matrix), int(fam.local),
+                REGION_IDS[spec.region], band, *data,
+                sub.data_ptr() if matrix else None, n_sub, *vals, *outs,
+                *geometry, stream)
+        else:
+            name = TABLE_PARAMS.get(fam.sub)
+            tab = _table(params, name, dev) if name else None
+            vals = [float(params.get(k, 0.0)) for k in _FLOAT_PARAM_NAMES]
+            err = lib.wavefront_ext_fill_launch(
+                EXT_FAMILY_IDS[fam.family], EXT_SUB_IDS.get(fam.sub, 0),
+                OBJECTIVE_IDS[spec.objective], REGION_IDS[spec.region],
+                band, *data, tab.data_ptr() if name else None,
+                TABLE_SIDE if name else 0, *vals, *outs, *geometry, stream)
     if err:
         raise RuntimeError(f"K1 wavefront_fill launch failed: CUDA error "
                            f"{err} (kernel {spec.name}, Q={Q}, R={R}, "
@@ -245,74 +352,47 @@ def wavefront_fill_plain(spec: T.DPKernelSpec, params, query, ref, init_row,
                          init_col, lens, tb_pack: int = 1,
                          with_tb: bool = True):
     """Plain PyTorch version of ``wavefront_fill``: same arguments, same
-    outputs bit for bit.
+    outputs (bit for bit where the PE's arithmetic is exact: integer
+    scores, and the max/min float families, whose plain PEs round as the
+    functors do; the logsumexp fold uses torch.logaddexp).
 
-    It sweeps whole anti-diagonals over every query row at once (the strips
-    of the kernel run skewed by 32 wavefronts, so they advance together and
-    the row buffer becomes a plain shift between neighbouring rows), keeps
-    the pointers of the swept matrix, and rearranges them into the
-    ``('chunk', 32, pack)`` store at the end.  Each row keeps its best over
-    the objective region with a strict better-than, so the first column
-    wins, as in the kernel.
+    It fills the matrix with the reference engine's sweep
+    (``core/reference.py::sweep``), reduces each row over the objective
+    region and rearranges the pointers into the ``('chunk', 32, pack)``
+    store.  A row's best is its first optimum in j order, as the kernel's
+    strict better-than keeps it: column 0, outside every region, holds
+    the sentinel, so a row with nothing better keeps the sentinel and
+    column 0.  Under a sum semiring a row folds its region mass with
+    ``spec.combine``, j ascending, as each lane of the kernel does.
     """
-    B, Q = query.shape
+    B, Q = query.shape[:2]
     R = ref.shape[1]
-    L = spec.n_layers
     dev = query.device
     sent = spec.sentinel()
-    i32 = torch.int32
-    q_len = lens[:, 0:1]
-    r_len = lens[:, 1:2]
-    rows = torch.arange(1, Q + 1, dtype=i32, device=dev)          # (Q,)
-    q_chars = query.reshape(-1)
-    i_flat = rows.repeat(B)
-
-    # anti-diagonal buffers over rows 0..Q: buf[:, i] = cell (i, d - i);
-    # the corner cell (0, 0) comes from the init row, as in the kernel
-    def boundary(d):
-        buf = torch.full((B, Q + 1, L), sent, dtype=i32, device=dev)
-        if d <= R:
-            buf[:, 0] = init_row[:, d]
-        if 1 <= d <= Q:
-            buf[:, d] = init_col[:, d]
-        return buf
-
-    prev2 = torch.full((B, Q + 1, L), sent, dtype=i32, device=dev)
-    prev = boundary(0)
-    ptrs = torch.zeros((B, Q, R), dtype=torch.uint8, device=dev)
-    best = torch.full((B, Q), sent, dtype=i32, device=dev)
-    best_j = torch.zeros((B, Q), dtype=i32, device=dev)
-    last = min(Q + R, int((lens[:, 0] + lens[:, 1]).max()) if B else 0)
-    for d in range(1, last + 1):
-        j = d - rows                                              # (Q,)
-        r_chars = ref[:, (j - 1).clamp(0, R - 1).long()].reshape(-1)
-        up = prev[:, :-1].reshape(-1, L)
-        left = prev[:, 1:].reshape(-1, L)
-        diag = prev2[:, :-1].reshape(-1, L)
-        scores, ptr = spec.pe(params, q_chars, r_chars, diag, up, left,
-                              i_flat, j.repeat(B))
-        scores = scores.to(i32).reshape(B, Q, L)
-        ptr = ptr.reshape(B, Q)
-        valid = (j >= 1) & (j <= r_len) & (rows <= q_len) & \
-            band_mask(spec, rows, j)                              # (B, Q)
-        cur = boundary(d)       # invalid cells keep the boundary/sentinel
-        cur[:, 1:] = torch.where(valid[..., None], scores, cur[:, 1:])
-        in_store = (j >= 1) & (j <= R)
-        ii = rows[in_store] - 1
-        ptrs[:, ii, (j[in_store] - 1).long()] = torch.where(
-            valid, ptr, 0).to(torch.uint8)[:, ii]
-        cand = torch.where(region_mask(spec, rows, j, q_len, r_len),
-                           cur[:, 1:, spec.primary_layer], sent)
-        upd = cand > best
-        best = torch.where(upd, cand, best)
-        best_j = torch.where(upd, j, best_j)
-        prev2, prev = prev, cur
+    q_len, r_len = lens[:, 0], lens[:, 1]
+    mat, ptrs = reference.sweep(spec, params, query, ref, init_row,
+                                init_col, q_len, r_len)
+    ii = torch.arange(1, Q + 1, dtype=torch.int32, device=dev)[:, None]
+    jj = torch.arange(R + 1, dtype=torch.int32, device=dev)[None, :]
+    region = region_mask(spec, ii, jj, q_len[:, None, None],
+                         r_len[:, None, None])                 # (B, Q, R+1)
+    cand = torch.where(region, mat[:, 1:, :, spec.primary_layer], sent)
+    if spec.is_sum:
+        best = cand[..., 0]
+        for j in range(1, R + 1):
+            best = torch.where(region[..., j],
+                               spec.combine(best, cand[..., j]), best)
+        best_j = torch.zeros((B, Q), dtype=torch.int32, device=dev)
+    else:
+        k = spec.arg_best(cand, axis=2)
+        best = cand.gather(2, k[..., None])[..., 0]
+        best_j = k.to(torch.int32)
 
     C = Q // N_PE
     tb = None
     if with_tb:
         WT = N_PE + R - 1
-        lanes = ptrs.reshape(B, C, N_PE, R)
+        lanes = ptrs[:, 1:, 1:].reshape(B, C, N_PE, R)
         store = torch.zeros((B, C, N_PE, WT), dtype=torch.uint8, device=dev)
         for lane in range(N_PE):
             store[:, :, lane, lane:lane + R] = lanes[:, :, lane]

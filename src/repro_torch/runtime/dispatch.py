@@ -21,6 +21,7 @@ import torch
 
 import repro_torch.core.traceback as tb_mod
 import repro_torch.core.types as T
+from repro_torch.core.spec_utils import params_on_device
 
 from . import bucketing
 from . import plan as plan_mod
@@ -97,6 +98,7 @@ def run_pairs(spec, params, pairs: Sequence[tuple], *,
     length-1 dummies) so repeated calls reuse one plan per bucket shape.
     """
     dev = plan_mod.resolve_device(device)
+    params = params_on_device(params, dev)      # once, not once a block
     pairs = [(np.asarray(q), np.asarray(r)) for q, r in pairs]
     lengths = [(q.shape[0], r.shape[0]) for q, r in pairs]
     batches, _ = bucketing.pack_by_bucket(lengths, block=block,

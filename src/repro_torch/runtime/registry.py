@@ -6,10 +6,12 @@ pairs (the batch axis is written out where JAX vmaps a per-pair engine);
 ``with_tb=False`` lets it skip the pointer store.  Built-ins
 register with a deferred loader, so importing this module imports no engine.
 
-Registered: ``wavefront`` — kernel K1 (CUDA on CUDA tensors, its plain
-version on CPU tensors), with the ``tb_pack`` option; ``myers`` — kernel K2,
-the bit-vector unit-cost engine for #16/#17 (score-only, no options), the
-same way.
+Registered: ``reference`` — the full-matrix oracle (``core.reference``),
+eager torch on the inputs' device, every spec, with the (Q+1, R+1, L) matrix
+and the ``'row'`` pointer store; ``wavefront`` — kernel K1 (CUDA on CUDA
+tensors, its plain version on CPU tensors), with the ``tb_pack`` option;
+``myers`` — kernel K2, the bit-vector unit-cost engine for #16/#17
+(score-only, no options), the same way.
 """
 from __future__ import annotations
 
@@ -83,6 +85,15 @@ def engine_supports(name: str, spec) -> Optional[str]:
     if entry.supports is None:
         return None
     return entry.supports(spec)
+
+
+def _load_reference():
+    from repro_torch.core import reference
+    return reference.run
+
+
+# the row-major oracle (the paper's C-simulation analogue)
+register_engine("reference", loader=_load_reference)
 
 
 def _load_wavefront():

@@ -110,9 +110,11 @@ def test_plan_cache_reused_within_a_bucket(rng):
 
 
 def test_registry_and_option_errors():
-    assert registry.available_engines() == ["myers", "wavefront"]
+    assert registry.available_engines() == ["myers", "reference",
+                                            "wavefront"]
     with pytest.raises(ValueError, match=r"unknown engine 'pallas'; have "
-                                         r"\['myers', 'wavefront'\]"):
+                                         r"\['myers', 'reference', "
+                                         r"'wavefront'\]"):
         registry.get_engine("pallas")
     spec, _ = pzoo.make(2)
     with pytest.raises(ValueError, match="valid options: \\['tb_pack'\\]"):

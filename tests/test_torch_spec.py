@@ -1,8 +1,8 @@
 """Spec layer of the PyTorch port vs the JAX package: sentinels, pointer
-packing, masks, PE cells, FSMs and boundary inits of every ported zoo
-kernel (K1's max-plus kernels and the unit-cost edit kernels #16/#17), and
-the refusal of the kernels not ported yet.  All ported kernels are int32, so
-every comparison is exact."""
+packing, masks, PE cells, FSMs and boundary inits of K1's int32 max-plus
+zoo kernels and the unit-cost edit kernels #16/#17, and what ``make``
+refuses.  These kernels are int32, so every comparison is exact; the float
+and min-plus kernels are in tests/test_torch_zoo_float.py."""
 from __future__ import annotations
 
 import jax
@@ -22,7 +22,9 @@ from repro_torch.core import types as PT
 from torch_parity import PORTED
 from torch_parity import kernel_pair as _pair
 
-UNPORTED = [8, 9, 10, 14]
+# the float and min-plus zoo kernels (tested in
+# tests/test_torch_zoo_float.py)
+FLOAT_AND_MINPLUS = [8, 9, 10, 14]
 # K1's kernels plus the edit kernels, which carry no PE family (the myers
 # engine hard-codes their recurrence)
 SPEC_KERNELS = PORTED + [16, 17]
@@ -123,13 +125,17 @@ def test_init_rows_and_columns(kid):
         np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("kid", UNPORTED)
+@pytest.mark.parametrize("kid", FLOAT_AND_MINPLUS)
 def test_make_refuses_unported(kid):
+    """``make`` builds the float and min-plus kernels under the JAX name,
+    by index and by name, and refuses an index or a name that neither
+    package has."""
     name = jzoo.KERNELS[kid][0]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pzoo.make(kid)
-    with pytest.raises(NotImplementedError, match=f"#{kid}"):
-        pzoo.make(name)
+    assert pzoo.make(kid)[0].name == pzoo.make(name)[0].name == name
+    with pytest.raises(KeyError, match=f"#{kid + 100}"):
+        pzoo.make(kid + 100)
+    with pytest.raises(KeyError, match=f"{name}_x"):
+        pzoo.make(f"{name}_x")
 
 
 @pytest.mark.parametrize("name", ["maxplus", "minplus", "logsumexp"])

@@ -2,7 +2,10 @@
 ``repro.kernels.wavefront.ref.run`` (per-lane best, best_j and the
 ('chunk', 32, pack) pointer store), the wrapper's cross-strip reduction
 against ``repro.core.reference.run``, and — on a GPU only — the CUDA kernel
-against its plain version.  Every comparison is exact (int32 kernels).
+against its plain version.  Every comparison of the int32 kernels is exact;
+the f32 families (#8-10, the pair-HMM) are held on the card at rtol 1e-5
+(max/min) and 2e-5 (logsumexp), with pointers and end columns exact
+wherever the scores are bit-equal.
 
 The JAX package is imported inside the CPU tests only, so that
 ``pytest -m gpu`` runs this file on a GPU machine without JAX."""
@@ -18,6 +21,37 @@ from repro_torch.kernels.wavefront import ops
 from repro_torch.core.spec_utils import band_mask
 
 PORTED = [1, 2, 3, 4, 5, 6, 7, 11, 12, 13, 15]
+# K1's other families: zoo kernels and the pair-HMM specs of repro_torch.prob
+EXT = [8, 9, 10, 14, "pairhmm_logsumexp", "pairhmm_maxplus",
+       "pairhmm_backward_logsumexp", "pairhmm_backward_maxplus",
+       "pairhmm_logsumexp_band16"]
+
+
+def _ext_case(name):
+    """(spec, params) of an EXT entry."""
+    from repro_torch import prob
+    if isinstance(name, int):
+        return pzoo.make(name)
+    objective = "max" if name.endswith("maxplus") else "logsumexp"
+    if name.startswith("pairhmm_backward"):
+        return prob.pairhmm_backward(objective), prob.default_params()
+    band = 16 if name.endswith("band16") else None
+    return prob.pairhmm(objective, band=band), prob.default_params()
+
+
+def _codes(rng, spec, shape):
+    """Random characters of a spec's alphabet: profile columns, complex
+    samples, integer squiggles or byte codes."""
+    if spec.char_shape == (5,):
+        counts = rng.multinomial(8, [0.22, 0.22, 0.22, 0.22, 0.12],
+                                 size=shape)
+        return (counts / 8).astype(np.float32)
+    if spec.char_shape == (2,):
+        return rng.normal(size=shape + (2,)).astype(np.float32)
+    if spec.char_dtype == torch.int32:
+        return rng.integers(0, 128, shape).astype(np.int32)
+    hi = 20 if spec.name == "protein_local" else 4
+    return rng.integers(0, hi, shape).astype(np.uint8)
 
 
 def _pair(kid):
@@ -28,9 +62,8 @@ def _pair(kid):
 def _batch(rng, spec, B, Q, R):
     """Codes and effective lengths below the bucket (banded kernels keep
     the corner inside the band)."""
-    hi = 20 if spec.name == "protein_local" else 4
-    qs = rng.integers(0, hi, (B, Q)).astype(np.uint8)
-    rs = rng.integers(0, hi, (B, R)).astype(np.uint8)
+    qs = _codes(rng, spec, (B, Q))
+    rs = _codes(rng, spec, (B, R))
     ql = rng.integers(Q // 2, Q + 1, B).astype(np.int32)
     ql[0] = Q
     if spec.band is not None:
@@ -179,15 +212,17 @@ def _emulate_k1(spec, params, query, ref, init_row, init_col, lens, pack,
     column written after that signal reads as POISON."""
     from repro_torch.core.spec_utils import region_mask
     from repro_torch.core.traceback import pack_lanes
-    B, Q = query.shape
+    B, Q = query.shape[:2]
     R = ref.shape[1]
     L = spec.n_layers
+    dt = spec.score_dtype
     C, WT, CH = Q // 32, 32 + R - 1, K.RING_CHUNK
-    up_l = list(K.UP_LAYERS[L])
+    ring_l = list(K.ring_layers(spec))
+    diag_l = list(spec.family.diag_layers)
     lanes = torch.arange(32)
     sent = spec.sentinel()
     store = torch.zeros((B, C, 32, WT), dtype=torch.uint8)
-    best = torch.full((B, C, 32), sent, dtype=torch.int32)
+    best = torch.full((B, C, 32), sent, dtype=dt)
     best_j = torch.zeros((B, C, 32), dtype=torch.int32)
     for b in range(B):
         q_len, r_len = int(lens[b, 0]), int(lens[b, 1])
@@ -199,48 +234,53 @@ def _emulate_k1(spec, params, query, ref, init_row, init_col, lens, pack,
             w_start, w_end = _strip_window(c, q_len, r_len, R, spec.band)
             qc = query[b, 32 * c + lanes]
             col_b = init_col[b, i]
-            col_d = init_col[b, i - 1, 0].clone()
+            col_d = init_col[b, i - 1].clone()
             if c == 0:
-                col_d[0] = init_row[b, 0, 0]
-            prev = torch.full((32, L), sent, dtype=torch.int32)
-            up_h = torch.full((32,), sent, dtype=torch.int32)
-            vals = torch.full((R + 32, L), sent, dtype=torch.int32)
+                col_d[0] = init_row[b, 0]
+            prev = torch.full((32, L), sent, dtype=dt)
+            up_prev = torch.full((32, L), sent, dtype=dt)
+            vals = torch.full((R + 32, L), sent, dtype=dt)
             when = torch.full((R + 32,), -1, dtype=torch.int64)
             for w in range(w_start, w_end):
                 j = w - lanes + 1
                 rc = ref[b, (w - lanes).clamp(0, R - 1)]
-                up = torch.full((32, L), sent, dtype=torch.int32)
-                up[1:, up_l] = prev[:-1, up_l]
+                up = torch.full((32, L), sent, dtype=dt)
+                up[1:, ring_l] = prev[:-1, ring_l]
                 x = w + 1
                 if c == 0:
-                    up[0, up_l] = init_row[b, min(x, R), up_l]
+                    up[0, ring_l] = init_row[b, min(x, R), ring_l]
                 elif x <= rl and (spec.band is None
                                   or abs(32 * c - x) <= spec.band):
                     seen = 0 <= int(above[1][x]) <= \
                         CH * (w // CH + 1) + lag - 2
-                    up[0, up_l] = above[0][x, up_l] if seen else POISON
-                diag = torch.full((32, L), sent, dtype=torch.int32)
-                diag[:, 0] = up_h
-                up_h = up[:, 0].clone()
+                    up[0, ring_l] = above[0][x, ring_l] if seen else POISON
+                diag = torch.full((32, L), sent, dtype=dt)
+                diag[:, diag_l] = up_prev[:, diag_l]
+                up_prev = up.clone()
                 left = prev.clone()
                 one = j == 1
                 left[one] = col_b[one]
-                diag[one, 0] = col_d[one]
+                diag[one] = torch.where(
+                    torch.isin(torch.arange(L), torch.tensor(diag_l)),
+                    col_d[one], torch.full_like(col_d[one], sent))
                 scores, ptr = spec.pe(params, qc, rc, diag, up, left, i, j)
                 valid = (j >= 1) & (j <= r_len) & (i <= q_len) & \
                     band_mask(spec, i, j)
-                cur = torch.where(valid[:, None], scores.to(torch.int32),
-                                  sent)
+                cur = torch.where(valid[:, None], scores.to(dt), sent)
                 store[b, c, :, w] = torch.where(valid, ptr, 0).to(
                     torch.uint8)
                 if c + 1 < n_live and w >= 31:
                     vals[w - 30], when[w - 30] = cur[31], w
-                cand = torch.where(region_mask(spec, i, j, q_len, r_len),
-                                   cur[:, 0], sent)
-                upd = cand > best[b, c]
-                best[b, c] = torch.where(upd, cand, best[b, c])
-                best_j[b, c] = torch.where(upd, j.to(torch.int32),
-                                           best_j[b, c])
+                region = region_mask(spec, i, j, q_len, r_len)
+                cand = torch.where(region, cur[:, spec.primary_layer], sent)
+                if spec.is_sum:
+                    best[b, c] = torch.where(
+                        region, spec.combine(best[b, c], cand), best[b, c])
+                else:
+                    upd = spec.better(cand, best[b, c])
+                    best[b, c] = torch.where(upd, cand, best[b, c])
+                    best_j[b, c] = torch.where(upd, j.to(torch.int32),
+                                               best_j[b, c])
                 prev = cur
             above = (vals, when)
     tb = pack_lanes(store.transpose(2, 3), pack).transpose(2, 3)
@@ -252,14 +292,17 @@ def _case(name):
         from repro_torch.mapping import extend
         mode, band = EXT_SPECS[name]
         return extend.extension_spec(band, mode)
+    if name in EXT:
+        return _ext_case(name)
     return pzoo.make(name)
 
 
-@pytest.mark.parametrize("name", PORTED + list(EXT_SPECS))
+@pytest.mark.parametrize("name", PORTED + list(EXT_SPECS) + EXT)
 def test_kernel_schedule_matches_plain(name, rng):
-    """The lane-level schedule (diagonal from the previous up, masked up
-    layers, banded windows, handoff at STRIP_LAG) equals the plain
-    version on every ported family and the mapper's two extension specs."""
+    """The lane-level schedule (diagonal layers from the previous up, masked
+    ring layers, banded windows, handoff at STRIP_LAG, the objective's
+    fold) equals the plain version on every family K1 instantiates and
+    the mapper's two extension specs."""
     spec, params = _case(name)
     B, Q, R = 3, 96, 80
     qs, rs, ql, rl = _batch(rng, spec, B, Q, R)
@@ -453,3 +496,85 @@ def test_cuda_kernel_matches_plain(kid):
             torch.cuda.synchronize()
             for g, w in zip(got, want):
                 assert torch.equal(g, w)
+
+
+def _hold_float(spec, got, want, what):
+    """K1 against its plain version on one batch: best within the
+    family's tolerance (exact for int32), and, for every pair whose best
+    is bit-equal, best_j and the pointer store exact."""
+    tb, best, best_j = got
+    ptb, pbest, pbest_j = want
+    if not spec.score_dtype.is_floating_point:
+        assert all(torch.equal(g, w) for g, w in zip(got, want)
+                   if g is not None), what
+        return
+    rtol = 2e-5 if spec.is_sum else 1e-5
+    torch.testing.assert_close(best, pbest, rtol=rtol, atol=0, msg=what)
+    same = (best == pbest).reshape(best.shape[0], -1).all(dim=1)
+    assert torch.equal(best_j[same], pbest_j[same]), what
+    if tb is not None:
+        assert torch.equal(tb[same], ptb[same]), what
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", EXT)
+def test_cuda_ext_families_match_plain(name):
+    """K1's f32 max-plus, min-plus and logsumexp instantiations and sDTW's
+    int32 min-plus on the card against the plain version on the same
+    card, at buckets 64 (batch 16), 256 (batch 8) and 1024 (batch 3)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K1 is CUDA C++ with no CPU mode)")
+    rng = np.random.default_rng(7)
+    spec, params = _ext_case(name)
+    for B, Q, R in [(16, 64, 64), (8, 256, 256), (3, 1024, 1024)]:
+        qs, rs, ql, rl = _batch(rng, spec, B, Q, R)
+        args = _fill_inputs(spec, params, qs, rs, ql, rl, device="cuda")
+        for pack in sorted({spec.tb_pack, 1}):
+            before = K.launches
+            got = K.wavefront_fill(spec, params, *args, tb_pack=pack)
+            assert K.launches == before + 1
+            want = K.wavefront_fill_plain(spec, params, *args, tb_pack=pack)
+            torch.cuda.synchronize()
+            _hold_float(spec, got, want, f"{name} {Q}x{R} pack {pack}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kid", PORTED + [8, 9, 14])
+def test_cuda_empty_and_out_of_band_pairs(kid):
+    """Empty queries or references and banded corners outside the band
+    give the CPU path's result on the card: the sentinel score, end cell
+    (0, 0), no moves."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K1 is CUDA C++ with no CPU mode)")
+    from repro_torch.runtime import dispatch
+    rng = np.random.default_rng(kid)
+    spec, params = pzoo.make(kid)
+    shapes = [(0, 5), (5, 0), (0, 0), (32, 1), (1, 32), (2, 64)]
+    pairs = [(_codes(rng, spec, (nq,)), _codes(rng, spec, (nr,)))
+             for nq, nr in shapes]
+    tb = spec.traceback is not None
+    got = dispatch.run_pairs(spec, params, pairs, block=4,
+                             with_traceback=tb)
+    want = dispatch.run_pairs(spec, params, pairs, block=4,
+                              with_traceback=tb, device="cpu")
+    for (nq, nr), g, w in zip(shapes, got, want):
+        for f in ("score", "end_i", "end_j") + (("n_moves",) if tb else ()):
+            assert np.array_equal(np.asarray(getattr(g, f)),
+                                  np.asarray(getattr(w, f))), (nq, nr, f)
+
+
+def test_both_sources_rebuild_when_the_shared_header_changes(tmp_path):
+    """K1's two sources include csrc/wavefront_kernel.cuh, so the build
+    key of each covers the header as well as the source."""
+    from repro_torch.kernels import build
+    for name in ("wavefront.cu", "wavefront_ext.cu"):
+        (tmp_path / name).write_bytes((K.CSRC / name).read_bytes())
+    header = tmp_path / "wavefront_kernel.cuh"
+    header.write_text("// one version\n")
+    before = [build._digest(tmp_path / n) for n in ("wavefront.cu",
+                                                     "wavefront_ext.cu")]
+    header.write_text("// another version\n")
+    after = [build._digest(tmp_path / n) for n in ("wavefront.cu",
+                                                    "wavefront_ext.cu")]
+    assert before[0] != after[0] and before[1] != after[1]
+    assert K.SOURCES == (K.CSRC / "wavefront.cu", K.CSRC / "wavefront_ext.cu")
