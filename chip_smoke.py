@@ -2,13 +2,15 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It drives the port's four main paths on the card: the alignment path
+It drives the port's main paths on the card: the alignment path
 (``run_pairs`` -> plan -> K1 fill -> batched traceback -> harvest), the
 read mapper (``ReadMapper.map_reads``: index, seed, chain, the screen on K2,
 banded extension on K1, SAM), pair-HMM genotyping (``run_pairs`` on K1's
-logsumexp instantiation, ``prob.call_genotype``, ``prob.call_site``) and
-LM serving (``ServeSession``: per-slot prefill on K3 for olmo-1b and K4 for
-rwkv6-3b, batched greedy decode).  It
+logsumexp instantiation, ``prob.call_genotype``, ``prob.call_site``), the
+serving layer (the gateway's ``AlignmentService`` with K2's prefilter and
+degrade path, ``GenotypingService``, ``ReadMappingService``; ``tiled_align``
+and the ``banded`` engine) and LM serving (``ServeSession``: per-slot
+prefill on K3 for olmo-1b and K4 for rwkv6-3b, batched greedy decode).  It
 holds every CUDA kernel against its plain PyTorch version at the shapes
 those paths give it, times K1-K4, and prints one JSON line listing the
 kernels and, last,
@@ -25,7 +27,9 @@ Phases:
      not spill; every other-family instantiation is listed);
   3. K1 vs its plain version, every ported zoo kernel and pointer packing,
      at buckets 64 (batch 16, mixed lengths), 256 (batch 64), 1024 (batch 4),
-     each output allocated on blocks the script left filled with 0xFF;
+     each output allocated on blocks the script left filled with 0xFF (one
+     plain fill per kernel and bucket, packed for each packing by the
+     plain version's own ``pack_store``; also in 3b);
   3b. K1 vs its plain version for #8, #9, #10, #14, the pair-HMM forward
      and backward at logsumexp and the forward at max-plus, at the same
      buckets, on 0xFF blocks: integers bit-equal, float best within rtol
@@ -44,9 +48,9 @@ Phases:
      the largest shape without the pointer store and at batch 132, 264
      and 528;
   7. K2 vs its plain version: #16 and #17, buckets 64, 256 and 1024 (1, 4
-     and 16 words) at batch 64, random and 8 %-mutated pairs with lengths
-     below the bucket (q_len 1 included), k in {-1, 0, bucket / 10}, each
-     output allocated on blocks left filled with 0xFF;
+     and 16 words) at batch 64, random (64 and 256 only) and 8 %-mutated
+     pairs with lengths below the bucket (q_len 1 included), k in {-1, 0,
+     bucket / 10}, each output allocated on blocks left filled with 0xFF;
   8. the mapper at a real size: a 4,641,652-base random reference (the
      length of E. coli K-12 MG1655, NCBI RefSeq NC_000913.3) with 16 runs of
      200 N, 32,768 simulated 150-base reads at 5 % error plus 4,096 random
@@ -71,6 +75,32 @@ Phases:
   P. ``forward_backward`` on four 150 x 400 pairs on the card's reference
      engine: log_z_backward within rel 1e-4 of log_z, rows summing to 1
      within 5e-4, the CPU path within 1e-4;
+  S. the serving layer, data from SEED: ``AlignmentService(max_len=512,
+     block=256, prefilter=0.1, pipeline_depth=2)`` under ``serve()`` with 2
+     workers, 8192 requests alternating #2 and #4, windows of 100-300 bases
+     of a random 1 Mb reference mutated at 8 % (GASAL2's extension regime),
+     about 10 % of the #2 queries unrelated junk.  A clean cold run (K1 and
+     K2 counted, their arguments recorded): every unfiltered result (score,
+     end, CIGAR) == run_pairs on the card, every screen decision == plain
+     K2's distance against the cut ceil(0.1 len(q)); at each shape the
+     run gave them, K1 and K2 == their plain versions on the recorded
+     inputs of the fullest launch (survivors, then length-1 dummy rows),
+     bit for bit, and timed alone for their device share; requests/s,
+     exact p50/p99 latency beside the gateway histogram's; a warm-started
+     run on the first 2048 requests, over the clean run's channel grid
+     (compile_s at boot and while serving, a Chrome trace under build/
+     that passes validate_chrome_trace, the workers' span totals); the
+     whole stream warm-started with 1, 2, 2 and 1 workers in turns, each
+     == the clean run; the same stream under FaultPlan(seed=0, kill
+     w0 at dispatch 1, launch failures p 0.1): bit-identical, no double
+     completion, submitted == resolved + dead_lettered; the first 2048
+     requests with degrade="myers" past a watermark: each degraded
+     edit_distance == plain K2's.  Then 256 of phase G's sites through
+     ``GenotypingService`` (each call == phase G's), 4096 of phase 8's reads
+     through ``ReadMappingService`` (SAM lines == map_reads), ``tiled_align``
+     of a 10 kb #2 pair (tile 256, overlap 64) on K1 == on the reference
+     engine, and #11-13 on ``banded`` (256 pairs of 200-400 bases) == the
+     reference engine, #12 with xdrop 10 == the CPU;
   (K1 and K2 are timed by kernel_device_ms: the device time of 20
   launches captured in a CUDA graph and replayed between CUDA events, 5
   rounds, median and range, with the CUDA-event ms of Python calls, the
@@ -105,6 +135,7 @@ Phases:
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import re
@@ -190,6 +221,18 @@ PROMPT_LENS, MAX_NEW = (256, 1536), 32
 LOGIT_FACTOR = 3.0
 FIELDS = ("score", "end_i", "end_j", "start_i", "start_j", "n_moves",
           "moves")
+# phase S, the serving layer: GASAL2's extension regime (PERF.md section 1),
+# requests of 100-300 bases in two channels, #2 and #4
+SV_KERNELS = ("global_affine", "local_affine")
+SV_REQUESTS, SV_LENS, SV_RATE, SV_JUNK = 8192, (100, 300), 0.08, 0.1
+SV_MAX_LEN, SV_BLOCK, SV_PREFILTER, SV_DEPTH = 512, 256, 0.1, 2
+SV_WORKERS = 2
+SV_WARM = 2048                   # the warm run takes the stream's first
+SV_DEGRADE = 2048                # the degrade run takes the stream's first
+SV_WATERMARK = SV_DEGRADE - 4 * SV_BLOCK  # ... and its first batches degrade
+SV_SITES, SV_READS = 256, 4096
+SV_TILE_LEN, SV_TILE, SV_OVERLAP = 10_000, 256, 64
+SV_BANDED_PAIRS, SV_BANDED_LENS, SV_XDROP = 256, (200, 400), 10
 
 
 class SmokeFailure(RuntimeError):
@@ -458,9 +501,11 @@ def phase_kernel_vs_plain(rng):
                 rl = rng.integers(bucket // 2, bucket + 1, batch)
             rl = rl.astype(np.int32)
             args = _fill_args(spec, params, qs, rs, ql, rl, "cuda")
+            plain = K.wavefront_fill_plain(spec, params, *args, tb_pack=1)
             for pack in sorted({spec.tb_pack, 1}):
-                want = K.wavefront_fill_plain(spec, params, *args,
-                                              tb_pack=pack)
+                # one plain fill, packed for each tb_pack by the plain
+                # version's own pack step
+                want = (K.pack_store(plain[0], pack), *plain[1:])
                 dirty = _dirty_allocator(*want)
                 got = K.wavefront_fill(spec, params, *args, tb_pack=pack)
                 torch.cuda.synchronize()
@@ -567,9 +612,11 @@ def phase_ext_vs_plain(rng):
             ql[0] = bucket
             rl = rng.integers(bucket // 2, bucket + 1, batch).astype(np.int32)
             args = _fill_args(spec, params, qs, rs, ql, rl, "cuda")
+            plain = K.wavefront_fill_plain(spec, params, *args, tb_pack=1)
             for pack in sorted({spec.tb_pack, 1}):
-                want = K.wavefront_fill_plain(spec, params, *args,
-                                              tb_pack=pack)
+                # one plain fill, packed for each tb_pack by the plain
+                # version's own pack step
+                want = (K.pack_store(plain[0], pack), *plain[1:])
                 dirty = _dirty_allocator(*want)
                 got = K.wavefront_fill(spec, params, *args, tb_pack=pack)
                 torch.cuda.synchronize()
@@ -667,13 +714,16 @@ def phase_genotyping(card):
           "genotyping: a likelihood is not a finite log-probability")
 
     t2 = time.perf_counter()
-    calls, gq = [], []
+    calls, gq, site_calls = [], [], []
     for site, (start, n_r, n_h) in zip(sites, spans):
         ll = scores[start:start + n_r * n_h].reshape(n_r, n_h)
         ll = ll - np.log([max(len(h), 1) for h in site.haplotypes])[None, :]
         out = prob.call_genotype(ll)
         calls.append(out["GT"] == tuple(site.genotype))
         gq.append(out["GQ"])
+        if len(site_calls) < SV_SITES:       # phase S holds its service
+            out["ll"] = ll                    # to these calls
+            site_calls.append(out)
     call_s = time.perf_counter() - t2
     concord = sum(calls) / len(calls)
     check(concord >= 0.99, f"genotype concordance {concord:.4f} < 0.99")
@@ -745,7 +795,7 @@ def phase_genotyping(card):
             "max_rel_err": max(rerr, rel64), "pairs_per_s": len(pairs) / wall,
             "sites_per_s": len(sites) / wall, "gcups": cells / wall / 1e9,
             "concordance": concord, "profiler_records": prof[0],
-            "sites": sites}
+            "sites": sites, "calls": site_calls}
 
 
 def phase_posterior(sites):
@@ -946,21 +996,36 @@ def _hold_to_plain(spec, params, block, what):
     """K1 and its plain version on one padded block, as run_pairs hands it
     to K1 (spec-default tb_pack, with pointers); returns the fill
     arguments, the largest |difference| and the plain version's ms."""
-    import torch
-    from repro_torch.kernels.wavefront import kernel as K
     (bq, br), qs, rs, ql, rl = block
     args = _fill_args(spec, params, qs, rs, ql, rl, DEVICE)
-    got = K.wavefront_fill(spec, params, *args, tb_pack=spec.tb_pack)
+    err, plain_ms = _hold_args(spec, params, args,
+                               {"tb_pack": spec.tb_pack}, what)
+    return args, err, plain_ms
+
+
+def _hold_args(spec, params, args, kw, what):
+    """K1 and its plain version on the same fill arguments (query, ref,
+    boundaries, lens on the card) and keywords: every output bit-equal
+    (the pointer store, when there is one, best, best_j); returns the
+    largest |difference| and the plain version's ms."""
+    import torch
+    from repro_torch.kernels.wavefront import kernel as K
+    B, bq, br = args[0].shape[0], args[0].shape[1], args[1].shape[1]
+    got = K.wavefront_fill(spec, params, *args, **kw)
     want = []
     plain_ms = cuda_time_ms(lambda: want.extend(K.wavefront_fill_plain(
-        spec, params, *args, tb_pack=spec.tb_pack)), 1)
-    check(all(g.shape == w.shape for g, w in zip(got, want)),
-          f"K1 and plain shapes differ on the {what} block {bq}x{br}")
-    err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
-    check(all(torch.equal(g, w) for g, w in zip(got, want)),
-          f"K1 != plain on the {what} block {bq}x{br} (batch {qs.shape[0]}, "
+        spec, params, *args, **kw)), 1)
+    pairs = [(g, w) for g, w in zip(got, want) if g is not None or
+             w is not None]
+    check(all(g is not None and w is not None and g.shape == w.shape
+              for g, w in pairs),
+          f"K1 and plain outputs differ in shape on the {what} block "
+          f"{bq}x{br}")
+    err = max(int((g.long() - w.long()).abs().max()) for g, w in pairs)
+    check(all(torch.equal(g, w) for g, w in pairs),
+          f"K1 != plain on the {what} block {bq}x{br} (batch {B}, "
           f"max |diff| {err})")
-    return args, err, plain_ms
+    return err, plain_ms
 
 
 def _live_in_band(ql, rl, band):
@@ -1133,7 +1198,9 @@ def phase_k2_vs_plain(rng):
     for kid in (16, 17):
         for bucket in (64, 256, 1024):
             B = 64
-            for kind in ("random", "mutated"):
+            # at 1024 (16 words) the plain sweep takes most of the phase:
+            # mutated pairs only there
+            for kind in ("random", "mutated")[bucket == 1024:]:
                 qs = rng.integers(0, 4, (B, bucket)).astype(np.uint8)
                 ql = rng.integers(bucket // 2, bucket + 1, B).astype(np.int32)
                 ql[0], ql[1] = 1, bucket
@@ -1166,8 +1233,9 @@ def phase_k2_vs_plain(rng):
                           f"K2 != plain: #{kid}, bucket {bucket}, {kind}, "
                           f"k {k} (max |diff| {err})")
                     n += 1
-    print(f"[7] K2 == plain on {n} cases (#16/#17 x buckets 64/256/1024 x "
-          f"random/mutated x k -1/0/bucket/10; score, best, best_j "
+    print(f"[7] K2 == plain on {n} cases (#16/#17 x buckets 64/256 x "
+          f"random/mutated and 1024 x mutated, x k -1/0/bucket/10; score, "
+          f"best, best_j "
           f"bit-equal on blocks left filled with 0xFF; k >= 0 from the "
           f"k = -1 sweep's score trail) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -1328,7 +1396,8 @@ def phase_mapper(card):
     K1.launches, K2.launches = k1_before, k2_before
     return {"k1_launches": k1_runs, "k2_launches": k2_runs,
             "k1_err": k1_err, "k2_err": k2_err, "k1_extension": k1_ext,
-            "screen": (sblock, args, k, cols, plain_ms)}
+            "screen": (sblock, args, k, cols, plain_ms),
+            "mapper": mapper, "reads": reads}
 
 
 def phase_k2_timing(screen, card):
@@ -1381,6 +1450,552 @@ def phase_k2_timing(screen, card):
 # ---------------------------------------------------------------------------
 # The LM serving path: K3 (flash attention) and K4 (WKV6)
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# phase S: the serving layer
+def _sv_stream(rng, genome):
+    """SV_REQUESTS (rid, kernel, query, ref, junk): the channels alternate
+    #2 and #4; windows of SV_LENS bases of the genome, queries mutated at
+    SV_RATE; about SV_JUNK of the #2 queries are unrelated random
+    sequences."""
+    from repro_torch.core import alphabets
+    out = []
+    for rid in range(SV_REQUESTS):
+        kernel = SV_KERNELS[rid % 2]
+        w = int(rng.integers(SV_LENS[0], SV_LENS[1] + 1))
+        s = int(rng.integers(0, len(genome) - w))
+        ref = genome[s:s + w]
+        junk = kernel == SV_KERNELS[0] and rng.random() < SV_JUNK
+        if junk:
+            q = alphabets.random_dna(
+                rng, int(rng.integers(SV_LENS[0], SV_LENS[1] + 1)))
+        else:
+            q = alphabets.mutate(rng, ref, SV_RATE)[:SV_MAX_LEN]
+        out.append((rid, kernel, q if len(q) else ref[:1], ref, junk))
+    return out
+
+
+def _plan_totals():
+    from repro_torch.runtime import plan as plan_mod
+    return plan_mod.plan_cache_info()["totals"]
+
+
+def _sv_run(stream, n_workers=SV_WORKERS, **kw):
+    """One service over the whole stream, driven by serve(); returns the
+    results in rid order, the service, serve()'s stats, the compile
+    seconds stamped at boot and while serving, and each completed
+    request's submit-to-result seconds."""
+    import torch
+    from repro_torch.runtime import plan as plan_mod
+    from repro_torch.serve import AlignRequest, AlignmentService
+    plan_mod.clear_plan_cache(keep_stats=True)      # every run starts cold
+    c0 = _plan_totals()["compile_s"]
+    svc = AlignmentService(max_len=SV_MAX_LEN, block=SV_BLOCK,
+                           prefilter=SV_PREFILTER, pipeline_depth=SV_DEPTH,
+                           **kw)
+    c1 = _plan_totals()["compile_s"]
+    reqs = [AlignRequest(rid=rid, kernel=k, query=q, ref=r)
+            for rid, k, q, r, _ in stream]
+    for r in reqs:
+        svc.submit(r)
+    stats = svc.serve(n_workers=n_workers, timeout_s=900.0)
+    torch.cuda.synchronize()
+    c2 = _plan_totals()["compile_s"]
+    check(all(r.result is not None for r in reqs),
+          "service: a request has no result")
+    lat = [r._t_resolve - r._t_submit for r in reqs
+           if not r.result.get("filtered") and not r.result.get("degraded")]
+    return [r.result for r in reqs], svc, stats, (c1 - c0, c2 - c1), lat
+
+
+def _sv_plain_k2(stream):
+    """Plain K2's semiglobal edit distance (edit_search, no threshold) of
+    every request on the card: the distance the prefilter and the degrade
+    path must see."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.myers import kernel as K2
+    out = []
+    for lo in range(0, len(stream), 2048):
+        part = stream[lo:lo + 2048]
+        B = len(part)
+        qs = np.zeros((B, SV_MAX_LEN), np.uint8)
+        rs = np.zeros((B, SV_MAX_LEN), np.uint8)
+        lens = np.zeros((B, 2), np.int32)
+        for row, (_, _, q, r, _) in enumerate(part):
+            qs[row, :len(q)], rs[row, :len(r)] = q, r
+            lens[row] = len(q), len(r)
+        _, best, _ = K2.myers_fill_plain(
+            torch.as_tensor(qs, device=DEVICE),
+            torch.as_tensor(rs, device=DEVICE),
+            torch.as_tensor(lens, device=DEVICE), glob=False, k=-1)
+        out.extend(int(d) for d in best.cpu())
+    return out
+
+
+def _sv_latency(svc, lat):
+    """Exact p50/p99 of the completed requests' submit-to-result seconds,
+    and the gateway histogram's (a bucket's geometric midpoint, buckets
+    sqrt(2) wide)."""
+    import numpy as np
+    hist = svc.metrics()["metrics"]["histograms"]
+    h = hist.get("gw_latency_s{outcome=completed}", {})
+    p50, p99 = (float(v) for v in np.percentile(lat, [50, 99]))
+    return {"p50_s": p50, "p99_s": p99,
+            "p50_bucket_s": h.get("p50", float("nan")),
+            "p99_bucket_s": h.get("p99", float("nan"))}
+
+
+@contextlib.contextmanager
+def _recording(mod, name, calls):
+    """Within the block, every call of ``mod.name`` appends its arguments
+    to ``calls`` before it runs (the service's launches, replayed after
+    the run against the plain version)."""
+    orig = getattr(mod, name)
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return orig(*args, **kw)
+    setattr(mod, name, record)
+    try:
+        yield calls
+    finally:
+        setattr(mod, name, orig)
+
+
+def _fullest_launches(calls, key):
+    """The recorded launch with the most live cells for each ``key`` of
+    its arguments, and how many launches had that key."""
+    groups = {}
+    for args, kw in calls:
+        lens = args[-1].long()
+        cells = int((lens[:, 0] * lens[:, 1]).sum())
+        k = key(args)
+        n, best = groups.get(k, (0, None))
+        if best is None or cells > best[0]:
+            best = (cells, args, kw)
+        groups[k] = (n + 1, best)
+    return {k: (n, args, kw) for k, (n, (_, args, kw)) in groups.items()}
+
+
+def _latency_text(lat):
+    return (f"p50 {lat['p50_s']:.3f} s, p99 {lat['p99_s']:.3f} s (the "
+            f"gateway histogram's buckets: {lat['p50_bucket_s']:.3f} s, "
+            f"{lat['p99_bucket_s']:.3f} s)")
+
+
+def _sv_hold_launches(k1_calls, k2_calls, wall):
+    """K1 and K2 against their plain versions on the very inputs the clean
+    run launched them with (batches of SV_BLOCK rows: the survivors, then
+    length-1 dummy rows): at each (kernel, shape) the launch with the most
+    live cells, every output bit-equal, then timed alone
+    (kernel_device_ms, 3 rounds).  Returns K1's and K2's largest
+    |difference|, their device time over the wall (each launch at its
+    shape's timed ms), and the shapes held."""
+    from repro_torch.kernels.myers import kernel as K2
+    from repro_torch.kernels.wavefront import kernel as K1
+    b1, b2 = K1.launches, K2.launches
+    err1 = err2 = 0
+    k1_ms = k2_ms = 0.0
+    k1 = _fullest_launches(k1_calls, lambda a: (a[0].name,) + tuple(
+        a[2].shape[:2]) + (a[3].shape[1],))
+    for (name, B, bq, br), (n, args, kw) in sorted(k1.items()):
+        spec, params, *fill = args
+        err, _ = _hold_args(spec, params, fill, kw,
+                            f"service {name} (batch {B})")
+        err1 = max(err1, err)
+        dev = kernel_device_ms(lambda: K1.wavefront_fill(
+            spec, params, *fill, **kw), "wavefront", rounds=3)[0]
+        k1_ms += n * statistics.median(dev)
+    k2 = _fullest_launches(k2_calls, lambda a: tuple(a[0].shape)
+                           + (a[1].shape[1],))
+    for (B, bq, br), (n, (q, r, lens), kw) in sorted(k2.items()):
+        _, err, _ = _k2_hold(q, r, lens, kw["glob"], kw["k"],
+                             f"service screen {bq}x{br} (batch {B})")
+        err2 = max(err2, err)
+        dev = kernel_device_ms(lambda: K2.myers_fill(q, r, lens, **kw),
+                               "myers", rounds=3)[0]
+        k2_ms += n * statistics.median(dev)
+    K1.launches, K2.launches = b1, b2
+    return {"k1_err": err1, "k2_err": err2,
+            "k1_share": k1_ms / 1e3 / wall, "k2_share": k2_ms / 1e3 / wall,
+            "k1_shapes": [f"{name} {B}x{bq}x{br}"
+                          for name, B, bq, br in sorted(k1)],
+            "k2_shapes": len(k2)}
+
+
+def phase_service(geno, mapping):
+    """The serving layer on the card: the alignment service under serve()
+    (clean and cold, with K1 and K2 held to their plain versions on the
+    inputs it launched them with; warm-started and traced; one worker
+    against two in turns; under a fault plan; degrading to K2), the
+    genotyping and mapping services against their direct paths,
+    tiled_align on K1 against the reference engine, and the banded engine
+    against the reference engine."""
+    import numpy as np
+    import torch
+    from repro_torch.core import alphabets, kernels_zoo
+    from repro_torch.core import traceback as tb_mod
+    from repro_torch.kernels.myers import kernel as K2
+    from repro_torch.kernels.wavefront import kernel as K1
+    from repro_torch.obs import export as obs_export
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.runtime import dispatch
+    from repro_torch.serve import FaultPlan
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    genome = alphabets.random_dna(rng, 1_000_000)
+    stream = _sv_stream(rng, genome)
+    n = len(stream)
+    setup_s = time.perf_counter() - t_phase
+
+    # A: the clean run, cold: the main path of this phase, its launches'
+    # arguments recorded to be held against the plain versions below
+    K1.launches = K2.launches = 0
+    with _recording(K1, "wavefront_fill", []) as k1_calls, \
+            _recording(K2, "myers_fill", []) as k2_calls:
+        clean, svc, stats, (_, cold_compile), lat = _sv_run(stream)
+    k1_runs, k2_runs = K1.launches, K2.launches
+    wall = stats["wall_s"]
+    check(k1_runs > 0 and k2_runs > 0, f"service: K1 {k1_runs} and K2 "
+          f"{k2_runs} launches (each must be > 0)")
+    disp = list(svc.dispatches)
+    check(k2_runs == len(disp), f"service: K2 launched {k2_runs} times for "
+          f"{len(disp)} screened batches")
+    check(k1_runs == sum(d["n"] > 0 for d in disp), f"service: K1 launched "
+          f"{k1_runs} times for {sum(d['n'] > 0 for d in disp)} batches "
+          f"with survivors")
+    check(len(k1_calls) == k1_runs and len(k2_calls) == k2_runs,
+          f"service: {len(k1_calls)} K1 and {len(k2_calls)} K2 launches "
+          f"recorded for {k1_runs} and {k2_runs} counted")
+    rec = svc.metrics()["reconcile"]
+    check(rec["ok"] and rec["dead_lettered"] == 0, f"service: {rec}")
+    lat_clean = _sv_latency(svc, lat)
+    filtered = [k for k, res in enumerate(clean) if res.get("filtered")]
+    junk = [k for k, s in enumerate(stream) if s[4]]
+
+    # exactness: unfiltered == run_pairs on the card; filtered iff plain
+    # K2's distance exceeds the cut
+    t0 = time.perf_counter()
+    for kernel in SV_KERNELS:
+        idx = [k for k, s in enumerate(stream) if s[1] == kernel
+               and not clean[k].get("filtered")]
+        spec, params = kernels_zoo.make(kernel)
+        outs = dispatch.run_pairs(spec, params, [stream[k][2:4] for k in idx],
+                                  block=1024)
+        for k, a in zip(idx, outs):
+            want = {"score": float(a.score),
+                    "end": (int(a.end_i), int(a.end_j)),
+                    "cigar": tb_mod.moves_to_cigar(a.moves, a.n_moves)}
+            check(clean[k] == want, f"service: request {k} ({kernel}) "
+                  f"{clean[k]} != run_pairs {want}")
+    dist = _sv_plain_k2(stream)
+    for k, (_, _, q, _, _) in enumerate(stream):
+        cut = int(np.ceil(SV_PREFILTER * len(q)))
+        check(bool(clean[k].get("filtered")) == (dist[k] > cut),
+              f"service: request {k} filtered={clean[k].get('filtered')} "
+              f"but plain K2's distance is {dist[k]} against cut {cut}")
+    held = _sv_hold_launches(k1_calls, k2_calls, wall)
+    del k1_calls[:], k2_calls[:]
+    check_s = time.perf_counter() - t0
+
+    # B: warm-started over run A's channel grid, traced
+    grid = sorted({(d["kernel"], tuple(d["bucket"])) for d in disp})
+    obs_trace.clear()
+    obs_trace.enable()
+    warm, wsvc, wstats, (boot_compile, warm_compile), wlat = _sv_run(
+        stream[:SV_WARM], warm_start=grid)
+    obs_trace.disable()
+    trace_path = ROOT / "build" / "service_trace.json"
+    trace_path.parent.mkdir(parents=True, exist_ok=True)
+    obj = wsvc.dump_trace(str(trace_path))
+    problems = obs_export.validate_chrome_trace(obj)
+    check(not problems, f"service trace: {problems[:3]}")
+    names = {e["name"] for e in obj["traceEvents"]}
+    check({"gw.launch", "gw.harvest", "dispatch.launch", "plan.compile"}
+          <= names, f"service trace lacks spans: {sorted(names)[:12]}")
+    spent = {}
+    for sp in obs_trace.spans():
+        if sp.t1 is not None and sp.name.startswith("gw."):
+            t, c = spent.get(sp.name, (0.0, 0))
+            spent[sp.name] = (t + sp.t1 - sp.t0, c + 1)
+    obs_trace.clear()
+    check(warm == clean[:SV_WARM], "service: the warm run's results differ")
+    lat_warm = _sv_latency(wsvc, wlat)
+
+    # E: one worker against two on the whole stream, warm-started over the
+    # same grid, in turns (1, 2, 2, 1) in one process state
+    turns = {1: [], 2: []}
+    for w in (1, 2, 2, 1):
+        res, asvc, astats, _, alat = _sv_run(stream, n_workers=w,
+                                             warm_start=grid)
+        check(res == clean, f"service with {w} workers: results differ "
+              f"from the clean run")
+        turns[w].append({"wall_s": astats["wall_s"],
+                         **_sv_latency(asvc, alat)})
+
+    # C: chaos, the invariants of bench_faults.py and scripts/chaos.py
+    chaos, csvc, cstats, _, _ = _sv_run(
+        stream, fault_plan=FaultPlan(seed=0, kill={"w0": 1},
+                                     fail_launch_p=0.1),
+        redispatch_after=5.0, max_retries=8)
+    crec = csvc.metrics()["reconcile"]
+    check(chaos == clean, "chaos: results differ from the clean run")
+    check(cstats["killed"] == [{"worker": "w0", "seq": 1}],
+          f"chaos: kill schedule {cstats['killed']}")
+    check(cstats["completed"] + cstats["filtered"] == n, f"chaos: "
+          f"{cstats['completed']} completed + {cstats['filtered']} "
+          f"filtered != {n} requests (a double or lost completion)")
+    check(crec["ok"] and crec["submitted"] == crec["resolved"]
+          + crec["dead_lettered"] and crec["dead_lettered"] == 0,
+          f"chaos: reconcile {crec}")
+
+    # D: overload past the watermark degrades to K2
+    degr, dsvc, dstats, _, _ = _sv_run(stream[:SV_DEGRADE], degrade="myers",
+                                    degrade_watermark=SV_WATERMARK)
+    nd = 0
+    for k, res in enumerate(degr):
+        if res.get("degraded"):
+            nd += 1
+            check(res["edit_distance"] == dist[k]
+                  and res["score"] == -float(dist[k]),
+                  f"degrade: request {k} {res} != plain K2 {dist[k]}")
+        else:
+            check(res == clean[k], f"degrade: request {k} differs from the "
+                  f"clean run")
+    check(0 < nd < SV_DEGRADE, f"degrade: {nd} of {SV_DEGRADE} requests "
+          f"degraded")
+    check(dsvc.metrics()["reconcile"]["ok"], "degrade: reconcile")
+
+    junk_hit = len(set(filtered) & set(junk))
+    print(f"[S] alignment service (#2 and #4, {n} requests of "
+          f"{SV_LENS[0]}-{SV_LENS[1]} bases, {SV_RATE:.0%} mutated, "
+          f"{len(junk)} junk; max_len {SV_MAX_LEN}, block {SV_BLOCK}, "
+          f"prefilter {SV_PREFILTER}, depth {SV_DEPTH}, serve() with "
+          f"{SV_WORKERS} workers; made in {setup_s:.1f} s)", flush=True)
+    print(f"    clean, cold: {wall:.3f} s wall, {n / wall:.0f} requests/s; "
+          f"latency (submit to result, all submitted at once) "
+          f"{_latency_text(lat_clean)}; K1 launches {k1_runs}, K2 launches "
+          f"{k2_runs} ({len(disp)} batches); filtered {len(filtered)} "
+          f"({junk_hit} of the {len(junk)} junk); every unfiltered result "
+          f"== run_pairs, every screen decision == plain K2", flush=True)
+    print(f"    the clean run's launches replayed from their recorded "
+          f"inputs ({SV_BLOCK} rows: survivors, then length-1 dummies), "
+          f"the fullest at each shape: K1 == plain (tb, best, best_j "
+          f"bit-equal, max |diff| {held['k1_err']}) at "
+          f"{', '.join(held['k1_shapes'])}; K2 == plain (score, best, "
+          f"best_j bit-equal, max |diff| {held['k2_err']}) at "
+          f"{held['k2_shapes']} shapes; each timed alone: K1 device time "
+          f"{100 * held['k1_share']:.3f} % of the wall, K2 "
+          f"{100 * held['k2_share']:.4f} % ({check_s:.1f} s)", flush=True)
+    print(f"    compile_s: cold run {cold_compile:.4f} s stamped while "
+          f"serving (the first dispatch of each plan: a full batch with its "
+          f"walk, the kernel libraries loaded since phase 2); warm run "
+          f"{boot_compile:.4f} s at boot ({len(grid)} channels, "
+          f"{2 * len(grid)} plans, length-1 dummies) and {warm_compile:.4f} "
+          f"s while serving; warm run (the first {SV_WARM} requests) "
+          f"{wstats['wall_s']:.3f} s wall, "
+          f"{SV_WARM / wstats['wall_s']:.0f} requests/s, latency "
+          f"{_latency_text(lat_warm)} (traced: "
+          f"{trace_path.relative_to(ROOT)}, {len(obj['traceEvents'])} "
+          f"events, valid)", flush=True)
+    print("    workers, warm-started, the whole stream, in turns 1, 2, 2, 1: "
+          + "; ".join(
+              f"{w} worker{'s' * (w > 1)} "
+              + ", ".join(f"{t['wall_s']:.3f} s ({n / t['wall_s']:.0f} "
+                          f"requests/s, p50 {t['p50_s']:.3f} s, p99 "
+                          f"{t['p99_s']:.3f} s)" for t in turns[w])
+              for w in (1, 2)) + "; every result == the clean run",
+          flush=True)
+    print("    warm run's worker spans (seconds summed over both workers, "
+          "count): " + ", ".join(f"{k} {t:.3f} s ({c})" for k, (t, c)
+                                 in sorted(spent.items())), flush=True)
+    print(f"    chaos (kill w0 at dispatch 1, launch failures p 0.1): "
+          f"{cstats['wall_s']:.3f} s wall, bit-identical; faults "
+          f"{cstats['faults']}, retries {cstats['retries']}, redispatched "
+          f"{cstats['redispatched']}, dead letters 0, {crec}", flush=True)
+    print(f"    degrade (the first {SV_DEGRADE} requests, watermark "
+          f"{SV_WATERMARK}): {nd} answered by K2, each == plain K2, the rest "
+          f"== the clean run; {dstats['wall_s']:.3f} s wall", flush=True)
+    k1_geno, gt_s = _sv_genotyping(geno)
+    k1_map, k2_map, map_s = _sv_mapping(mapping)
+    k1_tile = _sv_tiling(rng)
+    _sv_banded(rng, genome)
+    print(f"    phase S {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"k1_launches": k1_runs, "k2_launches": k2_runs,
+            "k1_err": held["k1_err"], "k2_err": held["k2_err"],
+            "requests_per_s": n / wall, **lat_clean,
+            "k1_share": held["k1_share"], "k2_share": held["k2_share"],
+            "cold_first_batch_compile_s": cold_compile,
+            "warm_boot_dummy_compile_s": boot_compile,
+            "warm_serve_compile_s": warm_compile,
+            "workers_in_turns": {
+                str(w): [n / t["wall_s"] for t in turns[w]] for w in (1, 2)},
+            "k1_genotyping": k1_geno, "k1_mapping": k1_map,
+            "k2_mapping": k2_map, "k1_tiling": k1_tile}
+
+
+def _sv_genotyping(geno):
+    """SV_SITES of phase G's sites through GenotypingService: each call
+    equals phase G's for the site."""
+    import numpy as np
+    from repro_torch.kernels.wavefront import kernel as K1
+    from repro_torch.serve import GenotypeRequest, GenotypingService
+    sites, calls = geno["sites"][:SV_SITES], geno["calls"]
+    svc = GenotypingService(max_len=SV_MAX_LEN, block=GT_BLOCK)
+    K1.launches = 0
+    t0 = time.perf_counter()
+    futs = [svc.submit(GenotypeRequest(rid=k, reads=s.reads,
+                                       haplotypes=s.haplotypes))
+            for k, s in enumerate(sites)]
+    svc.serve(n_workers=SV_WORKERS, timeout_s=600.0)
+    wall = time.perf_counter() - t0
+    launches = K1.launches
+    check(launches > 0, "genotyping service did not reach K1")
+    worst = 0.0
+    for k, (f, want) in enumerate(zip(futs, calls)):
+        got = f.result()
+        check((got["GT"], got["GQ"], got["PL"]) == (want["GT"], want["GQ"],
+                                                     want["PL"]),
+              f"genotyping service: site {k} called {got['GT']} "
+              f"{got['PL']}, phase G {want['GT']} {want['PL']}")
+        worst = max(worst, float(np.max(np.abs(got["ll"] - want["ll"])
+                                        / np.abs(want["ll"]))))
+    check(worst <= 2e-5, f"genotyping service: likelihoods differ from "
+          f"phase G's by rel {worst:.3g}")
+    pairs = sum(len(s.reads) * len(s.haplotypes) for s in sites)
+    print(f"    genotyping service: {len(sites)} of phase G's sites "
+          f"({pairs} pairs), block {GT_BLOCK}: {wall:.3f} s, "
+          f"{len(sites) / wall:.1f} sites/s; K1 launches {launches}; every "
+          f"call (GT, GQ, PL) == phase G's, likelihoods within rel "
+          f"{worst:.3g}", flush=True)
+    return launches, wall
+
+
+def _sv_mapping(mapping):
+    """SV_READS of phase 8's reads (the last 256 of them junk) through
+    ReadMappingService: its SAM lines equal map_reads on the same reads."""
+    import torch
+    from repro_torch.kernels.myers import kernel as K2
+    from repro_torch.kernels.wavefront import kernel as K1
+    from repro_torch.serve import MapRequest, ReadMappingService
+    mapper, reads = mapping["mapper"], mapping["reads"]
+    pick = reads[:SV_READS - 256] + reads[N_READS:N_READS + 256]
+    svc = ReadMappingService(mapper.ref, mapper=mapper, max_batch=1024)
+    reqs = [MapRequest(rid=i, read=r) for i, r in enumerate(pick)]
+    K1.launches = K2.launches = 0
+    t0 = time.perf_counter()
+    for r in reqs:
+        svc.submit(r)
+    svc.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2 = K1.launches, K2.launches
+    check(k1 > 0 and k2 > 0, f"mapping service: K1 {k1}, K2 {k2} launches")
+    direct = mapper.map_reads(pick, names=[f"r{i}" for i in range(len(pick))])
+    for i, (r, d) in enumerate(zip(reqs, direct)):
+        check(r.result["sam"] == d.to_line(),
+              f"mapping service: read {i} differs from map_reads")
+    mapped = sum(r.result["mapped"] for r in reqs)
+    print(f"    mapping service: {len(pick)} of phase 8's reads (256 junk), "
+          f"max_batch 1024: {wall:.3f} s, {len(pick) / wall:.0f} reads/s; "
+          f"{mapped} mapped; K1 launches {k1}, K2 {k2}; every SAM line == "
+          f"map_reads on the same reads", flush=True)
+    return k1, k2, wall
+
+
+def _sv_tiling(rng):
+    """tiled_align of one SV_TILE_LEN-base #2 pair on K1 against the
+    reference engine on the card: the same moves, tiles and end cell."""
+    from repro_torch.core import alphabets, kernels_zoo, tiling
+    from repro_torch.kernels.wavefront import kernel as K1
+    ref = alphabets.random_dna(rng, SV_TILE_LEN)
+    q = alphabets.mutate(rng, ref, SV_RATE)
+    spec, params = kernels_zoo.make(2)
+    K1.launches = 0
+    t0 = time.perf_counter()
+    got = tiling.tiled_align(spec, params, q, ref, tile=SV_TILE,
+                             overlap=SV_OVERLAP)
+    wall = time.perf_counter() - t0
+    launches = K1.launches
+    t1 = time.perf_counter()
+    want = tiling.tiled_align(spec, params, q, ref, tile=SV_TILE,
+                              overlap=SV_OVERLAP, engine_name="reference")
+    ref_s = time.perf_counter() - t1
+    check(launches == got.n_tiles, f"tiling: K1 launched {launches} times "
+          f"for {got.n_tiles} tiles")
+    check(got.moves.tobytes() == want.moves.tobytes()
+          and (got.n_tiles, got.end_i, got.end_j)
+          == (want.n_tiles, want.end_i, want.end_j),
+          "tiling: K1 and the reference engine differ")
+    check((got.end_i, got.end_j) == (len(q), len(ref)),
+          f"tiling: ends at {(got.end_i, got.end_j)}")
+    print(f"    tiling: #2, {len(q)} x {len(ref)} bases, tile {SV_TILE}, "
+          f"overlap {SV_OVERLAP}: {got.n_tiles} tiles, {wall:.2f} s on K1 "
+          f"({launches} launches), {ref_s:.2f} s on the reference engine; "
+          f"the same {len(got.moves)} moves and end cell", flush=True)
+    return launches
+
+
+def _sv_banded(rng, genome):
+    """#11-13 on the banded engine against the reference engine on the
+    card, and #12 with xdrop on the card against the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.core import banded, kernels_zoo
+    from repro_torch.runtime import bucketing, dispatch
+    out = []
+    for kid in (11, 12, 13):
+        spec, params = kernels_zoo.make(kid)
+        pairs = _read_pairs(rng, genome, SV_BANDED_PAIRS, *SV_BANDED_LENS,
+                            SV_RATE, SV_MAX_LEN)
+        t0 = time.perf_counter()
+        got = dispatch.run_pairs(spec, params, pairs, engine_name="banded",
+                                 with_traceback=False, block=SV_BANDED_PAIRS)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        want = dispatch.run_pairs(spec, params, pairs,
+                                  engine_name="reference",
+                                  with_traceback=False,
+                                  block=SV_BANDED_PAIRS)
+        scores = [float(a.score) for a in got]
+        check(scores == [float(a.score) for a in want],
+              f"banded #{kid}: scores differ from the reference engine")
+        live = sum(x != spec.sentinel() for x in scores)
+        out.append(f"#{kid} {ms:.0f} ms ({live} live)")
+    # #12 (the last spec) again with xdrop, on its pairs' blocks
+    batches, _ = bucketing.pack_by_bucket(
+        [(len(q), len(r)) for q, r in pairs], block=SV_BANDED_PAIRS)
+    pruned = 0
+    for b in batches:
+        bq, br = b.bucket
+        qs = np.zeros((len(b.indices), bq), np.uint8)
+        rs = np.zeros((len(b.indices), br), np.uint8)
+        lens = np.zeros((2, len(b.indices)), np.int32)
+        for row, idx in enumerate(b.indices):
+            q, r = pairs[idx]
+            qs[row, :len(q)], rs[row, :len(r)] = q, r
+            lens[:, row] = len(q), len(r)
+        args = [torch.as_tensor(x) for x in (qs, rs, *lens)]
+        card = banded.run(spec, params, *[a.to(DEVICE) for a in args],
+                          xdrop=SV_XDROP)
+        cpu = banded.run(spec, params, *[a[:16] for a in args],
+                         xdrop=SV_XDROP)
+        check(torch.equal(card.score[:16].cpu(), cpu.score)
+              and torch.equal(card.end_i[:16].cpu(), cpu.end_i)
+              and torch.equal(card.end_j[:16].cpu(), cpu.end_j),
+              f"banded #12 xdrop {SV_XDROP}: the card differs from the CPU")
+        full = torch.as_tensor([scores[i] for i in b.indices])
+        check(bool((card.score.cpu().float() <= full).all()),
+              "banded #12: xdrop raised a score")
+        pruned += int((card.score.cpu().float() < full).sum())
+    check(pruned > 0, f"banded #12: xdrop {SV_XDROP} lowered no score")
+    print(f"    banded == reference engine on {SV_BANDED_PAIRS} pairs of "
+          f"{SV_BANDED_LENS[0]}-{SV_BANDED_LENS[1]} bases: "
+          f"{', '.join(out)}; #12 with xdrop {SV_XDROP}: {pruned} of "
+          f"{len(pairs)} scores lowered, the first 16 of each block == the "
+          f"CPU", flush=True)
+
+
 def _bf16_ulp(x):
     """One bf16 ulp at |x| (8 significant bits), elementwise, f32."""
     import torch
@@ -2089,7 +2704,9 @@ def main() -> int:
         mapper = phase_mapper(card)
         k2_timing = phase_k2_timing(mapper["screen"], card)
         geno = phase_genotyping(card)
-        phase_posterior(geno.pop("sites"))
+        phase_posterior(geno["sites"])
+        service = phase_service(geno, mapper)
+        del mapper["mapper"], mapper["reads"], geno["sites"]
         k3_err = phase_k3_vs_plain(rng)
         k4_err = phase_k4_vs_plain(rng)
         olmo = phase_olmo()
@@ -2104,10 +2721,17 @@ def main() -> int:
         "source": "src/repro_torch/kernels/wavefront/csrc/wavefront.cu",
         "replaces": "src/repro/kernels/wavefront/kernel.py:198",
         "launches": launches, "launches_mapper": mapper["k1_launches"],
+        "launches_service": service["k1_launches"],
+        "service": {k: service[k] for k in (
+            "requests_per_s", "p50_s", "p99_s", "p50_bucket_s",
+            "p99_bucket_s", "k1_share", "cold_first_batch_compile_s",
+            "warm_boot_dummy_compile_s", "warm_serve_compile_s",
+            "workers_in_turns", "k1_genotyping", "k1_mapping",
+            "k1_tiling")},
         "parity": "exact",
         **{k: v for k, v in timing.items() if k != "max_abs_err"},
         "max_abs_err": max(max_err, timing["max_abs_err"],
-                           mapper["k1_err"]),
+                           mapper["k1_err"], service["k1_err"]),
         "mapper_extension": mapper["k1_extension"],
         "ext_families_max_rel_err": ext_err,
         "genotyping": {k: geno[k] for k in (
@@ -2118,7 +2742,9 @@ def main() -> int:
         "source": "src/repro_torch/kernels/myers/csrc/myers.cu",
         "replaces": "src/repro/kernels/myers/kernel.py:112",
         "launches": mapper["k2_launches"], "parity": "exact",
-        "max_abs_err": max(k2_err, mapper["k2_err"]),
+        "launches_service": service["k2_launches"],
+        "launches_mapping_service": service["k2_mapping"],
+        "max_abs_err": max(k2_err, mapper["k2_err"], service["k2_err"]),
         **k2_timing, "library_ms": None}, {
         "name": "flash_fill", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",

@@ -10,6 +10,7 @@ goes to the CUDA kernel in ``csrc/myers.cu``; a CPU tensor goes to
 from __future__ import annotations
 
 import ctypes
+import threading
 from pathlib import Path
 
 import torch
@@ -27,8 +28,10 @@ MAX_QUERY = 64 * WORDS[-1]
 CHECK_EVERY = 8
 
 # CUDA kernel launches since import (or since a caller reset it to 0); the
-# plain version does not count.
+# plain version does not count.  Service workers launch from several
+# threads, so the count is taken under a lock.
 launches = 0
+_COUNT_LOCK = threading.Lock()
 
 
 def n_words(q_bucket: int) -> int:
@@ -115,7 +118,8 @@ def _launch(query, ref, lens, glob, k):
     if err:
         raise RuntimeError(f"K2 myers_fill launch failed: CUDA error {err} "
                            f"(Q={Q}, R={R}, batch {B}, {nw} words)")
-    launches += 1
+    with _COUNT_LOCK:
+        launches += 1
     return score, best, best_j
 
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from pathlib import Path
 
 import torch
@@ -83,8 +84,10 @@ TABLE_SIDE = 5          # the f32 table of profile, Viterbi and pair-HMM
 TABLE_PARAMS = {T.SUB_SOP: "sub_matrix", T.SUB_EMISSION: "emission"}
 
 # CUDA kernel launches since import (or since a caller reset it to 0); the
-# plain version does not count.
+# plain version does not count.  Service workers launch from several
+# threads, so the count is taken under a lock.
 launches = 0
+_COUNT_LOCK = threading.Lock()
 
 
 def supports(spec: T.DPKernelSpec):
@@ -344,7 +347,8 @@ def _launch(spec, params, query, ref, init_row, init_col, lens, tb_pack,
         raise RuntimeError(f"K1 wavefront_fill launch failed: CUDA error "
                            f"{err} (kernel {spec.name}, Q={Q}, R={R}, "
                            f"batch {B})")
-    launches += 1
+    with _COUNT_LOCK:
+        launches += 1
     return tb, best, best_j
 
 
@@ -396,6 +400,13 @@ def wavefront_fill_plain(spec: T.DPKernelSpec, params, query, ref, init_row,
         store = torch.zeros((B, C, N_PE, WT), dtype=torch.uint8, device=dev)
         for lane in range(N_PE):
             store[:, :, lane, lane:lane + R] = lanes[:, :, lane]
-        tb = pack_lanes(store.transpose(2, 3), tb_pack).transpose(2, 3)
-        tb = tb.contiguous()
+        tb = pack_store(store, tb_pack)
     return tb, best.reshape(B, C, N_PE), best_j.reshape(B, C, N_PE)
+
+
+def pack_store(store, tb_pack: int):
+    """A ``('chunk', 32)`` pointer store (B, C, 32, 32 + R - 1) uint8 with
+    ``tb_pack`` lanes packed into each byte, as ``wavefront_fill`` writes it
+    at that ``tb_pack``: (B, C, 32 // tb_pack, 32 + R - 1)."""
+    return pack_lanes(store.transpose(2, 3), tb_pack).transpose(2, 3) \
+        .contiguous()

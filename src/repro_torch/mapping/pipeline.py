@@ -7,7 +7,9 @@ of length ``k`` up to a power of two of at least ``block`` rows (the shapes
 the JAX package compiles once each; a dummy row changes no other row's
 result).  Both strands are chained, the better one is extended.  The screen
 runs kernel K2 and the banded semiglobal extension kernel K1, both through
-the shared plan cache.
+the shared plan cache.  ``map_reads`` brackets its stages with the
+``map.seed_chain``, ``map.screen`` and ``map.extend`` spans
+(``repro_torch.obs.trace``).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import alphabets
+from repro_torch.obs import trace as obs_trace
 from repro_torch.runtime import bucketing
 from repro_torch.runtime import plan as plan_mod
 
@@ -221,13 +224,17 @@ class ReadMapper:
         read_list = self._as_read_list(reads, lens)
         if names is None:
             names = [f"read{i}" for i in range(len(read_list))]
-        fwd_rows, rc_rows = self._chain_reads(read_list)
+        with obs_trace.span("map.seed_chain", cat="mapper",
+                            n=len(read_list)):
+            fwd_rows, rc_rows = self._chain_reads(read_list)
         jobs, job_meta, records = self._plan_jobs(read_list, names,
                                                   fwd_rows, rc_rows)
         if self.filter_mode == "myers" and jobs:
-            jobs, job_meta = self._screen(jobs, job_meta, records, read_list,
-                                          names)
-        ext = self._extend(jobs)
+            with obs_trace.span("map.screen", cat="mapper", n=len(jobs)):
+                jobs, job_meta = self._screen(jobs, job_meta, records,
+                                              read_list, names)
+        with obs_trace.span("map.extend", cat="mapper", n=len(jobs)):
+            ext = self._extend(jobs)
         return self._emit(ext, job_meta, records, read_list, names)
 
     def to_sam(self, records) -> str:

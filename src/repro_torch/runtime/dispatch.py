@@ -9,7 +9,8 @@ its kernels on the current stream and returns; the harvest's ``.cpu()``
 is where the host waits for the device, so the host pads block N+1 while
 the device computes block N.  The traceback walk inside a launch asks the
 device whether it is done every 64 steps, so a launch is not wholly free of
-synchronisation.
+synchronisation.  Each launch and harvest is a ``dispatch.launch`` /
+``dispatch.harvest`` span (``repro_torch.obs.trace``).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import torch
 import repro_torch.core.traceback as tb_mod
 import repro_torch.core.types as T
 from repro_torch.core.spec_utils import params_on_device
+from repro_torch.obs import trace as obs_trace
 
 from . import bucketing
 from . import plan as plan_mod
@@ -43,15 +45,24 @@ def run_pipelined(items: Iterable, launch: Callable, harvest: Callable, *,
         raise ValueError(f"pipeline depth must be >= 1, got {depth}")
     window: collections.deque = collections.deque()
     total = 0
+
+    def _launch(item):
+        with obs_trace.span("dispatch.launch", cat="dispatch"):
+            return launch(item)
+
+    def _harvest(it, out):
+        with obs_trace.span("dispatch.harvest", cat="dispatch"):
+            return harvest(it, out)
+
     try:
         for item in items:
-            window.append((item, launch(item)))
+            window.append((item, _launch(item)))
             while len(window) >= depth:
                 it, out = window.popleft()
-                total += harvest(it, out) or 0
+                total += _harvest(it, out) or 0
         while window:
             it, out = window.popleft()
-            total += harvest(it, out) or 0
+            total += _harvest(it, out) or 0
     except BaseException:
         if on_abandon is not None:
             while window:

@@ -2,16 +2,27 @@
 
 A plan is the fill (+ traceback) for one ``(kernel, engine, bucket shape,
 batch size, traceback, mode, device, options)``: a Python callable with its
-engine options resolved, memoized so that api, batch and dispatch share one
-cache.  PyTorch runs eagerly, so nothing is traced or compiled here; the
-CUDA kernel itself is built once per process at its first launch.  Defaults
-that JAX keys on ``jax.default_backend()`` key on the plan's explicit device
-instead, and ``PlanKey.device`` splits the cache.
+engine options resolved, memoized so that api, batch, dispatch, tiling and
+the services share one cache.  PyTorch runs eagerly, so nothing is traced or
+compiled here; the CUDA kernel itself is built once per process at its
+first launch.  ``CompiledPlan.compile_s`` is the wall time of a plan's first
+dispatch: on the card the kernel library's build or load and the first
+launch (an align plan's traceback walk waits for the fill), the cold cost
+that a service's ``warm_start=`` moves to boot.  It is recorded under a
+``plan.compile`` span and in the compile ledger
+(``repro_torch.obs.metrics``), which outlives
+``clear_plan_cache(keep_stats=True)``.  Defaults that JAX keys on
+``jax.default_backend()`` key on the plan's explicit device instead, and
+``PlanKey.device`` splits the cache.  JAX's ``donate=`` has no counterpart:
+eager torch holds no compiled executable whose input buffers it could
+reuse, so ``get_plan`` takes no such argument and the port's services do
+not pass one.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from typing import Any, Optional
 
 import numpy as np
@@ -20,6 +31,8 @@ import torch
 import repro_torch.core.traceback as tb_mod
 import repro_torch.core.types as T
 from repro_torch.core.spec_utils import resolve_tb_pack
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 
 from . import registry
 
@@ -50,16 +63,21 @@ class PlanKey:
     device: str = "cuda"
     tb_pack: int = 1                 # traceback pointers packed per byte
     semiring: str = "maxplus"
+    xdrop: Optional[int] = None      # X-drop early termination; None = off
 
 
 def plan_key_str(key: PlanKey) -> str:
-    """``kernel/engine/QxR/bN/tb/mode/pP/semiring/device``."""
+    """``kernel/engine/QxR/bN/tb/mode/pP/semiring[/xN]/device`` (the
+    compile-ledger key)."""
     q, r = key.bucket_shape
-    return "/".join([
-        key.kernel, key.engine, f"{q[0]}x{r[0]}",
-        "b1" if key.batch_size is None else f"b{key.batch_size}",
-        "tb" if key.with_traceback else "notb", key.mode,
-        f"p{key.tb_pack}", key.semiring, key.device])
+    parts = [key.kernel, key.engine, f"{q[0]}x{r[0]}",
+             "b1" if key.batch_size is None else f"b{key.batch_size}",
+             "tb" if key.with_traceback else "notb", key.mode,
+             f"p{key.tb_pack}", key.semiring]
+    if key.xdrop is not None:
+        parts.append(f"x{key.xdrop}")
+    parts.append(key.device)
+    return "/".join(parts)
 
 
 def _host_lens(x, n: int) -> torch.Tensor:
@@ -74,7 +92,10 @@ class CompiledPlan:
     Call as ``plan(params, query, ref, q_len, r_len)`` with sequences
     already padded to ``bucket_shape`` and on the plan's device; lengths are
     scalars in single mode and ``(B,)`` in batch mode, on the host or the
-    device.  ``calls`` counts dispatches, ``hits`` cache hits.
+    device.  ``calls`` counts dispatches, ``hits`` cache hits and
+    ``compile_s`` is the wall time of the first dispatch (None before it).
+    Plans are shared across threads: the first dispatch is timed once,
+    under the plan's own lock, and ``calls`` counts under another.
     """
 
     def __init__(self, key: PlanKey, spec: T.DPKernelSpec, engine_name: str):
@@ -82,10 +103,12 @@ class CompiledPlan:
         self.spec = spec
         self.calls = 0
         self.hits = 0
+        self.compile_s = None
+        self._first = threading.Lock()
+        self._count = threading.Lock()
         self._engine = registry.get_engine(engine_name)
-        self._opts = ({"tb_pack": key.tb_pack}
-                      if "tb_pack" in registry.engine_options(engine_name)
-                      else {})
+        declared = registry.engine_options(engine_name)
+        self._opts = {name: getattr(key, name) for name in declared}
 
     def _run(self, params, queries, refs, q_lens, r_lens):
         n = queries.shape[0]
@@ -109,8 +132,28 @@ class CompiledPlan:
                            end_j=res.end_j)
 
     def __call__(self, params, query, ref, q_len=None, r_len=None):
+        if self.compile_s is None:
+            with self._first:
+                if self.compile_s is None:
+                    return self._first_call(params, query, ref, q_len, r_len)
+        return self._dispatch(params, query, ref, q_len, r_len)
+
+    def _first_call(self, params, query, ref, q_len, r_len):
+        kstr = plan_key_str(self.key)
+        with obs_trace.span("plan.compile", cat="plan", key=kstr):
+            t0 = time.perf_counter()
+            out = self._dispatch(params, query, ref, q_len, r_len)
+            compile_s = time.perf_counter() - t0
+        obs_metrics.record_compile(kstr, compile_s)
+        obs_metrics.REGISTRY.counter("plan_compiles_total").inc()
+        obs_metrics.REGISTRY.histogram("plan_compile_s").observe(compile_s)
+        self.compile_s = compile_s
+        return out
+
+    def _dispatch(self, params, query, ref, q_len, r_len):
         (q, *_), (r, *_) = self.key.bucket_shape
-        self.calls += 1
+        with self._count:
+            self.calls += 1
         if self.key.batch_size is not None:
             return self._run(params, query, ref,
                              q if q_len is None else q_len,
@@ -169,7 +212,8 @@ def resolve_engine_options(spec: T.DPKernelSpec, engine_name: str,
     """Resolve every option an engine declares against a request (``None``
     values mean the default).  Names the engine does not declare raise,
     listing the valid ones; ``tb_pack`` falls back to ``spec.tb_pack`` and
-    is 1 for kernels without traceback."""
+    is 1 for kernels without traceback; ``xdrop``, where the engine
+    declares it, is None (off) unless asked for."""
     sup = registry.engine_options(engine_name)
     req = {k: v for k, v in dict(requested or {}).items() if v is not None}
     unknown = sorted(set(req) - set(sup))
@@ -184,6 +228,11 @@ def resolve_engine_options(spec: T.DPKernelSpec, engine_name: str,
         if tb_pack is not None:
             tb_pack = validate_int_option("tb_pack", tb_pack)
         out["tb_pack"] = resolve_tb_pack(spec, tb_pack)
+    if "xdrop" in sup:
+        xdrop = req.get("xdrop", sup["xdrop"])
+        if xdrop is not None:
+            xdrop = validate_int_option("xdrop", xdrop, minimum=0)
+        out["xdrop"] = xdrop
     return out
 
 
@@ -205,49 +254,101 @@ def get_plan(spec: T.DPKernelSpec, engine_name: str,
              q_shape: tuple, r_shape: tuple, *,
              batch_size: Optional[int] = None,
              with_traceback: bool = True, mode: str = "align",
-             device="cuda", tb_pack: Optional[int] = None) -> CompiledPlan:
+             device="cuda", tb_pack: Optional[int] = None,
+             xdrop: Optional[int] = None) -> CompiledPlan:
     """Fetch (or build) the shared plan for one bucketed input shape.
 
     ``q_shape``/``r_shape`` are per-pair shapes including char dims;
     ``batch_size=None`` is the single-pair variant.  The spec object itself
-    keys the cache, as in the JAX package."""
+    keys the cache, as in the JAX package.  ``tb_pack`` and ``xdrop`` are
+    engine options (an engine that does not declare one raises when it is
+    given); a path from a score-only engine raises."""
     dev = resolve_device(device)
     reason = registry.engine_supports(engine_name, spec)
     if reason is not None:
         raise ValueError(f"engine {engine_name!r} cannot run kernel "
                          f"{spec.name}: {reason}")
     wtb = bool(with_traceback and spec.traceback is not None)
-    pack = resolve_engine_options(spec, engine_name,
-                                  {"tb_pack": tb_pack})["tb_pack"]
+    if wtb and mode == "align" and not registry.engine_traceback(engine_name):
+        raise ValueError(f"engine {engine_name!r} is score-only; pass "
+                         f"with_traceback=False for kernel {spec.name}")
+    opts = resolve_engine_options(spec, engine_name,
+                                  {"tb_pack": tb_pack, "xdrop": xdrop})
     cache_key = (spec, engine_name, tuple(q_shape), tuple(r_shape),
-                 batch_size, wtb, mode, str(dev), pack)
+                 batch_size, wtb, mode, str(dev), opts["tb_pack"],
+                 opts.get("xdrop"))
     with _LOCK:
         plan = _CACHE.get(cache_key)
         if plan is not None:
             _STATS["hits"] += 1
             plan.hits += 1
+            obs_metrics.REGISTRY.counter("plan_cache_hits_total").inc()
             return plan
         _STATS["misses"] += 1
+        obs_metrics.REGISTRY.counter("plan_cache_misses_total").inc()
         key = PlanKey(kernel=spec.name, engine=engine_name,
                       bucket_shape=(tuple(q_shape), tuple(r_shape)),
                       batch_size=batch_size, with_traceback=wtb, mode=mode,
-                      device=str(dev), tb_pack=pack,
-                      semiring=spec.semiring.name)
+                      device=str(dev), tb_pack=opts["tb_pack"],
+                      semiring=spec.semiring.name, xdrop=opts.get("xdrop"))
         plan = CompiledPlan(key, spec, engine_name)
         _CACHE[cache_key] = plan
         return plan
 
 
+# the history of plans retired by clear_plan_cache(keep_stats=True), so a
+# session keeps its compile-time and call accounting across clears
+_RETIRED = {"plans": 0, "calls": 0, "hits": 0, "compiled": 0,
+            "compile_s": 0.0}
+
+
+def _totals() -> dict[str, Any]:
+    t = dict(_RETIRED)
+    t["plans"] += len(_CACHE)
+    for p in _CACHE.values():
+        t["calls"] += p.calls
+        t["hits"] += p.hits
+        if p.compile_s is not None:
+            t["compiled"] += 1
+            t["compile_s"] += p.compile_s
+    return t
+
+
 def plan_cache_info() -> dict[str, Any]:
-    """Cache-wide hit/miss counts plus each plan's key, hits and calls."""
-    plans = [{"key": p.key, "hits": p.hits, "calls": p.calls}
-             for p in _CACHE.values()]
-    return {"size": len(_CACHE), "hits": _STATS["hits"],
-            "misses": _STATS["misses"],
-            "keys": [p.key for p in _CACHE.values()], "plans": plans}
-
-
-def clear_plan_cache() -> None:
+    """Cache-wide hit/miss counts plus each plan's key, hits, calls and
+    first-dispatch ``compile_s``; ``totals`` rolls calls, hits, compiles and
+    compile seconds up across live plans and plans retired by
+    ``clear_plan_cache(keep_stats=True)``, and ``compile_ledger`` holds the
+    per-key record."""
     with _LOCK:
+        plans = [{"key": p.key, "hits": p.hits, "calls": p.calls,
+                  "compile_s": p.compile_s} for p in _CACHE.values()]
+        return {"size": len(_CACHE), "hits": _STATS["hits"],
+                "misses": _STATS["misses"],
+                "keys": [p.key for p in _CACHE.values()], "plans": plans,
+                "totals": _totals(),
+                "compile_ledger": obs_metrics.compile_ledger_snapshot()}
+
+
+def clear_plan_cache(keep_stats: bool = False) -> None:
+    """Drop every plan.  ``keep_stats=True`` folds the retired plans' calls,
+    hits and compile seconds into ``plan_cache_info()['totals']`` and their
+    calls and hits into their ledger entries, and keeps the hit/miss counts;
+    otherwise every count and the ledger start again."""
+    with _LOCK:
+        if keep_stats:
+            for p in _CACHE.values():
+                _RETIRED["plans"] += 1
+                _RETIRED["calls"] += p.calls
+                _RETIRED["hits"] += p.hits
+                if p.compile_s is not None:
+                    _RETIRED["compiled"] += 1
+                    _RETIRED["compile_s"] += p.compile_s
+                obs_metrics.COMPILE_LEDGER.update_usage(
+                    plan_key_str(p.key), p.calls, p.hits)
+        else:
+            _STATS["hits"] = _STATS["misses"] = 0
+            _RETIRED.update(plans=0, calls=0, hits=0, compiled=0,
+                            compile_s=0.0)
+            obs_metrics.COMPILE_LEDGER.clear()
         _CACHE.clear()
-        _STATS["hits"] = _STATS["misses"] = 0

@@ -11,7 +11,10 @@ eager torch on the inputs' device, every spec, with the (Q+1, R+1, L) matrix
 and the ``'row'`` pointer store; ``wavefront`` — kernel K1 (CUDA on CUDA
 tensors, its plain version on CPU tensors), with the ``tb_pack`` option;
 ``myers`` — kernel K2, the bit-vector unit-cost engine for #16/#17
-(score-only, no options), the same way.
+(score-only, no options), the same way; ``banded`` — the band-packed
+O(n·W) sweep (``core.banded``, eager torch on the inputs' device, as JAX
+computes it outside any kernel), score-only, for banded specs, with the
+``xdrop`` option.  Score-only engines register ``traceback=False``.
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ class _Entry:
     options: Mapping[str, object] = dataclasses.field(default_factory=dict)
     # supports(spec) -> None (accepted) | str (why the engine cannot run it)
     supports: Optional[Callable] = None
+    # whether the engine emits a pointer store a traceback can walk
+    traceback: bool = True
 
 
 _REGISTRY: dict[str, _Entry] = {}
@@ -37,14 +42,15 @@ _LOCK = threading.Lock()
 def register_engine(name: str, fn: Optional[Callable] = None, *,
                     loader: Optional[Callable] = None,
                     options: Optional[Mapping[str, object]] = None,
-                    supports: Optional[Callable] = None) -> None:
+                    supports: Optional[Callable] = None,
+                    traceback: bool = True) -> None:
     """Register engine ``name`` eagerly (``fn``) or deferred
     (``loader() -> fn``, resolved on first :func:`get_engine`).
 
     ``options`` maps the keyword knobs the engine accepts to their defaults
     (``None`` = resolved from the kernel spec at plan time);
     ``supports(spec)`` returns None or the reason the engine cannot run
-    ``spec``."""
+    ``spec``; ``traceback=False`` marks a score-only engine."""
     if (fn is None) == (loader is None):
         raise ValueError("pass exactly one of fn= or loader=")
     with _LOCK:
@@ -52,7 +58,7 @@ def register_engine(name: str, fn: Optional[Callable] = None, *,
             raise ValueError(f"engine {name!r} already registered")
         _REGISTRY[name] = _Entry(name=name, fn=fn, loader=loader,
                                  options=dict(options or {}),
-                                 supports=supports)
+                                 supports=supports, traceback=traceback)
 
 
 def get_engine(name: str) -> Callable:
@@ -85,6 +91,12 @@ def engine_supports(name: str, spec) -> Optional[str]:
     if entry.supports is None:
         return None
     return entry.supports(spec)
+
+
+def engine_traceback(name: str) -> bool:
+    """True when engine ``name`` emits a pointer store to walk."""
+    entry = _REGISTRY.get(name)
+    return bool(entry.traceback) if entry else False
 
 
 def _load_reference():
@@ -122,4 +134,21 @@ def _myers_supports(spec) -> Optional[str]:
 
 
 # K2: CUDA bit-vector edit distance (Myers 1999), kernels #16/#17 only
-register_engine("myers", loader=_load_myers, supports=_myers_supports)
+register_engine("myers", loader=_load_myers, supports=_myers_supports,
+                traceback=False)
+
+
+def _load_banded():
+    from repro_torch.core import banded
+    return banded.run
+
+
+def _banded_supports(spec) -> Optional[str]:
+    if spec.band is None:
+        return "banded engine requires spec.band (fixed banding width)"
+    return None
+
+
+# O(n*W) band-packed lanes, score-only (no kernel: JAX runs it in XLA)
+register_engine("banded", loader=_load_banded, options={"xdrop": None},
+                supports=_banded_supports, traceback=False)

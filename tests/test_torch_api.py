@@ -110,10 +110,10 @@ def test_plan_cache_reused_within_a_bucket(rng):
 
 
 def test_registry_and_option_errors():
-    assert registry.available_engines() == ["myers", "reference",
+    assert registry.available_engines() == ["banded", "myers", "reference",
                                             "wavefront"]
     with pytest.raises(ValueError, match=r"unknown engine 'pallas'; have "
-                                         r"\['myers', 'reference', "
+                                         r"\['banded', 'myers', 'reference', "
                                          r"'wavefront'\]"):
         registry.get_engine("pallas")
     spec, _ = pzoo.make(2)

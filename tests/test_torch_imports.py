@@ -52,3 +52,13 @@ def test_port_modules_import_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("pkg", ["repro_torch.serve", "repro_torch.obs"])
+def test_serving_and_obs_import_without_jax(pkg):
+    code = (f"import sys, {pkg}\n"
+            "assert 'jax' not in sys.modules, 'jax imported'\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
