@@ -47,6 +47,21 @@ Phases:
      beside its plain version and its lower bound on this card, and on
      the largest shape without the pointer store and at batch 132, 264
      and 528;
+  T. the autotuner at the main paths' full shapes: #2 at batch 1024,
+     256x256, #4 at batch 256, 1024x1024, and the pair-HMM forward at
+     logsumexp at batch 1024, 256x512.  ``tune_point(mode="fill",
+     top_k=4)`` into a temporary table (each candidate bit-equal to the
+     default plan before it is timed), every measured candidate's K1 time
+     alone (kernel_device_ms) beside its predicted time, the winner's
+     speedup over the default; then ``get_plan`` with the table installed
+     takes its options, explicit options win, and REPRO_TORCH_TUNE_TABLE=off
+     restores the heuristic; and ``lint_all`` over the port's registry, with
+     R401 reading the built libraries' ptxas reports, has no error;
+  X. X-drop on the card: #4 and #2, 256 pairs of 200-400 bases each, at
+     two xdrop values and strip 8, through ``run_pairs(engine_name=
+     "wavefront", xdrop=...)``: the first 32 equal to the CPU path (score,
+     ends, starts, moves, CIGAR), wall times, K1 not launched by an X-drop
+     plan and launched by the same pairs without xdrop;
   7. K2 vs its plain version: #16 and #17, buckets 64, 256 and 1024 (1, 4
      and 16 words) at batch 64, random (64 and 256 only) and 8 %-mutated
      pairs with lengths below the bucket (q_len 1 included), k in {-1, 0,
@@ -150,14 +165,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 DEVICE = "cuda"
-MEM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
-INT32_LANES_PER_SM = 64            # Hopper: 4 partitions x 16 INT32 lanes
-# int32 ALU operations of one PE cell, counted from the functors in
-# src/repro_torch/kernels/wavefront/csrc/wavefront.cu (adds, maxes,
-# compares, selects, pointer bit packing; local adds the zero clamp)
-PE_OPS = {("linear", False): 11, ("linear", True): 14,
-          ("affine", False): 21, ("affine", True): 24,
-          ("two_piece", False): 39}
+# The card's bound model (HBM bytes/s, INT32 lanes per SM, K1's PE
+# operations and byte count) lives in src/repro_torch/tune/cost.py, one copy
+# shared with the autotuner; the phases import it once the checkout's src is
+# on the path.
 # int32 lane operations K2's work needs, counted from the word step in
 # src/repro_torch/kernels/myers/csrc/myers.cu at the fewest Hopper
 # instructions: LOP3 does any three-input logic per 32-bit half, IADD3 and
@@ -233,6 +244,13 @@ SV_WATERMARK = SV_DEGRADE - 4 * SV_BLOCK  # ... and its first batches degrade
 SV_SITES, SV_READS = 256, 4096
 SV_TILE_LEN, SV_TILE, SV_OVERLAP = 10_000, 256, 64
 SV_BANDED_PAIRS, SV_BANDED_LENS, SV_XDROP = 256, (200, 400), 10
+# phase T: the autotuner's candidates kept by the cost model, timing
+# repeats per candidate, and rounds x launches of each K1 time alone
+TUNE_TOP_K, TUNE_ITERS, TUNE_ROUNDS, TUNE_LAUNCHES = 4, 20, 3, 10
+# phase X: X-drop pairs per kernel, their lengths, block, budgets and strip
+XD_PAIRS, XD_LENS, XD_BLOCK, XD_VALUES, XD_STRIP = 256, (200, 400), 256, \
+    (4, 40), 8
+XD_HELD = 32
 
 
 class SmokeFailure(RuntimeError):
@@ -338,22 +356,9 @@ def demangle(names):
 def ptxas_table(log):
     """[kernel name, registers, spill bytes, stack frame bytes, mangled
     name] per entry function of an ``nvcc -Xptxas -v`` log."""
-    rows, cur, spill, stack = [], None, 0, 0
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            cur, spill, stack = m.group(1), 0, 0
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", line)
-        if m:
-            stack = int(m.group(1))
-            spill = int(m.group(2)) + int(m.group(3))
-            continue
-        m = re.search(r"Used (\d+) registers", line)
-        if m and cur:
-            rows.append([cur, int(m.group(1)), spill, stack, cur])
-            cur = None
+    from repro_torch.kernels import build
+    rows = [[name, regs, spill, stack, name]
+            for name, regs, spill, stack in build.ptxas_entries(log)]
     for row, name in zip(rows, demangle([r[0] for r in rows])):
         row[0] = normal_name(name)
     return rows
@@ -388,6 +393,7 @@ def k1_instantiation(spec, mangled=False):
 
 def phase_identity():
     import torch
+    from repro_torch.tune.cost import INT32_LANES_PER_SM
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = nvidia_smi("name,power.limit")
@@ -1057,6 +1063,7 @@ def time_k1(spec, params, block, card, what, plain_ms=None):
     ROUND_LAUNCHES launches (kernel_device_ms) and its bound on this card,
     which counts the live cells inside the band only."""
     from repro_torch.kernels.wavefront import kernel as K
+    from repro_torch.tune.cost import MEM_BYTES_PER_S, PE_OPS, k1_bytes
     (bq, br), qs, rs, ql, rl = block
     args = _fill_args(spec, params, qs, rs, ql, rl, DEVICE)
     pack = spec.tb_pack
@@ -1066,14 +1073,10 @@ def time_k1(spec, params, block, card, what, plain_ms=None):
         "wavefront")
     K.launches = before
     ms = statistics.median(dev)
-    B, L = qs.shape[0], spec.n_layers
-    C = bq // K.N_PE
+    B = qs.shape[0]
     cells = _live_in_band(ql, rl, spec.band)
     ops = PE_OPS[(spec.family.family, spec.family.local)] * cells
-    nbytes = (B * bq + B * br + B * (br + 1) * L * 4 + B * (bq + 1) * L * 4
-              + B * 8                                        # inputs
-              + B * C * (K.N_PE // pack) * (K.N_PE + br - 1)   # pointer store
-              + 2 * B * C * K.N_PE * 4)                        # best, best_j
+    nbytes = k1_bytes(spec, B, bq, br, pack)
     ops_ms = ops / card["int32_ops_per_s"] * 1e3
     bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
@@ -1134,6 +1137,217 @@ def phase_path_shapes(main_blocks, long_blocks, card):
     k1_experiments(*timed[2][:3])
     out["long_read"] = time_k1(*timed[4][:3], card, "#4", timed[4][3])
     out["max_abs_err"] = max_err
+    return out
+
+
+def _tune_points():
+    """Phase T's points: (label, spec, params, bucket, batch) at the shapes
+    the main path, the long reads and genotyping give K1."""
+    from repro_torch import prob
+    from repro_torch.core import kernels_zoo
+    return [("#2", *kernels_zoo.make(2), (256, 256), 1024),
+            ("#4", *kernels_zoo.make(4), (1024, 1024), 256),
+            ("pair-HMM forward", prob.cached_pairhmm(), prob.default_params(),
+             (256, 512), GT_BLOCK)]
+
+
+def _tuned_plan_checks(table, points):
+    """With ``table`` installed, ``get_plan`` given no option takes the
+    table's; an explicit option wins; REPRO_TORCH_TUNE_TABLE=off restores
+    the hand-picked defaults (K1's heuristic warps)."""
+    import os
+    from repro_torch import tune
+    from repro_torch.runtime import plan as plan_mod
+    tune.set_table(table)
+    try:
+        for what, spec, _, bucket, batch in points:
+            char = tuple(spec.char_shape)
+            shapes = ((bucket[0],) + char, (bucket[1],) + char)
+
+            def key(**kw):
+                return plan_mod.get_plan(spec, "wavefront", *shapes,
+                                         batch_size=batch, mode="fill",
+                                         device=DEVICE, **kw).key
+            want = table.lookup_options(spec.name, "wavefront", bucket,
+                                        batch, device=DEVICE)
+            check(want is not None, f"phase T: {what}: no table entry")
+            got = key()
+            check({k: getattr(got, k) for k in want} == want,
+                  f"phase T: {what}: get_plan took {got} for the table's "
+                  f"{want}")
+            got = key(tb_pack=spec.tb_pack)
+            check(got.strip_warps is None,
+                  f"phase T: {what}: an explicit option lost to the table")
+            os.environ[tune.ENV_VAR] = "off"
+            try:
+                got = key()
+            finally:
+                del os.environ[tune.ENV_VAR]
+            check((got.strip_warps, got.tb_pack) == (None, spec.tb_pack),
+                  f"phase T: {what}: {tune.ENV_VAR}=off gave {got}")
+    finally:
+        tune.set_table(None)
+
+
+def phase_tune(card):
+    """The autotuner at the main paths' full shapes (phase T), then the
+    plan linter over the port's registry on the card."""
+    import numpy as np
+    from repro_torch import analyze, tune
+    from repro_torch.core.spec_utils import params_on_device
+    from repro_torch.kernels.wavefront import kernel as K
+    t0 = time.perf_counter()
+    points = _tune_points()
+    table = tune.TuningTable()
+    out, launches = [], 0
+    for what, spec, params, bucket, batch in points:
+        K.launches = 0
+        try:
+            res = tune.tune_point(spec, params, "wavefront", bucket, batch,
+                                  mode="fill", top_k=TUNE_TOP_K,
+                                  iters=TUNE_ITERS, seed=SEED, device=DEVICE)
+        except AssertionError as e:
+            raise SmokeFailure(f"phase T: {what}: a candidate differs from "
+                               f"the default plan: {e}")
+        launches += K.launches
+        check(K.launches > 0, f"phase T: {what}: the tuner launched no K1")
+        table.record(spec.name, "wavefront", bucket, batch, res["options"],
+                     device=DEVICE,
+                     speedup_vs_default=res["speedup_vs_default"])
+        # the same inputs tune_point drew, each candidate's K1 alone
+        data = tune.make_batch(np.random.default_rng(SEED), spec, bucket,
+                               batch, DEVICE)
+        args = _fill_args(spec, params, *data, DEVICE)
+        # tables on the card before the graph capture: a capture may not
+        # copy from pageable host memory
+        params = params_on_device(params, DEVICE)
+        heuristic = K.strip_warps(bucket[0], batch, card["sms"])
+        rows = []
+        before = K.launches
+        for m in res["measurements"]:
+            o = m["options"]
+            dev, _, _, _ = kernel_device_ms(
+                lambda: K.wavefront_fill(spec, params, *args,
+                                         tb_pack=o["tb_pack"],
+                                         warps=o["strip_warps"]),
+                "wavefront", rounds=TUNE_ROUNDS, launches=TUNE_LAUNCHES)
+            rows.append({"options": o, "k1_ms": statistics.median(dev),
+                         "k1_ms_range": [min(dev), max(dev)],
+                         "plan_ms": m["seconds"] * 1e3,
+                         "predicted_ms": m["predicted_s"] * 1e3})
+        K.launches = before
+        default = next(r for r in rows
+                       if r["options"] == res["default_options"])
+        winner = next(r for r in rows if r["options"] == res["options"])
+        fastest = min(rows, key=lambda r: r["k1_ms"])
+        print(f"[T] {what}: batch {batch}, {bucket[0]}x{bucket[1]}, "
+              f"{len(rows)} candidates timed of "
+              f"{len(rows) + res['n_pruned']} (the model pruned "
+              f"{res['n_pruned']}), each bit-equal to the default plan "
+              f"(heuristic: {heuristic} warps a pair, tb_pack "
+              f"{spec.tb_pack}):", flush=True)
+        for r in rows:
+            o = r["options"]
+            warps = o["strip_warps"] or f"None ({heuristic})"
+            print(f"    strip_warps {warps}, tb_pack {o['tb_pack']}: K1 "
+                  f"{r['k1_ms']:.4f} ms "
+                  f"({r['k1_ms_range'][0]:.4f}-{r['k1_ms_range'][1]:.4f}, "
+                  f"{TUNE_ROUNDS} rounds of {TUNE_LAUNCHES}), fill plan "
+                  f"{r['plan_ms']:.4f} ms, predicted {r['predicted_ms']:.4f}"
+                  f" ms", flush=True)
+        print(f"    winner (fill plan time) {res['options']}: "
+              f"{res['speedup_vs_default']:.3f}x the default's plan, K1 "
+              f"{default['k1_ms'] / winner['k1_ms']:.3f}x; fastest K1 alone "
+              f"{fastest['options']} at "
+              f"{default['k1_ms'] / fastest['k1_ms']:.3f}x the default",
+              flush=True)
+        out.append({"point": what, "batch": batch, "bucket": list(bucket),
+                    "heuristic_warps": heuristic, "winner": res["options"],
+                    "plan_speedup": res["speedup_vs_default"],
+                    "k1_speedup": default["k1_ms"] / winner["k1_ms"],
+                    "candidates": rows})
+    _tuned_plan_checks(table, points)
+    print(f"    get_plan takes the table's options with none passed, "
+          f"explicit options win, {tune.ENV_VAR}=off restores the "
+          f"heuristic; table: {json.dumps(table.entries, sort_keys=True)}",
+          flush=True)
+    report = analyze.lint_all()
+    ptxas = sorted({f.message for f in report.findings
+                    if f.rule == "R401" and "registers" in f.message})
+    print(f"    lint_all on the card: {report.points} plan points, "
+          f"{len(report.errors)} errors, "
+          f"{len(report.by_severity(analyze.WARNING))} warnings; "
+          f"{'; '.join(ptxas)}", flush=True)
+    check(report.ok, "phase T: lint_all found errors:\n"
+          + report.format_text())
+    print(f"    phase T: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"points": out, "launches": launches,
+            "lint": {"points": report.points,
+                     "warnings": len(report.by_severity(analyze.WARNING))}}
+
+
+def phase_xdrop(genome):
+    """X-drop on the card (phase X): run_pairs through the wavefront engine
+    with xdrop set runs the eager engine, never K1, and equals the CPU
+    path; the same pairs without xdrop launch K1."""
+    import numpy as np
+    import torch
+    from repro_torch.core import kernels_zoo
+    from repro_torch.kernels.wavefront import kernel as K
+    from repro_torch.runtime import dispatch
+    from repro_torch.runtime import plan as plan_mod
+    from repro_torch.runtime import registry
+    rng = np.random.default_rng(SEED + 1)
+    out = {}
+    for kid in (4, 2):
+        spec, params = kernels_zoo.make(kid)
+        pairs = _read_pairs(rng, genome, XD_PAIRS, *XD_LENS, 0.08,
+                            XD_LENS[1])
+        K.launches = 0
+        t0 = time.perf_counter()
+        exact = dispatch.run_pairs(spec, params, pairs, block=XD_BLOCK,
+                                   strip=XD_STRIP)
+        torch.cuda.synchronize()
+        k1_wall = time.perf_counter() - t0
+        k1_launches = K.launches
+        check(k1_launches == len(_blocks(pairs, XD_BLOCK)),
+              f"phase X: #{kid} without xdrop launched K1 {k1_launches} "
+              f"times")
+        walls = {}
+        for xdrop in XD_VALUES:
+            K.launches = 0
+            t0 = time.perf_counter()
+            got = dispatch.run_pairs(spec, params, pairs, block=XD_BLOCK,
+                                     xdrop=xdrop, strip=XD_STRIP)
+            torch.cuda.synchronize()
+            walls[xdrop] = time.perf_counter() - t0
+            check(K.launches == 0, f"phase X: #{kid} xdrop {xdrop} "
+                  f"launched K1 {K.launches} times")
+            want = dispatch.run_pairs(spec, params, pairs[:XD_HELD],
+                                      block=XD_HELD, device="cpu",
+                                      xdrop=xdrop, strip=XD_STRIP)
+            _compare_results(got[:XD_HELD], want, f"phase X #{kid} xdrop "
+                             f"{xdrop}")
+            changed = sum(int(g.score) != int(e.score)
+                          for g, e in zip(got, exact))
+            print(f"[X] #{kid} {spec.name}, {len(pairs)} pairs of "
+                  f"{XD_LENS[0]}-{XD_LENS[1]} bases, xdrop {xdrop}, strip "
+                  f"{XD_STRIP}: {walls[xdrop]:.3f} s wall on the eager "
+                  f"engine, K1 launches 0; first {XD_HELD} equal to the CPU "
+                  f"path; {changed} scores differ from the exact fill",
+                  flush=True)
+        fills = {p["key"].xdrop: p["fill"]
+                 for p in plan_mod.plan_cache_info()["plans"]
+                 if p["key"].kernel == spec.name
+                 and p["key"].engine == "wavefront"}
+        check(all(fills[x] == registry.ENGINE_FILL for x in XD_VALUES)
+              and fills[None] == registry.K1_FILL,
+              f"phase X: plan_cache_info names the fills {fills}")
+        print(f"    the same pairs without xdrop: {k1_wall:.3f} s wall, "
+              f"K1 launches {k1_launches}; plan_cache_info fills {fills}",
+              flush=True)
+        out[f"#{kid}"] = {"xdrop_wall_s": walls, "k1_wall_s": k1_wall,
+                          "k1_launches": k1_launches}
     return out
 
 
@@ -1406,6 +1620,7 @@ def phase_k2_timing(screen, card):
     version and its bound, then at fewer and more pairs."""
     import numpy as np
     from repro_torch.kernels.myers import kernel as K2
+    from repro_torch.tune.cost import MEM_BYTES_PER_S
     ((bq, br), qs, rs, ql, rl), (q, r, lens), k, cols, plain_ms = screen
     before = K2.launches
     dev, ev, host, prof = kernel_device_ms(
@@ -2601,6 +2816,7 @@ def phase_timing_k3_k4():
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attn import kernel as K3
     from repro_torch.kernels.wkv6 import kernel as K4
+    from repro_torch.tune.cost import MEM_BYTES_PER_S
     before = (K3.launches, K4.launches)
     B, S, H, hd = K3_TIMED
     q, k, v = (torch.randn((B, S, H, hd), device=DEVICE,
@@ -2700,6 +2916,8 @@ def main() -> int:
         launches, blocks = phase_main_path(rng, genome)
         long_blocks = phase_long_reads(rng, genome)
         timing = phase_path_shapes(blocks, long_blocks, card)
+        tuned = phase_tune(card)
+        xdrop = phase_xdrop(genome)
         k2_err = phase_k2_vs_plain(rng)
         mapper = phase_mapper(card)
         k2_timing = phase_k2_timing(mapper["screen"], card)
@@ -2722,6 +2940,11 @@ def main() -> int:
         "replaces": "src/repro/kernels/wavefront/kernel.py:198",
         "launches": launches, "launches_mapper": mapper["k1_launches"],
         "launches_service": service["k1_launches"],
+        "launches_tune": tuned["launches"],
+        "launches_xdrop_off": {k: v["k1_launches"]
+                               for k, v in xdrop.items()},
+        "tune": tuned["points"], "lint": tuned["lint"],
+        "xdrop_wall_s": {k: v["xdrop_wall_s"] for k, v in xdrop.items()},
         "service": {k: service[k] for k in (
             "requests_per_s", "p50_s", "p99_s", "p50_bucket_s",
             "p99_bucket_s", "k1_share", "cold_first_batch_compile_s",

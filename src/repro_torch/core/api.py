@@ -36,7 +36,7 @@ def _fit_to_bucket(arr, bucket: int):
 
 
 def _dispatch(spec, params, query, ref, q_len, r_len, engine_name,
-              with_traceback, mode, device):
+              with_traceback, mode, device, **options):
     dev = plan_mod.resolve_device(device)
     query = as_codes(query, spec.char_dtype, dev)
     ref = as_codes(ref, spec.char_dtype, dev)
@@ -50,16 +50,18 @@ def _dispatch(spec, params, query, ref, q_len, r_len, engine_name,
     ref = _fit_to_bucket(ref, br)
     plan = plan_mod.get_plan(spec, engine_name, tuple(query.shape),
                              tuple(ref.shape), with_traceback=with_traceback,
-                             mode=mode, device=dev)
+                             mode=mode, device=dev, **options)
     return plan(params, query, ref, q_len, r_len)
 
 
 def align(spec: T.DPKernelSpec, params, query, ref, q_len=None, r_len=None,
           engine_name: str = "wavefront", with_traceback: bool = True,
-          device="cuda") -> T.Alignment:
-    """Matrix fill + (optional) traceback for one sequence pair."""
+          device="cuda", **options) -> T.Alignment:
+    """Matrix fill + (optional) traceback for one sequence pair.
+    ``options`` are engine options (``xdrop=``, ``strip=``, ...) passed to
+    ``get_plan``."""
     return _dispatch(spec, params, query, ref, q_len, r_len, engine_name,
-                     with_traceback, "align", device)
+                     with_traceback, "align", device, **options)
 
 
 def score_only(spec, params, query, ref, q_len=None, r_len=None,

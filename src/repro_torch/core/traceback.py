@@ -9,8 +9,9 @@ The port reads the layout the wavefront kernel K1 emits,
 height ``n_pe``, ``lane = (i - 1) % n_pe`` and chunk-local wavefront
 ``w = lane + j - 1``; lane ``l`` lives in slot ``l % pack`` of its byte
 (8 // pack bits each); and the reference engine's row-major ``'row'``
-store, ``tb[i, j]`` over the whole (Q+1, R+1) matrix.  The 'diag' layout
-comes with the engine that emits it.
+store, ``tb[i, j]`` over the whole (Q+1, R+1) matrix; and the eager
+wavefront engine's (``core.engine``) ``'diag'`` / ``('diag', pack)`` store,
+``tb[(i + j) - 1, i // pack]`` with lane i in slot ``i % pack``.
 
 The walk is plain torch: the JAX package computes it outside any kernel.
 ``run_batched`` advances every row of a block with masked updates over a
@@ -65,10 +66,19 @@ def _chunk_layout(layout):
     raise ValueError(f"unknown tb layout {layout!r}")
 
 
+def _diag_pack(layout):
+    """The pack factor of a 'diag' layout, None for any other layout."""
+    if layout == "diag":
+        return 1
+    if isinstance(layout, tuple) and layout[0] == "diag":
+        return layout[1]
+    return None
+
+
 def _make_reader(tb, layout):
     """``read(i, j) -> ptr`` over a batched store: ``(B, C, n_pe/pack, W)``
-    for the chunk layout, ``(B, Q+1, R+1)`` for ``'row'``; ``i``/``j`` are
-    ``(B,)``.
+    for the chunk layout, ``(B, Q+1, R+1)`` for ``'row'``, ``(B, rows,
+    ceil((Q+1)/pack))`` for the 'diag' layouts; ``i``/``j`` are ``(B,)``.
 
     Boundary cells (i == 0 or j == 0) hold no pointer and read as END, as
     in the reference engine's row-major store, whose row 0 and column 0
@@ -81,6 +91,15 @@ def _make_reader(tb, layout):
             return tb[rows, i.clamp(0, tb.shape[1] - 1).long(),
                       j.clamp(0, tb.shape[2] - 1).long()].to(torch.int32)
         return read_row
+    dpack = _diag_pack(layout)
+    if dpack is not None:
+        # boundary cells read 0 here too: diagonal d stores no pointer at
+        # lane 0 (row 0) or at lane d (column 0)
+        def read_diag(i, j):
+            d = (i + j - 1).clamp(0, tb.shape[1] - 1).long()
+            byte = tb[rows, d, (i // dpack).clamp(0, tb.shape[2] - 1).long()]
+            return _unpack(byte, i % dpack, dpack)
+        return read_diag
     n_pe, pack = _chunk_layout(layout)
 
     def read(i, j):
@@ -99,6 +118,8 @@ def default_max_len(tb_shape, layout) -> int:
     Q + R, plus one for the terminating cell."""
     if layout == "row":
         return tb_shape[0] + tb_shape[1]
+    if _diag_pack(layout) is not None:
+        return tb_shape[0] + 1          # >= Q + R wavefront rows
     n_pe, _ = _chunk_layout(layout)
     q = tb_shape[0] * n_pe
     r = tb_shape[2] - n_pe + 1

@@ -15,6 +15,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -63,10 +64,43 @@ def _digest(source: Path) -> str:
     return h.hexdigest()[:16]
 
 
+def _key(source: Path) -> str:
+    return f"{source.stem}_{_digest(source)}"
+
+
+def kept_report(source) -> str | None:
+    """The ``-Xptxas -v`` report a build of ``source`` (as it is now) kept
+    beside its library, or None when it has not been built here."""
+    report = BUILD_DIR / f"{_key(Path(source))}.ptxas.txt"
+    return report.read_text() if report.exists() else None
+
+
+def ptxas_entries(log: str) -> list:
+    """``(mangled entry name, registers, spill bytes, stack frame bytes)``
+    for each entry function of an ``nvcc -Xptxas -v`` log."""
+    rows, cur, spill, stack = [], None, 0, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur, spill, stack = m.group(1), 0, 0
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            stack = int(m.group(1))
+            spill = int(m.group(2)) + int(m.group(3))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            rows.append((cur, int(m.group(1)), spill, stack))
+            cur = None
+    return rows
+
+
 def load(source: Path) -> Built:
     """Compile ``source`` (once per content hash) and load it."""
     source = Path(source)
-    key = f"{source.stem}_{_digest(source)}"
+    key = _key(source)
     with _LOCK:
         lock = _LOCKS.setdefault(key, threading.Lock())
     with lock:

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import numbers
 import threading
 from pathlib import Path
 
@@ -143,6 +144,29 @@ def strip_warps(q_bucket: int, batch: int, sms: int) -> int:
     return g
 
 
+def warps_range(q_bucket: int) -> tuple:
+    """The warps per pair K1 can launch at a query bucket (padded to the
+    lane strip): 1 to min(STRIP_WARPS, strips), as
+    ``csrc/wavefront_kernel.cuh::bad_geometry`` checks."""
+    return 1, min(STRIP_WARPS, max(1, -(-int(q_bucket) // N_PE)))
+
+
+def check_warps(warps, q_bucket: int) -> int:
+    """An explicit ``strip_warps`` count, checked against ``warps_range``;
+    raises a ValueError that names the option."""
+    if isinstance(warps, bool) or not isinstance(warps, numbers.Integral):
+        raise ValueError(f"option 'strip_warps' must be an integer, got "
+                         f"{warps!r}")
+    warps = int(warps)
+    lo, hi = warps_range(q_bucket)
+    if not lo <= warps <= hi:
+        raise ValueError(
+            f"option 'strip_warps'={warps} is outside [{lo}, {hi}] for a "
+            f"query bucket of {q_bucket} ({N_PE}-row strips, at most "
+            f"{STRIP_WARPS} warps a pair)")
+    return warps
+
+
 def ring_chunks(r_bucket: int, warps: int) -> int:
     """Slots of each handoff ring, a power of two.
 
@@ -228,18 +252,24 @@ def _check_inputs(spec, query, ref, init_row, init_col, lens, tb_pack):
 
 
 def wavefront_fill(spec: T.DPKernelSpec, params, query, ref, init_row,
-                   init_col, lens, tb_pack: int = 1, with_tb: bool = True):
+                   init_col, lens, tb_pack: int = 1, with_tb: bool = True,
+                   warps=None):
     """Fill a batch of pairs.
 
     query (B, Q) + char_shape with Q a multiple of 32 and ref (B, R) +
     char_shape, of the spec's char dtype; init_row (B, R + 1, L) and
     init_col (B, Q + 1, L) of its score dtype, masked; lens (B, 2) int32
-    effective lengths.  Returns ``(tb, best, best_j)``: tb
-    (B, Q/32, 32/tb_pack, 32 + R - 1) uint8 (None when ``with_tb`` is
-    False), best (B, Q/32, 32) of the score dtype and best_j (B, Q/32, 32)
-    int32.
+    effective lengths.  ``warps`` is the warps per pair (the engine's
+    ``strip_warps`` option; None = the ``strip_warps`` heuristic): it only
+    regroups the strips, so every count gives the same bits, and the plain
+    version ignores it once it is checked.  Returns ``(tb, best,
+    best_j)``: tb (B, Q/32, 32/tb_pack, 32 + R - 1) uint8 (None when
+    ``with_tb`` is False), best (B, Q/32, 32) of the score dtype and best_j
+    (B, Q/32, 32) int32.
     """
     _check_inputs(spec, query, ref, init_row, init_col, lens, tb_pack)
+    if warps is not None:
+        check_warps(warps, query.shape[1])
     if query.device.type == "cpu":
         return wavefront_fill_plain(spec, params, query, ref, init_row,
                                     init_col, lens, tb_pack, with_tb)
@@ -248,7 +278,7 @@ def wavefront_fill(spec: T.DPKernelSpec, params, query, ref, init_row,
                          f"{query.device}")
     return _launch(spec, params, query.contiguous(), ref.contiguous(),
                    init_row.contiguous(), init_col.contiguous(),
-                   lens.contiguous(), tb_pack, with_tb)
+                   lens.contiguous(), tb_pack, with_tb, warps)
 
 
 _LIBS: dict = {}
@@ -284,7 +314,7 @@ def _table(params, name, dev):
 
 
 def _launch(spec, params, query, ref, init_row, init_col, lens, tb_pack,
-            with_tb):
+            with_tb, warps=None):
     global launches
     fam = spec.family
     gap_model = fam.family in GAP_FAMILIES
@@ -296,14 +326,17 @@ def _launch(spec, params, query, ref, init_row, init_col, lens, tb_pack,
     index = dev.index if dev.index is not None else \
         torch.cuda.current_device()
     limit = lib.wavefront_max_smem(index)
-    warps = strip_warps(Q, B, torch.cuda.get_device_properties(
-        index).multi_processor_count)
+    explicit = warps is not None
+    if not explicit:
+        warps = strip_warps(Q, B, torch.cuda.get_device_properties(
+            index).multi_processor_count)
     need = smem_bytes(spec, Q, R, warps, with_tb)
     if need > limit:
         raise ValueError(
-            f"kernel {spec.name}: reference bucket {R} needs "
-            f"{need} bytes of shared memory per block; this "
-            f"device allows {limit}")
+            f"kernel {spec.name}: reference bucket {R} at "
+            f"{'option ' if explicit else ''}'strip_warps'={warps} needs "
+            f"{need} bytes of shared memory per block; this device allows "
+            f"{limit}")
     # the kernel writes every byte of the store, zeros included
     tb = (torch.empty((B, C, N_PE // tb_pack, N_PE + R - 1),
                       dtype=torch.uint8, device=dev) if with_tb else None)
@@ -354,8 +387,9 @@ def _launch(spec, params, query, ref, init_row, init_col, lens, tb_pack,
 
 def wavefront_fill_plain(spec: T.DPKernelSpec, params, query, ref, init_row,
                          init_col, lens, tb_pack: int = 1,
-                         with_tb: bool = True):
-    """Plain PyTorch version of ``wavefront_fill``: same arguments, same
+                         with_tb: bool = True, warps=None):
+    """Plain PyTorch version of ``wavefront_fill``: same arguments (``warps``
+    ignored: it only regroups the kernel's strips), same
     outputs (bit for bit where the PE's arithmetic is exact: integer
     scores, and the max/min float families, whose plain PEs round as the
     functors do; the logsumexp fold uses torch.logaddexp).
@@ -410,3 +444,15 @@ def pack_store(store, tb_pack: int):
     at that ``tb_pack``: (B, C, 32 // tb_pack, 32 + R - 1)."""
     return pack_lanes(store.transpose(2, 3), tb_pack).transpose(2, 3) \
         .contiguous()
+
+
+def unpack_store(tb, tb_pack: int):
+    """The inverse of ``pack_store``: a ``('chunk', 32, tb_pack)`` store
+    (B, C, 32 // tb_pack, W) -> the unpacked (B, C, 32, W), one pointer a
+    byte."""
+    if tb_pack == 1:
+        return tb
+    width = 8 // tb_pack
+    slots = [(tb >> (s * width)) & ((1 << width) - 1) for s in range(tb_pack)]
+    B, C, n, W = tb.shape
+    return torch.stack(slots, dim=3).reshape(B, C, n * tb_pack, W)

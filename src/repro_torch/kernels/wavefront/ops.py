@@ -17,10 +17,12 @@ from . import kernel as K
 
 def run(spec: T.DPKernelSpec, params, queries, refs, q_lens=None,
         r_lens=None, *, tb_pack: Optional[int] = None,
+        strip_warps: Optional[int] = None,
         with_tb: bool = True) -> T.DPResult:
     """Fill a batch: queries (B, Q) + char_shape, refs (B, R) + char_shape
     of the spec's char dtype, on one device; q_lens/r_lens (B,) effective
-    lengths (None = full).
+    lengths (None = full); ``strip_warps`` is K1's warps per pair (None =
+    its heuristic).
 
     The end cell is the first optimum in (strip, lane) order — row-major
     first, the same cell as ``core/reference.py`` picks — with each lane's
@@ -42,7 +44,7 @@ def run(spec: T.DPKernelSpec, params, queries, refs, q_lens=None,
     lens = torch.stack([q_lens, r_lens], dim=1).contiguous()
     tb, best, best_j = K.wavefront_fill(
         spec, params, queries.contiguous(), refs.contiguous(), init_row,
-        init_col, lens, tb_pack=pack, with_tb=with_tb)
+        init_col, lens, tb_pack=pack, with_tb=with_tb, warps=strip_warps)
     flat = best.reshape(B, -1)
     layout = ("chunk", K.N_PE) if pack == 1 else ("chunk", K.N_PE, pack)
     zero = torch.zeros((B,), dtype=torch.int32, device=dev)

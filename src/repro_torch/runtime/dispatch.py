@@ -101,9 +101,11 @@ def run_pairs(spec, params, pairs: Sequence[tuple], *,
               with_traceback: bool = True, mode: str = "align",
               min_bucket: int = bucketing.DEFAULT_MIN_BUCKET,
               max_bucket: Optional[int] = None,
-              pipeline_depth: int = 2, device="cuda") -> list:
+              pipeline_depth: int = 2, device="cuda", **options) -> list:
     """Run every ``(query, ref)`` pair; results come back in input order,
-    as host-side numpy values.
+    as host-side numpy values.  ``options`` are engine options
+    (``xdrop=``, ``strip=``, ``tb_pack=``, ``strip_warps=``) passed to
+    ``get_plan``.
 
     Each bucketed block is padded to exactly ``block`` rows (tail rows are
     length-1 dummies) so repeated calls reuse one plan per bucket shape.
@@ -136,7 +138,7 @@ def run_pairs(spec, params, pairs: Sequence[tuple], *,
         plan = plan_mod.get_plan(spec, engine_name, (bq,) + char,
                                  (br,) + char, batch_size=block,
                                  with_traceback=with_traceback, mode=mode,
-                                 device=dev)
+                                 device=dev, **options)
         return plan(params, qs.to(dev, non_blocking=True),
                     rs.to(dev, non_blocking=True), ql, rl)
 

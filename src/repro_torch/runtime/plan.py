@@ -13,7 +13,11 @@ that a service's ``warm_start=`` moves to boot.  It is recorded under a
 (``repro_torch.obs.metrics``), which outlives
 ``clear_plan_cache(keep_stats=True)``.  Defaults that JAX keys on
 ``jax.default_backend()`` key on the plan's explicit device instead, and
-``PlanKey.device`` splits the cache.  JAX's ``donate=`` has no counterpart:
+``PlanKey.device`` splits the cache.  When a caller passes no schedule
+option, ``get_plan`` consults the port's tuning table
+(``repro_torch.tune.table``) first, as JAX's does; explicit options win.
+A batched plan passes ``live_bound = max(q_lens + r_lens)`` to an engine
+that declares it ``"dynamic"``.  JAX's ``donate=`` has no counterpart:
 eager torch holds no compiled executable whose input buffers it could
 reuse, so ``get_plan`` takes no such argument and the port's services do
 not pass one.
@@ -64,16 +68,24 @@ class PlanKey:
     tb_pack: int = 1                 # traceback pointers packed per byte
     semiring: str = "maxplus"
     xdrop: Optional[int] = None      # X-drop early termination; None = off
+    strip: int = 1                   # anti-diagonals per loop test
+    strip_warps: Optional[int] = None  # K1 warps per pair; None = heuristic
 
 
 def plan_key_str(key: PlanKey) -> str:
-    """``kernel/engine/QxR/bN/tb/mode/pP/semiring[/xN]/device`` (the
-    compile-ledger key)."""
+    """``kernel/engine/QxR/bN/tb/mode/pP[sS][wW]/semiring[/xN]/device``
+    (the compile-ledger key); ``s`` and ``w`` appear only where the plan
+    sets them away from their neutral values."""
     q, r = key.bucket_shape
+    sched = f"p{key.tb_pack}"
+    if key.strip != _NEUTRAL_OPTS["strip"]:
+        sched += f"s{key.strip}"
+    if key.strip_warps is not None:
+        sched += f"w{key.strip_warps}"
     parts = [key.kernel, key.engine, f"{q[0]}x{r[0]}",
              "b1" if key.batch_size is None else f"b{key.batch_size}",
-             "tb" if key.with_traceback else "notb", key.mode,
-             f"p{key.tb_pack}", key.semiring]
+             "tb" if key.with_traceback else "notb", key.mode, sched,
+             key.semiring]
     if key.xdrop is not None:
         parts.append(f"x{key.xdrop}")
     parts.append(key.device)
@@ -108,7 +120,12 @@ class CompiledPlan:
         self._count = threading.Lock()
         self._engine = registry.get_engine(engine_name)
         declared = registry.engine_options(engine_name)
-        self._opts = {name: getattr(key, name) for name in declared}
+        # the plan's resolved schedule knobs, forwarded by name; a
+        # 'dynamic' option is a runtime argument, not a cache knob
+        self._opts = {name: getattr(key, name)
+                      for name, v in declared.items() if v != "dynamic"}
+        self._bound = declared.get("live_bound") == "dynamic"
+        self.fill = registry.engine_fill(engine_name, self._opts)
 
     def _run(self, params, queries, refs, q_lens, r_lens):
         n = queries.shape[0]
@@ -118,9 +135,14 @@ class CompiledPlan:
         ql = ql_host.to(dev, non_blocking=True)
         rl = rl_host.to(dev, non_blocking=True)
         key = self.key
+        kw = dict(self._opts)
+        if self._bound:
+            # one shared fill bound, known on the host (for a single pair
+            # it is the pair's own q_len + r_len, the engine's default)
+            kw["live_bound"] = int((ql_host + rl_host).max()) if n else 0
         res = self._engine(self.spec, params, queries, refs, ql, rl,
                            with_tb=key.mode == "fill" or key.with_traceback,
-                           **self._opts)
+                           **kw)
         if key.mode == "fill":
             return res
         if key.with_traceback:
@@ -207,45 +229,114 @@ def validate_pow2_option(name: str, value) -> int:
     return v
 
 
+# neutral pins of knobs an engine does not declare or its fill ignores:
+# the cache never splits on them
+_NEUTRAL_OPTS = {"strip": 1, "tb_pack": 1, "xdrop": None,
+                 "strip_warps": None}
+
+
 def resolve_engine_options(spec: T.DPKernelSpec, engine_name: str,
-                           requested: Optional[dict] = None) -> dict:
-    """Resolve every option an engine declares against a request (``None``
-    values mean the default).  Names the engine does not declare raise,
-    listing the valid ones; ``tb_pack`` falls back to ``spec.tb_pack`` and
-    is 1 for kernels without traceback; ``xdrop``, where the engine
-    declares it, is None (off) unless asked for."""
+                           requested: Optional[dict] = None,
+                           device="cuda") -> dict:
+    """Resolve every schedule knob an engine declares against a request
+    (``None`` values mean the default) and return all of
+    ``_NEUTRAL_OPTS``'s keys.
+
+    Names the engine does not declare raise, listing the valid ones.  A
+    per-device default (``strip``'s ``{'cpu': ..., 'default': ...}``)
+    resolves against ``device``'s type; ``tb_pack`` falls back to
+    ``spec.tb_pack`` and is 1 for kernels without traceback; ``xdrop`` is
+    None (off) unless asked for; ``strip_warps`` None means K1's
+    heuristic.  A knob the plan's fill ignores keeps its neutral value
+    (``strip`` on a K1 plan, ``strip_warps`` on an eager-engine plan), so
+    the cache does not split on it."""
     sup = registry.engine_options(engine_name)
     req = {k: v for k, v in dict(requested or {}).items() if v is not None}
-    unknown = sorted(set(req) - set(sup))
+    plan_knobs = {k for k, v in sup.items() if v != "dynamic"}
+    unknown = sorted(set(req) - plan_knobs)
     if unknown:
-        valid = sorted(sup)
+        valid = sorted(plan_knobs)
         raise ValueError(
             f"engine {engine_name!r} does not accept option(s) {unknown}; "
             f"valid options: {valid if valid else '(none)'}")
-    out = {"tb_pack": 1}
-    if "tb_pack" in sup and spec.traceback is not None:
-        tb_pack = req.get("tb_pack", sup["tb_pack"])
-        if tb_pack is not None:
-            tb_pack = validate_int_option("tb_pack", tb_pack)
-        out["tb_pack"] = resolve_tb_pack(spec, tb_pack)
-    if "xdrop" in sup:
-        xdrop = req.get("xdrop", sup["xdrop"])
-        if xdrop is not None:
-            xdrop = validate_int_option("xdrop", xdrop, minimum=0)
-        out["xdrop"] = xdrop
+    out = dict(_NEUTRAL_OPTS)
+    for name in plan_knobs:
+        default = sup[name]
+        if name == "strip":
+            strip = req.get("strip", default)
+            if isinstance(strip, dict):
+                strip = strip.get(torch.device(device).type,
+                                  strip["default"])
+            out["strip"] = validate_int_option("strip", strip, minimum=1)
+        elif name == "tb_pack":
+            if spec.traceback is None:
+                continue
+            tb_pack = req.get("tb_pack", default)
+            if tb_pack is not None:
+                tb_pack = validate_int_option("tb_pack", tb_pack)
+            out["tb_pack"] = resolve_tb_pack(spec, tb_pack)
+        elif name in ("xdrop", "strip_warps"):
+            value = req.get(name, default)
+            if value is not None:
+                value = validate_int_option(
+                    name, value, minimum=0 if name == "xdrop" else 1)
+            out[name] = value
+        else:
+            out[name] = req.get(name, default)
+    fill = registry.engine_fill(engine_name, out)
+    if fill == registry.K1_FILL:
+        out["strip"] = _NEUTRAL_OPTS["strip"]
+    elif fill == registry.ENGINE_FILL:
+        out["strip_warps"] = _NEUTRAL_OPTS["strip_warps"]
     return out
+
+
+def _tuned_defaults(kernel: str, engine_name: str, bucket: tuple,
+                    batch_size: Optional[int], device) -> Optional[dict]:
+    """Winning schedule options from the port's tuning table, consulted
+    only when the caller passed no explicit option.  Any problem with the
+    table (missing, corrupt, stale schema) means no table: a bad table
+    never breaks dispatch.  Only options the engine declares are
+    forwarded."""
+    try:
+        from repro_torch.tune import table as tune_table
+        with obs_trace.span("plan.tune_lookup", cat="plan", kernel=kernel,
+                            engine=engine_name):
+            tuned = tune_table.lookup(kernel, engine_name, bucket,
+                                      batch_size, device=device)
+    except Exception:
+        obs_metrics.REGISTRY.counter("plan_tune_lookups_total",
+                                     outcome="error").inc()
+        return None
+    obs_metrics.REGISTRY.counter(
+        "plan_tune_lookups_total",
+        outcome="hit" if tuned else "miss").inc()
+    if not tuned:
+        return None
+    sup = registry.engine_options(engine_name)
+    return {k: v for k, v in tuned.items()
+            if v is not None and sup.get(k, "dynamic") != "dynamic"}
 
 
 def traceback_bytes(spec: T.DPKernelSpec, q_bucket: int, r_bucket: int, *,
                     engine_name: str = "wavefront",
-                    tb_pack: Optional[int] = None) -> int:
-    """Pointer-store bytes one alignment occupies at a bucket shape: the
-    ('chunk', 32, pack) store is ceil(Q/32) strips of (32/pack) x (32+R-1)
-    bytes."""
+                    tb_pack: Optional[int] = None,
+                    strip: Optional[int] = None,
+                    xdrop: Optional[int] = None, device="cuda") -> int:
+    """Pointer-store bytes one alignment occupies at a bucket shape.  K1's
+    ('chunk', 32, pack) store is ceil(Q/32) strips of (32/pack) x
+    (32+R-1) bytes; the eager engine's ('diag', pack) store (X-drop plans)
+    is ceil((Q+R)/strip) * strip rows of ceil((Q+1)/pack) bytes."""
     if spec.traceback is None:
         return 0
-    pack = resolve_engine_options(spec, engine_name,
-                                  {"tb_pack": tb_pack})["tb_pack"]
+    opts = resolve_engine_options(
+        spec, engine_name, {"tb_pack": tb_pack, "strip": strip,
+                            "xdrop": xdrop}, device)
+    pack = opts["tb_pack"]
+    if registry.engine_fill(engine_name, opts) == registry.ENGINE_FILL:
+        strip_r = opts["strip"]
+        rows = -(-(q_bucket + r_bucket) // strip_r) * strip_r
+        return rows * -(-(q_bucket + 1) // pack)
     n_chunks = -(-q_bucket // N_PE)
     return n_chunks * (N_PE // pack) * (N_PE + r_bucket - 1)
 
@@ -254,15 +345,20 @@ def get_plan(spec: T.DPKernelSpec, engine_name: str,
              q_shape: tuple, r_shape: tuple, *,
              batch_size: Optional[int] = None,
              with_traceback: bool = True, mode: str = "align",
-             device="cuda", tb_pack: Optional[int] = None,
-             xdrop: Optional[int] = None) -> CompiledPlan:
+             device="cuda", strip: Optional[int] = None,
+             tb_pack: Optional[int] = None, xdrop: Optional[int] = None,
+             strip_warps: Optional[int] = None) -> CompiledPlan:
     """Fetch (or build) the shared plan for one bucketed input shape.
 
     ``q_shape``/``r_shape`` are per-pair shapes including char dims;
     ``batch_size=None`` is the single-pair variant.  The spec object itself
-    keys the cache, as in the JAX package.  ``tb_pack`` and ``xdrop`` are
-    engine options (an engine that does not declare one raises when it is
-    given); a path from a score-only engine raises."""
+    keys the cache, as in the JAX package.  ``strip``, ``tb_pack``,
+    ``xdrop`` and ``strip_warps`` are engine options (an engine that does
+    not declare one raises when it is given); a path from a score-only
+    engine raises.  With no option passed, the port's tuning table
+    (``repro_torch.tune.table``, env ``REPRO_TORCH_TUNE_TABLE``) is
+    consulted first; explicit options win, and
+    ``REPRO_TORCH_TUNE_TABLE=off`` restores the hand-picked defaults."""
     dev = resolve_device(device)
     reason = registry.engine_supports(engine_name, spec)
     if reason is not None:
@@ -272,11 +368,17 @@ def get_plan(spec: T.DPKernelSpec, engine_name: str,
     if wtb and mode == "align" and not registry.engine_traceback(engine_name):
         raise ValueError(f"engine {engine_name!r} is score-only; pass "
                          f"with_traceback=False for kernel {spec.name}")
-    opts = resolve_engine_options(spec, engine_name,
-                                  {"tb_pack": tb_pack, "xdrop": xdrop})
+    requested = {"strip": strip, "tb_pack": tb_pack, "xdrop": xdrop,
+                 "strip_warps": strip_warps}
+    if all(v is None for v in requested.values()):
+        tuned = _tuned_defaults(spec.name, engine_name,
+                                (q_shape[0], r_shape[0]), batch_size, dev)
+        if tuned:
+            requested.update(tuned)
+    opts = resolve_engine_options(spec, engine_name, requested, dev)
     cache_key = (spec, engine_name, tuple(q_shape), tuple(r_shape),
-                 batch_size, wtb, mode, str(dev), opts["tb_pack"],
-                 opts.get("xdrop"))
+                 batch_size, wtb, mode, str(dev),
+                 *(opts[k] for k in sorted(_NEUTRAL_OPTS)))
     with _LOCK:
         plan = _CACHE.get(cache_key)
         if plan is not None:
@@ -289,8 +391,7 @@ def get_plan(spec: T.DPKernelSpec, engine_name: str,
         key = PlanKey(kernel=spec.name, engine=engine_name,
                       bucket_shape=(tuple(q_shape), tuple(r_shape)),
                       batch_size=batch_size, with_traceback=wtb, mode=mode,
-                      device=str(dev), tb_pack=opts["tb_pack"],
-                      semiring=spec.semiring.name, xdrop=opts.get("xdrop"))
+                      device=str(dev), semiring=spec.semiring.name, **opts)
         plan = CompiledPlan(key, spec, engine_name)
         _CACHE[cache_key] = plan
         return plan
@@ -315,14 +416,17 @@ def _totals() -> dict[str, Any]:
 
 
 def plan_cache_info() -> dict[str, Any]:
-    """Cache-wide hit/miss counts plus each plan's key, hits, calls and
-    first-dispatch ``compile_s``; ``totals`` rolls calls, hits, compiles and
+    """Cache-wide hit/miss counts plus each plan's key, the fill it runs
+    (``registry.engine_fill``: ``'K1'`` or the eager engine for a
+    ``wavefront`` plan), hits, calls and first-dispatch ``compile_s``;
+    ``totals`` rolls calls, hits, compiles and
     compile seconds up across live plans and plans retired by
     ``clear_plan_cache(keep_stats=True)``, and ``compile_ledger`` holds the
     per-key record."""
     with _LOCK:
-        plans = [{"key": p.key, "hits": p.hits, "calls": p.calls,
-                  "compile_s": p.compile_s} for p in _CACHE.values()]
+        plans = [{"key": p.key, "fill": p.fill, "hits": p.hits,
+                  "calls": p.calls, "compile_s": p.compile_s}
+                 for p in _CACHE.values()]
         return {"size": len(_CACHE), "hits": _STATS["hits"],
                 "misses": _STATS["misses"],
                 "keys": [p.key for p in _CACHE.values()], "plans": plans,

@@ -117,12 +117,15 @@ def test_registry_and_option_errors():
                                          r"'wavefront'\]"):
         registry.get_engine("pallas")
     spec, _ = pzoo.make(2)
-    with pytest.raises(ValueError, match="valid options: \\['tb_pack'\\]"):
-        plan_mod.resolve_engine_options(spec, "wavefront", {"strip": 2})
+    with pytest.raises(ValueError, match="valid options: \\['strip', "
+                                         "'strip_warps', 'tb_pack', "
+                                         "'xdrop'\\]"):
+        plan_mod.resolve_engine_options(spec, "wavefront", {"blocksize": 2})
     with pytest.raises(ValueError, match="must be an integer"):
         plan_mod.resolve_engine_options(spec, "wavefront", {"tb_pack": 2.5})
+    # a K1 plan pins strip, which K1 ignores, to its neutral 1
     assert plan_mod.resolve_engine_options(spec, "wavefront") == \
-        {"tb_pack": 2}
+        {"strip": 1, "tb_pack": 2, "xdrop": None, "strip_warps": None}
     assert plan_mod.traceback_bytes(spec, 64, 64) == 2 * 16 * 95
     score_only_spec, _ = pzoo.make(12)
     assert plan_mod.traceback_bytes(score_only_spec, 64, 64) == 0

@@ -140,9 +140,14 @@ def test_banded_refusals():
     with pytest.raises(ValueError, match="requires spec.band"):
         plan_mod.get_plan(spec2, "banded", (64,), (64,),
                           with_traceback=False, device="cpu")
+    # wavefront takes xdrop since PR 18 (the eager engine runs it); an
+    # engine that does not declare it still refuses it
+    assert plan_mod.get_plan(spec, "wavefront", (64,), (64,), xdrop=5,
+                             device="cpu").key.xdrop == 5
+    _, _, edit, _ = kernel_pair(16)
     with pytest.raises(ValueError, match="does not accept"):
-        plan_mod.get_plan(spec, "wavefront", (64,), (64,), xdrop=5,
-                          device="cpu")
+        plan_mod.get_plan(edit, "myers", (64,), (64,), xdrop=5,
+                          with_traceback=False, device="cpu")
     with pytest.raises(ValueError, match=">= 0"):
         plan_mod.get_plan(spec, "banded", (64,), (64,),
                           with_traceback=False, xdrop=-1, device="cpu")
