@@ -9,10 +9,12 @@ banded extension on K1, SAM), pair-HMM genotyping (``run_pairs`` on K1's
 logsumexp instantiation, ``prob.call_genotype``, ``prob.call_site``), the
 serving layer (the gateway's ``AlignmentService`` with K2's prefilter and
 degrade path, ``GenotypingService``, ``ReadMappingService``; ``tiled_align``
-and the ``banded`` engine) and LM serving (``ServeSession``: per-slot
-prefill on K3 for olmo-1b and K4 for rwkv6-3b, batched greedy decode).  It
-holds every CUDA kernel against its plain PyTorch version at the shapes
-those paths give it, times K1-K4, and prints one JSON line listing the
+and the ``banded`` engine), LM serving (``ServeSession``: per-slot
+prefill on K3 for olmo-1b and K4 for rwkv6-3b, batched greedy decode) and
+LM training (``launch.train.train_loop``: AdamW steps of olmo-1b on K3 and
+rwkv6-3b on K4, forward and backward kernels).  It holds every CUDA kernel
+against its plain PyTorch version at the shapes those paths give it, times
+K1-K4 and the two backward kernels, and prints one JSON line listing the
 kernels and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero without
 that last line, and so does a machine without CUDA or a directory without
@@ -21,7 +23,8 @@ the ``src/repro_torch`` package.
 Phases:
   1. card identity (name, count, power limit, SM clock);
   2. build K1 (two sources: the gap-model families and the others), K2,
-     K3 and K4 with nvcc, all at once, and report ptxas registers /
+     K3, K4 and the backward kernels of K3 and K4 with nvcc, all at once,
+     and report ptxas registers /
      spills (K1's instantiations for #2, #4, the mapper's extension and
      the pair-HMM forward at logsumexp, and every K2 instantiation, must
      not spill; every other-family instantiation is listed);
@@ -146,7 +149,33 @@ Phases:
      alone over 5 rounds of 20 launches, K3 in turns with
      ``scaled_dot_product_attention`` (K3, SDPA, SDPA, K3: a yardstick the
      port never calls), medians and spread, beside their plain versions and
-     their bounds on this card.
+     their bounds on this card; then K3 forward + backward through autograd
+     at (4, 2048, 16, 128) bf16 causal in turns with SDPA's forward +
+     backward, K3's backward alone there in turns with SDPA's backward
+     alone (``torch.autograd.grad`` on a retained SDPA graph), and K4's
+     backward alone at (4, 2048, 48, 64), beside their plain versions and
+     bounds;
+ 16. K3's forward lse and backward kernel vs their plain versions
+     (``flash_backward_plain``) over phase 10's sweep, dq, dk, dv and lse
+     allocated on 0xFF blocks (K3_BWD_PARITY);
+ 17. K4's backward kernel vs autograd through ``wkv6_plain`` over phase
+     11's sweep, on the forward kernel's chunk states, dr, dk, dv, dlw
+     and du on 0xFF blocks (K4_BWD_PARITY);
+ 18. olmo-1b at full width trains through ``train_loop(device="cuda")``:
+     8 AdamW steps of 4 x 2048 tokens from ``LMBatcher(seed=0)``
+     (``AdamWConfig(weight_decay=0.01)``, ``cosine_with_warmup(3e-4, 5,
+     8)``, remat on): finite losses and grad norms, the mean loss of the
+     last two steps below step 1's, K3 launched 2 x 16 times forward and 16
+     backward every step; layer 0's recorded backward held against
+     ``flash_backward_plain``; step time, tokens/s, peak memory and K3's
+     share of a step;
+ 19. rwkv6-3b the same on K4 (2 x 32 forward, 32 backward a step; the
+     recorded backward against autograd through ``wkv6_plain``);
+ 20. card vs CPU training: the reduced configs in f32 from one numpy-made
+     state, 3 ``make_train_step`` steps on each device (losses and grad
+     norms within TRAIN_CPU_TOL), and a checkpoint saved on the card after
+     step 2 and restored by ``restore_latest`` gives a step-3 loss
+     bit-equal to the unbroken run's.
 """
 from __future__ import annotations
 
@@ -223,6 +252,23 @@ K3_PARITY = ("f32: 2e-5; bf16, p in bf16: 2e-5 plus one bf16 ulp of the "
 ROUNDS, ROUND_LAUNCHES = 5, 20
 K3_TIMED = (1, 1536, 16, 128)      # olmo-1b's heads at the longest prompts
 K4_TIMED = (1, 1536, 48, 64)       # rwkv6-3b's (padded) heads, the same
+K3_TRAIN = (4, 2048, 16, 128)      # olmo-1b's heads at the training shape
+K4_TRAIN = (4, 2048, 48, 64)       # rwkv6-3b's, the same
+# training traffic of phases 18 and 19: 4 sequences of OLMo-1B's published
+# context (2048 tokens) a step
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 2048
+# phase 20: steps of the reduced configs on the card and on the CPU, and
+# the relative tolerance of their losses and grad norms (f32 with TF32
+# off on both; the CPU tests hold the port to JAX at 2e-4 / 1e-3)
+TRAIN_CPU_STEPS, TRAIN_CPU_TOL = 3, (1e-4, 1e-3)
+# the backward kernels against their plain versions (see _grad_err)
+K3_BWD_TOL, K4_BWD_TOL = 1e-4, 1e-3
+K3_BWD_PARITY = (f"dq, dk, dv within {K3_BWD_TOL} of the larger of the "
+                 "tensor's largest |entry| and 1e-2 of its products' size, "
+                 f"plus {K3_BWD_TOL} relative, bf16 plus one bf16 ulp; lse "
+                 "within 2e-5")
+K4_BWD_PARITY = (f"dr, dk, dv, dlw, du within {K4_BWD_TOL} of the tensor's "
+                 "largest |entry|, bf16 dr/dk/dv plus one bf16 ulp")
 # serving traffic of phases 12 and 13: OLMo-1B's published context is
 # 2048 tokens
 SERVE_REQUESTS, SERVE_SLOTS, SERVE_MAX_LEN = 16, 8, 2048
@@ -419,8 +465,9 @@ def phase_build():
     from repro_torch.kernels.wavefront import kernel as K1
     from repro_torch.kernels.wkv6 import kernel as K4
     from repro_torch.mapping import extend as extend_mod
-    names = ("K1", "K1 ext", "K2", "K3", "K4")
-    sources = (K1.SOURCE, K1.SOURCE_EXT, K2.SOURCE, K3.SOURCE, K4.SOURCE)
+    names = ("K1", "K1 ext", "K2", "K3", "K4", "K3 bwd", "K4 bwd")
+    sources = (K1.SOURCE, K1.SOURCE_EXT, K2.SOURCE, K3.SOURCE, K4.SOURCE,
+               K3.SOURCE_BWD, K4.SOURCE_BWD)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(build.load, sources))
@@ -2364,6 +2411,7 @@ def _reset_counts():
     mods = (K1, K2, K3, K4)
     for m in mods:
         m.launches = 0
+    K3.bwd_launches = K4.bwd_launches = 0
     return mods
 
 
@@ -2884,6 +2932,557 @@ def phase_timing_k3_k4():
     return k3, k4
 
 
+# ---------------------------------------------------------------------------
+# Training: K3's and K4's backward kernels, full-width AdamW steps
+# ---------------------------------------------------------------------------
+def _grad_err(got, want, tol, terms=0.0):
+    """(max |got - want|, whether every entry lies within ``tol`` of the
+    larger of the tensor's largest |entry| and 1e-2 ``terms`` (the size of
+    the products the gradient sums: one that cancels to 0, as dq and dk of
+    a row with a single live key do, is rounding noise of that size), plus
+    ``tol`` relative, and in bf16 plus one bf16 ulp of the output)."""
+    import torch
+    bf16 = got.dtype == torch.bfloat16
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    if not diff.numel():
+        return 0.0, True
+    scale = max(float(want.abs().max()), 1e-2 * terms)
+    bound = tol * scale + tol * want.abs()
+    if bf16:
+        bound = bound + _bf16_ulp(torch.maximum(got.abs(), want.abs()))
+    return float(diff.max()), bool((diff <= bound).all())
+
+
+def _hold_k3_bwd(args, kw, what):
+    """K3's backward kernel and ``flash_backward_plain`` on one recorded
+    input; checks K3_BWD_PARITY and returns the largest |difference|."""
+    import torch
+    from repro_torch.kernels.flash_attn import kernel as K3
+    got = K3.flash_backward(*args, **kw)
+    want = K3.flash_backward_plain(*args, **kw)
+    torch.cuda.synchronize()
+    q, k, v, _, _, do = (float(t.abs().max()) for t in args)
+    scale = kw.get("scale") or 1.0 / args[0].shape[-1] ** 0.5
+    terms = (do * v * k * scale, do * v * q * scale, do)
+    err = 0.0
+    for name, g, w, t in zip(("dq", "dk", "dv"), got, want, terms):
+        e, ok = _grad_err(g, w, K3_BWD_TOL, t)
+        check(ok, f"K3 backward != plain: {name}, {what} (max |diff| {e})")
+        err = max(err, e)
+    return err
+
+
+def phase_k3_bwd_vs_plain(rng):
+    """K3's forward lse and its backward kernel against the plain
+    versions over phase 10's sweep, every output allocated on blocks left
+    filled with 0xFF."""
+    import torch
+    from repro_torch.kernels.flash_attn import kernel as K3
+    t0 = time.perf_counter()
+    before = (K3.launches, K3.bwd_launches)
+    max_err, max_lse, n = 0.0, 0.0, 0
+    for causal, window in ((True, None), (True, 64), (False, None)):
+        for G, S, dtype, hd in itertools.product(
+                (1, 4), K3_SWEEP_S, (torch.float32, torch.bfloat16),
+                (64, 128)):
+            B, H = 2, 8
+            q = torch.as_tensor(rng.normal(size=(B, S, H, hd)),
+                                dtype=dtype, device=DEVICE)
+            k, v = (torch.as_tensor(rng.normal(size=(B, S, H // G, hd)),
+                                    dtype=dtype, device=DEVICE)
+                    for _ in range(2))
+            mask = dict(causal=causal, window=window)
+            what = (f"causal {causal}, window {window}, G {G}, S {S}, "
+                    f"{dtype}, hd {hd}")
+            lse_like = torch.empty((B, S, H), device=DEVICE)
+            dirty = _dirty_allocator(q, lse_like)
+            out, lse = K3.flash_fill(q, k, v, p_dtype=dtype,
+                                     return_lse=True, **mask)
+            torch.cuda.synchronize()
+            check(lse.data_ptr() in dirty, "K3's lse did not land on the "
+                  "0xFF block")
+            _, want_lse = K3.flash_attention_plain(q, k, v, return_lse=True,
+                                                   **mask)
+            lse_err = float((lse - want_lse).abs().max())
+            check(torch.allclose(lse, want_lse, rtol=2e-5, atol=2e-5),
+                  f"K3 lse != plain: {what} (max |diff| {lse_err})")
+            do = torch.as_tensor(rng.normal(size=out.shape), dtype=dtype,
+                                 device=DEVICE)
+            dirty = _dirty_allocator(q, k, v)
+            got = K3.flash_backward(q, k, v, out, lse, do, **mask)
+            torch.cuda.synchronize()
+            check(all(g.data_ptr() in dirty for g in got),
+                  "K3's dq, dk, dv did not land on the 0xFF blocks")
+            del got
+            max_err = max(max_err, _hold_k3_bwd((q, k, v, out, lse, do),
+                                                mask, what))
+            max_lse = max(max_lse, lse_err)
+            n += 1
+    K3.launches, K3.bwd_launches = before
+    print(f"[16] K3 backward == flash_backward_plain and K3's lse == plain "
+          f"on {n} cases (causal / window 64 / non-causal x G 1, 4 x S "
+          f"{K3_SWEEP_S} x f32, bf16 x hd 64, 128; {K3_BWD_PARITY}; dq, dk, "
+          f"dv and lse on 0xFF blocks; max |diff| {max_err:.3g}, lse "
+          f"{max_lse:.3g}) in {time.perf_counter() - t0:.1f} s", flush=True)
+    return max_err
+
+
+def _hold_k4_bwd(args, kw, what):
+    """K4's backward kernel and autograd through ``wkv6_plain`` on one
+    input; checks K4_BWD_PARITY and returns the largest |difference|."""
+    import torch
+    from repro_torch.kernels.wkv6 import kernel as K4
+    got = K4.wkv6_backward(*args, **kw)
+    want = K4.wkv6_backward_plain(*args)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, g, w in zip(("dr", "dk", "dv", "dlw", "du"), got, want):
+        check(g.dtype == w.dtype, f"K4 backward {name} is {g.dtype}")
+        e, ok = _grad_err(g, w, K4_BWD_TOL)
+        check(ok, f"K4 backward != plain: {name}, {what} (max |diff| {e})")
+        err = max(err, e)
+    return err
+
+
+def phase_k4_bwd_vs_plain(rng):
+    """K4's backward kernel against autograd through ``wkv6_plain`` over
+    phase 11's sweep, on the forward kernel's own chunk states, dr, dk,
+    dv, dlw and du allocated on blocks left filled with 0xFF."""
+    import torch
+    from repro_torch.kernels.wkv6 import kernel as K4
+    t0 = time.perf_counter()
+    before = (K4.launches, K4.bwd_launches)
+    max_err, n = 0.0, 0
+    for scale, S, dtype in itertools.product(
+            (1.0, 2.0), K4_SWEEP_S, (torch.float32, torch.bfloat16)):
+        args = _k4_inputs(rng, 2, S, 4, 64, scale, dtype)
+        _, _, states = K4.wkv6_fill(*args, return_states=True)
+        dy = torch.as_tensor(rng.normal(size=args[0].shape),
+                             dtype=torch.float32, device=DEVICE)
+        # r, k, v, lw and u have the sizes of dr, dk, dv, dlw and du (f32),
+        # in the order the launcher allocates them
+        dirty = _dirty_allocator(*args)
+        got = K4.wkv6_backward(*args, dy, states=states)
+        torch.cuda.synchronize()
+        check(all(g.data_ptr() in dirty for g in got),
+              "K4's dr, dk, dv, dlw, du did not land on the 0xFF blocks")
+        del got
+        max_err = max(max_err, _hold_k4_bwd(
+            (*args, dy), dict(states=states),
+            f"decay scale {scale}, S {S}, {dtype}"))
+        n += 1
+    K4.launches, K4.bwd_launches = before
+    print(f"[17] K4 backward == autograd through wkv6_plain on {n} cases "
+          f"(decay scale 1, 2 x S {K4_SWEEP_S} x r/k/v f32, bf16; hd 64, "
+          f"H 4; {K4_BWD_PARITY}; dr, dk, dv, dlw, du on 0xFF blocks; max "
+          f"|diff| {max_err:.3g}) in {time.perf_counter() - t0:.1f} s", flush=True)
+    return max_err
+
+
+@contextlib.contextmanager
+def _last_call(mod, name, slot):
+    """Within the block, each call of ``mod.name`` keeps its arguments in
+    ``slot`` (the last call's remain)."""
+    orig = getattr(mod, name)
+
+    def record(*args, **kw):
+        slot["args"], slot["kw"] = args, kw
+        return orig(*args, **kw)
+    setattr(mod, name, record)
+    try:
+        yield slot
+    finally:
+        setattr(mod, name, orig)
+
+
+def _detached(slot):
+    """A recorded call's (args, kw), its tensors out of the graph."""
+    import torch
+    return ([t.detach() if isinstance(t, torch.Tensor) else t
+             for t in slot["args"]],
+            {k: t.detach() if isinstance(t, torch.Tensor) else t
+             for k, t in slot["kw"].items()})
+
+
+def _lm_batch_s(cfg):
+    """Host seconds of one LMBatcher batch of the training traffic."""
+    from repro_torch.data import LMBatcher
+    it = iter(LMBatcher(vocab=cfg.vocab_size, batch=TRAIN_BATCH,
+                        seq=TRAIN_SEQ, seed=SEED))
+    t0 = time.perf_counter()
+    next(it)
+    return time.perf_counter() - t0
+
+
+def _train_full(arch, mod, bwd_name, n_fwd, n_bwd, phase):
+    """``train_loop(device="cuda")`` on ``arch`` at full width: TRAIN_STEPS
+    steps of TRAIN_BATCH x TRAIN_SEQ tokens from LMBatcher(seed=SEED),
+    AdamWConfig(weight_decay=0.01) under cosine_with_warmup(3e-4, 5,
+    TRAIN_STEPS) (train_loop's own choices), every launch count at 0 just
+    before.  Checks finite losses and grad norms, a falling loss and the
+    launches of ``mod`` per step; returns the run's numbers and the last
+    backward call's arguments (layer 0 of the last step)."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.params import count_params
+    cfg = configs.get(arch)
+    n = count_params(cfg)
+    print(f"[{phase}] {arch} trains at full width ({n:,} parameters, "
+          f"{cfg.param_dtype}, remat {cfg.remat}): {TRAIN_STEPS} AdamW steps "
+          f"of {TRAIN_BATCH} x {TRAIN_SEQ} tokens through train_loop",
+          flush=True)
+    batch_s = _lm_batch_s(cfg)
+    mods = _reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stamps, counts, losses, gns = [time.perf_counter()], [], [], []
+
+    def on_metrics(step, metrics):
+        losses.append(float(metrics["loss"]))
+        gns.append(float(metrics["grad_norm"]))
+        stamps.append(time.perf_counter())
+        counts.append((mod.launches, mod.bwd_launches))
+
+    slot = {}
+    with _last_call(mod, bwd_name, slot):
+        state, _ = train_loop(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                              seq=TRAIN_SEQ, log_every=1, device=DEVICE,
+                              on_metrics=on_metrics)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    others = [(m.__name__.split(".")[-2], m.launches) for m in mods
+              if m is not mod and m.launches]
+    check(not others, f"{arch} training launched {others}")
+    check(len(losses) == TRAIN_STEPS, f"{arch}: {len(losses)} steps logged")
+    check(all(np.isfinite(losses)) and all(np.isfinite(gns)),
+          f"{arch}: loss or grad norm not finite: {losses}, {gns}")
+    check(np.mean(losses[-2:]) < losses[0], f"{arch}: the loss did not "
+          f"fall: {losses}")
+    per_step = [(b[0] - a[0], b[1] - a[1])
+                for a, b in zip([(0, 0)] + counts, counts)]
+    check(all(c == (n_fwd, n_bwd) for c in per_step),
+          f"{arch}: launches per step {per_step}, want ({n_fwd}, {n_bwd})")
+    steps = [b - a for a, b in zip(stamps, stamps[1:])]
+    step_s = statistics.median(steps[1:])
+    prof = _profile_train_step(cfg, state)
+    del state
+    torch.cuda.empty_cache()
+    print(f"    losses {', '.join(f'{x:.4f}' for x in losses)}; grad norms "
+          f"{', '.join(f'{x:.3f}' for x in gns)}", flush=True)
+    print(f"    step time median {step_s:.3f} s over steps 2-{TRAIN_STEPS} "
+          f"({min(steps[1:]):.3f}-{max(steps[1:]):.3f}; step 1 "
+          f"{steps[0]:.3f} s with the state's set-up), "
+          f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.0f} tokens/s, including one "
+          f"LMBatcher batch on the host ({batch_s:.3f} s alone); peak "
+          f"device memory {peak / 2**30:.2f} GiB; launches per step "
+          f"{per_step[0]} (forward under remat, backward)", flush=True)
+    return {"losses": losses, "grad_norms": gns, "step_s": step_s,
+            "profile_busy": prof and prof["device_ms"] / prof["wall_ms"],
+            "steps_s": steps, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ
+            / step_s, "peak_bytes": peak, "batch_s": batch_s,
+            "fwd_launches": counts[-1][0], "bwd_launches": counts[-1][1],
+            "last": slot}
+
+
+def _profile_train_step(cfg, state):
+    """torch.profiler over one more step of the trained state (after the
+    run's counts are read): device busy share and the top kernels."""
+    import torch
+    from repro_torch.data import LMBatcher
+    from repro_torch.optim import AdamWConfig, constant
+    from repro_torch.train import make_train_step
+    step = make_train_step(cfg, AdamWConfig(weight_decay=0.01),
+                           constant(1e-4))
+    toks = next(iter(LMBatcher(vocab=cfg.vocab_size, batch=TRAIN_BATCH,
+                               seq=TRAIN_SEQ, seed=SEED)))["tokens"]
+    batch = {"tokens": torch.as_tensor(toks, device=DEVICE)}
+    return _device_profile(lambda: step(state, batch),
+                           f"one {cfg.name} training step")
+
+
+def phase_train_olmo():
+    """olmo-1b at full width trains through train_loop on K3; layer 0's
+    recorded backward is held against flash_backward_plain; K3's forward
+    and backward share of a step."""
+    import torch
+    from repro_torch.kernels.flash_attn import kernel as K3
+    run = _train_full("olmo-1b", K3, "flash_backward", 2 * 16, 16, 18)
+    args, kw = _detached(run.pop("last"))
+    before = (K3.launches, K3.bwd_launches)
+    err = _hold_k3_bwd(args, kw, "olmo-1b layer 0, last step")
+    q, k, v = args[:3]
+    fwd_ms = cuda_time_ms(lambda: K3.flash_fill(
+        q, k, v, causal=True, p_dtype=q.dtype, return_lse=True), 5)
+    bwd_ms = cuda_time_ms(lambda: K3.flash_backward(*args, **kw), 3)
+    K3.launches, K3.bwd_launches = before
+    share = (32 * fwd_ms + 16 * bwd_ms) / 1e3 / run["step_s"]
+    print(f"    K3 backward == plain ({K3_BWD_PARITY}) on layer 0's recorded "
+          f"q/k/v/o/lse/dO {tuple(q.shape)}, {q.dtype}: max |diff| "
+          f"{err:.3g}; K3 forward (with lse) {fwd_ms:.3f} ms x 32 and "
+          f"backward {bwd_ms:.3f} ms x 16 a step: {100 * share:.1f} % of the "
+          f"step", flush=True)
+    del args, kw
+    torch.cuda.empty_cache()
+    return dict(run, k3_err=err, k3_fwd_ms=fwd_ms, k3_bwd_ms=bwd_ms,
+                k3_share=share)
+
+
+def phase_train_rwkv():
+    """rwkv6-3b at full width trains through train_loop on K4; layer 0's
+    recorded backward is held against autograd through wkv6_plain; K4's
+    forward and backward share of a step."""
+    import torch
+    from repro_torch.kernels.wkv6 import kernel as K4
+    run = _train_full("rwkv6-3b", K4, "wkv6_backward", 2 * 32, 32, 19)
+    args, kw = _detached(run.pop("last"))
+    before = (K4.launches, K4.bwd_launches)
+    err = _hold_k4_bwd(args[:6], kw, "rwkv6-3b layer 0, last step")
+    ins = args[:5]
+    fwd_ms = cuda_time_ms(lambda: K4.wkv6_fill(*ins, return_states=True), 5)
+    bwd_ms = cuda_time_ms(lambda: K4.wkv6_backward(*args, **kw), 3)
+    K4.launches, K4.bwd_launches = before
+    share = (64 * fwd_ms + 32 * bwd_ms) / 1e3 / run["step_s"]
+    print(f"    K4 backward == autograd through wkv6_plain ({K4_BWD_PARITY}) "
+          f"on layer 0's recorded r/k/v/lw/u/dy {tuple(ins[0].shape)}, "
+          f"{ins[0].dtype}: max |diff| {err:.3g}; K4 forward {fwd_ms:.3f} ms "
+          f"x 64 and backward {bwd_ms:.3f} ms x 32 a step: "
+          f"{100 * share:.1f} % of the step", flush=True)
+    del args, kw, ins
+    torch.cuda.empty_cache()
+    return dict(run, k4_err=err, k4_fwd_ms=fwd_ms, k4_bwd_ms=bwd_ms,
+                k4_share=share)
+
+
+def _numpy_state(cfg, seed):
+    """A train state of ``cfg`` made with numpy (parameters as
+    ``init_params`` draws them, zero moments), in the layout
+    ``state_from_jax`` carries."""
+    import math
+    import numpy as np
+    from repro_torch.models.params import _defs, tree_map
+    rng = np.random.default_rng(seed)
+
+    def one(d):
+        if d.init in ("zeros", "ones"):
+            return getattr(np, d.init)(d.shape, np.float32)
+        x = rng.normal(size=d.shape).astype(np.float32)
+        if d.init == "fan_in":
+            fan = d.shape[d.lead] if len(d.shape) > d.lead else 1
+            return x / np.float32(math.sqrt(max(fan, 1)))
+        return x * np.float32(d.scale)
+    params = tree_map(one, _defs(cfg))
+    mu = tree_map(lambda a: {"m": np.zeros_like(a), "v": np.zeros_like(a)},
+                  params)
+    return {"params": params, "opt": {"mu": mu, "count": np.int32(0)},
+            "step": np.int32(0)}
+
+
+def phase_train_card_vs_cpu():
+    """The reduced configs in f32 (TF32 off) train on the card and on the
+    CPU from one numpy-made state: TRAIN_CPU_STEPS steps of make_train_step
+    on the same LMBatcher batches, every loss and grad norm within
+    TRAIN_CPU_TOL; then a checkpoint saved on the card after step 2 and
+    restored by restore_latest gives a step-3 loss bit-equal to the
+    unbroken run's."""
+    import numpy as np
+    import torch
+    from repro_torch import checkpoint, configs
+    from repro_torch import train as train_mod
+    from repro_torch.data import LMBatcher
+    from repro_torch.optim import AdamWConfig, constant
+    t0 = time.perf_counter()
+    ckdir = ROOT / "build" / "smoke_ckpt"
+    out = []
+    for arch in ("olmo-1b", "rwkv6-3b"):
+        cfg = configs.get(arch, reduced=True)
+        opt = AdamWConfig(weight_decay=0.01)
+        tree = _numpy_state(cfg, SEED)
+        it = iter(LMBatcher(vocab=cfg.vocab_size, batch=4, seq=64,
+                            seed=SEED))
+        batches = [next(it)["tokens"] for _ in range(TRAIN_CPU_STEPS)]
+        step = train_mod.make_train_step(cfg, opt, constant(1e-3))
+        runs = {}
+        shutil.rmtree(ckdir, ignore_errors=True)
+        for dev in (DEVICE, "cpu"):
+            state = train_mod.state_from_jax(cfg, opt, tree, dev)
+            rec = []
+            for i, b in enumerate(batches):
+                state, m = step(state, {"tokens": torch.as_tensor(
+                    b, device=dev)})
+                rec.append((float(m["loss"]), float(m["grad_norm"])))
+                if dev == DEVICE and i == 1:
+                    checkpoint.save(str(ckdir), 2, state)
+            runs[dev] = rec
+        (card, cpu) = runs[DEVICE], runs["cpu"]
+        for i, ((lc, gc), (lp, gp)) in enumerate(zip(card, cpu)):
+            check(abs(lc - lp) <= TRAIN_CPU_TOL[0] * abs(lp)
+                  and abs(gc - gp) <= TRAIN_CPU_TOL[1] * abs(gp),
+                  f"{arch} step {i + 1}: card loss {lc}, grad norm {gc}; "
+                  f"CPU {lp}, {gp}")
+        like = train_mod.state_from_jax(cfg, opt, tree, DEVICE)
+        restored, at = checkpoint.restore_latest(str(ckdir), like, DEVICE)
+        check(at == 2, f"{arch}: restore_latest found step {at}")
+        restored, m = step(restored, {"tokens": torch.as_tensor(
+            batches[2], device=DEVICE)})
+        resumed = (float(m["loss"]), float(m["grad_norm"]))
+        check(resumed[0] == card[2][0], f"{arch}: the step-3 loss after "
+              f"restore_latest is {resumed[0]!r}, the unbroken run's "
+              f"{card[2][0]!r}")
+        shutil.rmtree(ckdir, ignore_errors=True)
+        rel = max(abs(c[0] - p[0]) / abs(p[0]) for c, p in zip(card, cpu))
+        relg = max(abs(c[1] - p[1]) / abs(p[1]) for c, p in zip(card, cpu))
+        out.append(f"{arch}: losses {', '.join(f'{c[0]:.6f}' for c in card)}"
+                   f" (largest relative difference from the CPU {rel:.2g}, "
+                   f"grad norms {relg:.2g}); resumed step 3 loss bit-equal "
+                   f"{resumed[0]!r}, grad norm "
+                   f"{'bit-equal' if resumed[1] == card[2][1] else 'differs'}"
+                   f" ({resumed[1]!r} / {card[2][1]!r})")
+    print(f"[20] card == CPU training on the reduced configs in f32 "
+          f"({TRAIN_CPU_STEPS} steps of 4 x 64 tokens from one numpy-made "
+          f"state; loss within {TRAIN_CPU_TOL[0]}, grad norm within "
+          f"{TRAIN_CPU_TOL[1]} relative): " + "; ".join(out)
+          + f" in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def k4_bwd_ops_per_chunk(hd, C=32):
+    """f32 operations of K4's backward per (chunk, head), counted from
+    csrc/wkv6_bwd.cu (an fma counts 2, an exp, a min or a compare 1).
+    Increments: the cumulative sum, r exp(Lq), exp(Lc), R~^T dy.  Scan: one
+    fma per state entry.  Gradients: the cumulative sums, R~ and K~, dA over
+    j <= i, A below the diagonal (difference, min, exp, two multiplies, an
+    add per d) and on it; per (i, d): dR~, dK~ and K~ G (an fma per n
+    each), A^T dy over i' >= i, the two intra-chunk loops (difference,
+    compare, exp, a multiply and two fmas per pair) and the combination
+    (24); per column: G . S, dLc, du's partial and the reverse sum."""
+    inc = 3 * C * hd + hd + 2 * C * hd * hd
+    scan = 2 * hd * hd
+    grad = (2 * C * hd + 2 * C * hd + 3 * C * hd + C * (C + 1) * hd
+            + 3 * C * (C - 1) * hd + 3 * C * hd
+            + C * hd * 6 * hd + hd * C * (C + 1) + 8 * C * (C - 1) * hd
+            + 24 * C * hd + hd * (2 * hd + 4 * C + 2))
+    return inc + scan + grad
+
+
+def _k3_bwd_bound(B, S, H, hd, card_flops):
+    """Least time of K3's backward at (B, S, H, hd) causal, bf16 inputs:
+    10 hd FLOP per live (query, key) pair (s, dp, dv, dk, dq) at
+    ``card_flops``, or q, k, v, O, dO and lse read once and dq, dk, dv
+    written once at the card's memory rate."""
+    from repro_torch.tune.cost import MEM_BYTES_PER_S
+    pairs = k3_pairs(S, True, None, None)
+    flops = pairs * 10 * hd * B * H
+    nbytes = 8 * B * S * H * hd * 2 + B * S * H * 4
+    ops_ms, bytes_ms = flops / card_flops * 1e3, nbytes / MEM_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", flops, nbytes)
+
+
+def timing_backward():
+    """Phase 15's training timings: K3 forward + backward at K3_TRAIN bf16
+    causal through autograd, in turns with scaled_dot_product_attention's
+    forward + backward (a yardstick the port never calls); K3's backward
+    alone in turns with SDPA's backward alone (autograd.grad on a retained
+    SDPA graph, the same function: q, k, v, O, lse and dO in, dq, dk, dv
+    out); K4's backward at K4_TRAIN alone; each beside its plain version
+    and its bound on this card."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import kernel as K3
+    from repro_torch.kernels.wkv6 import kernel as K4
+    from repro_torch.tune.cost import MEM_BYTES_PER_S
+    before = (K3.launches, K3.bwd_launches, K4.launches, K4.bwd_launches)
+    B, S, H, hd = K3_TRAIN
+    bf = dict(device=DEVICE, dtype=torch.bfloat16)
+    q, k, v, do = (torch.randn((B, S, H, hd), **bf) for _ in range(4))
+    ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    qt, kt, vt = (t.requires_grad_() for t in (qt, kt, vt))
+
+    def k3_fb():
+        out = K3.FlashAttnFunction.apply(ql, kl, vl, True, None, None, None,
+                                         torch.bfloat16)
+        return torch.autograd.grad(out, (ql, kl, vl), do)
+
+    def sdpa_fb():
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        return torch.autograd.grad(out, (qt, kt, vt), dot)
+    tfb, tlib = _in_turns(k3_fb, sdpa_fb)
+    out, lse = K3.flash_fill(q, k, v, causal=True, p_dtype=torch.bfloat16,
+                             return_lse=True)
+    out_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    tb, tlib_b = _in_turns(
+        lambda: K3.flash_backward(q, k, v, out, lse, do, causal=True),
+        lambda: torch.autograd.grad(out_lib, (qt, kt, vt), dot,
+                                    retain_graph=True))
+    K3.flash_backward_plain(q, k, v, out, lse, do, causal=True)
+    plain_b = cuda_time_ms(lambda: K3.flash_backward_plain(
+        q, k, v, out, lse, do, causal=True), 2)
+    bound, by, flops, nbytes = _k3_bwd_bound(B, S, H, hd, BF16_FLOPS)
+    bound32 = _k3_bwd_bound(B, S, H, hd, F32_FLOPS)[0]
+    ms = statistics.median(tb)
+    k3b = {"ms": ms, "ms_range": [min(tb), max(tb)], "plain_ms": plain_b,
+           "library_ms": statistics.median(tlib_b),
+           "library_ms_range": [min(tlib_b), max(tlib_b)],
+           "bound_ms": bound, "bound_by": by, "bound_f32_ms": bound32,
+           "fwd_bwd_ms": statistics.median(tfb),
+           "fwd_bwd_ms_range": [min(tfb), max(tfb)],
+           "library_fwd_bwd_ms": statistics.median(tlib),
+           "library_fwd_bwd_ms_range": [min(tlib), max(tlib)]}
+    print(f"     K3 forward + backward through autograd at {K3_TRAIN}, bf16, "
+          f"causal, in turns with scaled_dot_product_attention's: K3 "
+          f"{_spread(tfb)}; SDPA {_spread(tlib)}; K3 / SDPA "
+          f"{k3b['fwd_bwd_ms'] / k3b['library_fwd_bwd_ms']:.2f}x (medians). "
+          f"K3 backward alone {_spread(tb)}, in turns with SDPA's backward "
+          f"alone (autograd.grad on a retained graph) {_spread(tlib_b)}: "
+          f"K3 / SDPA {ms / k3b['library_ms']:.2f}x (medians); plain "
+          f"{plain_b:.2f} ms; bound "
+          f"{bound:.4f} ms by {by} ({flops / 1e9:.3f} GFLOP, 10 x {hd} a "
+          f"live pair, at 989 TFLOP/s bf16; {bound32:.4f} ms at 67 TFLOP/s "
+          f"f32 on the CUDA cores, where the kernel runs; {nbytes} B); "
+          f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+    del ql, kl, vl, qt, kt, vt, out, lse, out_lib
+
+    B, S, H, hd = K4_TRAIN
+    args = (*(torch.randn((B, S, H, hd), **bf) for _ in range(3)),
+            -torch.rand((B, S, H, hd), device=DEVICE),
+            torch.randn((H, hd), device=DEVICE))
+    _, _, states = K4.wkv6_fill(*args, return_states=True)
+    dy = torch.randn((B, S, H, hd), device=DEVICE)
+    t4 = _in_turns(lambda: K4.wkv6_backward(*args, dy, states=states))[0]
+    K4.wkv6_backward_plain(*args, dy)
+    plain4 = cuda_time_ms(lambda: K4.wkv6_backward_plain(*args, dy), 1)
+    nc = -(-S // K4.CHUNK)
+    ops = k4_bwd_ops_per_chunk(hd) * nc * B * H
+    nbytes4 = (3 * 2 + 2 * 4 + 3 * 2 + 4) * B * S * H * hd + 2 * H * hd * 4
+    ops_ms, bytes_ms = ops / F32_FLOPS * 1e3, nbytes4 / MEM_BYTES_PER_S * 1e3
+    ms4 = statistics.median(t4)
+    k4b = {"ms": ms4, "ms_range": [min(t4), max(t4)], "plain_ms": plain4,
+           "library_ms": None, "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    print(f"     K4 backward alone at {K4_TRAIN}, r/k/v bf16: {_spread(t4)}; "
+          f"plain (autograd through wkv6_plain) {plain4:.2f} ms; no "
+          f"single-call library equivalent; bound {k4b['bound_ms']:.4f} ms "
+          f"by {k4b['bound_by']} ({k4_bwd_ops_per_chunk(hd)} f32 operations "
+          f"a (chunk, head), counted from csrc/wkv6_bwd.cu, x {nc * B * H} = "
+          f"{ops / 1e9:.3f} G at 67 TFLOP/s = {ops_ms:.4f} ms; {nbytes4} B "
+          f"of r/k/v/lw/dy/u in, dr/dk/dv/dlw/du out = {bytes_ms:.4f} ms); "
+          f"{ops / ms4 / 1e9:.1f} G f32 operations/s", flush=True)
+    K3.launches, K3.bwd_launches, K4.launches, K4.bwd_launches = before
+    return k3b, k4b
+
+
+def _train_summary(run, kern):
+    """A training phase's numbers for the kernels' JSON line."""
+    return {"step_s": run["step_s"], "tokens_per_s": run["tokens_per_s"],
+            "device_busy_share": run["profile_busy"],
+            "peak_gib": run["peak_bytes"] / 2**30, "losses": run["losses"],
+            "kernel_share": run[f"{kern}_share"],
+            "fwd_ms": run[f"{kern}_fwd_ms"], "bwd_ms": run[f"{kern}_bwd_ms"]}
+
+
 def main() -> int:
     try:
         import torch
@@ -2931,6 +3530,12 @@ def main() -> int:
         rwkv = phase_rwkv()
         phase_card_vs_cpu()
         k3_timing, k4_timing = phase_timing_k3_k4()
+        k3b_timing, k4b_timing = timing_backward()
+        k3b_err = phase_k3_bwd_vs_plain(rng)
+        k4b_err = phase_k4_bwd_vs_plain(rng)
+        olmo_train = phase_train_olmo()
+        rwkv_train = phase_train_rwkv()
+        phase_train_card_vs_cpu()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2973,13 +3578,27 @@ def main() -> int:
         "source": "src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",
         "replaces": "src/repro/kernels/flash_attn/kernel.py:95",
         "launches": olmo["k3_launches"],
+        "launches_train": olmo_train["fwd_launches"],
         "parity": K3_PARITY,
         "max_abs_err": max(k3_err, olmo["k3_err"]), **k3_timing}, {
         "name": "wkv6_fill", "route": "cuda",
         "source": "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
         "replaces": "src/repro/kernels/wkv6/kernel.py:80",
-        "launches": rwkv["k4_launches"], "parity": "5e-4",
-        "max_abs_err": max(k4_err, rwkv["k4_err"]), **k4_timing}]
+        "launches": rwkv["k4_launches"],
+        "launches_train": rwkv_train["fwd_launches"], "parity": "5e-4",
+        "max_abs_err": max(k4_err, rwkv["k4_err"]), **k4_timing}, {
+        "name": "flash_backward", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attn/csrc/flash_attn_bwd.cu",
+        "replaces": "src/repro/models/layers.py:163",
+        "launches": olmo_train["bwd_launches"], "parity": K3_BWD_PARITY,
+        "max_abs_err": max(k3b_err, olmo_train["k3_err"]),
+        "train": _train_summary(olmo_train, "k3"), **k3b_timing}, {
+        "name": "wkv6_backward", "route": "cuda",
+        "source": "src/repro_torch/kernels/wkv6/csrc/wkv6_bwd.cu",
+        "replaces": "src/repro/models/mixers.py:411",
+        "launches": rwkv_train["bwd_launches"], "parity": K4_BWD_PARITY,
+        "max_abs_err": max(k4b_err, rwkv_train["k4_err"]),
+        "train": _train_summary(rwkv_train, "k4"), **k4b_timing}]
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     print(card["smi"])
     print(json.dumps({"kernels": kernels}))

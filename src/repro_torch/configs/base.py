@@ -68,7 +68,9 @@ class ModelConfig:
     # numerics ----------------------------------------------------------------
     param_dtype: Any = torch.bfloat16
     compute_dtype: Any = torch.bfloat16
+    remat: bool = True               # train mode: recompute each period
     max_seq: int = 32_768
+    accum_steps: int = 1             # grad-accumulation microbatches
 
     # -- derived -------------------------------------------------------------
     @property

@@ -20,7 +20,7 @@ REDUCED = ModelConfig(
     d_ff=128, vocab_size=256,
     norm="layernorm_np", act="swiglu", positional="rope",
     tie_embeddings=True,
-    param_dtype=torch.float32, compute_dtype=torch.float32,
+    param_dtype=torch.float32, compute_dtype=torch.float32, remat=False,
 )
 
 register(CONFIG, REDUCED)

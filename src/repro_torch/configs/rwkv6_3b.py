@@ -23,7 +23,7 @@ REDUCED = ModelConfig(
     d_ff=128, vocab_size=256,
     norm="layernorm", act="relu2", positional="none",
     pattern=("rwkv6",),
-    param_dtype=torch.float32, compute_dtype=torch.float32,
+    param_dtype=torch.float32, compute_dtype=torch.float32, remat=False,
 )
 
 register(CONFIG, REDUCED)

@@ -1,1 +1,3 @@
-"""Deterministic synthetic data of the port (the read simulator)."""
+"""Deterministic synthetic data of the port (the LM batcher, the read and
+genotyping-site simulators)."""
+from .synthetic import LMBatcher  # noqa: F401

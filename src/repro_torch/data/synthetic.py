@@ -1,14 +1,58 @@
-"""Deterministic read and genotyping-site simulation (numpy copy of
-``ReadSet``, ``sample_reads``, ``GenotypingSite`` and ``sample_site`` from
-``repro.data.synthetic``): the same seed gives the same reads and
-haplotypes as the JAX package's simulator."""
+"""Deterministic synthetic data (numpy copy of ``LMBatcher``, ``ReadSet``,
+``sample_reads``, ``GenotypingSite`` and ``sample_site`` from
+``repro.data.synthetic``): the same seed gives the same token batches,
+reads and haplotypes as the JAX package's generators."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator, Optional
 
 import numpy as np
 
 from repro_torch.core import alphabets
+
+
+@dataclasses.dataclass
+class LMBatcher:
+    """Infinite deterministic batch stream of next-token-predictable data.
+
+    Tokens live in an ``active_vocab``-sized subset so the bigram structure
+    is learnable within a few hundred steps regardless of the model's full
+    vocabulary (entropy floor ~= 0.9*ln(8) + 0.1*ln(active_vocab)).
+    """
+    vocab: int
+    batch: int
+    seq: int
+    seed: int = 0
+    frontend: Optional[str] = None   # None | vlm | audio
+    d_model: int = 0
+    prefix: int = 0                  # multimodal prefix length
+    active_vocab: int = 0            # 0 -> min(vocab, 256)
+
+    def __iter__(self) -> Iterator[dict]:
+        rng = np.random.default_rng(self.seed)
+        A = self.active_vocab or min(self.vocab, 256)
+        # sparse deterministic bigram table: token -> 8 likely successors
+        succ = rng.integers(0, A, size=(A, 8))
+        while True:
+            toks = np.empty((self.batch, self.seq), np.int32)
+            cur = rng.integers(0, A, size=self.batch)
+            for t in range(self.seq):
+                toks[:, t] = cur
+                pick = rng.integers(0, 8, size=self.batch)
+                nxt = succ[cur, pick]
+                noise = rng.random(self.batch) < 0.1
+                cur = np.where(noise, rng.integers(0, A, self.batch), nxt)
+            out = {"tokens": toks}
+            if self.frontend == "vlm":
+                out["prefix_embeds"] = rng.normal(
+                    size=(self.batch, self.prefix, self.d_model)
+                ).astype(np.float32) * 0.02
+            elif self.frontend == "audio":
+                out["frames"] = rng.normal(
+                    size=(self.batch, self.prefix or self.seq, self.d_model)
+                ).astype(np.float32) * 0.02
+            yield out
 
 
 @dataclasses.dataclass

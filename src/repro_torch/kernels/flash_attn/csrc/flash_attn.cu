@@ -110,8 +110,8 @@ constexpr size_t smem_floats() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS) flash_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ o, int S, int H, int Kh,
-    int k_len, int causal, int window, float scale) {
+    const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+    int S, int H, int Kh, int k_len, int causal, int window, float scale) {
   static_assert(THREADS % HD == 0 && BQ % (THREADS / HD) == 0, "tiling");
   constexpr int QS = BQ + PAD;
   constexpr int KS = BK + PAD;
@@ -251,6 +251,9 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(
     if (pos < S)
       store(&ob[(size_t)pos * q_stride + od], acc[r] / fmaxf(row_l[i], 1e-30f));
   }
+  if (lse != nullptr && tid < BQ && q0 + tid < S)
+    lse[((size_t)b * S + q0 + tid) * H + h] =
+        row_m[tid] + logf(fmaxf(row_l[tid], 1e-30f));
 }
 
 // ---------------------------------------------------------------------------
@@ -338,8 +341,8 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
 template <int HD>
 __global__ void __launch_bounds__(MMA_THREADS, 2) flash_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, bf16* __restrict__ o, int S, int H, int Kh,
-    int k_len, int causal, int window, float scale) {
+    const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+    int S, int H, int Kh, int k_len, int causal, int window, float scale) {
   static_assert(HD % 16 == 0, "head width");
   constexpr int RS = HD + SPAD;
   constexpr int KSTEPS = HD / 16;        // k16 steps of q k^T
@@ -509,6 +512,8 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_mma_kernel(
   for (int r = 0; r < 2; ++r) {
     const int pos = q0 + row_w + g + 8 * r;
     if (pos >= S) continue;
+    if (lse != nullptr && tig == 0)
+      lse[((size_t)b * S + pos) * H + h] = m_r[r] + logf(l_r[r]);
     bf16* orow = ob + (size_t)pos * q_stride + 2 * tig;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
@@ -519,9 +524,9 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_mma_kernel(
 
 // ---------------------------------------------------------------------------
 template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int H, int Kh, int k_len, int causal, int window,
-               float scale, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int S, int H, int Kh, int k_len,
+               int causal, int window, float scale, cudaStream_t stream) {
   const size_t smem = smem_floats<HD>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<float, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -530,15 +535,15 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   flash_kernel<float, HD><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, H, Kh, k_len,
-      causal, window, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, H, Kh,
+      k_len, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int S, int H, int Kh, int k_len, int causal, int window,
-                float scale, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int S, int H, int Kh, int k_len,
+                int causal, int window, float scale, cudaStream_t stream) {
   const size_t smem = mma_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -547,19 +552,19 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid(H, (S + BQ - 1) / BQ, B);
   flash_mma_kernel<HD><<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), S, H, Kh, k_len,
-      causal, window, scale);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, S, H, Kh,
+      k_len, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
-           int B, int S, int H, int Kh, int k_len, int causal, int window,
-           float scale, cudaStream_t s) {
+           float* lse, int B, int S, int H, int Kh, int k_len, int causal,
+           int window, float scale, cudaStream_t s) {
   if (dtype == 0)
-    return launch_f32<HD>(q, k, v, o, B, S, H, Kh, k_len, causal, window, scale, s);
+    return launch_f32<HD>(q, k, v, o, lse, B, S, H, Kh, k_len, causal, window, scale, s);
   if (dtype == 1)
-    return launch_bf16<HD>(q, k, v, o, B, S, H, Kh, k_len, causal, window, scale, s);
+    return launch_bf16<HD>(q, k, v, o, lse, B, S, H, Kh, k_len, causal, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -570,20 +575,24 @@ extern "C" {
 // dtype: 0 float32 (CUDA-core kernel, p in f32), 1 bfloat16 (tensor-core
 // kernel, p rounded to bf16 for p v); q, k, v and o alike.  hd: 16, 32, 64
 // or 128; q/o (B, S, H, hd) and k/v (B, S, Kh, hd), contiguous, 16-byte
-// aligned; k_len <= S keys are live; window <= 0: no window.  One CUDA
-// launch.  Returns the CUDA error code of the launch (0 on success).
+// aligned; k_len <= S keys are live; window <= 0: no window.  lse, if not
+// null, (B, S, H) float32, gets each row's log-sum-exp m + log(max(l,
+// 1e-30)) of its f32 scores, as JAX's _flash_fwd returns it for the
+// backward.  One CUDA launch.  Returns the CUDA error code of the launch
+// (0 on success).
 int flash_fill_launch(int dtype, int hd, const void* q, const void* k,
-                      const void* v, void* o, int B, int S, int H, int Kh,
-                      int k_len, int causal, int window, float scale,
+                      const void* v, void* o, void* lse, int B, int S, int H,
+                      int Kh, int k_len, int causal, int window, float scale,
                       void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   if (Kh <= 0 || H % Kh) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (hd) {
-    case 16: return launch<16>(dtype, q, k, v, o, B, S, H, Kh, k_len, causal, window, scale, s);
-    case 32: return launch<32>(dtype, q, k, v, o, B, S, H, Kh, k_len, causal, window, scale, s);
-    case 64: return launch<64>(dtype, q, k, v, o, B, S, H, Kh, k_len, causal, window, scale, s);
-    case 128: return launch<128>(dtype, q, k, v, o, B, S, H, Kh, k_len, causal, window, scale, s);
+    case 16: return launch<16>(dtype, q, k, v, o, l, B, S, H, Kh, k_len, causal, window, scale, s);
+    case 32: return launch<32>(dtype, q, k, v, o, l, B, S, H, Kh, k_len, causal, window, scale, s);
+    case 64: return launch<64>(dtype, q, k, v, o, l, B, S, H, Kh, k_len, causal, window, scale, s);
+    case 128: return launch<128>(dtype, q, k, v, o, l, B, S, H, Kh, k_len, causal, window, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

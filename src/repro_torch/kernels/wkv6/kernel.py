@@ -10,6 +10,12 @@ state-neutral.  A CUDA tensor goes to the CUDA kernels in
 the scan over chunk states, the output; ``launches`` counts the call
 once); a CPU tensor goes to ``wkv6_plain``.  Nothing falls back from one
 to the other.
+
+Its gradient is ``wkv6_backward``: the CUDA kernels of ``csrc/wkv6_bwd.cu``
+(four launches, counted once in ``bwd_launches``), which take each
+chunk's incoming state from the forward's scratch, or on a CPU tensor
+``wkv6_backward_plain``, ``torch.autograd.grad`` through ``wkv6_plain``.
+``WKV6Function`` joins the two for autograd.
 """
 from __future__ import annotations
 
@@ -21,13 +27,16 @@ import torch
 from repro_torch.kernels import aligned16
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "wkv6.cu"
+SOURCE_BWD = Path(__file__).resolve().parent / "csrc" / "wkv6_bwd.cu"
 CHUNK = 32                   # the CUDA kernel's chunk length
 HEAD_DIMS = (16, 32, 64)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Calls that launched the CUDA kernels since import (or since a caller reset
-# it to 0), one per call; the plain version does not count.
+# it to 0), one per call, forward and backward apart; the plain versions do
+# not count.
 launches = 0
+bwd_launches = 0
 
 
 def _check_inputs(r, k, v, lw, u):
@@ -47,19 +56,24 @@ def _check_inputs(r, k, v, lw, u):
         raise ValueError("r, k, v, lw and u must be on one device")
 
 
-def wkv6_fill(r, k, v, lw, u, *, chunk: int = CHUNK):
-    """The WKV6 recurrence over the whole sequence: returns (y, state).
-    The CUDA kernel works in chunks of ``CHUNK`` steps only, and raises for
-    any other ``chunk``."""
+def wkv6_fill(r, k, v, lw, u, *, chunk: int = CHUNK,
+              return_states: bool = False):
+    """The WKV6 recurrence over the whole sequence: returns (y, state), and
+    with ``return_states`` also each chunk's incoming state, which
+    ``wkv6_backward`` takes on the card (None on a CPU tensor).  The CUDA
+    kernel works in chunks of ``CHUNK`` steps only, and raises for any
+    other ``chunk``."""
     _check_inputs(r, k, v, lw, u)
     if r.device.type == "cpu":
-        return wkv6_plain(r, k, v, lw, u, chunk=chunk)
+        out = wkv6_plain(r, k, v, lw, u, chunk=chunk)
+        return (*out, None) if return_states else out
     if r.device.type != "cuda":
         raise ValueError(f"K4 runs on CUDA or CPU tensors, not {r.device}")
     if chunk != CHUNK:
         raise ValueError(f"K4's CUDA kernel works in chunks of {CHUNK}, "
                          f"not {chunk}")
-    return _launch(*map(aligned16, (r, k, v, lw.float(), u.float())))
+    out = _launch(*map(aligned16, (r, k, v, lw.float(), u.float())))
+    return out if return_states else out[:2]
 
 
 _LIB = None
@@ -105,7 +119,7 @@ def _launch(r, k, v, lw, u):
         raise RuntimeError(f"K4 wkv6_fill launch failed: CUDA error {err} "
                            f"(B={B}, S={S}, H={H}, hd={hd}, {r.dtype})")
     launches += 1
-    return y, state
+    return y, state, states
 
 
 def wkv6_plain(r, k, v, lw, u, *, chunk: int = CHUNK):
@@ -142,3 +156,124 @@ def wkv6_plain(r, k, v, lw, u, *, chunk: int = CHUNK):
         ys.append(y)
     y = torch.stack(ys, 0).permute(1, 0, 3, 2, 4).reshape(B, -1, H, hd)
     return y[:, :S].contiguous(), state
+
+
+# ---------------------------------------------------------------------------
+# Backward
+# ---------------------------------------------------------------------------
+def wkv6_backward(r, k, v, lw, u, dy, dstate=None, *, states=None):
+    """(dr, dk, dv, dlw, du) of ``wkv6_fill``'s (y, state) given dy (B, S,
+    H, hd) and the final state's gradient ``dstate`` (B, H, hd, hd; None:
+    zero), dr/dk/dv in r's dtype, dlw and du f32.  On a CUDA tensor the
+    kernels need ``states``, the incoming state of every chunk as the
+    forward's scratch holds it after a launch (``wkv6_fill(...,
+    return_states=True)``'s third result); a CPU tensor goes to ``wkv6_backward_plain``."""
+    _check_inputs(r, k, v, lw, u)
+    if tuple(dy.shape) != tuple(r.shape):
+        raise ValueError(f"dy is {tuple(dy.shape)}, r is {tuple(r.shape)}")
+    if r.device.type == "cpu":
+        return wkv6_backward_plain(r, k, v, lw, u, dy, dstate)
+    if r.device.type != "cuda":
+        raise ValueError(f"K4 runs on CUDA or CPU tensors, not {r.device}")
+    if states is None:
+        raise ValueError("K4's backward on the card takes the forward's "
+                         "chunk states (states=)")
+    return _launch_bwd(*map(aligned16, (r, k, v, lw.float(), u.float(),
+                                        dy.float())),
+                       None if dstate is None else aligned16(dstate.float()),
+                       states)
+
+
+_LIB_BWD = None
+
+
+def _lib_bwd():
+    global _LIB_BWD
+    if _LIB_BWD is None:
+        from repro_torch.kernels import build
+        lib = build.load(SOURCE_BWD).lib
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.wkv6_bwd_launch.argtypes = [i, i] + [p] * 16 + [i] * 3 + [p]
+        lib.wkv6_bwd_launch.restype = i
+        _LIB_BWD = lib
+    return _LIB_BWD
+
+
+def _launch_bwd(r, k, v, lw, u, dy, dstate, states):
+    global bwd_launches
+    B, S, H, hd = r.shape
+    if r.dtype not in DTYPES:
+        raise ValueError(f"K4 takes {sorted(map(str, DTYPES))}, not "
+                         f"{r.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"K4 is instantiated for head widths {HEAD_DIMS}, "
+                         f"not {hd}")
+    nc = -(-S // CHUNK)
+    if tuple(states.shape) != (B, H, nc, hd, hd):
+        raise ValueError(f"states is {tuple(states.shape)}, want "
+                         f"{(B, H, nc, hd, hd)}")
+    lib = _lib_bwd()
+    f32 = dict(dtype=torch.float32, device=r.device)
+    dr, dk, dv = (torch.empty_like(t) for t in (r, k, v))
+    dlw = torch.empty((B, S, H, hd), **f32)
+    du = torch.empty((H, hd), **f32)
+    if S == 0 or B == 0:
+        return dr, dk, dv, dlw, du.zero_()
+    gstates = torch.empty((B, H, nc, hd, hd), **f32)
+    decay = torch.empty((B, H, nc, hd), **f32)
+    du_part = torch.empty((B, H, nc, hd), **f32)
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        err = lib.wkv6_bwd_launch(
+            DTYPES[r.dtype], hd, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+            lw.data_ptr(), u.data_ptr(), dy.data_ptr(),
+            None if dstate is None else dstate.data_ptr(),
+            states.data_ptr(), gstates.data_ptr(), decay.data_ptr(),
+            dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dlw.data_ptr(),
+            du.data_ptr(), du_part.data_ptr(), B, S, H, stream)
+    if err:
+        raise RuntimeError(f"K4 backward launch failed: CUDA error {err} "
+                           f"(B={B}, S={S}, H={H}, hd={hd}, {r.dtype})")
+    bwd_launches += 1
+    return dr, dk, dv, dlw, du
+
+
+def wkv6_backward_plain(r, k, v, lw, u, dy, dstate=None, *,
+                        chunk: int = CHUNK):
+    """Plain PyTorch version of ``wkv6_backward``: ``torch.autograd.grad``
+    through ``wkv6_plain`` (torch's clamp passes its gradient where the
+    log-difference is <= 0)."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (r, k, v, lw, u)]
+        y, state = wkv6_plain(*ins, chunk=chunk)
+        outs, grads = [y], [dy.float()]
+        if dstate is not None:
+            outs.append(state)
+            grads.append(dstate.float())
+        got = torch.autograd.grad(outs, ins, grads, allow_unused=True)
+    return tuple(torch.zeros_like(t) if g is None else g
+                 for t, g in zip(ins, got))
+
+
+class WKV6Function(torch.autograd.Function):
+    """``wkv6_fill`` with its gradient.  ``apply(r, k, v, lw, u)`` returns
+    (y, state); backward is ``wkv6_backward`` (the kernels on a CUDA
+    tensor, keeping the forward's chunk states; the plain versions on a
+    CPU tensor)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, lw, u):
+        y, state, states = wkv6_fill(r, k, v, lw, u, return_states=True)
+        ctx.save_for_backward(r, k, v, lw, u, states)
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy, dstate):
+        r, k, v, lw, u, states = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+        dr, dk, dv, dlw, du = wkv6_backward(r, k, v, lw, u, dy, dstate,
+                                            states=states)
+        return dr, dk, dv, dlw.to(lw.dtype), du.to(u.dtype)

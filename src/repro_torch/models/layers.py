@@ -84,7 +84,14 @@ def flash_attention(q, k, v, *, causal: bool, window: Optional[int],
     (B, S, H, hd) in q's dtype.  On a CUDA tensor this is one launch of K3,
     which masks the ragged edge itself; on a CPU tensor it is K3's plain
     version, over the same 64-row tiles.  p is rounded to v's dtype before
-    p v on both devices, as JAX's model path casts it."""
+    p v on both devices, as JAX's model path casts it.  Where autograd
+    records, it goes through ``K3.FlashAttnFunction`` (the forward also
+    writes its lse; the backward is K3's backward kernel), as JAX's
+    ``_flash_core`` is a custom_vjp; elsewhere (serving) the forward alone
+    runs, with no lse."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return K3.FlashAttnFunction.apply(q, k, v, causal, window, k_len,
+                                          scale, v.dtype)
     return K3.flash_fill(q, k, v, causal=causal, window=window, k_len=k_len,
                          scale=scale, p_dtype=v.dtype)
 

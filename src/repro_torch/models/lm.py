@@ -3,7 +3,9 @@
 A config's ``layer_plan()`` splits the stack into groups; each group's
 parameters are one tree stacked on a leading layer axis, and a Python loop
 over that axis takes the place of JAX's ``lax.scan``.  Three modes share one
-code path: 'train' (full-sequence logits; forward only, no backward yet),
+code path: 'train' (full-sequence logits, differentiable: K3 and K4 carry
+their backward kernels, and with ``cfg.remat`` each period runs under
+``torch.utils.checkpoint``, as JAX wraps it in ``jax.checkpoint``),
 'prefill' (last-position logits and the built KV/state cache) and 'decode'
 (one token against a cache, which is updated in place and returned).
 """
@@ -13,10 +15,12 @@ import dataclasses
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import mixers
 from .layers import mlp_apply, mlp_defs, norm_apply, norm_defs
-from .params import ParamDef, stack_defs, to_dtype, tree_map
+from .params import (ParamDef, leaves, stack_defs, to_dtype, tree_map,
+                     unflatten)
 
 P = ParamDef
 
@@ -104,14 +108,32 @@ def _copy_into(view, new):
         view.copy_(new)
 
 
+def _unstack(p_group, repeat):
+    """The group's per-layer parameter trees: each stacked leaf unbound once
+    on its layer axis, so that autograd gathers a leaf's per-layer
+    gradients in one stack (a slice per layer would add a zero-filled
+    leaf-sized gradient for every layer)."""
+    cols = [t.unbind(0) for t in leaves(p_group)]
+    return [unflatten(p_group, [c[layer] for c in cols])
+            for layer in range(repeat)]
+
+
 def _group_apply(cfg, plan_entry, p_group, x, ctx, cache_group):
     """One group, layer by layer.  Prefill returns the layer-stacked cache;
-    decode writes each layer's new cache into ``cache_group``."""
+    decode writes each layer's new cache into ``cache_group``; train runs
+    each period under ``checkpoint`` when ``cfg.remat``."""
     mixers_t, ffn_kind, repeat = plan_entry
     mode = ctx["mode"]
+    if mode == "train":
+        def period(pp, xc):
+            return _period_apply(cfg, mixers_t, ffn_kind, pp, xc, ctx,
+                                 None)[0]
+        for pp in _unstack(p_group, repeat):
+            x = (checkpoint(period, pp, x, use_reentrant=False)
+                 if cfg.remat else period(pp, x))
+        return x, None
     built = []
-    for layer in range(repeat):
-        pp = tree_map(lambda t: t[layer], p_group)
+    for layer, pp in enumerate(_unstack(p_group, repeat)):
         cc = (tree_map(lambda t: t[layer], cache_group)
               if mode == "decode" else None)
         x, nc = _period_apply(cfg, mixers_t, ffn_kind, pp, x, ctx, cc)

@@ -204,8 +204,8 @@ def rwkv6_apply(cfg, p, x, ctx, cache, **_):
             (k1[..., :, None] * v1[..., None, :]).float()
         y = y[:, None]                                     # (B, 1, H, hd)
         new_cache = {"state": state, "shift": x[:, -1]}
-    else:
-        y, state = K4.wkv6_fill(r, k, v, lw, u)
+    else:   # the chunked recurrence on K4, with its backward kernel
+        y, state = K4.WKV6Function.apply(r, k, v, lw, u)
         y = y.to(x.dtype)
         new_cache = ({"state": state, "shift": x[:, S - 1]}
                      if mode == "prefill" else None)

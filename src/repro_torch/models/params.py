@@ -45,6 +45,13 @@ def leaves(tree):
     return out
 
 
+def unflatten(tree, flat):
+    """A tree of ``tree``'s structure holding ``flat``'s items in
+    ``leaves`` order."""
+    it = iter(flat)
+    return tree_map(lambda _: next(it), tree)
+
+
 def stack_defs(defs, n: int):
     """Prepend a layer-stack axis of size ``n`` to every leaf."""
     return tree_map(lambda d: dataclasses.replace(

@@ -4,7 +4,10 @@ Pallas flash kernel (interpret mode) and its oracle
 ``tests/test_flash_pallas_kernel.py`` (rtol/atol 2e-5, the tolerance of
 those tests); ragged lengths, rows without a live key and p rounded to
 bf16 against the JAX model path ``repro.models.layers.flash_attention``;
-and, on a GPU only, the CUDA kernels against their plain version.
+the backward (``flash_backward_plain`` and ``FlashAttnFunction``) and the
+forward's lse against ``jax.vjp`` of that function and its ``_flash_fwd``
+(2e-5); and, on a GPU only, the CUDA kernels, forward and backward,
+against their plain versions.
 
 The JAX package is imported inside the CPU tests only, so that
 ``pytest -m gpu`` runs this file on a GPU machine without JAX."""
@@ -271,3 +274,134 @@ def test_cuda_kernel_matches_plain(dtype):
                             causal=causal, window=window,
                             k_len=k_len).cpu().numpy()
                     assert _bf16_close(g, w, pv), what
+
+
+# ---------------------------------------------------------------------------
+# Backward
+# ---------------------------------------------------------------------------
+BWD_CASES = [(2, 128, 4, 4, 32, True, None, 64),    # causal
+             (2, 100, 4, 2, 16, True, 24, 32),      # window, GQA, ragged S
+             (1, 77, 8, 2, 16, True, None, 512),    # G 4, ragged S
+             (1, 130, 2, 1, 32, False, None, 64)]   # non-causal, ragged S
+
+
+@pytest.mark.parametrize("B,S,H,K,hd,causal,window,chunk", BWD_CASES)
+def test_backward_matches_jax_vjp(B, S, H, K, hd, causal, window, chunk,
+                                  rng):
+    """``FlashAttnFunction`` on CPU tensors (the plain forward and
+    ``flash_backward_plain``) against ``jax.vjp`` of the model path's
+    ``flash_attention`` (its custom_vjp ``_flash_core_bwd``): output and
+    dq, dk, dv within 2e-5, f32."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models.layers import flash_attention
+    q, k, v = _qkv(rng, B, S, H, K, hd)
+    do = rng.normal(size=q.shape).astype(np.float32)
+    out, vjp = jax.vjp(lambda *a: flash_attention(
+        *a, causal=causal, window=window, chunk=chunk),
+        *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.tensor(t, requires_grad=True) for t in (q, k, v))
+    got = K3.FlashAttnFunction.apply(tq, tk, tv, causal, window, None, None,
+                                     None)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(out), **TOL)
+    grads = torch.autograd.grad(got, (tq, tk, tv), torch.as_tensor(do))
+    for name, g, w in zip("qkv", grads, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL,
+                                   err_msg=f"d{name}")
+
+
+def test_lse_matches_model_path_forward(rng):
+    """``flash_fill(return_lse=True)`` on the CPU: the output is the one
+    without lse, and lse equals the one JAX's ``_flash_fwd`` saves for its
+    backward (2e-5), on a sliding window with GQA."""
+    import jax.numpy as jnp
+    from repro.models import layers as jl
+    B, S, H, K, hd, chunk, window = 2, 128, 4, 2, 16, 64, 40
+    q, k, v = _qkv(rng, B, S, H, K, hd)
+    tq, tk, tv = map(torch.as_tensor, (q, k, v))
+    out, lse = K3.flash_fill(tq, tk, tv, causal=True, window=window,
+                             return_lse=True)
+    assert torch.equal(out, K3.flash_fill(tq, tk, tv, causal=True,
+                                          window=window))
+    pairs = tuple(jl._block_pairs(S // chunk, S // chunk, chunk, True,
+                                  window, 0))
+    cfgt = (True, window, chunk, 0, None, 1.0 / np.sqrt(hd), pairs)
+    _, want = jl._flash_fwd(cfgt, jnp.asarray(q.reshape(B, S, K, H // K,
+                                                        hd)),
+                            jnp.asarray(k), jnp.asarray(v))
+    assert lse.shape == (B, S, H) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want).reshape(
+        B, S, H), **TOL)
+
+
+def test_backward_checks_its_inputs(rng):
+    q, k, v = (torch.as_tensor(t) for t in _qkv(rng, 1, 8, 2, 1, 16))
+    out, lse = K3.flash_fill(q, k, v, causal=True, return_lse=True)
+    with pytest.raises(ValueError, match="lse"):
+        K3.flash_backward(q, k, v, out, lse[:, :4], out, causal=True)
+    before = K3.bwd_launches
+    dq, dk, dv = K3.flash_backward(q, k, v, out, lse, out, causal=True)
+    assert K3.bwd_launches == before      # the plain version
+    assert dq.shape == q.shape and dk.shape == k.shape == dv.shape
+
+
+def _grad_close(got, want, bf16, terms):
+    """Kernel against plain version for one gradient: within 1e-4 of the
+    larger of the tensor's largest |entry| and 1e-2 ``terms`` (the size of
+    the products it sums: a gradient that cancels to 0, as dq and dk of a
+    row with one live key do, is rounding noise of that size), plus 1e-4
+    relative (f32 sums over up to S terms in other orders); in bf16 plus
+    one bf16 ulp of the output."""
+    tol = 1e-4 * max(np.abs(want).max(), 1e-2 * terms) + 1e-4 * np.abs(want)
+    if bf16:
+        big = np.maximum(np.maximum(abs(got), abs(want)),
+                         np.finfo(np.float32).tiny)
+        tol = tol + np.exp2(np.floor(np.log2(big)) - 7)
+    return np.all(np.abs(got - want) <= tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_backward_matches_plain(dtype):
+    """K3's backward kernels against ``flash_backward_plain`` on the card,
+    on the kernel forward's own output and lse, over G 1 and 4, S in {1,
+    63, 64, 65, 1000}, hd 16-128, causal, causal with a window and
+    non-causal with a k_len mask (``_grad_close``); the forward's lse
+    against the plain forward's within 2e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K3 is CUDA C++ with no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(5)
+    for S in (1, 63, 64, 65, 1000):
+        masks = [(True, None, None), (True, 16, None),
+                 (False, None, S // 2 + 1)]
+        for G, hd, (causal, window, k_len) in itertools.product(
+                (1, 4), K3.HEAD_DIMS, masks):
+            q, k, v = (torch.as_tensor(t, device="cuda").to(dtype)
+                       for t in _qkv(rng, 2, S, 4 * G, 4, hd))
+            kw = dict(causal=causal, window=window, k_len=k_len)
+            out, lse = K3.flash_fill(q, k, v, p_dtype=dtype,
+                                     return_lse=True, **kw)
+            _, lse_plain = K3.flash_attention_plain(q, k, v, return_lse=True,
+                                                    **kw)
+            do = torch.randn_like(out)
+            before = K3.bwd_launches
+            got = K3.flash_backward(q, k, v, out, lse, do, **kw)
+            assert K3.bwd_launches == before + 1
+            want = K3.flash_backward_plain(q, k, v, out, lse, do, **kw)
+            torch.cuda.synchronize()
+            what = str((S, G, hd, causal, window, k_len))
+            np.testing.assert_allclose(lse.cpu().numpy(),
+                                       lse_plain.cpu().numpy(), **TOL,
+                                       err_msg=what)
+            top = [float(t.abs().max()) for t in (q, k, v, do)]
+            terms = {"q": top[3] * top[2] * top[1] / hd ** 0.5,
+                     "k": top[3] * top[2] * top[0] / hd ** 0.5,
+                     "v": top[3]}
+            for name, g, w in zip("qkv", got, want):
+                assert g.dtype == dtype
+                assert _grad_close(g.float().cpu().numpy(),
+                                   w.float().cpu().numpy(),
+                                   dtype == torch.bfloat16,
+                                   terms[name]), f"d{name} {what}"

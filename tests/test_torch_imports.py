@@ -54,7 +54,10 @@ def test_port_modules_import_without_jax():
     assert proc.returncode == 0, proc.stderr
 
 
-@pytest.mark.parametrize("pkg", ["repro_torch.serve", "repro_torch.obs"])
+@pytest.mark.parametrize("pkg", ["repro_torch.serve", "repro_torch.obs",
+                                 "repro_torch.train", "repro_torch.optim",
+                                 "repro_torch.checkpoint",
+                                 "repro_torch.launch.train"])
 def test_serving_and_obs_import_without_jax(pkg):
     code = (f"import sys, {pkg}\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n")

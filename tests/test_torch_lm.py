@@ -6,7 +6,10 @@ and whole-model ``forward``/``prefill``/``decode_step``.  Tolerances:
 2e-5 for a layer and 1e-4 for a mixer (f32 sums in other orders, over
 more terms in a mixer), and the whole-model
 tolerances of ``tests/test_models.py`` (2e-4 / 1e-4 for forward and
-prefill, 2e-3 / 1e-3 for a decode step)."""
+prefill, 2e-3 / 1e-3 for a decode step); whole-model gradients of the
+loss against ``jax.grad`` with remat off and on (each leaf within 1e-3 of
+its largest entry: JAX's own gradients move by up to 1.5e-4 of a leaf's
+largest entry when only the attention chunk changes)."""
 from __future__ import annotations
 
 import dataclasses
@@ -362,3 +365,53 @@ def test_windowed_cache_grown_past_the_prompt_matches_jax(rng):
     pd, _ = lm.decode_step(pc, pp, lm.grow_cache(pc, pcache, 1, 32),
                            torch.as_tensor(toks[:, 7]), pk)
     np.testing.assert_allclose(_np(pd), _np(jd), atol=2e-3, rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# Gradients
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_model_gradients_match_jax(arch, remat, rng):
+    """Gradients of ``lm_loss`` through ``forward`` on the CPU (K3's and
+    K4's plain backward, torch autograd elsewhere, each period under
+    ``torch.utils.checkpoint`` with remat) against ``jax.grad`` of JAX's
+    loss, every parameter moved off its initial value; and the loss within
+    1e-6 relative."""
+    from repro.train.loss import lm_loss as jlm_loss
+    from repro_torch.models.params import leaves, unflatten
+    from repro_torch.train.loss import lm_loss
+    jc, pc = _cfgs(arch, remat=remat)
+    jp = _random_defs(jlm.param_defs(jc), 5)
+    toks = rng.integers(0, jc.vocab_size, (2, 33)).astype(np.int32)
+    jb = {"tokens": jnp.asarray(toks)}
+    jl, jg = jax.value_and_grad(
+        lambda p: jlm_loss(jc, jlm.forward(jc, p, jb), jb)[0])(jp)
+    pp = from_jax(pc, jax.tree.map(np.asarray, jp), "cpu")
+    live = [t.detach().requires_grad_() for t in leaves(pp)]
+    pb = {"tokens": torch.as_tensor(toks)}
+    loss, _ = lm_loss(pc, lm.forward(pc, unflatten(pp, live), pb), pb)
+    got = torch.autograd.grad(loss, live)
+    np.testing.assert_allclose(float(loss.detach()), float(jl), rtol=1e-6)
+    want = leaves(from_jax(pc, jax.tree.map(np.asarray, jg), "cpu"))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        g, w = g.numpy(), w.numpy()
+        assert np.abs(g - w).max() <= 1e-3 * np.abs(w).max()
+
+
+def test_remat_gives_the_same_gradients(rng):
+    """remat recomputes each period in the backward: the same gradients,
+    bit for bit, on the CPU."""
+    from repro_torch.models.params import leaves, unflatten
+    from repro_torch.train.loss import lm_loss
+    out = []
+    for remat in (False, True):
+        _, pc = _cfgs("olmo-1b", remat=remat)
+        pp = init_params(pc, torch.Generator().manual_seed(0), "cpu")
+        live = [t.detach().requires_grad_() for t in leaves(pp)]
+        b = {"tokens": torch.as_tensor(np.arange(40).reshape(2, 20) % 256)}
+        loss, _ = lm_loss(pc, lm.forward(pc, unflatten(pp, live), b), b)
+        out.append(torch.autograd.grad(loss, live))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
