@@ -27,7 +27,9 @@ Phases:
      and report ptxas registers /
      spills (K1's instantiations for #2, #4, the mapper's extension and
      the pair-HMM forward at logsumexp, and every K2 instantiation, must
-     not spill; every other-family instantiation is listed);
+     not spill; every other-family instantiation is listed), and list the
+     registers and spills of every entry of the two backward sources (also
+     in the kernels line);
   3. K1 vs its plain version, every ported zoo kernel and pointer packing,
      at buckets 64 (batch 16, mixed lengths), 256 (batch 64), 1024 (batch 4),
      each output allocated on blocks the script left filled with 0xFF (one
@@ -154,13 +156,16 @@ Phases:
      backward, K3's backward alone there in turns with SDPA's backward
      alone (``torch.autograd.grad`` on a retained SDPA graph), and K4's
      backward alone at (4, 2048, 48, 64), beside their plain versions and
-     bounds;
+     bounds and the card's name and power limit;
  16. K3's forward lse and backward kernel vs their plain versions
      (``flash_backward_plain``) over phase 10's sweep, dq, dk, dv and lse
-     allocated on 0xFF blocks (K3_BWD_PARITY);
+     allocated on 0xFF blocks (K3_BWD_PARITY); f32 on the CUDA-core
+     kernels, bf16 on the tensor-core ones; a second call on the same
+     inputs gives the same bits;
  17. K4's backward kernel vs autograd through ``wkv6_plain`` over phase
      11's sweep, on the forward kernel's chunk states, dr, dk, dv, dlw
-     and du on 0xFF blocks (K4_BWD_PARITY);
+     and du on 0xFF blocks (K4_BWD_PARITY); a second call gives the same
+     bits;
  18. olmo-1b at full width trains through ``train_loop(device="cuda")``:
      8 AdamW steps of 4 x 2048 tokens from ``LMBatcher(seed=0)``
      (``AdamWConfig(weight_decay=0.01)``, ``cosine_with_warmup(3e-4, 5,
@@ -3014,7 +3019,10 @@ def phase_k3_bwd_vs_plain(rng):
             torch.cuda.synchronize()
             check(all(g.data_ptr() in dirty for g in got),
                   "K3's dq, dk, dv did not land on the 0xFF blocks")
-            del got
+            again = K3.flash_backward(q, k, v, out, lse, do, **mask)
+            check(all(torch.equal(g, a) for g, a in zip(got, again)),
+                  f"K3 backward: a second call differs, {what}")
+            del got, again
             max_err = max(max_err, _hold_k3_bwd((q, k, v, out, lse, do),
                                                 mask, what))
             max_lse = max(max_lse, lse_err)
@@ -3023,7 +3031,8 @@ def phase_k3_bwd_vs_plain(rng):
     print(f"[16] K3 backward == flash_backward_plain and K3's lse == plain "
           f"on {n} cases (causal / window 64 / non-causal x G 1, 4 x S "
           f"{K3_SWEEP_S} x f32, bf16 x hd 64, 128; {K3_BWD_PARITY}; dq, dk, "
-          f"dv and lse on 0xFF blocks; max |diff| {max_err:.3g}, lse "
+          f"dv and lse on 0xFF blocks; a second call bit-equal; max |diff| "
+          f"{max_err:.3g}, lse "
           f"{max_lse:.3g}) in {time.perf_counter() - t0:.1f} s", flush=True)
     return max_err
 
@@ -3067,7 +3076,11 @@ def phase_k4_bwd_vs_plain(rng):
         torch.cuda.synchronize()
         check(all(g.data_ptr() in dirty for g in got),
               "K4's dr, dk, dv, dlw, du did not land on the 0xFF blocks")
-        del got
+        again = K4.wkv6_backward(*args, dy, states=states)
+        check(all(torch.equal(g, a) for g, a in zip(got, again)),
+              f"K4 backward: a second call differs, decay scale {scale}, "
+              f"S {S}, {dtype}")
+        del got, again
         max_err = max(max_err, _hold_k4_bwd(
             (*args, dy), dict(states=states),
             f"decay scale {scale}, S {S}, {dtype}"))
@@ -3075,8 +3088,9 @@ def phase_k4_bwd_vs_plain(rng):
     K4.launches, K4.bwd_launches = before
     print(f"[17] K4 backward == autograd through wkv6_plain on {n} cases "
           f"(decay scale 1, 2 x S {K4_SWEEP_S} x r/k/v f32, bf16; hd 64, "
-          f"H 4; {K4_BWD_PARITY}; dr, dk, dv, dlw, du on 0xFF blocks; max "
-          f"|diff| {max_err:.3g}) in {time.perf_counter() - t0:.1f} s", flush=True)
+          f"H 4; {K4_BWD_PARITY}; dr, dk, dv, dlw, du on 0xFF blocks; a "
+          f"second call bit-equal; max |diff| {max_err:.3g}) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     return max_err
 
 
@@ -3348,22 +3362,45 @@ def phase_train_card_vs_cpu():
 
 
 def k4_bwd_ops_per_chunk(hd, C=32):
-    """f32 operations of K4's backward per (chunk, head), counted from
-    csrc/wkv6_bwd.cu (an fma counts 2, an exp, a min or a compare 1).
-    Increments: the cumulative sum, r exp(Lq), exp(Lc), R~^T dy.  Scan: one
-    fma per state entry.  Gradients: the cumulative sums, R~ and K~, dA over
-    j <= i, A below the diagonal (difference, min, exp, two multiplies, an
-    add per d) and on it; per (i, d): dR~, dK~ and K~ G (an fma per n
-    each), A^T dy over i' >= i, the two intra-chunk loops (difference,
-    compare, exp, a multiply and two fmas per pair) and the combination
-    (24); per column: G . S, dLc, du's partial and the reverse sum."""
+    """f32 operations K4's backward needs per (chunk, head), counted from
+    the work of csrc/wkv6_bwd.cu and not from what one design recomputes
+    (an fma counts 2, an exp, a min or a compare 1).  Increments: the
+    cumulative sum, r exp(Lq), exp(Lc), R~^T dy.  Scan: one fma per state
+    entry.  Gradients: the cumulative sums, R~ and K~, dA over j <= i; per
+    pair j < i and column: W once (difference, min, exp), A's two
+    multiplies and add, and dr's and dk's multiply and two fmas each (16);
+    A on the diagonal; per (i, d): dR~, dK~ and K~ G (an fma per n each),
+    A^T dy over i' >= i and the combination (24); per column: G . S, dLc,
+    du's partial and the reverse sum."""
     inc = 3 * C * hd + hd + 2 * C * hd * hd
     scan = 2 * hd * hd
     grad = (2 * C * hd + 2 * C * hd + 3 * C * hd + C * (C + 1) * hd
-            + 3 * C * (C - 1) * hd + 3 * C * hd
-            + C * hd * 6 * hd + hd * C * (C + 1) + 8 * C * (C - 1) * hd
+            + 8 * C * (C - 1) * hd + 3 * C * hd
+            + C * hd * 6 * hd + hd * C * (C + 1)
             + 24 * C * hd + hd * (2 * hd + 4 * C + 2))
     return inc + scan + grad
+
+
+def bwd_ptxas():
+    """{kernel line name: [{entry, registers, spill_bytes, stack_bytes}]}
+    for every entry function of the two backward sources, from the
+    ``-Xptxas -v`` reports their builds kept; printed."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attn import kernel as K3
+    from repro_torch.kernels.wkv6 import kernel as K4
+    out = {}
+    for key, src in (("flash_backward", K3.SOURCE_BWD),
+                     ("wkv6_backward", K4.SOURCE_BWD)):
+        log = build.kept_report(src)
+        check(log is not None, f"no ptxas report kept for {src.name}")
+        out[key] = []
+        for name, regs, spill, stack, _ in ptxas_table(log):
+            entry = name.split("(")[0].removeprefix("void ")
+            print(f"    {src.name} {entry}: {regs} registers, {spill} spill "
+                  f"bytes, {stack} stack bytes", flush=True)
+            out[key].append({"entry": entry, "registers": regs,
+                             "spill_bytes": spill, "stack_bytes": stack})
+    return out
 
 
 def _k3_bwd_bound(B, S, H, hd, card_flops):
@@ -3431,7 +3468,9 @@ def timing_backward():
            "fwd_bwd_ms_range": [min(tfb), max(tfb)],
            "library_fwd_bwd_ms": statistics.median(tlib),
            "library_fwd_bwd_ms_range": [min(tlib), max(tlib)]}
-    print(f"     K3 forward + backward through autograd at {K3_TRAIN}, bf16, "
+    smi = nvidia_smi("name,power.limit")
+    print(f"     ({smi}) K3 forward + backward through autograd at "
+          f"{K3_TRAIN}, bf16, "
           f"causal, in turns with scaled_dot_product_attention's: K3 "
           f"{_spread(tfb)}; SDPA {_spread(tlib)}; K3 / SDPA "
           f"{k3b['fwd_bwd_ms'] / k3b['library_fwd_bwd_ms']:.2f}x (medians). "
@@ -3441,8 +3480,9 @@ def timing_backward():
           f"{plain_b:.2f} ms; bound "
           f"{bound:.4f} ms by {by} ({flops / 1e9:.3f} GFLOP, 10 x {hd} a "
           f"live pair, at 989 TFLOP/s bf16; {bound32:.4f} ms at 67 TFLOP/s "
-          f"f32 on the CUDA cores, where the kernel runs; {nbytes} B); "
-          f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+          f"f32; {nbytes} B); {flops / ms / 1e9:.1f} TFLOP/s of the 10 x "
+          f"{hd} needed, {2 * flops / ms / 1e9:.1f} of the 20 x {hd} the "
+          f"tensor-core kernels issue", flush=True)
     del ql, kl, vl, qt, kt, vt, out, lse, out_lib
 
     B, S, H, hd = K4_TRAIN
@@ -3462,7 +3502,8 @@ def timing_backward():
     k4b = {"ms": ms4, "ms_range": [min(t4), max(t4)], "plain_ms": plain4,
            "library_ms": None, "bound_ms": max(ops_ms, bytes_ms),
            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
-    print(f"     K4 backward alone at {K4_TRAIN}, r/k/v bf16: {_spread(t4)}; "
+    print(f"     ({smi}) K4 backward alone at {K4_TRAIN}, r/k/v bf16: "
+          f"{_spread(t4)}; "
           f"plain (autograd through wkv6_plain) {plain4:.2f} ms; no "
           f"single-call library equivalent; bound {k4b['bound_ms']:.4f} ms "
           f"by {k4b['bound_by']} ({k4_bwd_ops_per_chunk(hd)} f32 operations "
@@ -3508,6 +3549,7 @@ def main() -> int:
     try:
         card = phase_identity()
         phase_build()
+        ptxas_bwd = bwd_ptxas()
         rng = np.random.default_rng(SEED)
         max_err = phase_kernel_vs_plain(rng)
         ext_err = phase_ext_vs_plain(rng)
@@ -3592,13 +3634,15 @@ def main() -> int:
         "replaces": "src/repro/models/layers.py:163",
         "launches": olmo_train["bwd_launches"], "parity": K3_BWD_PARITY,
         "max_abs_err": max(k3b_err, olmo_train["k3_err"]),
-        "train": _train_summary(olmo_train, "k3"), **k3b_timing}, {
+        "train": _train_summary(olmo_train, "k3"),
+        "ptxas": ptxas_bwd["flash_backward"], **k3b_timing}, {
         "name": "wkv6_backward", "route": "cuda",
         "source": "src/repro_torch/kernels/wkv6/csrc/wkv6_bwd.cu",
         "replaces": "src/repro/models/mixers.py:411",
         "launches": rwkv_train["bwd_launches"], "parity": K4_BWD_PARITY,
         "max_abs_err": max(k4b_err, rwkv_train["k4_err"]),
-        "train": _train_summary(rwkv_train, "k4"), **k4b_timing}]
+        "train": _train_summary(rwkv_train, "k4"),
+        "ptxas": ptxas_bwd["wkv6_backward"], **k4b_timing}]
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     print(card["smi"])
     print(json.dumps({"kernels": kernels}))

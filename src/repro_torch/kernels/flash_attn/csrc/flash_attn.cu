@@ -33,7 +33,9 @@
 //   Shared memory is 87 KB at hd 128, so two blocks fit an SM.  The grid
 //   is (head, q-tile, batch row) with the last q-tile first, so under a
 //   causal mask the blocks with the most live k-tiles start first across
-//   the whole launch and the light ones fill the tail.
+//   the whole launch and the light ones fill the tail.  The cp.async,
+//   ldmatrix and mma helpers live in mma_bf16.cuh, shared with the
+//   backward (flash_attn_bwd.cu).
 //   mma.sync, not wgmma: wgmma's shared-memory descriptors must match the
 //   swizzle the tiles were written in, and a mismatch gives wrong numbers,
 //   not a fault; without a compiler or card to iterate on, the mma.sync
@@ -64,6 +66,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -259,83 +263,14 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(
 // ---------------------------------------------------------------------------
 // bf16: the tensor-core kernel (serving path)
 // ---------------------------------------------------------------------------
-using bf16 = __nv_bfloat16;
 constexpr int MMA_WARPS = 4;             // 16 query rows each
 constexpr int MMA_THREADS = 32 * MMA_WARPS;
-constexpr int SPAD = 8;                  // row padding (bf16): 16 bytes
-static_assert(BQ == 16 * MMA_WARPS && BQ == BK, "mma tiling");
+static_assert(BQ == 16 * MMA_WARPS && BQ == BK && BK == TILE_ROWS,
+              "mma tiling");
 
 template <int HD>
 constexpr size_t mma_smem_bytes() {      // q-tile, then 2 stages of k and v
   return (size_t)(BQ + 4 * BK) * (HD + SPAD) * sizeof(bf16);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory; src_bytes 0 writes zeros.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t a) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// d += a b: a 16 x 16 (row), b 16 x 8 (col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats as a bf16 pair, lo in the low half (the lower column).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// A 64-row tile of one head, rows row0 .. row0 + 63 of a (S, heads, HD)
-// slab with row_stride elements between rows, into shared memory [64][RS]
-// by cp.async; rows past S are zero-filled.
-template <int HD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          size_t row_stride, int row0,
-                                          int S) {
-  constexpr int CPR = HD / 8;            // 16-byte chunks per row
-  constexpr int RS = HD + SPAD;
-  for (int e = threadIdx.x; e < BK * CPR; e += MMA_THREADS) {
-    const int row = e / CPR, ch = e % CPR;
-    const int pos = row0 + row;
-    const bool in = pos < S;
-    cp_async16(smem_addr(dst + row * RS + ch * 8),
-               src + (size_t)(in ? pos : 0) * row_stride + ch * 8,
-               in ? 16 : 0);
-  }
 }
 
 template <int HD>
@@ -379,10 +314,10 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_mma_kernel(
       kt_hi = kt;
     }
 
-  load_tile<HD>(Qs, qb, q_stride, q0, S);
+  load_tile<HD, MMA_THREADS>(Qs, qb, q_stride, q0, S);
   if (kt_lo <= kt_hi) {
-    load_tile<HD>(Ks, kb, kv_stride, kt_lo * BK, S);
-    load_tile<HD>(Vs, vb, kv_stride, kt_lo * BK, S);
+    load_tile<HD, MMA_THREADS>(Ks, kb, kv_stride, kt_lo * BK, S);
+    load_tile<HD, MMA_THREADS>(Vs, vb, kv_stride, kt_lo * BK, S);
   }
   cp_async_commit();
 
@@ -399,8 +334,10 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_mma_kernel(
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
     const int st = (kt - kt_lo) & 1;
     if (kt < kt_hi) {                    // the next tile, into the other stage
-      load_tile<HD>(Ks + (st ^ 1) * BK * RS, kb, kv_stride, (kt + 1) * BK, S);
-      load_tile<HD>(Vs + (st ^ 1) * BK * RS, vb, kv_stride, (kt + 1) * BK, S);
+      load_tile<HD, MMA_THREADS>(Ks + (st ^ 1) * BK * RS, kb, kv_stride,
+                                 (kt + 1) * BK, S);
+      load_tile<HD, MMA_THREADS>(Vs + (st ^ 1) * BK * RS, vb, kv_stride,
+                                 (kt + 1) * BK, S);
       cp_async_commit();
       cp_async_wait<1>();
     } else {

@@ -228,9 +228,12 @@ def flash_backward(q, k, v, o, lse, do, *, causal: bool, window=None,
                    k_len=None, scale=None):
     """(dq, dk, dv) of ``flash_fill``'s output ``o`` = attention(q, k, v),
     given its ``lse`` and the output's gradient ``do``, in the inputs'
-    dtype: p recomputed in f32 from lse (never rounded), every product in
-    f32.  A CUDA tensor goes to the kernels of ``csrc/flash_attn_bwd.cu``
-    (three launches; ``bwd_launches`` counts the call once), a CPU tensor
+    dtype: p recomputed in f32 from lse, every product accumulated in f32.
+    A CUDA tensor goes to the kernels of ``csrc/flash_attn_bwd.cu`` (three
+    launches; ``bwd_launches`` counts the call once): f32 inputs to the
+    CUDA-core kernels, every product in f32; bf16 inputs to the
+    tensor-core kernels, which multiply p and ds as two bf16 halves each
+    (hi + lo, within about 2^-17 of the f32 product).  A CPU tensor goes
     to ``flash_backward_plain``.  Nothing falls back."""
     _check_inputs(q, k, v, window, k_len)
     B, S, H, hd = q.shape

@@ -361,14 +361,126 @@ def _grad_close(got, want, bf16, terms):
     return np.all(np.abs(got - want) <= tol)
 
 
+def _split_bf16(x):
+    """x as the two bf16 halves the card's bf16 backward multiplies:
+    hi = bf16(x), lo = bf16(x - hi), both returned as f32."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _mma_backward_emulation(q, k, v, o, lse, do, *, causal, window,
+                            split=True):
+    """The arithmetic of the bf16 tensor-core backward kernels of
+    ``csrc/flash_attn_bwd.cu`` in plain torch: s = q k^T and dp = dO v^T
+    from the bf16 inputs in f32, p = exp(s * scale - lse) with masked
+    scores -1e30, ds = p (dp - delta) * scale, and p and ds split into
+    hi + lo bf16 halves before dv = p^T dO, dq = ds k and dk = ds^T q
+    (``split=False``: one bf16 rounding each); outputs in bf16.  A test
+    helper only: nothing on the path calls it."""
+    B, S, H, hd = q.shape
+    Kh = k.shape[2]
+    G = H // Kh
+    scale = 1.0 / np.sqrt(hd)
+    qf = q.float().reshape(B, S, Kh, G, hd)
+    dof = do.to(torch.bfloat16).float().reshape(B, S, Kh, G, hd)
+    kf, vf = k.float(), v.float()
+    delta = (dof * o.float().reshape(B, S, Kh, G, hd)).sum(-1)
+    pos = torch.arange(S)
+    mask = torch.ones((S, S), dtype=torch.bool)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if window is not None:
+        mask &= pos[None, :] > pos[:, None] - window
+    s = torch.einsum("bqkgd,bskd->bqkgs", qf, kf) * scale
+    s = torch.where(mask[None, :, None, None, :], s, K3.NEG_INF)
+    p = torch.exp(s - lse.reshape(B, S, Kh, G)[..., None])
+    dp = torch.einsum("bqkgd,bskd->bqkgs", dof, vf)
+    ds = p * (dp - delta[..., None]) * scale
+    halves = _split_bf16 if split else (
+        lambda x: (x.to(torch.bfloat16).float(), torch.zeros_like(x)))
+    (ph, pl), (sh, sl) = halves(p), halves(ds)
+    dv = sum(torch.einsum("bqkgs,bqkgd->bskd", t, dof) for t in (ph, pl))
+    dq = sum(torch.einsum("bqkgs,bskd->bqkgd", t, kf) for t in (sh, sl))
+    dk = sum(torch.einsum("bqkgs,bqkgd->bskd", t, qf) for t in (sh, sl))
+    return tuple(t.to(torch.bfloat16) for t in (dq.reshape(q.shape), dk, dv))
+
+
+def _jax_bf16_grads(q, k, v, do, causal, window, chunk):
+    """dq, dk, dv of the model path's ``flash_attention`` on bf16 inputs
+    through ``jax.vjp`` (its custom_vjp ``_flash_core_bwd``), as f32."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models.layers import flash_attention
+    bf = [jnp.asarray(t, jnp.bfloat16) for t in (q, k, v, do)]
+    _, vjp = jax.vjp(lambda *a: flash_attention(
+        *a, causal=causal, window=window, chunk=chunk), *bf[:3])
+    return [np.asarray(g.astype(jnp.float32)) for g in vjp(bf[3])]
+
+
+def _emulation_inputs(rng, B, S, H, K, hd, causal, window, chunk):
+    """bf16-exact q, k, v, dO and the f32 output and lse of the plain
+    forward over JAX's tiles (``chunk`` rows, at most S), p rounded to bf16
+    against the running maximum as JAX's forward rounds it."""
+    q, k, v = (torch.as_tensor(t).to(torch.bfloat16)
+               for t in _qkv(rng, B, S, H, K, hd))
+    do = torch.as_tensor(rng.normal(size=q.shape)).to(torch.bfloat16)
+    out, lse = K3.flash_attention_plain(
+        q.float(), k.float(), v.float(), causal=causal, window=window,
+        blk=min(chunk, S), p_dtype=torch.bfloat16, return_lse=True)
+    return q, k, v, do, out, lse
+
+
+def _terms(q, k, v, do):
+    top = [float(t.float().abs().max()) for t in (q, k, v, do)]
+    hd = q.shape[-1]
+    return (top[3] * top[2] * top[1] / hd ** 0.5,
+            top[3] * top[2] * top[0] / hd ** 0.5, top[3])
+
+
+@pytest.mark.parametrize("B,S,H,K,hd,causal,window,chunk",
+                         BWD_CASES + [(1, 512, 4, 4, 128, True, None, 64)])
+def test_mma_backward_rounding_matches_jax_vjp(B, S, H, K, hd, causal,
+                                               window, chunk, rng):
+    """The bf16 backward kernels' rounding (``_mma_backward_emulation``:
+    s and dp from bf16 operands in f32, p and ds split in two bf16 halves)
+    against ``jax.vjp`` of the model path's ``flash_attention`` on the same
+    bf16 inputs, under the rule the card's checks hold the kernels to
+    (``_grad_close``: 1e-4 of the largest entry, 1e-4 relative, one bf16
+    ulp)."""
+    q, k, v, do, out, lse = _emulation_inputs(rng, B, S, H, K, hd, causal,
+                                              window, chunk)
+    want = _jax_bf16_grads(*(t.float().numpy() for t in (q, k, v, do)),
+                           causal, window, chunk)
+    got = _mma_backward_emulation(q, k, v, out, lse, do, causal=causal,
+                                  window=window)
+    for name, g, w, t in zip("qkv", got, want, _terms(q, k, v, do)):
+        assert _grad_close(g.float().numpy(), w, True, t), f"d{name}"
+
+
+def test_single_bf16_rounding_of_p_and_ds_fails_the_rule(rng):
+    """Why the kernels split p and ds: rounding each to one bf16 before the
+    products, as FlashAttention-2 does, breaks ``_grad_close`` against
+    ``jax.vjp`` at (1, 512, 4, 128) causal, where the split passes."""
+    q, k, v, do, out, lse = _emulation_inputs(rng, 1, 512, 4, 4, 128, True,
+                                              None, 64)
+    want = _jax_bf16_grads(*(t.float().numpy() for t in (q, k, v, do)),
+                           True, None, 64)
+    got = _mma_backward_emulation(q, k, v, out, lse, do, causal=True,
+                                  window=None, split=False)
+    fails = [not _grad_close(g.float().numpy(), w, True, t)
+             for g, w, t in zip(got, want, _terms(q, k, v, do))]
+    assert all(fails), fails
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_backward_matches_plain(dtype):
     """K3's backward kernels against ``flash_backward_plain`` on the card,
     on the kernel forward's own output and lse, over G 1 and 4, S in {1,
     63, 64, 65, 1000}, hd 16-128, causal, causal with a window and
-    non-causal with a k_len mask (``_grad_close``); the forward's lse
-    against the plain forward's within 2e-5."""
+    non-causal with a k_len mask (``_grad_close``); a second call on the
+    same inputs gives the same bits (no atomics: a resumed bf16 run depends
+    on it); the forward's lse against the plain forward's within 2e-5."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (K3 is CUDA C++ with no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -389,9 +501,12 @@ def test_cuda_backward_matches_plain(dtype):
             before = K3.bwd_launches
             got = K3.flash_backward(q, k, v, out, lse, do, **kw)
             assert K3.bwd_launches == before + 1
+            again = K3.flash_backward(q, k, v, out, lse, do, **kw)
             want = K3.flash_backward_plain(q, k, v, out, lse, do, **kw)
             torch.cuda.synchronize()
             what = str((S, G, hd, causal, window, k_len))
+            assert all(torch.equal(g, a) for g, a in zip(got, again)), \
+                f"a second call differs: {what}"
             np.testing.assert_allclose(lse.cpu().numpy(),
                                        lse_plain.cpu().numpy(), **TOL,
                                        err_msg=what)

@@ -252,7 +252,8 @@ def test_cuda_backward_matches_plain(dtype):
     """K4's backward kernels (through ``WKV6Function``, on the forward's
     own chunk states) against autograd through ``wkv6_plain`` on the card,
     over S in {1, 31, 32, 33, 1499} at decay scales 1 and 2, hd 16-64,
-    with and without a state gradient: each gradient within 1e-3 of its
+    with and without a state gradient, a second backward on the same
+    graph giving the same bits: each gradient within 1e-3 of its
     tensor's largest entry (f32 sums over a chunk and a reverse scan over
     up to 47 chunks in other orders, under strong decay), and in bf16 one
     bf16 ulp more."""
@@ -275,9 +276,12 @@ def test_cuda_backward_matches_plain(dtype):
                 if dst is not None:
                     outs.append(st)
                     gouts.append(dst)
-                got = torch.autograd.grad(outs, live, gouts)
+                got = torch.autograd.grad(outs, live, gouts, retain_graph=True)
                 assert (K4.launches, K4.bwd_launches) == (before[0] + 1,
                                                           before[1] + 1)
+                again = torch.autograd.grad(outs, live, gouts)
+                assert all(torch.equal(g, a) for g, a in zip(got, again)), \
+                    ("a second call differs", S, hd, scale)
                 want = K4.wkv6_backward_plain(*ins, dy, dst)
                 torch.cuda.synchronize()
                 for name, g, w in zip(("dr", "dk", "dv", "dlw", "du"), got,
