@@ -9,10 +9,12 @@ banded extension on K1, SAM), pair-HMM genotyping (``run_pairs`` on K1's
 logsumexp instantiation, ``prob.call_genotype``, ``prob.call_site``), the
 serving layer (the gateway's ``AlignmentService`` with K2's prefilter and
 degrade path, ``GenotypingService``, ``ReadMappingService``; ``tiled_align``
-and the ``banded`` engine), LM serving (``ServeSession``: per-slot
-prefill on K3 for olmo-1b and K4 for rwkv6-3b, batched greedy decode) and
-LM training (``launch.train.train_loop``: AdamW steps of olmo-1b on K3 and
-rwkv6-3b on K4, forward and backward kernels).  It holds every CUDA kernel
+and the ``banded`` engine; the alignment launcher ``serve_alignments``), LM
+serving (``ServeSession``: per-slot prefill on K3 for olmo-1b and
+stablelm-12b, K4 for rwkv6-3b, batched greedy decode; prefill and decode of
+phi3-medium-14b and command-r-plus-104b) and LM training
+(``launch.train.train_loop``: AdamW steps of olmo-1b and stablelm-12b on K3
+and rwkv6-3b on K4, forward and backward kernels).  It holds every CUDA kernel
 against its plain PyTorch version at the shapes those paths give it, times
 K1-K4 and the two backward kernels, and prints one JSON line listing the
 kernels and, last,
@@ -28,8 +30,8 @@ Phases:
      spills (K1's instantiations for #2, #4, the mapper's extension and
      the pair-HMM forward at logsumexp, and every K2 instantiation, must
      not spill; every other-family instantiation is listed), and list the
-     registers and spills of every entry of the two backward sources (also
-     in the kernels line);
+     registers and spills of every entry of K3's forward and the two
+     backward sources (also in the kernels line);
   3. K1 vs its plain version, every ported zoo kernel and pointer packing,
      at buckets 64 (batch 16, mixed lengths), 256 (batch 64), 1024 (batch 4),
      each output allocated on blocks the script left filled with 0xFF (one
@@ -180,7 +182,38 @@ Phases:
      state, 3 ``make_train_step`` steps on each device (losses and grad
      norms within TRAIN_CPU_TOL), and a checkpoint saved on the card after
      step 2 and restored by ``restore_latest`` gives a step-3 loss
-     bit-equal to the unbroken run's.
+     bit-equal to the unbroken run's;
+ 21. K3's forward and backward at head width 160 (stablelm-12b) vs their
+     plain versions: causal, window 64, non-causal, non-causal with k_len
+     S/2 + 1 x G 1, 4 x K3_SWEEP_S; forward f32 and bf16 on exact and
+     normal scores (K3_PARITY), backward and lse f32 and bf16
+     (K3_BWD_PARITY, 0xFF blocks, a second call bit-equal);
+ 22. K3 at Sq != Sk, forward and backward vs plain: whisper-medium's
+     cross-attention (448 queries over 1500 keys, 16 heads of 64,
+     non-causal) and a causal suffix (200 over 1000, q_start 800, hd 128),
+     f32 and bf16; v of another width than q and k raises on the card
+     (ROADMAP item 15f) and launches nothing;
+ 23. K3 timed in turns with SDPA: forward at (1, 1536, 32 / 8 heads, 160)
+     causal, backward alone at (4, 2048, 32 / 8, 160) causal, both at the
+     cross-attention shape; plain versions, bounds, the card's power limit;
+ 24. stablelm-12b at full width (40 layers, hd 160, 12.1 B parameters,
+     bf16, random from seed 0) serves phase 12's traffic: K3 launched
+     16 x 40 times, K4 never, K3 held on layer 0 of the longest prompt, the
+     prefill and first decode logits held to ``forward`` on as many layers
+     as an f32 copy fits with FIT_SPARE to spare (printed);
+ 25. phi3-medium-14b at full width and depth (48 / 16 padded heads of 128),
+     and command-r-plus-104b at full width and the depth whose bf16 weights
+     and f32 copy fit with FIT_SPARE to spare (printed): one prefill and
+     decode of the longest prompt each, K3 once a layer, K3 held on layer
+     0, the logits held to ``forward`` (phi3's f32 check on a depth cut);
+ 26. stablelm-12b at full width and STABLELM_TRAIN_LAYERS of 40 layers
+     trains as phase 18 does, each step two microbatches of 2 x 2048 (its
+     accum_steps; 2 x 2 x 4 K3 forwards and 2 x 4 backwards a step, hd
+     160), the first step's recorded layer-0 backward held against
+     ``flash_backward_plain``; step time, tokens/s, peak memory;
+ 27. ``serve_alignments`` at the JAX launcher's defaults on the card (32
+     pairs of 128, #2): results == the CPU's reference engine, K1 launched;
+     ``python3 -m repro_torch.launch.serve --mode align`` exits 0.
 """
 from __future__ import annotations
 
@@ -259,6 +292,22 @@ K3_TIMED = (1, 1536, 16, 128)      # olmo-1b's heads at the longest prompts
 K4_TIMED = (1, 1536, 48, 64)       # rwkv6-3b's (padded) heads, the same
 K3_TRAIN = (4, 2048, 16, 128)      # olmo-1b's heads at the training shape
 K4_TRAIN = (4, 2048, 48, 64)       # rwkv6-3b's, the same
+# slice 11: K3 at stablelm-12b's head width, 32 query and 8 key/value heads
+# of 160, at the serving path's longest prompts and at the training shape
+# (B, S, H, Kh, hd); at whisper-medium's cross-attention, 448 decoder
+# positions over 1500 encoder frames, 16 heads of 64 (B, Sq, Sk, H, hd);
+# and a causal suffix of the keys, q_start = Sk - Sq (B, Sq, Sk, H, hd)
+K3_HD160_TIMED = (1, 1536, 32, 8, 160)
+K3_HD160_TRAIN = (4, 2048, 32, 8, 160)
+K3_CROSS = (1, 448, 1500, 16, 64)
+K3_CROSS_ROUNDS = (3 * ROUNDS, 5 * ROUND_LAUNCHES)   # its timing's rounds
+K3_SUFFIX = (1, 200, 1000, 8, 128)
+# bytes left free beside a depth-cut copy (the f32 checks of phases 24-25,
+# command-r-plus-104b's depth), and stablelm-12b's training depth: at about
+# 17 bytes a parameter (olmo-1b's training peak: 19.93 GiB for 1.18 B) all 40
+# layers need about 200 GB, 4 (2.14 B parameters) fit one card
+FIT_SPARE = 10e9
+STABLELM_TRAIN_LAYERS = 4
 # training traffic of phases 18 and 19: 4 sequences of OLMo-1B's published
 # context (2048 tokens) a step
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 2048
@@ -2667,56 +2716,7 @@ def _decode_vs_forward(cfg, params, prompt):
 
 
 def phase_olmo():
-    """olmo-1b at full width serves the traffic on K3, then K3 is held to
-    its plain version on layer 0 of the longest prompt and the first
-    decode logits to ``forward``."""
-    import torch
-    from repro_torch import configs
-    from repro_torch.kernels.flash_attn import kernel as K3
-    from repro_torch.models import mixers
-    cfg = configs.get("olmo-1b")
-    print("[12] olmo-1b at full width", flush=True)
-    params = _full_params(cfg)
-    run = _serve(cfg, params)
-    want = SERVE_REQUESTS * cfg.n_layers
-    check(run["counts"][2] == want, f"olmo-1b serving launched K3 "
-          f"{run['counts'][2]} times, not {want}")
-    check(run["counts"][3] == 0, "olmo-1b serving launched K4")
-
-    before = K3.launches
-    longest = max(run["done"], key=lambda r: len(r.prompt)).prompt
-    p0, h = _layer0_input(cfg, params, longest)
-    pos = torch.arange(len(longest), dtype=torch.int32, device=DEVICE)[None]
-    q, k, v = mixers.attn_qkv(cfg, p0["mixer"], h, pos)
-    err, share, err32 = _k3_hold(q, k, v, "olmo-1b layer 0", causal=True)
-    print(f"    K3 == plain ({K3_PARITY}) on layer 0's q/k/v of the longest "
-          f"prompt {tuple(q.shape)}, {q.dtype}: max |diff| {err:.3g}; "
-          f"{share:.3g} of outputs beyond 2e-5 plus one ulp; against plain "
-          f"with p kept in f32: max |diff| {err32:.3g}", flush=True)
-    _decode_vs_forward(cfg, params, longest)
-
-    H, hd = cfg.n_heads_eff, cfg.head_dim
-
-    def k3_at(n):
-        qkv = [torch.randn((1, n, H, hd), device=DEVICE,
-                           dtype=torch.bfloat16) for _ in range(3)]
-        return lambda: K3.flash_fill(*qkv, causal=True,
-                                     p_dtype=torch.bfloat16)
-    k3_s = _kernel_share(k3_at, [len(r.prompt) for r in run["done"]],
-                         cfg.n_layers)
-    _profile_serving(cfg, params, run["session"], longest)
-    K3.launches = before
-    st = run["stats"]
-    print(f"    where the time goes: prefill {st['prefill_s']:.3f} s "
-          f"({100 * st['prefill_s'] / run['wall']:.1f} % of wall; K3 "
-          f"{k3_s:.3f} s of it, {100 * k3_s / st['prefill_s']:.1f} %, from "
-          f"each prompt's K3 timed alone x {cfg.n_layers} layers), decode "
-          f"{st['decode_s']:.3f} s "
-          f"({100 * st['decode_s'] / run['wall']:.1f} %)", flush=True)
-    launches = run["counts"][2]
-    del params, run
-    torch.cuda.empty_cache()
-    return {"k3_launches": launches, "k3_err": err}
+    return _serve_k3("olmo-1b", 12)
 
 
 def phase_rwkv():
@@ -2817,12 +2817,14 @@ def phase_card_vs_cpu():
           + f" in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
-def k3_pairs(S, causal, window, k_len):
+def k3_pairs(S, causal, window, k_len, Sk=None, q_start=0):
     """Unmasked (query, key) pairs of one head of K3's function, each 4 hd
-    operations of work (q . k and p v, an fma counting 2)."""
+    operations of work (q . k and p v, an fma counting 2); S queries at
+    positions q_start .. q_start + S - 1 over Sk keys (default S)."""
     import numpy as np
-    q = np.arange(S)
-    hi = np.full(S, S if k_len is None else min(int(k_len), S))
+    Sk = S if Sk is None else Sk
+    q = np.arange(S) + q_start
+    hi = np.full(S, Sk if k_len is None else min(int(k_len), Sk))
     if causal:
         hi = np.minimum(hi, q + 1)
     lo = np.zeros(S, np.int64) if window is None else np.maximum(
@@ -2839,25 +2841,25 @@ def k4_ops_per_step(hd):
     return 5 * hd * hd + 6 * hd
 
 
-def _in_turns(a, b=None):
-    """Per-launch ms of ``a`` and ``b`` over ROUNDS rounds of
-    ROUND_LAUNCHES launches each (CUDA events), in turns a, b, b, a, after
+def _in_turns(a, b=None, rounds=ROUNDS, launches=ROUND_LAUNCHES):
+    """Per-launch ms of ``a`` and ``b`` over ``rounds`` rounds of
+    ``launches`` launches each (CUDA events), in turns a, b, b, a, after
     a warm-up; two samples of each per round."""
     ta, tb = [], []
     for fn in (a, b):
         for _ in range(3 if fn else 0):
             fn()
-    for _ in range(ROUNDS):
-        ta.append(cuda_time_ms(a, ROUND_LAUNCHES))
+    for _ in range(rounds):
+        ta.append(cuda_time_ms(a, launches))
         if b:
-            tb += [cuda_time_ms(b, ROUND_LAUNCHES) for _ in range(2)]
-        ta.append(cuda_time_ms(a, ROUND_LAUNCHES))
+            tb += [cuda_time_ms(b, launches) for _ in range(2)]
+        ta.append(cuda_time_ms(a, launches))
     return ta, tb
 
 
-def _spread(ts):
+def _spread(ts, launches=ROUND_LAUNCHES):
     return f"median {statistics.median(ts):.4f} ms ({min(ts):.4f}-" \
-           f"{max(ts):.4f} over {len(ts)} rounds of {ROUND_LAUNCHES})"
+           f"{max(ts):.4f} over {len(ts)} rounds of {launches})"
 
 
 def phase_timing_k3_k4():
@@ -2866,42 +2868,14 @@ def phase_timing_k3_k4():
     scaled_dot_product_attention, a yardstick the port never calls),
     beside the plain versions and the bounds on this card."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attn import kernel as K3
     from repro_torch.kernels.wkv6 import kernel as K4
     from repro_torch.tune.cost import MEM_BYTES_PER_S
     before = (K3.launches, K4.launches)
-    B, S, H, hd = K3_TIMED
-    q, k, v = (torch.randn((B, S, H, hd), device=DEVICE,
-                           dtype=torch.bfloat16) for _ in range(3))
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    t3, tlib = _in_turns(
-        lambda: K3.flash_fill(q, k, v, causal=True, p_dtype=torch.bfloat16),
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
-    ms, lib_ms = statistics.median(t3), statistics.median(tlib)
-    K3.flash_attention_plain(q, k, v, causal=True, p_dtype=torch.bfloat16)
-    plain_ms = cuda_time_ms(lambda: K3.flash_attention_plain(
-        q, k, v, causal=True, p_dtype=torch.bfloat16), 3)
-    pairs = k3_pairs(S, True, None, None)
-    flops = pairs * 4 * hd * B * H
-    nbytes = 4 * B * S * H * hd * 2
-    ops_ms = flops / BF16_FLOPS * 1e3
-    bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
-    k3 = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-          "ms_range": [min(t3), max(t3)],
-          "library_ms_range": [min(tlib), max(tlib)],
-          "bound_ms": max(ops_ms, bytes_ms),
-          "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
-    print(f"[15] K3 timed at {K3_TIMED}, bf16, causal, in turns with "
-          f"scaled_dot_product_attention: K3 {_spread(t3)}; "
-          f"scaled_dot_product_attention {_spread(tlib)}; K3 / SDPA "
-          f"{ms / lib_ms:.2f}x (medians); plain {plain_ms:.2f} ms; "
-          f"bound {k3['bound_ms']:.4f} ms by {k3['bound_by']} "
-          f"({pairs} causal query-key pairs x {B * H} heads x 4 x {hd}: "
-          f"{flops / 1e9:.3f} GFLOP at 989 TFLOP/s bf16 = {ops_ms:.4f} ms; "
-          f"{nbytes} B of "
-          f"q/k/v/o = {bytes_ms:.4f} ms); {flops / ms / 1e9:.1f} TFLOP/s",
+    print(f"[15] K3 and K4 timed alone ({nvidia_smi('name,power.limit')})",
           flush=True)
+    B, S, H, hd = K3_TIMED
+    k3 = _k3_fwd_timing(B, S, S, H, H, hd, True, "olmo-1b serving")
 
     B, S, H, hd = K4_TIMED
     args = (*(torch.randn((B, S, H, hd), device=DEVICE, dtype=torch.bfloat16)
@@ -2978,6 +2952,37 @@ def _hold_k3_bwd(args, kw, what):
     return err
 
 
+def _k3_bwd_case(rng, q, k, v, mask, what):
+    """K3's forward lse and backward kernel against the plain versions on
+    one input, lse, dq, dk and dv allocated on blocks left filled with 0xFF,
+    a second backward call bit-equal; returns the largest |difference| of
+    the gradients and of lse."""
+    import torch
+    from repro_torch.kernels.flash_attn import kernel as K3
+    dtype = q.dtype
+    lse_like = torch.empty(q.shape[:3], device=DEVICE)
+    dirty = _dirty_allocator(q, lse_like)
+    out, lse = K3.flash_fill(q, k, v, p_dtype=dtype, return_lse=True, **mask)
+    torch.cuda.synchronize()
+    check(lse.data_ptr() in dirty, "K3's lse did not land on the 0xFF block")
+    _, want_lse = K3.flash_attention_plain(q, k, v, return_lse=True, **mask)
+    lse_err = float((lse - want_lse).abs().max())
+    check(torch.allclose(lse, want_lse, rtol=2e-5, atol=2e-5),
+          f"K3 lse != plain: {what} (max |diff| {lse_err})")
+    do = torch.as_tensor(rng.normal(size=out.shape), dtype=dtype,
+                         device=DEVICE)
+    dirty = _dirty_allocator(q, k, v)
+    got = K3.flash_backward(q, k, v, out, lse, do, **mask)
+    torch.cuda.synchronize()
+    check(all(g.data_ptr() in dirty for g in got),
+          "K3's dq, dk, dv did not land on the 0xFF blocks")
+    again = K3.flash_backward(q, k, v, out, lse, do, **mask)
+    check(all(torch.equal(g, a) for g, a in zip(got, again)),
+          f"K3 backward: a second call differs, {what}")
+    del got, again
+    return _hold_k3_bwd((q, k, v, out, lse, do), mask, what), lse_err
+
+
 def phase_k3_bwd_vs_plain(rng):
     """K3's forward lse and its backward kernel against the plain
     versions over phase 10's sweep, every output allocated on blocks left
@@ -2998,33 +3003,10 @@ def phase_k3_bwd_vs_plain(rng):
                                     dtype=dtype, device=DEVICE)
                     for _ in range(2))
             mask = dict(causal=causal, window=window)
-            what = (f"causal {causal}, window {window}, G {G}, S {S}, "
-                    f"{dtype}, hd {hd}")
-            lse_like = torch.empty((B, S, H), device=DEVICE)
-            dirty = _dirty_allocator(q, lse_like)
-            out, lse = K3.flash_fill(q, k, v, p_dtype=dtype,
-                                     return_lse=True, **mask)
-            torch.cuda.synchronize()
-            check(lse.data_ptr() in dirty, "K3's lse did not land on the "
-                  "0xFF block")
-            _, want_lse = K3.flash_attention_plain(q, k, v, return_lse=True,
-                                                   **mask)
-            lse_err = float((lse - want_lse).abs().max())
-            check(torch.allclose(lse, want_lse, rtol=2e-5, atol=2e-5),
-                  f"K3 lse != plain: {what} (max |diff| {lse_err})")
-            do = torch.as_tensor(rng.normal(size=out.shape), dtype=dtype,
-                                 device=DEVICE)
-            dirty = _dirty_allocator(q, k, v)
-            got = K3.flash_backward(q, k, v, out, lse, do, **mask)
-            torch.cuda.synchronize()
-            check(all(g.data_ptr() in dirty for g in got),
-                  "K3's dq, dk, dv did not land on the 0xFF blocks")
-            again = K3.flash_backward(q, k, v, out, lse, do, **mask)
-            check(all(torch.equal(g, a) for g, a in zip(got, again)),
-                  f"K3 backward: a second call differs, {what}")
-            del got, again
-            max_err = max(max_err, _hold_k3_bwd((q, k, v, out, lse, do),
-                                                mask, what))
+            err, lse_err = _k3_bwd_case(
+                rng, q, k, v, mask, f"causal {causal}, window {window}, G "
+                f"{G}, S {S}, {dtype}, hd {hd}")
+            max_err = max(max_err, err)
             max_lse = max(max_lse, lse_err)
             n += 1
     K3.launches, K3.bwd_launches = before
@@ -3129,24 +3111,29 @@ def _lm_batch_s(cfg):
     return time.perf_counter() - t0
 
 
-def _train_full(arch, mod, bwd_name, n_fwd, n_bwd, phase):
-    """``train_loop(device="cuda")`` on ``arch`` at full width: TRAIN_STEPS
-    steps of TRAIN_BATCH x TRAIN_SEQ tokens from LMBatcher(seed=SEED),
-    AdamWConfig(weight_decay=0.01) under cosine_with_warmup(3e-4, 5,
-    TRAIN_STEPS) (train_loop's own choices), every launch count at 0 just
-    before.  Checks finite losses and grad norms, a falling loss and the
-    launches of ``mod`` per step; returns the run's numbers and the last
-    backward call's arguments (layer 0 of the last step)."""
+def _train_full(arch, mod, bwd_name, n_fwd, n_bwd, phase, cfg=None,
+                keep_first=False):
+    """``train_loop(device="cuda")`` on ``arch`` at full width (``cfg``: a
+    depth cut of it): TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens
+    from LMBatcher(seed=SEED), AdamWConfig(weight_decay=0.01) under
+    cosine_with_warmup(3e-4, 5, TRAIN_STEPS) (train_loop's own choices),
+    every launch count at 0 just before.  Checks finite losses and grad
+    norms, a falling loss and the launches of ``mod`` per step; returns the
+    run's numbers and the last backward call's arguments (layer 0 of the
+    last step), and with ``keep_first`` the first step's (layer 0)."""
     import numpy as np
     import torch
     from repro_torch import configs
     from repro_torch.launch.train import train_loop
     from repro_torch.models.params import count_params
-    cfg = configs.get(arch)
+    full = configs.get(arch)
+    cfg = cfg or full
     n = count_params(cfg)
+    cut = "" if cfg.n_layers == full.n_layers else \
+        f"; depth cut to {cfg.n_layers} of {full.n_layers} layers"
     print(f"[{phase}] {arch} trains at full width ({n:,} parameters, "
-          f"{cfg.param_dtype}, remat {cfg.remat}): {TRAIN_STEPS} AdamW steps "
-          f"of {TRAIN_BATCH} x {TRAIN_SEQ} tokens through train_loop",
+          f"{cfg.param_dtype}, remat {cfg.remat}{cut}): {TRAIN_STEPS} AdamW "
+          f"steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens through train_loop",
           flush=True)
     batch_s = _lm_batch_s(cfg)
     mods = _reset_counts()
@@ -3154,13 +3141,16 @@ def _train_full(arch, mod, bwd_name, n_fwd, n_bwd, phase):
     torch.cuda.reset_peak_memory_stats()
     stamps, counts, losses, gns = [time.perf_counter()], [], [], []
 
+    slot, first = {}, {}
+
     def on_metrics(step, metrics):
         losses.append(float(metrics["loss"]))
         gns.append(float(metrics["grad_norm"]))
         stamps.append(time.perf_counter())
         counts.append((mod.launches, mod.bwd_launches))
+        if keep_first and not first:
+            first.update(slot)
 
-    slot = {}
     with _last_call(mod, bwd_name, slot):
         state, _ = train_loop(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
                               seq=TRAIN_SEQ, log_every=1, device=DEVICE,
@@ -3193,12 +3183,13 @@ def _train_full(arch, mod, bwd_name, n_fwd, n_bwd, phase):
           f"LMBatcher batch on the host ({batch_s:.3f} s alone); peak "
           f"device memory {peak / 2**30:.2f} GiB; launches per step "
           f"{per_step[0]} (forward under remat, backward)", flush=True)
-    return {"losses": losses, "grad_norms": gns, "step_s": step_s,
-            "profile_busy": prof and prof["device_ms"] / prof["wall_ms"],
-            "steps_s": steps, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ
-            / step_s, "peak_bytes": peak, "batch_s": batch_s,
-            "fwd_launches": counts[-1][0], "bwd_launches": counts[-1][1],
-            "last": slot}
+    run = {"losses": losses, "grad_norms": gns, "step_s": step_s,
+           "profile_busy": prof and prof["device_ms"] / prof["wall_ms"],
+           "steps_s": steps, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ
+           / step_s, "peak_bytes": peak, "batch_s": batch_s,
+           "fwd_launches": counts[-1][0], "bwd_launches": counts[-1][1],
+           "last": slot}
+    return dict(run, first=first) if keep_first else run
 
 
 def _profile_train_step(cfg, state):
@@ -3381,15 +3372,16 @@ def k4_bwd_ops_per_chunk(hd, C=32):
     return inc + scan + grad
 
 
-def bwd_ptxas():
+def entry_ptxas():
     """{kernel line name: [{entry, registers, spill_bytes, stack_bytes}]}
-    for every entry function of the two backward sources, from the
-    ``-Xptxas -v`` reports their builds kept; printed."""
+    for every entry function of K3's forward and of the two backward
+    sources, from the ``-Xptxas -v`` reports their builds kept; printed."""
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attn import kernel as K3
     from repro_torch.kernels.wkv6 import kernel as K4
     out = {}
-    for key, src in (("flash_backward", K3.SOURCE_BWD),
+    for key, src in (("flash_fill", K3.SOURCE),
+                     ("flash_backward", K3.SOURCE_BWD),
                      ("wkv6_backward", K4.SOURCE_BWD)):
         log = build.kept_report(src)
         check(log is not None, f"no ptxas report kept for {src.name}")
@@ -3403,15 +3395,17 @@ def bwd_ptxas():
     return out
 
 
-def _k3_bwd_bound(B, S, H, hd, card_flops):
-    """Least time of K3's backward at (B, S, H, hd) causal, bf16 inputs:
-    10 hd FLOP per live (query, key) pair (s, dp, dv, dk, dq) at
-    ``card_flops``, or q, k, v, O, dO and lse read once and dq, dk, dv
-    written once at the card's memory rate."""
+def _k3_bwd_bound(B, Sq, Sk, H, Kh, hd, causal, card_flops):
+    """Least time of K3's backward, q (B, Sq, H, hd) over k/v (B, Sk, Kh,
+    hd), bf16 inputs, causal with q_start = Sk - Sq: 10 hd FLOP per live
+    (query, key) pair (s, dp, dv, dk, dq) at ``card_flops``, or q, k, v, O,
+    dO and lse read once and dq, dk, dv written once at the card's memory
+    rate."""
     from repro_torch.tune.cost import MEM_BYTES_PER_S
-    pairs = k3_pairs(S, True, None, None)
+    pairs = k3_pairs(Sq, causal, None, None, Sk, Sk - Sq if causal else 0)
     flops = pairs * 10 * hd * B * H
-    nbytes = 8 * B * S * H * hd * 2 + B * S * H * 4
+    nbytes = 2 * (4 * B * Sq * H * hd + 4 * B * Sk * Kh * hd) + \
+        4 * B * Sq * H
     ops_ms, bytes_ms = flops / card_flops * 1e3, nbytes / MEM_BYTES_PER_S * 1e3
     return (max(ops_ms, bytes_ms),
             "operations" if ops_ms >= bytes_ms else "bytes", flops, nbytes)
@@ -3421,10 +3415,8 @@ def timing_backward():
     """Phase 15's training timings: K3 forward + backward at K3_TRAIN bf16
     causal through autograd, in turns with scaled_dot_product_attention's
     forward + backward (a yardstick the port never calls); K3's backward
-    alone in turns with SDPA's backward alone (autograd.grad on a retained
-    SDPA graph, the same function: q, k, v, O, lse and dO in, dq, dk, dv
-    out); K4's backward at K4_TRAIN alone; each beside its plain version
-    and its bound on this card."""
+    alone (``_k3_bwd_timing``); K4's backward at K4_TRAIN alone; each
+    beside its plain version and its bound on this card."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attn import kernel as K3
@@ -3447,43 +3439,19 @@ def timing_backward():
         out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
         return torch.autograd.grad(out, (qt, kt, vt), dot)
     tfb, tlib = _in_turns(k3_fb, sdpa_fb)
-    out, lse = K3.flash_fill(q, k, v, causal=True, p_dtype=torch.bfloat16,
-                             return_lse=True)
-    out_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    tb, tlib_b = _in_turns(
-        lambda: K3.flash_backward(q, k, v, out, lse, do, causal=True),
-        lambda: torch.autograd.grad(out_lib, (qt, kt, vt), dot,
-                                    retain_graph=True))
-    K3.flash_backward_plain(q, k, v, out, lse, do, causal=True)
-    plain_b = cuda_time_ms(lambda: K3.flash_backward_plain(
-        q, k, v, out, lse, do, causal=True), 2)
-    bound, by, flops, nbytes = _k3_bwd_bound(B, S, H, hd, BF16_FLOPS)
-    bound32 = _k3_bwd_bound(B, S, H, hd, F32_FLOPS)[0]
-    ms = statistics.median(tb)
-    k3b = {"ms": ms, "ms_range": [min(tb), max(tb)], "plain_ms": plain_b,
-           "library_ms": statistics.median(tlib_b),
-           "library_ms_range": [min(tlib_b), max(tlib_b)],
-           "bound_ms": bound, "bound_by": by, "bound_f32_ms": bound32,
-           "fwd_bwd_ms": statistics.median(tfb),
-           "fwd_bwd_ms_range": [min(tfb), max(tfb)],
-           "library_fwd_bwd_ms": statistics.median(tlib),
-           "library_fwd_bwd_ms_range": [min(tlib), max(tlib)]}
     smi = nvidia_smi("name,power.limit")
     print(f"     ({smi}) K3 forward + backward through autograd at "
           f"{K3_TRAIN}, bf16, "
           f"causal, in turns with scaled_dot_product_attention's: K3 "
           f"{_spread(tfb)}; SDPA {_spread(tlib)}; K3 / SDPA "
-          f"{k3b['fwd_bwd_ms'] / k3b['library_fwd_bwd_ms']:.2f}x (medians). "
-          f"K3 backward alone {_spread(tb)}, in turns with SDPA's backward "
-          f"alone (autograd.grad on a retained graph) {_spread(tlib_b)}: "
-          f"K3 / SDPA {ms / k3b['library_ms']:.2f}x (medians); plain "
-          f"{plain_b:.2f} ms; bound "
-          f"{bound:.4f} ms by {by} ({flops / 1e9:.3f} GFLOP, 10 x {hd} a "
-          f"live pair, at 989 TFLOP/s bf16; {bound32:.4f} ms at 67 TFLOP/s "
-          f"f32; {nbytes} B); {flops / ms / 1e9:.1f} TFLOP/s of the 10 x "
-          f"{hd} needed, {2 * flops / ms / 1e9:.1f} of the 20 x {hd} the "
-          f"tensor-core kernels issue", flush=True)
-    del ql, kl, vl, qt, kt, vt, out, lse, out_lib
+          f"{statistics.median(tfb) / statistics.median(tlib):.2f}x "
+          f"(medians)", flush=True)
+    del ql, kl, vl, qt, kt, vt
+    k3b = dict(_k3_bwd_timing(B, S, S, H, H, hd, True, "olmo-1b training"),
+               fwd_bwd_ms=statistics.median(tfb),
+               fwd_bwd_ms_range=[min(tfb), max(tfb)],
+               library_fwd_bwd_ms=statistics.median(tlib),
+               library_fwd_bwd_ms_range=[min(tlib), max(tlib)])
 
     B, S, H, hd = K4_TRAIN
     args = (*(torch.randn((B, S, H, hd), **bf) for _ in range(3)),
@@ -3515,6 +3483,535 @@ def timing_backward():
     return k3b, k4b
 
 
+# ---------------------------------------------------------------------------
+# Slice 11: K3 at hd 160 and at cross lengths; stablelm-12b, phi3-medium-14b
+# and command-r-plus-104b at full width; the alignment launcher
+# ---------------------------------------------------------------------------
+def _k3_inputs(rng, B, Sq, Sk, H, Kh, hd, dtype, exact=False):
+    """q (B, Sq, H, hd) and k/v (B, Sk, Kh, hd) from ``rng`` on the card;
+    ``exact``: integer q and k (exact scores)."""
+    import numpy as np
+    import torch
+    q = rng.normal(size=(B, Sq, H, hd))
+    k, v = (rng.normal(size=(B, Sk, Kh, hd)) for _ in range(2))
+    if exact:
+        q, k = (np.round(t * 1.5).clip(-3, 3) for t in (q, k))
+    return tuple(torch.as_tensor(t, dtype=dtype, device=DEVICE)
+                 for t in (q, k, v))
+
+
+def phase_k3_hd160(rng):
+    """K3's forward and backward against their plain versions at head width
+    160 (stablelm-12b): causal, causal with window 64, non-causal, and
+    non-causal with a k_len mask; G 1 and 4; S in K3_SWEEP_S; forward f32,
+    bf16 on exact and on normal scores (K3_PARITY), backward f32 and bf16
+    (K3_BWD_PARITY, lse within 2e-5, 0xFF blocks, a second call
+    bit-equal)."""
+    import torch
+    from repro_torch.kernels.flash_attn import kernel as K3
+    t0 = time.perf_counter()
+    before = (K3.launches, K3.bwd_launches)
+    fwd_err, share, bwd_err, lse_err, nf, nb = 0.0, 0.0, 0.0, 0.0, 0, 0
+    kinds = ((torch.float32, False), (torch.bfloat16, True),
+             (torch.bfloat16, False))
+    for (causal, window, kl), G, S in itertools.product(
+            ((True, None, None), (True, 64, None), (False, None, None),
+             (False, None, "half")), (1, 4), K3_SWEEP_S):
+        mask = dict(causal=causal, window=window,
+                    k_len=None if kl is None else S // 2 + 1)
+        for dtype, exact in kinds:
+            q, k, v = _k3_inputs(rng, 2, S, S, 8, 8 // G, 160, dtype, exact)
+            what = (f"hd 160, {mask}, G {G}, S {S}, {dtype}, "
+                    f"{'exact' if exact else 'normal'} scores")
+            err, sh, _ = _k3_hold(q, k, v, what, exact, **mask)
+            fwd_err, share, nf = max(fwd_err, err), max(share, sh), nf + 1
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _k3_inputs(rng, 2, S, S, 8, 8 // G, 160, dtype)
+            err, le = _k3_bwd_case(rng, q, k, v, mask, f"hd 160, {mask}, G "
+                                   f"{G}, S {S}, {dtype}")
+            bwd_err, lse_err, nb = max(bwd_err, err), max(lse_err, le), nb + 1
+    K3.launches, K3.bwd_launches = before
+    print(f"[21] K3 at hd 160 == plain: forward on {nf} cases ({K3_PARITY}; "
+          f"max |diff| {fwd_err:.3g}, largest share beyond 2e-5 plus one ulp "
+          f"{share:.3g}), backward and lse on {nb} cases ({K3_BWD_PARITY}; "
+          f"0xFF blocks, a second call bit-equal; max |diff| {bwd_err:.3g}, "
+          f"lse {lse_err:.3g}); causal / window 64 / non-causal / k_len "
+          f"S/2 + 1 x G 1, 4 x S {K3_SWEEP_S}, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return fwd_err, bwd_err
+
+
+def phase_k3_cross(rng):
+    """K3's forward and backward at Sq != Sk against their plain versions:
+    whisper-medium's cross-attention (K3_CROSS, non-causal) and a causal
+    suffix of the keys (K3_SUFFIX, q_start = Sk - Sq), f32 and bf16
+    (bf16 forward on exact and on normal scores); then v of another width
+    than q and k raises on the card, naming ROADMAP item 15f, and launches
+    nothing."""
+    import torch
+    from repro_torch.kernels.flash_attn import kernel as K3
+    t0 = time.perf_counter()
+    before = (K3.launches, K3.bwd_launches)
+    fwd_err, bwd_err, n = 0.0, 0.0, 0
+    for (B, Sq, Sk, H, hd), causal in ((K3_CROSS, False),
+                                       (K3_SUFFIX, True)):
+        mask = dict(causal=causal, q_start=Sk - Sq if causal else 0)
+        for dtype, exact in ((torch.float32, False), (torch.bfloat16, True),
+                             (torch.bfloat16, False)):
+            q, k, v = _k3_inputs(rng, B, Sq, Sk, H, H, hd, dtype, exact)
+            what = f"q {tuple(q.shape)} over k/v {tuple(k.shape)}, {mask}"
+            got = K3.flash_fill(q, k, v, p_dtype=dtype, **mask)
+            check(tuple(got.shape) == (B, Sq, H, hd), f"K3 output "
+                  f"{tuple(got.shape)}: {what}")
+            err, _, _ = _k3_hold(q, k, v, f"{what}, {dtype}", exact, **mask)
+            fwd_err = max(fwd_err, err)
+            if not exact:
+                err, _ = _k3_bwd_case(rng, q, k, v, mask, f"{what}, {dtype}")
+                bwd_err = max(bwd_err, err)
+            n += 1
+    q = torch.zeros((1, 64, 2, 32), device=DEVICE)
+    v = torch.zeros((1, 64, 2, 16), device=DEVICE)
+    lse = torch.zeros((1, 64, 2), device=DEVICE)
+    counts = (K3.launches, K3.bwd_launches)
+    for call in (lambda: K3.flash_fill(q, q, v, causal=True),
+                 lambda: K3.flash_backward(q, q, v, v, lse, v, causal=True)):
+        try:
+            call()
+        except ValueError as e:
+            check("15f" in str(e), f"hd_v != hd raised without naming item "
+                  f"15f: {e}")
+        else:
+            check(False, "K3 took v of another width on the card")
+    check((K3.launches, K3.bwd_launches) == counts,
+          "a refused hd_v != hd call launched K3")
+    K3.launches, K3.bwd_launches = before
+    print(f"[22] K3 at Sq != Sk == plain on {n} cases (q {K3_CROSS[1]} over "
+          f"k/v {K3_CROSS[2]}, {K3_CROSS[3]} heads of {K3_CROSS[4]}, "
+          f"non-causal; q {K3_SUFFIX[1]} over {K3_SUFFIX[2]}, "
+          f"{K3_SUFFIX[3]} heads of {K3_SUFFIX[4]}, causal, q_start "
+          f"{K3_SUFFIX[2] - K3_SUFFIX[1]}; f32, bf16 exact and normal): "
+          f"forward max |diff| {fwd_err:.3g}, backward {bwd_err:.3g} "
+          f"({K3_BWD_PARITY}); v of width 16 beside q/k of 32 raises "
+          f"naming item 15f, nothing launched; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return fwd_err, bwd_err
+
+
+def _k3_fwd_timing(B, Sq, Sk, H, Kh, hd, causal, label, rounds=ROUNDS,
+                   launches=ROUND_LAUNCHES):
+    """K3's forward in turns with scaled_dot_product_attention (a
+    yardstick the port never calls) at one shape, bf16, beside its plain
+    version and its bound: 4 hd FLOP a live pair at 989 TFLOP/s, or q, k,
+    v read once and o written once; ``rounds`` of ``launches`` each."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import kernel as K3
+    from repro_torch.tune.cost import MEM_BYTES_PER_S
+    bf = dict(device=DEVICE, dtype=torch.bfloat16)
+    q = torch.randn((B, Sq, H, hd), **bf)
+    k, v = (torch.randn((B, Sk, Kh, hd), **bf) for _ in range(2))
+    qs = Sk - Sq if causal else 0
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    gqa = dict(enable_gqa=True) if H != Kh else {}
+    # SDPA's is_causal aligns the mask to the top left; a causal suffix
+    # (q_start = Sk - Sq) needs its explicit lower-right mask
+    mask = None if not causal or Sq == Sk else torch.ones(
+        (Sq, Sk), dtype=torch.bool, device=DEVICE).tril(Sk - Sq)
+    t3, tlib = _in_turns(
+        lambda: K3.flash_fill(q, k, v, causal=causal, q_start=qs,
+                              p_dtype=torch.bfloat16),
+        lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+            **gqa), rounds, launches)
+    K3.flash_attention_plain(q, k, v, causal=causal, q_start=qs,
+                             p_dtype=torch.bfloat16)
+    plain_ms = cuda_time_ms(lambda: K3.flash_attention_plain(
+        q, k, v, causal=causal, q_start=qs, p_dtype=torch.bfloat16), 2)
+    pairs = k3_pairs(Sq, causal, None, None, Sk, qs)
+    flops = pairs * 4 * hd * B * H
+    nbytes = 2 * (2 * B * Sq * H * hd + 2 * B * Sk * Kh * hd)
+    ops_ms, bytes_ms = flops / BF16_FLOPS * 1e3, nbytes / MEM_BYTES_PER_S * 1e3
+    ms, lib_ms = statistics.median(t3), statistics.median(tlib)
+    out = {"shape": [B, Sq, Sk, H, Kh, hd], "causal": causal, "ms": ms,
+           "ms_range": [min(t3), max(t3)], "plain_ms": plain_ms,
+           "library_ms": lib_ms, "library_ms_range": [min(tlib), max(tlib)],
+           "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    print(f"     K3 forward, {label}, q {(B, Sq, H, hd)} over k/v "
+          f"{(B, Sk, Kh, hd)}, bf16, causal {causal}: K3 "
+          f"{_spread(t3, launches)}; SDPA {_spread(tlib, launches)}; K3 / "
+          f"SDPA {ms / lib_ms:.2f}x; plain "
+          f"{plain_ms:.2f} ms; bound {out['bound_ms']:.4f} ms by "
+          f"{out['bound_by']} ({flops / 1e9:.3f} GFLOP, 4 x {hd} a live "
+          f"pair; {nbytes} B); {flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+    return out
+
+
+def _k3_bwd_timing(B, Sq, Sk, H, Kh, hd, causal, label, rounds=ROUNDS,
+                   launches=ROUND_LAUNCHES):
+    """K3's backward alone in turns with SDPA's backward alone
+    (``torch.autograd.grad`` on a retained SDPA graph, the same function:
+    q, k, v, O, lse and dO in, dq, dk, dv out) at one shape, bf16, beside
+    its plain version and ``_k3_bwd_bound`` at bf16's and f32's peak;
+    ``rounds`` of ``launches`` each."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import kernel as K3
+    bf = dict(device=DEVICE, dtype=torch.bfloat16)
+    q, do = (torch.randn((B, Sq, H, hd), **bf) for _ in range(2))
+    k, v = (torch.randn((B, Sk, Kh, hd), **bf) for _ in range(2))
+    qs = Sk - Sq if causal else 0
+    kw = dict(causal=causal, q_start=qs)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    gqa = dict(enable_gqa=True) if H != Kh else {}
+    mask = None if not causal or Sq == Sk else torch.ones(
+        (Sq, Sk), dtype=torch.bool, device=DEVICE).tril(Sk - Sq)
+    out_lib = F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None, **gqa)
+    out, lse = K3.flash_fill(q, k, v, p_dtype=torch.bfloat16,
+                             return_lse=True, **kw)
+    tb, tlib = _in_turns(
+        lambda: K3.flash_backward(q, k, v, out, lse, do, **kw),
+        lambda: torch.autograd.grad(out_lib, (qt, kt, vt), dot,
+                                    retain_graph=True), rounds, launches)
+    K3.flash_backward_plain(q, k, v, out, lse, do, **kw)
+    plain_ms = cuda_time_ms(lambda: K3.flash_backward_plain(
+        q, k, v, out, lse, do, **kw), 1)
+    bound, by, flops, nbytes = _k3_bwd_bound(B, Sq, Sk, H, Kh, hd, causal,
+                                             BF16_FLOPS)
+    bound32 = _k3_bwd_bound(B, Sq, Sk, H, Kh, hd, causal, F32_FLOPS)[0]
+    ms, lib_ms = statistics.median(tb), statistics.median(tlib)
+    res = {"shape": [B, Sq, Sk, H, Kh, hd], "causal": causal, "ms": ms,
+           "ms_range": [min(tb), max(tb)], "plain_ms": plain_ms,
+           "library_ms": lib_ms, "library_ms_range": [min(tlib), max(tlib)],
+           "bound_ms": bound, "bound_by": by, "bound_f32_ms": bound32}
+    print(f"     K3 backward alone, {label}, q {(B, Sq, H, hd)} over k/v "
+          f"{(B, Sk, Kh, hd)}, bf16, causal {causal}: K3 "
+          f"{_spread(tb, launches)}; SDPA's backward alone "
+          f"{_spread(tlib, launches)}; K3 / SDPA {ms / lib_ms:.2f}x "
+          f"(medians); plain {plain_ms:.2f} ms; bound {bound:.4f} ms by {by} "
+          f"({flops / 1e9:.3f} GFLOP, 10 x {hd} a live pair, at 989 TFLOP/s "
+          f"bf16; {bound32:.4f} ms at 67 TFLOP/s f32; {nbytes} B); "
+          f"{flops / ms / 1e9:.1f} TFLOP/s of the 10 x {hd} needed, "
+          f"{2 * flops / ms / 1e9:.1f} of the 20 x {hd} the tensor-core "
+          f"kernels issue", flush=True)
+    return res
+
+
+def phase_timing_k3_slice11():
+    """K3's forward and backward timed at stablelm-12b's serving and
+    training shapes (hd 160) and at whisper-medium's cross-attention, each
+    in turns with SDPA, beside the card's name and power limit."""
+    from repro_torch.kernels.flash_attn import kernel as K3
+    before = (K3.launches, K3.bwd_launches)
+    t0 = time.perf_counter()
+    print(f"[23] K3 timed, in turns with scaled_dot_product_attention "
+          f"({nvidia_smi('name,power.limit')})", flush=True)
+    B, S, H, Kh, hd = K3_HD160_TIMED
+    fwd160 = _k3_fwd_timing(B, S, S, H, Kh, hd, True, "stablelm-12b serving")
+    B, S, H, Kh, hd = K3_HD160_TRAIN
+    bwd160 = _k3_bwd_timing(B, S, S, H, Kh, hd, True,
+                            "stablelm-12b training")
+    # the cross shape's launches are short and their times spread: more
+    # and longer rounds there
+    B, Sq, Sk, H, hd = K3_CROSS
+    fwd_x = _k3_fwd_timing(B, Sq, Sk, H, H, hd, False, "cross-attention",
+                           *K3_CROSS_ROUNDS)
+    bwd_x = _k3_bwd_timing(B, Sq, Sk, H, H, hd, False, "cross-attention",
+                           *K3_CROSS_ROUNDS)
+    K3.launches, K3.bwd_launches = before
+    print(f"     {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"fwd": {"hd160": fwd160, "cross": fwd_x},
+            "bwd": {"hd160": bwd160, "cross": bwd_x}}
+
+
+def _cut(cfg, params, n):
+    """``cfg`` and ``params`` cut to their first ``n`` layers (views of the
+    layer-stacked group, no copy)."""
+    import dataclasses
+    from repro_torch.models.params import tree_map
+    check(len(params["groups"]) == 1, f"{cfg.name}: one layer group")
+    return (dataclasses.replace(cfg, n_layers=n),
+            dict(params, groups=[tree_map(lambda t: t[:n],
+                                          params["groups"][0])]))
+
+
+def _layers_that_fit(cfg, bytes_per_param, free):
+    """The most layers of ``cfg`` (at least 1, at most all) whose
+    parameters at ``bytes_per_param`` fit in ``free`` bytes with FIT_SPARE
+    left over; the embedding and head count once."""
+    import dataclasses
+    from repro_torch.models.params import count_params
+    one = count_params(dataclasses.replace(cfg, n_layers=1))
+    per = count_params(dataclasses.replace(cfg, n_layers=2)) - one
+    fixed = one - per
+    fit = int((free - FIT_SPARE - fixed * bytes_per_param)
+              // (per * bytes_per_param))
+    return max(1, min(cfg.n_layers, fit))
+
+
+def _decode_vs_forward_cut(cfg, params, prompt):
+    """``_decode_vs_forward`` on as many of the model's layers as an f32
+    copy of them fits beside the card's resident state with FIT_SPARE to
+    spare; prints the cut."""
+    import torch
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    n = _layers_that_fit(cfg, 4, free)
+    print(f"    the f32 check runs on {n} of {cfg.n_layers} layers (its f32 "
+          f"copy beside {torch.cuda.memory_allocated() / 1e9:.1f} GB "
+          f"resident, {free / 1e9:.1f} GB free, {FIT_SPARE / 1e9:.0f} GB to "
+          f"spare)", flush=True)
+    _decode_vs_forward(*_cut(cfg, params, n), prompt)
+
+
+def _hold_layer0(cfg, params, prompt, what):
+    """K3 against its plain version on layer 0's q/k/v of ``prompt``."""
+    import torch
+    from repro_torch.kernels.flash_attn import kernel as K3
+    from repro_torch.models import mixers
+    before = K3.launches
+    p0, h = _layer0_input(cfg, params, prompt)
+    pos = torch.arange(len(prompt), dtype=torch.int32, device=DEVICE)[None]
+    q, k, v = mixers.attn_qkv(cfg, p0["mixer"], h, pos)
+    err, share, err32 = _k3_hold(q, k, v, what, causal=True)
+    K3.launches = before
+    print(f"    K3 == plain ({K3_PARITY}) on layer 0's q/k/v of the longest "
+          f"prompt, q {tuple(q.shape)} k/v {tuple(k.shape)}, {q.dtype}: max "
+          f"|diff| {err:.3g}; {share:.3g} of outputs beyond 2e-5 plus one "
+          f"ulp; against plain with p kept in f32: max |diff| {err32:.3g}",
+          flush=True)
+    return err
+
+
+def phase_stablelm():
+    return _serve_k3("stablelm-12b", 24)
+
+
+def _serve_k3(arch, phase):
+    """``arch`` at full width (random from seed SEED) serves the phase's
+    traffic on K3: K3 launched once a layer a request, K4 never; K3 held to
+    its plain version on layer 0 of the longest prompt; K3's share of the
+    prefill and a profile of one prefill and three decode steps; the
+    prefill and first decode logits held to ``forward`` on as many layers
+    as an f32 copy fits with FIT_SPARE to spare (all of olmo-1b's)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attn import kernel as K3
+    t0 = time.perf_counter()
+    cfg = configs.get(arch)
+    print(f"[{phase}] {arch} at full width ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads_eff} / {cfg.n_kv_eff} heads of "
+          f"{cfg.head_dim})", flush=True)
+    params = _full_params(cfg)
+    run = _serve(cfg, params)
+    want = SERVE_REQUESTS * cfg.n_layers
+    check(run["counts"][2] == want, f"{arch} serving launched K3 "
+          f"{run['counts'][2]} times, not {want}")
+    check(run["counts"][3] == 0, f"{arch} serving launched K4")
+    longest = max(run["done"], key=lambda r: len(r.prompt)).prompt
+    err = _hold_layer0(cfg, params, longest, f"{arch} layer 0")
+    before = K3.launches
+    H, Kh, hd = cfg.n_heads_eff, cfg.n_kv_eff, cfg.head_dim
+
+    def k3_at(n):
+        q = torch.randn((1, n, H, hd), device=DEVICE, dtype=torch.bfloat16)
+        kv = [torch.randn((1, n, Kh, hd), device=DEVICE,
+                          dtype=torch.bfloat16) for _ in range(2)]
+        return lambda: K3.flash_fill(q, *kv, causal=True,
+                                     p_dtype=torch.bfloat16)
+    k3_s = _kernel_share(k3_at, [len(r.prompt) for r in run["done"]],
+                         cfg.n_layers)
+    _profile_serving(cfg, params, run["session"], longest)
+    K3.launches = before
+    st = run["stats"]
+    print(f"    where the time goes: prefill {st['prefill_s']:.3f} s "
+          f"({100 * st['prefill_s'] / run['wall']:.1f} % of wall; K3 "
+          f"{k3_s:.3f} s of it, {100 * k3_s / st['prefill_s']:.1f} %, from "
+          f"each prompt's K3 timed alone x {cfg.n_layers} layers), decode "
+          f"{st['decode_s']:.3f} s "
+          f"({100 * st['decode_s'] / run['wall']:.1f} %)", flush=True)
+    launches = run["counts"][2]
+    summary = {"wall_s": run["wall"], "peak_gib": run["peak"] / 2**30,
+               "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
+               "decode_steps": st["steps"], "k3_prefill_s": k3_s}
+    del run
+    _decode_vs_forward_cut(cfg, params, longest)
+    del params
+    torch.cuda.empty_cache()
+    print(f"    phase {phase}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"k3_launches": launches, "k3_err": err, "serve": summary}
+
+
+def _prefill_decode_run(cfg, params, prompt, what):
+    """One prefill of ``prompt`` and one decode step with every launch
+    count at 0: K3 launched once a layer, K4 never; wall time."""
+    import torch
+    toks = torch.as_tensor(prompt, dtype=torch.int64, device=DEVICE)[None]
+    torch.cuda.synchronize()
+    mods = _reset_counts()
+    t0 = time.perf_counter()
+    _prefill_decode(cfg, params, toks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = [m.launches for m in mods]
+    check(counts[2] == cfg.n_layers and counts[3] == 0,
+          f"{what}: prefill and decode launched K1-K4 {counts}, want K3 "
+          f"{cfg.n_layers} times")
+    print(f"    {what}: prefill of {len(prompt)} tokens and one decode "
+          f"step in {wall:.3f} s; launches K1-K4 {counts}", flush=True)
+    return counts[2]
+
+
+def phase_phi3_command_r():
+    """phi3-medium-14b (full depth, 48 / 16 padded heads of 128) and
+    command-r-plus-104b (full width at the depth whose bf16 weights and
+    their f32 copy fit one card with FIT_SPARE to spare: parallel block,
+    q/k norm, LayerNorm) at full width: one prefill and decode of phase
+    12's longest prompt each on K3, K3 held on layer 0, the logits held to
+    ``forward`` (on a depth cut for phi3)."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    t0 = time.perf_counter()
+    out = {}
+    cfg = configs.get("phi3-medium-14b")
+    print(f"[25] phi3-medium-14b at full width ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads padded to "
+          f"{cfg.n_heads_eff} / {cfg.n_kv_eff}, hd {cfg.head_dim})",
+          flush=True)
+    params = _full_params(cfg)
+    longest = max(_serve_requests(cfg), key=lambda r: len(r.prompt)).prompt
+    launches = _prefill_decode_run(cfg, params, longest, "phi3-medium-14b")
+    err = _hold_layer0(cfg, params, longest, "phi3-medium-14b layer 0")
+    _decode_vs_forward_cut(cfg, params, longest)
+    out["phi3"] = {"k3_launches": launches, "k3_err": err,
+                   "layers": cfg.n_layers}
+    del params
+    torch.cuda.empty_cache()
+
+    full = configs.get("command-r-plus-104b")
+    n = _layers_that_fit(full, 2 + 4, torch.cuda.mem_get_info()[0])
+    cfg = dataclasses.replace(full, n_layers=n)
+    print(f"     command-r-plus-104b at full width (d {cfg.d_model}, "
+          f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.head_dim}, "
+          f"parallel block, q/k norm, LayerNorm), depth cut to {n} of "
+          f"{full.n_layers} layers: its bf16 weights and their f32 copy "
+          f"fit with {FIT_SPARE / 1e9:.0f} GB to spare", flush=True)
+    params = _full_params(cfg)
+    longest = max(_serve_requests(cfg), key=lambda r: len(r.prompt)).prompt
+    launches = _prefill_decode_run(cfg, params, longest,
+                                   "command-r-plus-104b")
+    err = _hold_layer0(cfg, params, longest, "command-r-plus-104b layer 0")
+    _decode_vs_forward(cfg, params, longest)
+    out["command_r"] = {"k3_launches": launches, "k3_err": err, "layers": n}
+    del params
+    torch.cuda.empty_cache()
+    print(f"    phase 25: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def phase_train_stablelm():
+    """stablelm-12b at full width and STABLELM_TRAIN_LAYERS of its 40
+    layers trains through train_loop on K3 at hd 160, each step two
+    microbatches of half the batch (the config's ``accum_steps``, as in
+    JAX); the first step's recorded backward (layer 0) is held against
+    flash_backward_plain; K3's share of a step."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attn import kernel as K3
+    L = STABLELM_TRAIN_LAYERS
+    cfg = dataclasses.replace(configs.get("stablelm-12b"), n_layers=L)
+    n = L * cfg.accum_steps            # layer passes a step
+    run = _train_full("stablelm-12b", K3, "flash_backward", 2 * n, n, 26,
+                      cfg=cfg, keep_first=True)
+    run.pop("last")
+    args, kw = _detached(run.pop("first"))
+    before = (K3.launches, K3.bwd_launches)
+    err = _hold_k3_bwd(args, kw, "stablelm-12b layer 0, first step")
+    q, k, v = args[:3]
+    fwd_ms = cuda_time_ms(lambda: K3.flash_fill(
+        q, k, v, causal=True, p_dtype=q.dtype, return_lse=True), 5)
+    bwd_ms = cuda_time_ms(lambda: K3.flash_backward(*args, **kw), 3)
+    K3.launches, K3.bwd_launches = before
+    share = (2 * n * fwd_ms + n * bwd_ms) / 1e3 / run["step_s"]
+    print(f"    K3 backward == plain ({K3_BWD_PARITY}) on layer 0's recorded "
+          f"q/k/v/o/lse/dO of the first step, q {tuple(q.shape)} k/v "
+          f"{tuple(k.shape)}, {q.dtype}: max |diff| {err:.3g}; K3 forward "
+          f"(with lse) {fwd_ms:.3f} ms x {2 * n} and backward {bwd_ms:.3f} "
+          f"ms x {n} a step ({cfg.accum_steps} microbatches): "
+          f"{100 * share:.1f} % of the step", flush=True)
+    del args, kw
+    torch.cuda.empty_cache()
+    return dict(run, k3_err=err, k3_fwd_ms=fwd_ms, k3_bwd_ms=bwd_ms,
+                k3_share=share, layers=L)
+
+
+def phase_align_launcher():
+    """``launch.serve.serve_alignments`` on the card at the JAX launcher's
+    defaults (32 pairs of 128 from ``genomics_pairs``, #2, an
+    ``AlignmentService(max_len=128, block=8)``): every drained result
+    (score, end cell, CIGAR) equal to the port's ``reference`` engine on
+    the CPU over the same pairs, K1 launched; then ``python3 -m
+    repro_torch.launch.serve --mode align`` as a subprocess exits 0 and
+    prints "alignment service drained OK"."""
+    import os
+    import torch
+    from repro_torch.data import genomics_pairs
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve import AlignmentService, AlignRequest
+    t0 = time.perf_counter()
+    seen = []
+    submit = AlignmentService.submit
+
+    def record(self, req):
+        seen.append(req)
+        return submit(self, req)
+    mods = _reset_counts()
+    AlignmentService.submit = record
+    try:
+        launch_serve.serve_alignments()
+    finally:
+        AlignmentService.submit = submit
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = mods[0].launches
+    check(k1 > 0, "serve_alignments did not launch K1")
+    check(sum(m.launches for m in mods[1:]) == 0,
+          "serve_alignments launched a kernel other than K1")
+    got = [r.result for r in seen]
+    qs, rs, ql, rl = genomics_pairs(32, 128, seed=0)
+    ref = AlignmentService(max_len=128, block=8, engine_name="reference",
+                           device="cpu")
+    reqs = [AlignRequest(rid=i, kernel="global_affine", query=qs[i, :ql[i]],
+                         ref=rs[i, :rl[i]]) for i in range(32)]
+    for r in reqs:
+        ref.submit(r)
+    ref.drain()
+    check(len(got) == 32, f"serve_alignments drained {len(got)} of 32")
+    for i, (g, w) in enumerate(zip(got, (r.result for r in reqs))):
+        check(g == w and "cigar" in g, f"serve_alignments request {i}: card "
+              f"{g} != the CPU's reference engine {w}")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t1 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                           "--mode", "align"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and lines[-1:] ==
+          ["alignment service drained OK"], f"--mode align exited "
+          f"{proc.returncode}: {proc.stdout[-500:]} {proc.stderr[-2000:]}")
+    print(f"[27] serve_alignments on the card: 32 pairs of 128 (#2) drained "
+          f"in {wall:.3f} s on {k1} K1 launches, every score, end cell and "
+          f"CIGAR == the CPU's reference engine; python3 -m "
+          f"repro_torch.launch.serve --mode align exited 0 in "
+          f"{time.perf_counter() - t1:.1f} s: {lines[-1]}", flush=True)
+    return {"k1_launches": k1, "wall_s": wall}
+
+
 def _train_summary(run, kern):
     """A training phase's numbers for the kernels' JSON line."""
     return {"step_s": run["step_s"], "tokens_per_s": run["tokens_per_s"],
@@ -3541,6 +4038,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
     from repro_torch.core import alphabets
+    from repro_torch.kernels.flash_attn.kernel import HEAD_DIMS as K3_HEAD_DIMS
     # every f32 comparison on the card runs in full f32, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3549,7 +4047,7 @@ def main() -> int:
     try:
         card = phase_identity()
         phase_build()
-        ptxas_bwd = bwd_ptxas()
+        ptxas = entry_ptxas()
         rng = np.random.default_rng(SEED)
         max_err = phase_kernel_vs_plain(rng)
         ext_err = phase_ext_vs_plain(rng)
@@ -3578,6 +4076,13 @@ def main() -> int:
         olmo_train = phase_train_olmo()
         rwkv_train = phase_train_rwkv()
         phase_train_card_vs_cpu()
+        k3_160_err, k3b_160_err = phase_k3_hd160(rng)
+        k3_x_err, k3b_x_err = phase_k3_cross(rng)
+        k3_new = phase_timing_k3_slice11()
+        stablelm = phase_stablelm()
+        dense = phase_phi3_command_r()
+        stablelm_train = phase_train_stablelm()
+        align = phase_align_launcher()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3588,6 +4093,7 @@ def main() -> int:
         "launches": launches, "launches_mapper": mapper["k1_launches"],
         "launches_service": service["k1_launches"],
         "launches_tune": tuned["launches"],
+        "launches_serve_alignments": align["k1_launches"],
         "launches_xdrop_off": {k: v["k1_launches"]
                                for k, v in xdrop.items()},
         "tune": tuned["points"], "lint": tuned["lint"],
@@ -3621,8 +4127,19 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attn/kernel.py:95",
         "launches": olmo["k3_launches"],
         "launches_train": olmo_train["fwd_launches"],
-        "parity": K3_PARITY,
-        "max_abs_err": max(k3_err, olmo["k3_err"]), **k3_timing}, {
+        "launches_stablelm": stablelm["k3_launches"],
+        "launches_phi3": dense["phi3"]["k3_launches"],
+        "launches_command_r": dense["command_r"]["k3_launches"],
+        "command_r_layers": dense["command_r"]["layers"],
+        "launches_train_stablelm": stablelm_train["fwd_launches"],
+        "head_dims": list(K3_HEAD_DIMS), "parity": K3_PARITY,
+        "max_abs_err": max(k3_err, olmo["k3_err"], stablelm["k3_err"],
+                           dense["phi3"]["k3_err"],
+                           dense["command_r"]["k3_err"]),
+        "max_abs_err_hd160": k3_160_err, "max_abs_err_cross": k3_x_err,
+        "stablelm_serve": stablelm["serve"], "ptxas": ptxas["flash_fill"],
+        **k3_new["fwd"],
+        **k3_timing}, {
         "name": "wkv6_fill", "route": "cuda",
         "source": "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
         "replaces": "src/repro/kernels/wkv6/kernel.py:80",
@@ -3633,16 +4150,23 @@ def main() -> int:
         "source": "src/repro_torch/kernels/flash_attn/csrc/flash_attn_bwd.cu",
         "replaces": "src/repro/models/layers.py:163",
         "launches": olmo_train["bwd_launches"], "parity": K3_BWD_PARITY,
-        "max_abs_err": max(k3b_err, olmo_train["k3_err"]),
+        "launches_train_stablelm": stablelm_train["bwd_launches"],
+        "head_dims": list(K3_HEAD_DIMS),
+        "max_abs_err": max(k3b_err, olmo_train["k3_err"],
+                           stablelm_train["k3_err"]),
+        "max_abs_err_hd160": k3b_160_err, "max_abs_err_cross": k3b_x_err,
         "train": _train_summary(olmo_train, "k3"),
-        "ptxas": ptxas_bwd["flash_backward"], **k3b_timing}, {
+        "train_stablelm": dict(_train_summary(stablelm_train, "k3"),
+                               layers=stablelm_train["layers"]),
+        **k3_new["bwd"],
+        "ptxas": ptxas["flash_backward"], **k3b_timing}, {
         "name": "wkv6_backward", "route": "cuda",
         "source": "src/repro_torch/kernels/wkv6/csrc/wkv6_bwd.cu",
         "replaces": "src/repro/models/mixers.py:411",
         "launches": rwkv_train["bwd_launches"], "parity": K4_BWD_PARITY,
         "max_abs_err": max(k4b_err, rwkv_train["k4_err"]),
         "train": _train_summary(rwkv_train, "k4"),
-        "ptxas": ptxas_bwd["wkv6_backward"], **k4b_timing}]
+        "ptxas": ptxas["wkv6_backward"], **k4b_timing}]
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     print(card["smi"])
     print(json.dumps({"kernels": kernels}))

@@ -3,8 +3,10 @@ architectures (with their reduced variants) into ``REGISTRY``."""
 from __future__ import annotations
 
 from .base import REGISTRY, ModelConfig, get
-from . import olmo_1b, rwkv6_3b  # noqa: F401
+from . import (stablelm_12b, phi3_medium_14b, command_r_plus_104b, olmo_1b,
+               rwkv6_3b)  # noqa: F401
 
-ARCH_NAMES = ["olmo-1b", "rwkv6-3b"]
+ARCH_NAMES = ["stablelm-12b", "phi3-medium-14b", "command-r-plus-104b",
+              "olmo-1b", "rwkv6-3b"]
 
 __all__ = ["REGISTRY", "ModelConfig", "ARCH_NAMES", "get"]

@@ -13,10 +13,13 @@ from .api import as_codes
 
 def align_batch(spec: T.DPKernelSpec, params, queries, refs,
                 q_lens=None, r_lens=None, engine_name: str = "wavefront",
-                with_traceback: bool = True, tb_pack=None, device="cuda"):
+                with_traceback: bool = True, strip=None, tb_pack=None,
+                device="cuda"):
     """Align a batch.  queries: (N, Lq), refs: (N, Lr); q_lens/r_lens: (N,)
-    effective lengths (None = full).  Lengths given on the host keep the
-    traceback bound free of a device synchronisation."""
+    effective lengths (None = full).  ``strip``/``tb_pack`` select the
+    engine schedule (None = the tuned or hand-picked defaults), as in
+    ``get_plan``.  Lengths given on the host keep the traceback bound free
+    of a device synchronisation."""
     dev = plan_mod.resolve_device(device)
     queries = as_codes(queries, spec.char_dtype, dev)
     refs = as_codes(refs, spec.char_dtype, dev)
@@ -27,6 +30,6 @@ def align_batch(spec: T.DPKernelSpec, params, queries, refs,
         r_lens = np.full((n,), refs.shape[1], np.int32)
     plan = plan_mod.get_plan(spec, engine_name, tuple(queries.shape[1:]),
                              tuple(refs.shape[1:]), batch_size=n,
-                             with_traceback=with_traceback, tb_pack=tb_pack,
-                             device=dev)
+                             with_traceback=with_traceback, strip=strip,
+                             tb_pack=tb_pack, device=dev)
     return plan(params, queries, refs, q_lens, r_lens)

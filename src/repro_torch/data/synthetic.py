@@ -1,5 +1,6 @@
 """Deterministic synthetic data (numpy copy of ``LMBatcher``, ``ReadSet``,
-``sample_reads``, ``GenotypingSite`` and ``sample_site`` from
+``sample_reads``, ``GenotypingSite``, ``sample_site`` and
+``genomics_pairs`` from
 ``repro.data.synthetic``): the same seed gives the same token batches,
 reads and haplotypes as the JAX package's generators."""
 from __future__ import annotations
@@ -149,3 +150,23 @@ def sample_site(seed: int = 0, hap_len: int = 64, read_len: int = 32,
                                       error_rate))
     return GenotypingSite(haplotypes=haps, reads=reads, genotype=genotype,
                           variant_pos=pos)
+
+
+def genomics_pairs(n: int, length: int, error_rate: float = 0.3,
+                   seed: int = 0):
+    """(queries, refs, q_lens, r_lens) uint8 padded arrays: mutated read
+    pairs in the style of the paper's PBSIM dataset, the JAX package's
+    draws from the same seed (the same arrays)."""
+    rng = np.random.default_rng(seed)
+    qs = np.zeros((n, length), np.uint8)
+    rs = np.zeros((n, length), np.uint8)
+    ql = np.zeros((n,), np.int32)
+    rl = np.zeros((n,), np.int32)
+    for i in range(n):
+        ref = alphabets.random_dna(rng, length)
+        read = alphabets.mutate(rng, ref, error_rate)[:length]
+        rs[i] = ref
+        qs[i, : len(read)] = read
+        ql[i] = len(read)
+        rl[i] = length
+    return qs, rs, ql, rl

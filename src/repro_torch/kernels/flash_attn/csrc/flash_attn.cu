@@ -30,7 +30,9 @@
 //   registers: each row lives in one quad of lanes, reduced by two
 //   shuffles.  The masks, the scale and the sentinel act on the f32 score
 //   fragments; an element's row and key follow the mma fragment layout.
-//   Shared memory is 87 KB at hd 128, so two blocks fit an SM.  The grid
+//   Shared memory is 87 KB at hd 128 and 107.5 KB at hd 160 (rows of 336
+//   bytes, 21 16-byte units, still 8 distinct bank groups an ldmatrix), so
+//   two blocks fit an SM.  The grid
 //   is (head, q-tile, batch row) with the last q-tile first, so under a
 //   causal mask the blocks with the most live k-tiles start first across
 //   the whole launch and the light ones fill the tail.  The cp.async,
@@ -41,20 +43,28 @@
 //   not a fault; without a compiler or card to iterate on, the mma.sync
 //   fragment layouts were the ones that could be made right first.
 // * f32 (flash_kernel) is the correctness path, held to the Pallas kernel
-//   at 2e-5: the CUDA-core kernel of the first port, unchanged.  One block
-//   of 256 threads per (64-row q-tile, head, batch row), the tiles widened
-//   to f32 in shared memory (q and k transposed for float4 reads), a 4 x 4
-//   score patch per thread, one warp per 8 rows for the softmax, p kept in
-//   f32, and each thread owning one output column for p v.
+//   at 2e-5: the CUDA-core kernel of the first port.  One block of 256
+//   threads per (64-row q-tile, head, batch row), the tiles widened to f32
+//   in shared memory (q and k transposed for float4 reads), a 4 x 4 score
+//   patch per thread, one warp per 8 rows for the softmax, p kept in f32,
+//   and for p v each thread owning one output column (hd dividing 256) or,
+//   at hd 160, each warp 8 rows and each lane the columns lane + 32 c.
+//   Shared memory is 146 KB at hd 160, one block an SM.
 //
 // Common to both: a loop over 64-row k-tiles inside the block takes the
 // place of the TPU's sequential ("arbitrary") k grid axis, and k-tiles
 // that lie wholly outside the causal or window band, or at or past k_len,
 // are skipped, as _body's pl.when(live) skips them.  Grouped-query
 // attention reads key/value head h / (H / Kh) directly (the Pallas wrapper
-// repeats k and v in device memory).  Rows and keys past S are loaded as
-// zeros, masked and not stored, so any S works (the Pallas kernel needs S
-// to be a multiple of its block).
+// repeats k and v in device memory).  Queries and keys have lengths of
+// their own, Sq and Sk (cross-attention), as in the JAX model path's
+// flash_attention: the grid runs over Sq's tiles and the key loop over
+// Sk's, and query row i sits at position q_start + i for the causal and
+// window masks (q_start = Sk - Sq: the queries are the keys' last Sq
+// positions).  Rows past Sq and keys past Sk are loaded as zeros, masked
+// and not stored, so any lengths work (the Pallas kernel needs S to be a
+// multiple of its block).  Head widths 16, 32, 64, 128 and 160, v as wide
+// as q and k.
 //
 // What bounds it.  The work is 2 * S_live * hd multiply-adds per query row
 // (S_live its unmasked keys; q . k and p v) against one read of q, k, v
@@ -115,12 +125,20 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS) flash_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-    int S, int H, int Kh, int k_len, int causal, int window, float scale) {
-  static_assert(THREADS % HD == 0 && BQ % (THREADS / HD) == 0, "tiling");
+    int Sq, int Sk, int q_start, int H, int Kh, int k_len, int causal,
+    int window, float scale) {
   constexpr int QS = BQ + PAD;
   constexpr int KS = BK + PAD;
-  constexpr int NRG = THREADS / HD;  // row groups of the p v stage
-  constexpr int RPT = BQ / NRG;      // output rows per thread
+  // p v: one output column a thread where hd divides the block (NRG row
+  // groups of RPT rows), else (hd 160) 8 rows a warp (WR) and the columns
+  // lane + 32 c a lane (NCOL)
+  constexpr bool COLS = THREADS % HD == 0;
+  constexpr int NRG = COLS ? THREADS / HD : 1;
+  constexpr int RPT = BQ / NRG;
+  constexpr int WR = BQ / (THREADS / 32);
+  constexpr int NCOL = HD / 32;
+  constexpr int ACC = COLS ? RPT : WR * NCOL;
+  static_assert(COLS ? BQ % NRG == 0 : HD % 32 == 0, "tiling");
   extern __shared__ __align__(16) float smem[];
   float* Qt = smem;                  // [HD][QS]
   float* Kt = Qt + HD * QS;          // [HD][KS]
@@ -131,21 +149,22 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(
   float* row_a = row_l + BQ;
 
   const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * BQ;            // the tile's first row
+  const int qa0 = q_start + q0;              // and its position
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kh = h / (H / Kh);
   const size_t q_stride = (size_t)H * HD;    // between positions
   const size_t kv_stride = (size_t)Kh * HD;
-  const T* qb = q + (size_t)b * S * q_stride + (size_t)h * HD;
-  const T* kb = k + (size_t)b * S * kv_stride + (size_t)kh * HD;
-  const T* vb = v + (size_t)b * S * kv_stride + (size_t)kh * HD;
-  T* ob = o + (size_t)b * S * q_stride + (size_t)h * HD;
+  const T* qb = q + (size_t)b * Sq * q_stride + (size_t)h * HD;
+  const T* kb = k + (size_t)b * Sk * kv_stride + (size_t)kh * HD;
+  const T* vb = v + (size_t)b * Sk * kv_stride + (size_t)kh * HD;
+  T* ob = o + (size_t)b * Sq * q_stride + (size_t)h * HD;
 
   for (int e = tid; e < BQ * HD; e += THREADS) {
     const int i = e % BQ, d = e / BQ;
     const int pos = q0 + i;
-    Qt[d * QS + i] = pos < S ? to_f32(qb[(size_t)pos * q_stride + d]) : 0.f;
+    Qt[d * QS + i] = pos < Sq ? to_f32(qb[(size_t)pos * q_stride + d]) : 0.f;
   }
   if (tid < BQ) {
     row_m[tid] = NEG_INF;
@@ -153,28 +172,30 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(
   }
   const int od = tid % HD;
   const int org = tid / HD;
-  float acc[RPT];
+  float acc[ACC];
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) acc[r] = 0.f;
+  for (int r = 0; r < ACC; ++r) acc[r] = 0.f;
 
   const int tx = tid % 16;   // score patch: columns 4 tx .. 4 tx + 3
   const int ty = tid / 16;   //              rows    4 ty .. 4 ty + 3
   const int warp = tid / 32, lane = tid % 32;
-  const int n_k = (S + BK - 1) / BK;
+  const int n_k = (Sk + BK - 1) / BK;
 
   for (int kt = 0; kt < n_k; ++kt) {
     const int k0 = kt * BK;
-    if (!tile_live(k0, q0, k_len, causal, window)) continue;  // block-uniform
+    if (!tile_live(k0, qa0, k_len, causal, window)) continue;  // uniform
     __syncthreads();       // the previous tile's readers are done
     for (int e = tid; e < BK * HD; e += THREADS) {
       const int j = e % BK, d = e / BK;
       const int pos = k0 + j;
-      Kt[d * KS + j] = pos < S ? to_f32(kb[(size_t)pos * kv_stride + d]) : 0.f;
+      Kt[d * KS + j] =
+          pos < Sk ? to_f32(kb[(size_t)pos * kv_stride + d]) : 0.f;
     }
     for (int e = tid; e < BK * HD; e += THREADS) {
       const int j = e / HD, d = e % HD;
       const int pos = k0 + j;
-      Vs[j * HD + d] = pos < S ? to_f32(vb[(size_t)pos * kv_stride + d]) : 0.f;
+      Vs[j * HD + d] =
+          pos < Sk ? to_f32(vb[(size_t)pos * kv_stride + d]) : 0.f;
     }
     __syncthreads();
 
@@ -196,7 +217,7 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(
     }
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
-      const int qpos = q0 + 4 * ty + a;
+      const int qpos = qa0 + 4 * ty + a;
       float out[4];
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
@@ -231,32 +252,75 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(
     }
     __syncthreads();
 
+    if constexpr (COLS) {
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) acc[r] *= row_a[org + NRG * r];
-    for (int j = 0; j < BK; j += 4) {
-      const float v0 = Vs[(j + 0) * HD + od], v1 = Vs[(j + 1) * HD + od];
-      const float v2 = Vs[(j + 2) * HD + od], v3 = Vs[(j + 3) * HD + od];
+      for (int r = 0; r < RPT; ++r) acc[r] *= row_a[org + NRG * r];
+      for (int j = 0; j < BK; j += 4) {
+        const float v0 = Vs[(j + 0) * HD + od], v1 = Vs[(j + 1) * HD + od];
+        const float v2 = Vs[(j + 2) * HD + od], v3 = Vs[(j + 3) * HD + od];
 #pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const float4 p =
-            *reinterpret_cast<const float4*>(&Ps[(org + NRG * r) * KS + j]);
-        acc[r] = fmaf(p.x, v0, acc[r]);
-        acc[r] = fmaf(p.y, v1, acc[r]);
-        acc[r] = fmaf(p.z, v2, acc[r]);
-        acc[r] = fmaf(p.w, v3, acc[r]);
+        for (int r = 0; r < RPT; ++r) {
+          const float4 p = *reinterpret_cast<const float4*>(
+              &Ps[(org + NRG * r) * KS + j]);
+          acc[r] = fmaf(p.x, v0, acc[r]);
+          acc[r] = fmaf(p.y, v1, acc[r]);
+          acc[r] = fmaf(p.z, v2, acc[r]);
+          acc[r] = fmaf(p.w, v3, acc[r]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < WR; ++r)
+#pragma unroll
+        for (int c = 0; c < NCOL; ++c) acc[r * NCOL + c] *= row_a[warp * WR + r];
+      for (int j = 0; j < BK; j += 4) {
+        float vv[4][NCOL];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int c = 0; c < NCOL; ++c)
+            vv[jj][c] = Vs[(j + jj) * HD + lane + 32 * c];
+#pragma unroll
+        for (int r = 0; r < WR; ++r) {
+          const float4 p = *reinterpret_cast<const float4*>(
+              &Ps[(warp * WR + r) * KS + j]);
+#pragma unroll
+          for (int c = 0; c < NCOL; ++c) {
+            float& a = acc[r * NCOL + c];
+            a = fmaf(p.x, vv[0][c], a);
+            a = fmaf(p.y, vv[1][c], a);
+            a = fmaf(p.z, vv[2][c], a);
+            a = fmaf(p.w, vv[3][c], a);
+          }
+        }
       }
     }
   }
   __syncthreads();
+  if constexpr (COLS) {
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int i = org + NRG * r;
-    const int pos = q0 + i;
-    if (pos < S)
-      store(&ob[(size_t)pos * q_stride + od], acc[r] / fmaxf(row_l[i], 1e-30f));
+    for (int r = 0; r < RPT; ++r) {
+      const int i = org + NRG * r;
+      const int pos = q0 + i;
+      if (pos < Sq)
+        store(&ob[(size_t)pos * q_stride + od],
+              acc[r] / fmaxf(row_l[i], 1e-30f));
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < WR; ++r) {
+      const int i = warp * WR + r;
+      const int pos = q0 + i;
+      if (pos >= Sq) continue;
+      const float l = fmaxf(row_l[i], 1e-30f);
+#pragma unroll
+      for (int c = 0; c < NCOL; ++c)
+        store(&ob[(size_t)pos * q_stride + lane + 32 * c],
+              acc[r * NCOL + c] / l);
+    }
   }
-  if (lse != nullptr && tid < BQ && q0 + tid < S)
-    lse[((size_t)b * S + q0 + tid) * H + h] =
+  if (lse != nullptr && tid < BQ && q0 + tid < Sq)
+    lse[((size_t)b * Sq + q0 + tid) * H + h] =
         row_m[tid] + logf(fmaxf(row_l[tid], 1e-30f));
 }
 
@@ -277,7 +341,8 @@ template <int HD>
 __global__ void __launch_bounds__(MMA_THREADS, 2) flash_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-    int S, int H, int Kh, int k_len, int causal, int window, float scale) {
+    int Sq, int Sk, int q_start, int H, int Kh, int k_len, int causal,
+    int window, float scale) {
   static_assert(HD % 16 == 0, "head width");
   constexpr int RS = HD + SPAD;
   constexpr int KSTEPS = HD / 16;        // k16 steps of q k^T
@@ -294,30 +359,31 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_mma_kernel(
   // first, so the heaviest blocks (most live k-tiles under a causal mask)
   // start before the light ones across the whole launch.
   const int h = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // the tile's first row
+  const int qa0 = q_start + q0;                      // and its position
   const int b = blockIdx.z;
   const int kh = h / (H / Kh);
   const size_t q_stride = (size_t)H * HD;
   const size_t kv_stride = (size_t)Kh * HD;
-  const bf16* qb = q + (size_t)b * S * q_stride + (size_t)h * HD;
-  const bf16* kb = k + (size_t)b * S * kv_stride + (size_t)kh * HD;
-  const bf16* vb = v + (size_t)b * S * kv_stride + (size_t)kh * HD;
-  bf16* ob = o + (size_t)b * S * q_stride + (size_t)h * HD;
+  const bf16* qb = q + (size_t)b * Sq * q_stride + (size_t)h * HD;
+  const bf16* kb = k + (size_t)b * Sk * kv_stride + (size_t)kh * HD;
+  const bf16* vb = v + (size_t)b * Sk * kv_stride + (size_t)kh * HD;
+  bf16* ob = o + (size_t)b * Sq * q_stride + (size_t)h * HD;
 
   // Each condition of tile_live is monotone in k0, so the live k-tiles
   // are one run kt_lo .. kt_hi.
-  const int n_k = (S + BK - 1) / BK;
+  const int n_k = (Sk + BK - 1) / BK;
   int kt_lo = n_k, kt_hi = -1;
   for (int kt = 0; kt < n_k; ++kt)
-    if (tile_live(kt * BK, q0, k_len, causal, window)) {
+    if (tile_live(kt * BK, qa0, k_len, causal, window)) {
       kt_lo = min(kt_lo, kt);
       kt_hi = kt;
     }
 
-  load_tile<HD, MMA_THREADS>(Qs, qb, q_stride, q0, S);
+  load_tile<HD, MMA_THREADS>(Qs, qb, q_stride, q0, Sq);
   if (kt_lo <= kt_hi) {
-    load_tile<HD, MMA_THREADS>(Ks, kb, kv_stride, kt_lo * BK, S);
-    load_tile<HD, MMA_THREADS>(Vs, vb, kv_stride, kt_lo * BK, S);
+    load_tile<HD, MMA_THREADS>(Ks, kb, kv_stride, kt_lo * BK, Sk);
+    load_tile<HD, MMA_THREADS>(Vs, vb, kv_stride, kt_lo * BK, Sk);
   }
   cp_async_commit();
 
@@ -335,9 +401,9 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_mma_kernel(
     const int st = (kt - kt_lo) & 1;
     if (kt < kt_hi) {                    // the next tile, into the other stage
       load_tile<HD, MMA_THREADS>(Ks + (st ^ 1) * BK * RS, kb, kv_stride,
-                                 (kt + 1) * BK, S);
+                                 (kt + 1) * BK, Sk);
       load_tile<HD, MMA_THREADS>(Vs + (st ^ 1) * BK * RS, vb, kv_stride,
-                                 (kt + 1) * BK, S);
+                                 (kt + 1) * BK, Sk);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -373,8 +439,8 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_mma_kernel(
     // scale, mask (element c of octet n: row g + 8 (c / 2), key
     // 8 n + 2 tig + c % 2), row max
     const int k0 = kt * BK;
-    const bool edge = k0 + BK > k_len || (causal && k0 + BK - 1 > q0) ||
-                      (window > 0 && k0 <= q0 + BQ - 1 - window);
+    const bool edge = k0 + BK > k_len || (causal && k0 + BK - 1 > qa0) ||
+                      (window > 0 && k0 <= qa0 + BQ - 1 - window);
     float mx[2] = {m_r[0], m_r[1]};
 #pragma unroll
     for (int n = 0; n < ST; ++n)
@@ -382,7 +448,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_mma_kernel(
       for (int c = 0; c < 4; ++c) {
         float x = s[n][c] * scale;
         if (edge) {
-          const int qpos = q0 + row_w + g + 8 * (c / 2);
+          const int qpos = qa0 + row_w + g + 8 * (c / 2);
           const int kpos = k0 + 8 * n + 2 * tig + c % 2;
           bool ok = kpos < k_len;
           if (causal) ok = ok && kpos <= qpos;
@@ -448,9 +514,9 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_mma_kernel(
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int pos = q0 + row_w + g + 8 * r;
-    if (pos >= S) continue;
+    if (pos >= Sq) continue;
     if (lse != nullptr && tig == 0)
-      lse[((size_t)b * S + pos) * H + h] = m_r[r] + logf(l_r[r]);
+      lse[((size_t)b * Sq + pos) * H + h] = m_r[r] + logf(l_r[r]);
     bf16* orow = ob + (size_t)pos * q_stride + 2 * tig;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
@@ -460,48 +526,48 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_mma_kernel(
 }
 
 // ---------------------------------------------------------------------------
+struct Args {                // the launch's shapes and masks
+  int B, Sq, Sk, q_start, H, Kh, k_len, causal, window;
+  float scale;
+};
+
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
-               float* lse, int B, int S, int H, int Kh, int k_len,
-               int causal, int window, float scale, cudaStream_t stream) {
+               float* lse, const Args& a, cudaStream_t stream) {
   const size_t smem = smem_floats<HD>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<float, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + BQ - 1) / BQ, H, B);
+  const dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
   flash_kernel<float, HD><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, S, H, Kh,
-      k_len, causal, window, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, a.Sq, a.Sk,
+      a.q_start, a.H, a.Kh, a.k_len, a.causal, a.window, a.scale);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                float* lse, int B, int S, int H, int Kh, int k_len,
-                int causal, int window, float scale, cudaStream_t stream) {
+                float* lse, const Args& a, cudaStream_t stream) {
   const size_t smem = mma_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(H, (S + BQ - 1) / BQ, B);
+  const dim3 grid(a.H, (a.Sq + BQ - 1) / BQ, a.B);
   flash_mma_kernel<HD><<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, S, H, Kh,
-      k_len, causal, window, scale);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, a.Sq, a.Sk,
+      a.q_start, a.H, a.Kh, a.k_len, a.causal, a.window, a.scale);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
-           float* lse, int B, int S, int H, int Kh, int k_len, int causal,
-           int window, float scale, cudaStream_t s) {
-  if (dtype == 0)
-    return launch_f32<HD>(q, k, v, o, lse, B, S, H, Kh, k_len, causal, window, scale, s);
-  if (dtype == 1)
-    return launch_bf16<HD>(q, k, v, o, lse, B, S, H, Kh, k_len, causal, window, scale, s);
+           float* lse, const Args& a, cudaStream_t s) {
+  if (dtype == 0) return launch_f32<HD>(q, k, v, o, lse, a, s);
+  if (dtype == 1) return launch_bf16<HD>(q, k, v, o, lse, a, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -510,26 +576,29 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // dtype: 0 float32 (CUDA-core kernel, p in f32), 1 bfloat16 (tensor-core
-// kernel, p rounded to bf16 for p v); q, k, v and o alike.  hd: 16, 32, 64
-// or 128; q/o (B, S, H, hd) and k/v (B, S, Kh, hd), contiguous, 16-byte
-// aligned; k_len <= S keys are live; window <= 0: no window.  lse, if not
-// null, (B, S, H) float32, gets each row's log-sum-exp m + log(max(l,
-// 1e-30)) of its f32 scores, as JAX's _flash_fwd returns it for the
-// backward.  One CUDA launch.  Returns the CUDA error code of the launch
-// (0 on success).
+// kernel, p rounded to bf16 for p v); q, k, v and o alike.  hd: 16, 32, 64,
+// 128 or 160; q/o (B, Sq, H, hd) and k/v (B, Sk, Kh, hd), contiguous,
+// 16-byte aligned; query row i sits at position q_start + i for the causal
+// and window masks; k_len <= Sk keys are live; window <= 0: no window.
+// lse, if not null, (B, Sq, H) float32, gets each row's log-sum-exp m +
+// log(max(l, 1e-30)) of its f32 scores, as JAX's _flash_fwd returns it for
+// the backward.  One CUDA launch.  Returns the CUDA error code of the
+// launch (0 on success).
 int flash_fill_launch(int dtype, int hd, const void* q, const void* k,
-                      const void* v, void* o, void* lse, int B, int S, int H,
-                      int Kh, int k_len, int causal, int window, float scale,
-                      void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0) return 0;
-  if (Kh <= 0 || H % Kh) return (int)cudaErrorInvalidValue;
+                      const void* v, void* o, void* lse, int B, int Sq,
+                      int Sk, int q_start, int H, int Kh, int k_len,
+                      int causal, int window, float scale, void* stream) {
+  if (B <= 0 || Sq <= 0 || H <= 0) return 0;
+  if (Sk < 0 || Kh <= 0 || H % Kh) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  const Args a{B, Sq, Sk, q_start, H, Kh, k_len, causal, window, scale};
   switch (hd) {
-    case 16: return launch<16>(dtype, q, k, v, o, l, B, S, H, Kh, k_len, causal, window, scale, s);
-    case 32: return launch<32>(dtype, q, k, v, o, l, B, S, H, Kh, k_len, causal, window, scale, s);
-    case 64: return launch<64>(dtype, q, k, v, o, l, B, S, H, Kh, k_len, causal, window, scale, s);
-    case 128: return launch<128>(dtype, q, k, v, o, l, B, S, H, Kh, k_len, causal, window, scale, s);
+    case 16: return launch<16>(dtype, q, k, v, o, l, a, s);
+    case 32: return launch<32>(dtype, q, k, v, o, l, a, s);
+    case 64: return launch<64>(dtype, q, k, v, o, l, a, s);
+    case 128: return launch<128>(dtype, q, k, v, o, l, a, s);
+    case 160: return launch<160>(dtype, q, k, v, o, l, a, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -17,7 +17,12 @@
 // stored in the inputs' type.  Grouped-query attention sums dk and dv over
 // the G query heads of a key/value head.
 //
-// Three launches on one stream:
+// Queries and keys have lengths of their own, Sq and Sk, and query row i
+// sits at position q_start + i for the masks, as in the forward
+// (flash_attn.cu); head widths 16, 32, 64, 128 and 160, v as wide as q and
+// k.
+//
+// Three launches on one stream (four for bf16 at hd 160):
 //   1. delta, one warp per (position, head) row;
 //   2. dk and dv, one block per (key/value head, 64-row k-tile, batch row):
 //      the k- and v-tiles stay in shared memory while the block walks the
@@ -30,8 +35,8 @@
 // resumed training run can be held bit-equal to an unbroken one.  A
 // (q-tile, k-tile) pair is visited when the forward's tile test
 // (kernel.py::live_block) passes, in both launches; the live tiles of a
-// row or column are one run, since each condition is monotone.  Rows and
-// keys past S load as zeros and are not stored.
+// row or column are one run, since each condition is monotone.  Rows past
+// Sq and keys past Sk load as zeros and are not stored.
 //
 // Two kernel pairs, one per input type, as in the forward:
 //
@@ -64,11 +69,20 @@
 //   with expf; the scale, the masks and the -1e30 sentinel act on the f32
 //   fragments, an element's row and key following the fragment layout.
 //   Shared memory at hd 128: 104 KB (dq), 105 KB (dk/dv), two blocks an SM.
+//   At hd 160 dk and dv alone would take 160 accumulator registers a
+//   thread, beside s^T and dp^T, so they take launches of their own from
+//   one kernel template: the dv launch computes s^T and dv += p^T dO (it
+//   needs no v-tile and no dp^T), the dk launch s^T, dp^T and
+//   dk += ds^T q, each with 80 accumulator registers and queries in passes
+//   of 32; the dq launch takes its 64 keys in two passes of 32, so s and
+//   dp hold 16 registers each beside dq's 80.  Each output element is
+//   still written by one block.  Shared memory at hd 160: 129 KB (dq),
+//   130 KB (dk, dv), one block an SM.
 // * f32 (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel) is the correctness
 //   path: the CUDA-core kernels of the first version.  Tiles widened to f32
 //   in shared memory (rows padded by one float), each of 256 threads owning
 //   a 4 x 4 patch of the 64 x 64 score tile and a 4 x hd/16 patch of its
-//   output tile.
+//   output tile.  Shared memory is 194 KB at hd 160, one block an SM.
 //
 // What bounds it.  Per live (query, key) pair the function needs 10 hd
 // FLOP (s, dp, dv, dk, dq: 2 hd each) against reading q, k, v, O, dO once
@@ -170,30 +184,31 @@ __device__ __forceinline__ void tile_dots(float (&out)[4][4], const float* A,
 // p and ds of the thread's patch of one (q-tile, k-tile) pair, from the
 // q/dO tiles (Qs, Ds), the k/v tiles (Ks, Vs) and the rows' lse and delta:
 // exactly _flash_core_bwd's arithmetic, s = (q . k) * scale, masked to
-// -1e30, p = exp(s - lse), ds = p (dp - delta) * scale.  Rows at or past
-// S get p = ds = 0.
+// -1e30, p = exp(s - lse), ds = p (dp - delta) * scale.  Row i of the
+// q-tile at row q0 sits at position q_start + q0 + i; rows at or past Sq
+// get p = ds = 0.
 template <int HD>
 __device__ __forceinline__ void p_and_ds(float (&p)[4][4], float (&ds)[4][4],
                                          const float* Qs, const float* Ds,
                                          const float* Ks, const float* Vs,
                                          const float* lse_s,
-                                         const float* del_s, int q0, int k0,
-                                         int S, int k_len, int causal,
-                                         int window, float scale, int ty,
-                                         int tx) {
+                                         const float* del_s, int q0,
+                                         int q_start, int k0, int Sq,
+                                         int k_len, int causal, int window,
+                                         float scale, int ty, int tx) {
   float dp[4][4];
   tile_dots<HD>(p, Qs, Ks, ty, tx);
   tile_dots<HD>(dp, Ds, Vs, ty, tx);
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int i = 4 * ty + a;
-    const int qpos = q0 + i;
+    const int qpos = q_start + q0 + i;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int kpos = k0 + tx + 16 * c;
       const float s = key_live(qpos, kpos, k_len, causal, window)
                           ? p[a][c] * scale : NEG_INF;
-      const float pr = qpos < S ? expf(s - lse_s[i]) : 0.f;
+      const float pr = q0 + i < Sq ? expf(s - lse_s[i]) : 0.f;
       p[a][c] = pr;
       ds[a][c] = pr * (dp[a][c] - del_s[i]) * scale;
     }
@@ -234,7 +249,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-    int S, int H, int Kh, int k_len, int causal, int window, float scale) {
+    int Sq, int Sk, int q_start, int H, int Kh, int k_len, int causal,
+    int window, float scale) {
   constexpr int RS = HD + 1;
   constexpr int NC = HD / 16;          // output columns per thread
   extern __shared__ float smem[];
@@ -253,9 +269,9 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(
   const int G = H / Kh;
   const size_t q_stride = (size_t)H * HD;
   const size_t kv_stride = (size_t)Kh * HD;
-  const size_t kv_base = (size_t)b * S * kv_stride + (size_t)kh * HD;
-  load_rows<T, HD>(Ks, k + kv_base, kv_stride, k0, S);
-  load_rows<T, HD>(Vs, v + kv_base, kv_stride, k0, S);
+  const size_t kv_base = (size_t)b * Sk * kv_stride + (size_t)kh * HD;
+  load_rows<T, HD>(Ks, k + kv_base, kv_stride, k0, Sk);
+  load_rows<T, HD>(Vs, v + kv_base, kv_stride, k0, Sk);
 
   float dka[4][NC], dva[4][NC];
 #pragma unroll
@@ -263,26 +279,27 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(
 #pragma unroll
     for (int c = 0; c < NC; ++c) dka[a][c] = dva[a][c] = 0.f;
 
-  const int n_q = (S + BQ - 1) / BQ;
+  const int n_q = (Sq + BQ - 1) / BQ;
   for (int g = 0; g < G; ++g) {
     const int h = kh * G + g;
-    const size_t q_base = (size_t)b * S * q_stride + (size_t)h * HD;
+    const size_t q_base = (size_t)b * Sq * q_stride + (size_t)h * HD;
     for (int qt = 0; qt < n_q; ++qt) {
       const int q0 = qt * BQ;
-      if (!tile_live(k0, q0, k_len, causal, window)) continue;  // uniform
+      if (!tile_live(k0, q_start + q0, k_len, causal, window))
+        continue;                      // block-uniform
       __syncthreads();                 // the last pair's readers are done
-      load_rows<T, HD>(Qs, q + q_base, q_stride, q0, S);
-      load_rows<T, HD>(Ds, dout + q_base, q_stride, q0, S);
+      load_rows<T, HD>(Qs, q + q_base, q_stride, q0, Sq);
+      load_rows<T, HD>(Ds, dout + q_base, q_stride, q0, Sq);
       if (tid < BQ) {
         const int pos = q0 + tid;
-        const size_t row = ((size_t)b * S + pos) * H + h;
-        lse_s[tid] = pos < S ? lse[row] : 0.f;
-        del_s[tid] = pos < S ? delta[row] : 0.f;
+        const size_t row = ((size_t)b * Sq + pos) * H + h;
+        lse_s[tid] = pos < Sq ? lse[row] : 0.f;
+        del_s[tid] = pos < Sq ? delta[row] : 0.f;
       }
       __syncthreads();
       float p[4][4], ds[4][4];
-      p_and_ds<HD>(p, ds, Qs, Ds, Ks, Vs, lse_s, del_s, q0, k0, S, k_len,
-                   causal, window, scale, ty, tx);
+      p_and_ds<HD>(p, ds, Qs, Ds, Ks, Vs, lse_s, del_s, q0, q_start, k0, Sq,
+                   k_len, causal, window, scale, ty, tx);
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -317,7 +334,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int pos = k0 + 4 * ty + a;
-    if (pos >= S) continue;
+    if (pos >= Sk) continue;
     T* dkr = dk + kv_base + (size_t)pos * kv_stride;
     T* dvr = dv + kv_base + (size_t)pos * kv_stride;
 #pragma unroll
@@ -335,8 +352,9 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dq, int S, int H,
-    int Kh, int k_len, int causal, int window, float scale) {
+    const float* __restrict__ delta, T* __restrict__ dq, int Sq, int Sk,
+    int q_start, int H, int Kh, int k_len, int causal, int window,
+    float scale) {
   constexpr int RS = HD + 1;
   constexpr int NC = HD / 16;
   extern __shared__ float smem[];
@@ -356,15 +374,15 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
   const int kh = h / (H / Kh);
   const size_t q_stride = (size_t)H * HD;
   const size_t kv_stride = (size_t)Kh * HD;
-  const size_t q_base = (size_t)b * S * q_stride + (size_t)h * HD;
-  const size_t kv_base = (size_t)b * S * kv_stride + (size_t)kh * HD;
-  load_rows<T, HD>(Qs, q + q_base, q_stride, q0, S);
-  load_rows<T, HD>(Ds, dout + q_base, q_stride, q0, S);
+  const size_t q_base = (size_t)b * Sq * q_stride + (size_t)h * HD;
+  const size_t kv_base = (size_t)b * Sk * kv_stride + (size_t)kh * HD;
+  load_rows<T, HD>(Qs, q + q_base, q_stride, q0, Sq);
+  load_rows<T, HD>(Ds, dout + q_base, q_stride, q0, Sq);
   if (tid < BQ) {
     const int pos = q0 + tid;
-    const size_t row = ((size_t)b * S + pos) * H + h;
-    lse_s[tid] = pos < S ? lse[row] : 0.f;
-    del_s[tid] = pos < S ? delta[row] : 0.f;
+    const size_t row = ((size_t)b * Sq + pos) * H + h;
+    lse_s[tid] = pos < Sq ? lse[row] : 0.f;
+    del_s[tid] = pos < Sq ? delta[row] : 0.f;
   }
 
   float dqa[4][NC];
@@ -373,17 +391,18 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
 #pragma unroll
     for (int c = 0; c < NC; ++c) dqa[a][c] = 0.f;
 
-  const int n_k = (S + BK - 1) / BK;
+  const int n_k = (Sk + BK - 1) / BK;
   for (int kt = 0; kt < n_k; ++kt) {
     const int k0 = kt * BK;
-    if (!tile_live(k0, q0, k_len, causal, window)) continue;  // uniform
+    if (!tile_live(k0, q_start + q0, k_len, causal, window))
+      continue;                        // block-uniform
     __syncthreads();                   // the last tile's readers are done
-    load_rows<T, HD>(Ks, k + kv_base, kv_stride, k0, S);
-    load_rows<T, HD>(Vs, v + kv_base, kv_stride, k0, S);
+    load_rows<T, HD>(Ks, k + kv_base, kv_stride, k0, Sk);
+    load_rows<T, HD>(Vs, v + kv_base, kv_stride, k0, Sk);
     __syncthreads();
     float p[4][4], ds[4][4];
-    p_and_ds<HD>(p, ds, Qs, Ds, Ks, Vs, lse_s, del_s, q0, k0, S, k_len,
-                 causal, window, scale, ty, tx);
+    p_and_ds<HD>(p, ds, Qs, Ds, Ks, Vs, lse_s, del_s, q0, q_start, k0, Sq,
+                 k_len, causal, window, scale, ty, tx);
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -406,7 +425,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int pos = q0 + 4 * ty + a;
-    if (pos >= S) continue;
+    if (pos >= Sq) continue;
     T* dqr = dq + q_base + (size_t)pos * q_stride;
 #pragma unroll
     for (int c = 0; c < NC; ++c) dqr[tx + 16 * c] = from_f32<T>(dqa[a][c]);
@@ -418,10 +437,22 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
 // ---------------------------------------------------------------------------
 constexpr int MMA_WARPS = 4;           // 16 key (dk/dv) or query (dq) rows each
 constexpr int MMA_THREADS = 32 * MMA_WARPS;
-// Queries per pass of the dk/dv kernel: at hd 128, passes of 32 spill
-// (255 registers and 72 bytes); passes of 16 fit in 248.
+// What a launch of the dk/dv kernel computes: both (hd <= 128), or at
+// hd 160 dv alone and dk alone, in launches of their own.
+enum Part { DKDV = 0, DV = 1, DK = 2 };
 template <int HD>
-struct Qsub { static constexpr int value = HD >= 128 ? 16 : 32; };
+struct SplitDkDv { static constexpr bool value = HD > 128; };
+// Queries per pass of the dk/dv kernel: at hd 128, passes of 32 spill
+// (255 registers and 72 bytes); passes of 16 fit in 248.  A launch of dk
+// or dv alone holds one set of accumulators and takes passes of 32.
+template <int HD, int PART>
+struct Qsub {
+  static constexpr int value = PART == DKDV && HD >= 128 ? 16 : 32;
+};
+// Keys per pass of the dq kernel: at hd 160, dq's accumulators take 80
+// registers a thread, so s and dp cover 32 keys at a time.
+template <int HD>
+struct Ksub { static constexpr int value = HD > 128 ? 32 : 64; };
 static_assert(BQ == 16 * MMA_WARPS && BQ == BK && BK == TILE_ROWS,
               "mma tiling");
 static_assert(MMA_THREADS == 2 * BQ, "one lse or delta load a thread");
@@ -438,17 +469,19 @@ constexpr size_t dq_mma_smem_bytes() {    // q, dO; 2 stages of k, v
 }
 
 // The live tiles of a run: tile_live(k0, q0) over t = 0 .. n - 1 as the
-// q-tile (over_q) or the k-tile, with the other fixed at `at`; each
-// condition is monotone in either, so they are one run lo .. hi (empty
-// when lo > hi).
+// q-tile (over_q: the tile's first query at position q_start + t BQ) or
+// the k-tile, with the other fixed at `at` (k0, or the q-tile's first
+// position); each condition is monotone in either, so they are one run
+// lo .. hi (empty when lo > hi).
 __device__ __forceinline__ void live_run(int n, int at, bool over_q,
-                                         int k_len, int causal, int window,
-                                         int& lo, int& hi) {
+                                         int q_start, int k_len, int causal,
+                                         int window, int& lo, int& hi) {
   lo = n;
   hi = -1;
   for (int t = 0; t < n; ++t) {
-    const bool live = over_q ? tile_live(at, t * BQ, k_len, causal, window)
-                             : tile_live(t * BK, at, k_len, causal, window);
+    const bool live =
+        over_q ? tile_live(at, q_start + t * BQ, k_len, causal, window)
+               : tile_live(t * BK, at, k_len, causal, window);
     if (live) {
       lo = min(lo, t);
       hi = t;
@@ -457,20 +490,24 @@ __device__ __forceinline__ void live_run(int n, int at, bool over_q,
 }
 
 // ---------------------------------------------------------------------------
-// 2. dk, dv of one k-tile of one key/value head, on the tensor cores
+// 2. dk, dv of one k-tile of one key/value head, on the tensor cores (PART:
+//    both, or dv or dk alone)
 // ---------------------------------------------------------------------------
-template <int HD>
+template <int HD, int PART>
 __global__ void __launch_bounds__(MMA_THREADS, 2) flash_bwd_dkdv_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H, int Kh,
-    int k_len, int causal, int window, float scale) {
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk,
+    int q_start, int H, int Kh, int k_len, int causal, int window,
+    float scale) {
   static_assert(HD % 16 == 0, "head width");
+  constexpr bool DO_DV = PART != DK;     // dv += p^T dO
+  constexpr bool DO_DK = PART != DV;     // dp^T, ds^T and dk += ds^T q
   constexpr int RS = HD + SPAD;
   constexpr int KSTEPS = HD / 16;        // k16 steps of k q^T and v dO^T
   constexpr int NT = HD / 8;             // n8 tiles of dk and dv
-  constexpr int QSUB = Qsub<HD>::value;
+  constexpr int QSUB = Qsub<HD, PART>::value;
   static_assert(BQ % QSUB == 0 && QSUB % 16 == 0, "query passes");
   constexpr int ST = QSUB / 8;           // n8 tiles (query octets) of a pass
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -489,11 +526,12 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_bwd_dkdv_mma_kernel(
   const int G = H / Kh;
   const size_t q_stride = (size_t)H * HD;
   const size_t kv_stride = (size_t)Kh * HD;
-  const size_t kv_base = (size_t)b * S * kv_stride + (size_t)kh * HD;
-  const size_t q_batch = (size_t)b * S * q_stride;
+  const size_t kv_base = (size_t)b * Sk * kv_stride + (size_t)kh * HD;
+  const size_t q_batch = (size_t)b * Sq * q_stride;
 
   int qt_lo, qt_hi;
-  live_run((S + BQ - 1) / BQ, k0, true, k_len, causal, window, qt_lo, qt_hi);
+  live_run((Sq + BQ - 1) / BQ, k0, true, q_start, k_len, causal, window,
+           qt_lo, qt_hi);
   const int n_run = qt_hi - qt_lo + 1;
   const int total = n_run > 0 ? G * n_run : 0;  // (head, q-tile) steps
 
@@ -503,16 +541,18 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_bwd_dkdv_mma_kernel(
     const int h = kh * G + it / n_run;
     const int q0 = (qt_lo + it % n_run) * BQ;
     const size_t q_base = q_batch + (size_t)h * HD;
-    load_tile<HD, MMA_THREADS>(Qs + st * BQ * RS, q + q_base, q_stride, q0, S);
+    load_tile<HD, MMA_THREADS>(Qs + st * BQ * RS, q + q_base, q_stride, q0,
+                               Sq);
     load_tile<HD, MMA_THREADS>(Ds + st * BQ * RS, dout + q_base, q_stride, q0,
-                               S);
+                               Sq);
     const int pos = q0 + tid % BQ;
-    const size_t row = ((size_t)b * S + pos) * H + h;
-    return pos < S ? (tid < BQ ? lse[row] : delta[row]) : 0.f;
+    const size_t row = ((size_t)b * Sq + pos) * H + h;
+    return pos < Sq ? (tid < BQ ? lse[row] : delta[row]) : 0.f;
   };
 
-  load_tile<HD, MMA_THREADS>(Ks, k + kv_base, kv_stride, k0, S);
-  load_tile<HD, MMA_THREADS>(Vs, v + kv_base, kv_stride, k0, S);
+  load_tile<HD, MMA_THREADS>(Ks, k + kv_base, kv_stride, k0, Sk);
+  if constexpr (DO_DK)
+    load_tile<HD, MMA_THREADS>(Vs, v + kv_base, kv_stride, k0, Sk);
   if (total > 0) {
     const float x = issue(0, 0);
     (tid < BQ ? lse_s : del_s)[tid % BQ] = x;
@@ -520,11 +560,15 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_bwd_dkdv_mma_kernel(
   cp_async_commit();
 
   const int row_w = 16 * warp;           // the warp's first key in the tile
-  float dka[NT][4], dva[NT][4];
+  float dka[DO_DK ? NT : 1][4], dva[DO_DV ? NT : 1][4];
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
+  for (int n = 0; n < (DO_DK ? NT : 1); ++n)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) dka[n][c] = dva[n][c] = 0.f;
+    for (int c = 0; c < 4; ++c) dka[n][c] = 0.f;
+#pragma unroll
+  for (int n = 0; n < (DO_DV ? NT : 1); ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dva[n][c] = 0.f;
 
   for (int it = 0; it < total; ++it) {
     const int st = it & 1;
@@ -537,14 +581,15 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_bwd_dkdv_mma_kernel(
       cp_async_wait<0>();
     }
     __syncthreads();
-    const int q0 = (qt_lo + it % n_run) * BQ;
+    const int q0 = (qt_lo + it % n_run) * BQ;  // the tile's first row
+    const int qa0 = q_start + q0;              // and its position
     const bf16* Qt = Qs + st * BQ * RS;
     const bf16* Dt = Ds + st * BQ * RS;
     const float* lse_t = lse_s + st * BQ;
     const float* del_t = del_s + st * BQ;
-    const bool edge = k0 + BK > k_len || (causal && k0 + BK - 1 > q0) ||
-                      (window > 0 && k0 <= q0 + BQ - 1 - window) ||
-                      q0 + BQ > S;
+    const bool edge = k0 + BK > k_len || (causal && k0 + BK - 1 > qa0) ||
+                      (window > 0 && k0 <= qa0 + BQ - 1 - window) ||
+                      q0 + BQ > Sq;
 
 #pragma unroll
     for (int qs = 0; qs < BQ; qs += QSUB) {
@@ -559,7 +604,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_bwd_dkdv_mma_kernel(
         uint32_t ka[4], va[4];
         const int a_off = (row_w + lane % 16) * RS + ks * 16 + (lane / 16) * 8;
         ldmatrix_x4(ka, smem_addr(Ks + a_off));
-        ldmatrix_x4(va, smem_addr(Vs + a_off));
+        if constexpr (DO_DK) ldmatrix_x4(va, smem_addr(Vs + a_off));
 #pragma unroll
         for (int n = 0; n < ST; n += 2) {
           const int b_off = (qs + n * 8 + lane % 8 + (lane / 16) * 8) * RS +
@@ -568,9 +613,11 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_bwd_dkdv_mma_kernel(
           ldmatrix_x4(qf, smem_addr(Qt + b_off));
           mma_bf16(sT[n], ka, qf[0], qf[1]);
           mma_bf16(sT[n + 1], ka, qf[2], qf[3]);
-          ldmatrix_x4(df, smem_addr(Dt + b_off));
-          mma_bf16(dpT[n], va, df[0], df[1]);
-          mma_bf16(dpT[n + 1], va, df[2], df[3]);
+          if constexpr (DO_DK) {
+            ldmatrix_x4(df, smem_addr(Dt + b_off));
+            mma_bf16(dpT[n], va, df[0], df[1]);
+            mma_bf16(dpT[n + 1], va, df[2], df[3]);
+          }
         }
       }
       // p^T and ds^T (element c of octet n: key row_w + g + 8 (c / 2),
@@ -580,18 +627,17 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_bwd_dkdv_mma_kernel(
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int i = qs + 8 * n + 2 * tig + c % 2;
-          const int qpos = q0 + i;
           float x = sT[n][c] * scale;
           float p;
           if (edge) {
             const int kpos = k0 + row_w + g + 8 * (c / 2);
-            x = key_live(qpos, kpos, k_len, causal, window) ? x : NEG_INF;
-            p = qpos < S ? expf(x - lse_t[i]) : 0.f;
+            x = key_live(qa0 + i, kpos, k_len, causal, window) ? x : NEG_INF;
+            p = q0 + i < Sq ? expf(x - lse_t[i]) : 0.f;
           } else {
             p = expf(x - lse_t[i]);
           }
           sT[n][c] = p;
-          dpT[n][c] = p * (dpT[n][c] - del_t[i]) * scale;
+          if constexpr (DO_DK) dpT[n][c] = p * (dpT[n][c] - del_t[i]) * scale;
         }
       // dv += p^T dO, dk += ds^T q, p and ds split in two bf16 halves:
       // queries qs + 16 j .. + 15 are octets 2 j and 2 j + 1
@@ -599,33 +645,37 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_bwd_dkdv_mma_kernel(
       for (int j = 0; j < QSUB / 16; ++j) {
         const int row = qs + 16 * j + lane % 8 + ((lane / 8) % 2) * 8;
         uint32_t hi[4], lo[4];
+        if constexpr (DO_DV) {
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
-          split_bf16(sT[2 * j + r / 2][2 * (r % 2)],
-                     sT[2 * j + r / 2][2 * (r % 2) + 1], hi[r], lo[r]);
+          for (int r = 0; r < 4; ++r)
+            split_bf16(sT[2 * j + r / 2][2 * (r % 2)],
+                       sT[2 * j + r / 2][2 * (r % 2) + 1], hi[r], lo[r]);
 #pragma unroll
-        for (int n = 0; n < NT; n += 2) {
-          uint32_t df[4];
-          ldmatrix_x4_trans(df, smem_addr(Dt + row * RS + n * 8 +
-                                          (lane / 16) * 8));
-          mma_bf16(dva[n], hi, df[0], df[1]);
-          mma_bf16(dva[n], lo, df[0], df[1]);
-          mma_bf16(dva[n + 1], hi, df[2], df[3]);
-          mma_bf16(dva[n + 1], lo, df[2], df[3]);
+          for (int n = 0; n < NT; n += 2) {
+            uint32_t df[4];
+            ldmatrix_x4_trans(df, smem_addr(Dt + row * RS + n * 8 +
+                                            (lane / 16) * 8));
+            mma_bf16(dva[n], hi, df[0], df[1]);
+            mma_bf16(dva[n], lo, df[0], df[1]);
+            mma_bf16(dva[n + 1], hi, df[2], df[3]);
+            mma_bf16(dva[n + 1], lo, df[2], df[3]);
+          }
         }
+        if constexpr (DO_DK) {
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
-          split_bf16(dpT[2 * j + r / 2][2 * (r % 2)],
-                     dpT[2 * j + r / 2][2 * (r % 2) + 1], hi[r], lo[r]);
+          for (int r = 0; r < 4; ++r)
+            split_bf16(dpT[2 * j + r / 2][2 * (r % 2)],
+                       dpT[2 * j + r / 2][2 * (r % 2) + 1], hi[r], lo[r]);
 #pragma unroll
-        for (int n = 0; n < NT; n += 2) {
-          uint32_t qf[4];
-          ldmatrix_x4_trans(qf, smem_addr(Qt + row * RS + n * 8 +
-                                          (lane / 16) * 8));
-          mma_bf16(dka[n], hi, qf[0], qf[1]);
-          mma_bf16(dka[n], lo, qf[0], qf[1]);
-          mma_bf16(dka[n + 1], hi, qf[2], qf[3]);
-          mma_bf16(dka[n + 1], lo, qf[2], qf[3]);
+          for (int n = 0; n < NT; n += 2) {
+            uint32_t qf[4];
+            ldmatrix_x4_trans(qf, smem_addr(Qt + row * RS + n * 8 +
+                                            (lane / 16) * 8));
+            mma_bf16(dka[n], hi, qf[0], qf[1]);
+            mma_bf16(dka[n], lo, qf[0], qf[1]);
+            mma_bf16(dka[n + 1], hi, qf[2], qf[3]);
+            mma_bf16(dka[n + 1], lo, qf[2], qf[3]);
+          }
         }
       }
     }
@@ -642,15 +692,17 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_bwd_dkdv_mma_kernel(
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int pos = k0 + row_w + g + 8 * r;
-    if (pos >= S) continue;
+    if (pos >= Sk) continue;
     bf16* dkr = dk + kv_base + (size_t)pos * kv_stride + 2 * tig;
     bf16* dvr = dv + kv_base + (size_t)pos * kv_stride + 2 * tig;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dkr + 8 * n) =
-          __floats2bfloat162_rn(dka[n][2 * r], dka[n][2 * r + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dvr + 8 * n) =
-          __floats2bfloat162_rn(dva[n][2 * r], dva[n][2 * r + 1]);
+      if constexpr (DO_DK)
+        *reinterpret_cast<__nv_bfloat162*>(dkr + 8 * n) =
+            __floats2bfloat162_rn(dka[n][2 * r], dka[n][2 * r + 1]);
+      if constexpr (DO_DV)
+        *reinterpret_cast<__nv_bfloat162*>(dvr + 8 * n) =
+            __floats2bfloat162_rn(dva[n][2 * r], dva[n][2 * r + 1]);
     }
   }
 }
@@ -663,13 +715,15 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_bwd_dq_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dq, int S, int H, int Kh, int k_len, int causal,
-    int window, float scale) {
+    bf16* __restrict__ dq, int Sq, int Sk, int q_start, int H, int Kh,
+    int k_len, int causal, int window, float scale) {
   static_assert(HD % 16 == 0, "head width");
   constexpr int RS = HD + SPAD;
   constexpr int KSTEPS = HD / 16;        // k16 steps of q k^T and dO v^T
   constexpr int NT = HD / 8;             // n8 tiles of dq
-  constexpr int ST = BK / 8;             // n8 tiles (key octets) of a k-tile
+  constexpr int KSUB = Ksub<HD>::value;  // keys per pass of a k-tile
+  static_assert(BK % KSUB == 0 && KSUB % 16 == 0, "key passes");
+  constexpr int ST = KSUB / 8;           // n8 tiles (key octets) of a pass
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][RS]
   bf16* Ds = Qs + BQ * RS;                         // [BQ][RS] dO
@@ -680,34 +734,36 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_bwd_dq_mma_kernel(
   const int g = lane / 4, tig = lane % 4;
   // the last q-tile first: under a causal mask it has the most live k-tiles
   const int h = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // the tile's first row
+  const int qa0 = q_start + q0;                      // and its position
   const int b = blockIdx.z;
   const int kh = h / (H / Kh);
   const size_t q_stride = (size_t)H * HD;
   const size_t kv_stride = (size_t)Kh * HD;
-  const size_t q_base = (size_t)b * S * q_stride + (size_t)h * HD;
-  const size_t kv_base = (size_t)b * S * kv_stride + (size_t)kh * HD;
+  const size_t q_base = (size_t)b * Sq * q_stride + (size_t)h * HD;
+  const size_t kv_base = (size_t)b * Sk * kv_stride + (size_t)kh * HD;
 
   int kt_lo, kt_hi;
-  live_run((S + BK - 1) / BK, q0, false, k_len, causal, window, kt_lo, kt_hi);
+  live_run((Sk + BK - 1) / BK, qa0, false, q_start, k_len, causal, window,
+           kt_lo, kt_hi);
 
-  load_tile<HD, MMA_THREADS>(Qs, q + q_base, q_stride, q0, S);
-  load_tile<HD, MMA_THREADS>(Ds, dout + q_base, q_stride, q0, S);
+  load_tile<HD, MMA_THREADS>(Qs, q + q_base, q_stride, q0, Sq);
+  load_tile<HD, MMA_THREADS>(Ds, dout + q_base, q_stride, q0, Sq);
   if (kt_lo <= kt_hi) {
-    load_tile<HD, MMA_THREADS>(Ks, k + kv_base, kv_stride, kt_lo * BK, S);
-    load_tile<HD, MMA_THREADS>(Vs, v + kv_base, kv_stride, kt_lo * BK, S);
+    load_tile<HD, MMA_THREADS>(Ks, k + kv_base, kv_stride, kt_lo * BK, Sk);
+    load_tile<HD, MMA_THREADS>(Vs, v + kv_base, kv_stride, kt_lo * BK, Sk);
   }
   cp_async_commit();
 
   const int row_w = 16 * warp;           // the warp's first row in the tile
-  // rows g and g + 8 of the warp: lse and delta; p is 0 on rows past S
+  // rows g and g + 8 of the warp: lse and delta; p is 0 on rows past Sq
   float lse_r[2], del_r[2];
   bool in_r[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int pos = q0 + row_w + g + 8 * r;
-    const size_t row = ((size_t)b * S + pos) * H + h;
-    in_r[r] = pos < S;
+    const size_t row = ((size_t)b * Sq + pos) * H + h;
+    in_r[r] = pos < Sq;
     lse_r[r] = in_r[r] ? lse[row] : 0.f;
     del_r[r] = in_r[r] ? delta[row] : 0.f;
   }
@@ -721,9 +777,9 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_bwd_dq_mma_kernel(
     const int st = (kt - kt_lo) & 1;
     if (kt < kt_hi) {                    // the next tile, into the other stage
       load_tile<HD, MMA_THREADS>(Ks + (st ^ 1) * BK * RS, k + kv_base,
-                                 kv_stride, (kt + 1) * BK, S);
+                                 kv_stride, (kt + 1) * BK, Sk);
       load_tile<HD, MMA_THREADS>(Vs + (st ^ 1) * BK * RS, v + kv_base,
-                                 kv_stride, (kt + 1) * BK, S);
+                                 kv_stride, (kt + 1) * BK, Sk);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -732,70 +788,74 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_bwd_dq_mma_kernel(
     __syncthreads();
     const bf16* Kt = Ks + st * BK * RS;
     const bf16* Vt = Vs + st * BK * RS;
-
-    // s = q k^T and dp = dO v^T: key octet n in [n]
-    float s[ST][4], dp[ST][4];
-#pragma unroll
-    for (int n = 0; n < ST; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[n][c] = dp[n][c] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KSTEPS; ++ks) {
-      uint32_t qa[4], da[4];
-      const int a_off = (row_w + lane % 16) * RS + ks * 16 + (lane / 16) * 8;
-      ldmatrix_x4(qa, smem_addr(Qs + a_off));
-      ldmatrix_x4(da, smem_addr(Ds + a_off));
-#pragma unroll
-      for (int n = 0; n < ST; n += 2) {
-        const int b_off = (n * 8 + lane % 8 + (lane / 16) * 8) * RS +
-                          ks * 16 + ((lane / 8) % 2) * 8;
-        uint32_t kf[4], vf[4];
-        ldmatrix_x4(kf, smem_addr(Kt + b_off));
-        mma_bf16(s[n], qa, kf[0], kf[1]);
-        mma_bf16(s[n + 1], qa, kf[2], kf[3]);
-        ldmatrix_x4(vf, smem_addr(Vt + b_off));
-        mma_bf16(dp[n], da, vf[0], vf[1]);
-        mma_bf16(dp[n + 1], da, vf[2], vf[3]);
-      }
-    }
-    // ds (element c of octet n: row g + 8 (c / 2), key 8 n + 2 tig + c % 2)
     const int k0 = kt * BK;
-    const bool edge = k0 + BK > k_len || (causal && k0 + BK - 1 > q0) ||
-                      (window > 0 && k0 <= q0 + BQ - 1 - window);
+    const bool edge = k0 + BK > k_len || (causal && k0 + BK - 1 > qa0) ||
+                      (window > 0 && k0 <= qa0 + BQ - 1 - window);
+
 #pragma unroll
-    for (int n = 0; n < ST; ++n)
+    for (int kk = 0; kk < BK; kk += KSUB) {
+      // s = q k^T and dp = dO v^T: key octet n of the pass in [n]
+      float s[ST][4], dp[ST][4];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int r = c / 2;
-        float x = s[n][c] * scale;
-        if (edge) {
-          const int qpos = q0 + row_w + g + 8 * r;
-          const int kpos = k0 + 8 * n + 2 * tig + c % 2;
-          x = key_live(qpos, kpos, k_len, causal, window) ? x : NEG_INF;
+      for (int n = 0; n < ST; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[n][c] = dp[n][c] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KSTEPS; ++ks) {
+        uint32_t qa[4], da[4];
+        const int a_off = (row_w + lane % 16) * RS + ks * 16 + (lane / 16) * 8;
+        ldmatrix_x4(qa, smem_addr(Qs + a_off));
+        ldmatrix_x4(da, smem_addr(Ds + a_off));
+#pragma unroll
+        for (int n = 0; n < ST; n += 2) {
+          const int b_off = (kk + n * 8 + lane % 8 + (lane / 16) * 8) * RS +
+                            ks * 16 + ((lane / 8) % 2) * 8;
+          uint32_t kf[4], vf[4];
+          ldmatrix_x4(kf, smem_addr(Kt + b_off));
+          mma_bf16(s[n], qa, kf[0], kf[1]);
+          mma_bf16(s[n + 1], qa, kf[2], kf[3]);
+          ldmatrix_x4(vf, smem_addr(Vt + b_off));
+          mma_bf16(dp[n], da, vf[0], vf[1]);
+          mma_bf16(dp[n + 1], da, vf[2], vf[3]);
         }
-        const float p = in_r[r] ? expf(x - lse_r[r]) : 0.f;
-        s[n][c] = p * (dp[n][c] - del_r[r]) * scale;
       }
-    // dq += ds k, ds split in two bf16 halves: keys 16 j .. 16 j + 15 are
-    // octets 2 j and 2 j + 1
+      // ds (element c of octet n: row g + 8 (c / 2), key
+      // kk + 8 n + 2 tig + c % 2 of the tile)
 #pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      uint32_t sh[4], sl[4];
+      for (int n = 0; n < ST; ++n)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int n = 2 * j + r / 2, c = 2 * (r % 2);
-        split_bf16(s[n][c], s[n][c + 1], sh[r], sl[r]);
-      }
+        for (int c = 0; c < 4; ++c) {
+          const int r = c / 2;
+          float x = s[n][c] * scale;
+          if (edge) {
+            const int qpos = qa0 + row_w + g + 8 * r;
+            const int kpos = k0 + kk + 8 * n + 2 * tig + c % 2;
+            x = key_live(qpos, kpos, k_len, causal, window) ? x : NEG_INF;
+          }
+          const float p = in_r[r] ? expf(x - lse_r[r]) : 0.f;
+          s[n][c] = p * (dp[n][c] - del_r[r]) * scale;
+        }
+      // dq += ds k, ds split in two bf16 halves: keys kk + 16 j .. + 15
+      // are octets 2 j and 2 j + 1
 #pragma unroll
-      for (int n = 0; n < NT; n += 2) {
-        uint32_t kf[4];
-        ldmatrix_x4_trans(kf, smem_addr(Kt + (16 * j + lane % 8 +
-                                              ((lane / 8) % 2) * 8) * RS +
-                                        n * 8 + (lane / 16) * 8));
-        mma_bf16(acc[n], sh, kf[0], kf[1]);
-        mma_bf16(acc[n], sl, kf[0], kf[1]);
-        mma_bf16(acc[n + 1], sh, kf[2], kf[3]);
-        mma_bf16(acc[n + 1], sl, kf[2], kf[3]);
+      for (int j = 0; j < KSUB / 16; ++j) {
+        uint32_t sh[4], sl[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int n = 2 * j + r / 2, c = 2 * (r % 2);
+          split_bf16(s[n][c], s[n][c + 1], sh[r], sl[r]);
+        }
+#pragma unroll
+        for (int n = 0; n < NT; n += 2) {
+          uint32_t kf[4];
+          ldmatrix_x4_trans(kf, smem_addr(Kt + (kk + 16 * j + lane % 8 +
+                                                ((lane / 8) % 2) * 8) * RS +
+                                          n * 8 + (lane / 16) * 8));
+          mma_bf16(acc[n], sh, kf[0], kf[1]);
+          mma_bf16(acc[n], sl, kf[0], kf[1]);
+          mma_bf16(acc[n + 1], sh, kf[2], kf[3]);
+          mma_bf16(acc[n + 1], sl, kf[2], kf[3]);
+        }
       }
     }
     __syncthreads();                     // stage st is free for the refill
@@ -805,7 +865,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_bwd_dq_mma_kernel(
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int pos = q0 + row_w + g + 8 * r;
-    if (pos >= S) continue;
+    if (pos >= Sq) continue;
     bf16* dqr = dq + q_base + (size_t)pos * q_stride + 2 * tig;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
@@ -815,6 +875,11 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_bwd_dq_mma_kernel(
 }
 
 // ---------------------------------------------------------------------------
+struct Args {                // the launch's shapes and masks
+  int B, Sq, Sk, q_start, H, Kh, k_len, causal, window;
+  float scale;
+};
+
 template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(
@@ -834,74 +899,96 @@ cudaError_t launch_delta(const void* o, const void* dout, void* delta,
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, const void* o,
                const void* lse, const void* dout, void* dq, void* dk,
-               void* dv, void* delta, int B, int S, int H, int Kh, int k_len,
-               int causal, int window, float scale, cudaStream_t stream) {
+               void* dv, void* delta, const Args& a, cudaStream_t stream) {
   const size_t smem = smem_floats<HD>() * sizeof(float);
   cudaError_t err = set_smem(flash_bwd_dkdv_kernel<float, HD>, smem);
   if (err == cudaSuccess) err = set_smem(flash_bwd_dq_kernel<float, HD>, smem);
   if (err == cudaSuccess)
-    err = launch_delta<float, HD>(o, dout, delta, (size_t)B * S * H, stream);
+    err = launch_delta<float, HD>(o, dout, delta, (size_t)a.B * a.Sq * a.H,
+                                  stream);
   if (err != cudaSuccess) return (int)err;
-  const int n_t = (S + BQ - 1) / BQ;
+  const int n_tq = (a.Sq + BQ - 1) / BQ, n_tk = (a.Sk + BK - 1) / BK;
   const float* fq = static_cast<const float*>(q);
   const float* fk = static_cast<const float*>(k);
   const float* fv = static_cast<const float*>(v);
   const float* fdo = static_cast<const float*>(dout);
   const float* fl = static_cast<const float*>(lse);
   const float* fd = static_cast<const float*>(delta);
-  flash_bwd_dkdv_kernel<float, HD><<<dim3(Kh, n_t, B), THREADS, smem,
-                                     stream>>>(
-      fq, fk, fv, fdo, fl, fd, static_cast<float*>(dk),
-      static_cast<float*>(dv), S, H, Kh, k_len, causal, window, scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<float, HD><<<dim3(H, n_t, B), THREADS, smem, stream>>>(
-      fq, fk, fv, fdo, fl, fd, static_cast<float*>(dq), S, H, Kh, k_len,
-      causal, window, scale);
+  if (n_tk > 0) {
+    flash_bwd_dkdv_kernel<float, HD><<<dim3(a.Kh, n_tk, a.B), THREADS, smem,
+                                       stream>>>(
+        fq, fk, fv, fdo, fl, fd, static_cast<float*>(dk),
+        static_cast<float*>(dv), a.Sq, a.Sk, a.q_start, a.H, a.Kh, a.k_len,
+        a.causal, a.window, a.scale);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  flash_bwd_dq_kernel<float, HD><<<dim3(a.H, n_tq, a.B), THREADS, smem,
+                                   stream>>>(
+      fq, fk, fv, fdo, fl, fd, static_cast<float*>(dq), a.Sq, a.Sk,
+      a.q_start, a.H, a.Kh, a.k_len, a.causal, a.window, a.scale);
   return (int)cudaGetLastError();
+}
+
+template <int HD, int PART>
+cudaError_t launch_dkdv_mma(const bf16* q, const bf16* k, const bf16* v,
+                            const bf16* dout, const float* lse,
+                            const float* delta, void* dk, void* dv,
+                            const Args& a, cudaStream_t stream) {
+  const size_t smem = dkdv_mma_smem_bytes<HD>();
+  cudaError_t err = set_smem(flash_bwd_dkdv_mma_kernel<HD, PART>, smem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkdv_mma_kernel<HD, PART><<<dim3(a.Kh, (a.Sk + BK - 1) / BK, a.B),
+                                        MMA_THREADS, smem, stream>>>(
+      q, k, v, dout, lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), a.Sq, a.Sk, a.q_start, a.H, a.Kh, a.k_len,
+      a.causal, a.window, a.scale);
+  return cudaGetLastError();
 }
 
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, const void* o,
                 const void* lse, const void* dout, void* dq, void* dk,
-                void* dv, void* delta, int B, int S, int H, int Kh,
-                int k_len, int causal, int window, float scale,
-                cudaStream_t stream) {
-  const size_t smem_kv = dkdv_mma_smem_bytes<HD>();
+                void* dv, void* delta, const Args& a, cudaStream_t stream) {
   const size_t smem_q = dq_mma_smem_bytes<HD>();
-  cudaError_t err = set_smem(flash_bwd_dkdv_mma_kernel<HD>, smem_kv);
+  cudaError_t err = set_smem(flash_bwd_dq_mma_kernel<HD>, smem_q);
   if (err == cudaSuccess)
-    err = set_smem(flash_bwd_dq_mma_kernel<HD>, smem_q);
-  if (err == cudaSuccess)
-    err = launch_delta<bf16, HD>(o, dout, delta, (size_t)B * S * H, stream);
+    err = launch_delta<bf16, HD>(o, dout, delta, (size_t)a.B * a.Sq * a.H,
+                                 stream);
   if (err != cudaSuccess) return (int)err;
-  const int n_t = (S + BQ - 1) / BQ;
   const bf16* bq = static_cast<const bf16*>(q);
   const bf16* bk = static_cast<const bf16*>(k);
   const bf16* bv = static_cast<const bf16*>(v);
   const bf16* bdo = static_cast<const bf16*>(dout);
   const float* fl = static_cast<const float*>(lse);
   const float* fd = static_cast<const float*>(delta);
-  flash_bwd_dkdv_mma_kernel<HD><<<dim3(Kh, n_t, B), MMA_THREADS, smem_kv,
-                                  stream>>>(
-      bq, bk, bv, bdo, fl, fd, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-      S, H, Kh, k_len, causal, window, scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  flash_bwd_dq_mma_kernel<HD><<<dim3(H, n_t, B), MMA_THREADS, smem_q,
-                                stream>>>(
-      bq, bk, bv, bdo, fl, fd, static_cast<bf16*>(dq), S, H, Kh, k_len,
-      causal, window, scale);
+  if (a.Sk > 0) {
+    if constexpr (SplitDkDv<HD>::value) {
+      err = launch_dkdv_mma<HD, DV>(bq, bk, bv, bdo, fl, fd, dk, dv, a,
+                                    stream);
+      if (err == cudaSuccess)
+        err = launch_dkdv_mma<HD, DK>(bq, bk, bv, bdo, fl, fd, dk, dv, a,
+                                      stream);
+    } else {
+      err = launch_dkdv_mma<HD, DKDV>(bq, bk, bv, bdo, fl, fd, dk, dv, a,
+                                      stream);
+    }
+    if (err != cudaSuccess) return (int)err;
+  }
+  flash_bwd_dq_mma_kernel<HD><<<dim3(a.H, (a.Sq + BQ - 1) / BQ, a.B),
+                                MMA_THREADS, smem_q, stream>>>(
+      bq, bk, bv, bdo, fl, fd, static_cast<bf16*>(dq), a.Sq, a.Sk, a.q_start,
+      a.H, a.Kh, a.k_len, a.causal, a.window, a.scale);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
 int launch(int dtype, const void* q, const void* k, const void* v,
            const void* o, const void* lse, const void* dout, void* dq,
-           void* dk, void* dv, void* delta, int B, int S, int H, int Kh,
-           int k_len, int causal, int window, float scale, cudaStream_t s) {
+           void* dk, void* dv, void* delta, const Args& a, cudaStream_t s) {
   if (dtype == 0)
-    return launch_f32<HD>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, S, H, Kh, k_len, causal, window, scale, s);
+    return launch_f32<HD>(q, k, v, o, lse, dout, dq, dk, dv, delta, a, s);
   if (dtype == 1)
-    return launch_bf16<HD>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, S, H, Kh, k_len, causal, window, scale, s);
+    return launch_bf16<HD>(q, k, v, o, lse, dout, dq, dk, dv, delta, a, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -910,25 +997,29 @@ int launch(int dtype, const void* q, const void* k, const void* v,
 extern "C" {
 
 // dtype: 0 float32 (the CUDA-core kernels), 1 bfloat16 (the tensor-core
-// kernels), for q, k, v, o, dout, dq, dk and dv alike; hd: 16, 32, 64 or
-// 128; q, o, dout, dq (B, S, H, hd) and k, v, dk, dv (B, S, Kh, hd),
-// contiguous, 16-byte aligned; lse (B, S, H) float32 from the forward;
-// delta (B, S, H) float32 scratch.  Masks as flash_fill_launch.  Three
-// CUDA launches on `stream`.  Returns the CUDA error code of the first
-// launch that fails (0 on success).
+// kernels), for q, k, v, o, dout, dq, dk and dv alike; hd: 16, 32, 64, 128
+// or 160; q, o, dout, dq (B, Sq, H, hd) and k, v, dk, dv (B, Sk, Kh, hd),
+// contiguous, 16-byte aligned; lse (B, Sq, H) float32 from the forward;
+// delta (B, Sq, H) float32 scratch.  q_start and the masks as
+// flash_fill_launch.  Three CUDA launches on `stream` (four for bf16 at
+// hd 160; no dk/dv launch when Sk is 0).  Returns the CUDA error code of
+// the first launch that fails (0 on success).
 int flash_bwd_launch(int dtype, int hd, const void* q, const void* k,
                      const void* v, const void* o, const void* lse,
                      const void* dout, void* dq, void* dk, void* dv,
-                     void* delta, int B, int S, int H, int Kh, int k_len,
-                     int causal, int window, float scale, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0) return 0;
-  if (Kh <= 0 || H % Kh) return (int)cudaErrorInvalidValue;
+                     void* delta, int B, int Sq, int Sk, int q_start, int H,
+                     int Kh, int k_len, int causal, int window, float scale,
+                     void* stream) {
+  if (B <= 0 || Sq <= 0 || H <= 0) return 0;
+  if (Sk < 0 || Kh <= 0 || H % Kh) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Args a{B, Sq, Sk, q_start, H, Kh, k_len, causal, window, scale};
   switch (hd) {
-    case 16: return launch<16>(dtype, q, k, v, o, lse, dout, dq, dk, dv, delta, B, S, H, Kh, k_len, causal, window, scale, s);
-    case 32: return launch<32>(dtype, q, k, v, o, lse, dout, dq, dk, dv, delta, B, S, H, Kh, k_len, causal, window, scale, s);
-    case 64: return launch<64>(dtype, q, k, v, o, lse, dout, dq, dk, dv, delta, B, S, H, Kh, k_len, causal, window, scale, s);
-    case 128: return launch<128>(dtype, q, k, v, o, lse, dout, dq, dk, dv, delta, B, S, H, Kh, k_len, causal, window, scale, s);
+    case 16: return launch<16>(dtype, q, k, v, o, lse, dout, dq, dk, dv, delta, a, s);
+    case 32: return launch<32>(dtype, q, k, v, o, lse, dout, dq, dk, dv, delta, a, s);
+    case 64: return launch<64>(dtype, q, k, v, o, lse, dout, dq, dk, dv, delta, a, s);
+    case 128: return launch<128>(dtype, q, k, v, o, lse, dout, dq, dk, dv, delta, a, s);
+    case 160: return launch<160>(dtype, q, k, v, o, lse, dout, dq, dk, dv, delta, a, s);
   }
   return (int)cudaErrorInvalidValue;
 }

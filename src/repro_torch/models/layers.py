@@ -79,21 +79,26 @@ def rope_apply(x, positions, theta: float, rope_dim: Optional[int] = None):
 # Attention
 # ---------------------------------------------------------------------------
 def flash_attention(q, k, v, *, causal: bool, window: Optional[int],
-                    k_len=None, scale: Optional[float] = None):
-    """q: (B, S, H, hd), k/v: (B, S, K, hd) with H = K * G (GQA); returns
-    (B, S, H, hd) in q's dtype.  On a CUDA tensor this is one launch of K3,
-    which masks the ragged edge itself; on a CPU tensor it is K3's plain
-    version, over the same 64-row tiles.  p is rounded to v's dtype before
-    p v on both devices, as JAX's model path casts it.  Where autograd
-    records, it goes through ``K3.FlashAttnFunction`` (the forward also
-    writes its lse; the backward is K3's backward kernel), as JAX's
-    ``_flash_core`` is a custom_vjp; elsewhere (serving) the forward alone
-    runs, with no lse."""
+                    q_start: int = 0, k_len=None,
+                    scale: Optional[float] = None):
+    """q: (B, Sq, H, hd), k: (B, Sk, K, hd), v: (B, Sk, K, hd_v) with
+    H = K * G (GQA); returns (B, Sq, H, hd_v) in q's dtype, as JAX's
+    ``flash_attention`` (Sk may differ from Sq, as in cross-attention, and
+    hd_v from hd, as in MLA).  ``q_start``: the position of q[0] for the
+    causal and window masks (keys sit at 0 .. Sk - 1); ``k_len``: keys at
+    and past it are masked.  On a CUDA tensor this is one launch of K3,
+    which masks the ragged edges itself (hd_v = hd only: item 15f); on a
+    CPU tensor it is K3's plain version, over the same 64-row tiles.  p is
+    rounded to v's dtype before p v on both devices, as JAX's model path
+    casts it.  Where autograd records, it goes through
+    ``K3.FlashAttnFunction`` (the forward also writes its lse; the
+    backward is K3's backward kernel), as JAX's ``_flash_core`` is a
+    custom_vjp; elsewhere (serving) the forward alone runs, with no lse."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return K3.FlashAttnFunction.apply(q, k, v, causal, window, k_len,
-                                          scale, v.dtype)
+                                          scale, v.dtype, q_start)
     return K3.flash_fill(q, k, v, causal=causal, window=window, k_len=k_len,
-                         scale=scale, p_dtype=v.dtype)
+                         scale=scale, p_dtype=v.dtype, q_start=q_start)
 
 
 def decode_attention(q, k_cache, v_cache, *, k_len, window=None,

@@ -12,6 +12,7 @@ import torch
 
 from repro.core import api as japi
 from repro.core import batch as jbatch
+from repro.core import traceback as jtb
 from repro_torch.core import api, batch
 from repro_torch.core import traceback as ptb
 from repro_torch.core import kernels_zoo as pzoo
@@ -69,6 +70,29 @@ def test_align_batch_matches_reference_engine(kid, rng):
     assert_same_alignment(want, got, moves=False)
     if want.moves is not None:
         np.testing.assert_array_equal(to_np(got.moves), to_np(want.moves))
+
+
+@pytest.mark.parametrize("strip", [1, 8])
+def test_align_batch_strip_matches_jax(strip):
+    """``align_batch(strip=)`` forwards the schedule to the plan: #2 on 4
+    random pairs of 32 from ``default_rng(0)`` equals JAX's
+    ``align_batch(..., strip=)`` (scores [-13, -32, -20, -21], end cells,
+    moves, CIGARs; #2 is a corner-region kernel, where the two engines'
+    tie-break rules agree) and the port's default plan."""
+    jspec, jparams, spec, params = kernel_pair(2)
+    rng = np.random.default_rng(0)
+    qs = np.stack([random_codes(rng, spec, 32) for _ in range(4)])
+    rs = np.stack([random_codes(rng, spec, 32) for _ in range(4)])
+    want = jbatch.align_batch(jspec, jparams, qs, rs, strip=strip)
+    got = batch.align_batch(spec, params, qs, rs, strip=strip, device="cpu")
+    np.testing.assert_array_equal(to_np(got.score), [-13, -32, -20, -21])
+    default = batch.align_batch(spec, params, qs, rs, device="cpu")
+    for other in (want, default):
+        assert_same_alignment(other, got, moves=False)
+        np.testing.assert_array_equal(to_np(got.moves), to_np(other.moves))
+    for i in range(4):
+        assert ptb.moves_to_cigar(got.moves[i], got.n_moves[i]) == \
+            jtb.moves_to_cigar(np.asarray(want.moves)[i], want.n_moves[i])
 
 
 def test_fill_returns_chunk_store(rng):

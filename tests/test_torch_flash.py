@@ -6,8 +6,11 @@ those tests); ragged lengths, rows without a live key and p rounded to
 bf16 against the JAX model path ``repro.models.layers.flash_attention``;
 the backward (``flash_backward_plain`` and ``FlashAttnFunction``) and the
 forward's lse against ``jax.vjp`` of that function and its ``_flash_fwd``
-(2e-5); and, on a GPU only, the CUDA kernels, forward and backward,
-against their plain versions.
+(2e-5); the model-layout entry ``models.layers.flash_attention`` at k/v of
+their own length, with ``q_start``, with v of its own width and at head
+width 160, forward and ``jax.vjp`` (2e-5); and, on a GPU only, the CUDA
+kernels, forward and backward, against their plain versions (head widths
+16-160, cross lengths), and their refusal of v of another width.
 
 The JAX package is imported inside the CPU tests only, so that
 ``pytest -m gpu`` runs this file on a GPU machine without JAX."""
@@ -219,20 +222,70 @@ def test_plain_does_not_count_launches(rng):
     assert K3.launches == before
 
 
-@pytest.mark.parametrize("shapes", [((1, 8, 3, 16), (1, 8, 2, 16)),
-                                    ((1, 8, 2, 16), (1, 9, 2, 16))])
+@pytest.mark.parametrize("shapes", [((1, 8, 3, 16), (1, 8, 2, 16),
+                                     (1, 8, 2, 16)),
+                                    ((1, 8, 2, 16), (1, 9, 2, 16),
+                                     (1, 8, 2, 16))])
 def test_rejects_bad_shapes(shapes):
-    q = torch.zeros(shapes[0])
-    k = torch.zeros(shapes[1])
+    """Shapes JAX's model path cannot take either: query heads that are
+    not a multiple of the key/value heads, and v of another length than
+    k."""
+    q, k, v = (torch.zeros(t) for t in shapes)
     with pytest.raises(ValueError):
-        K3.flash_fill(q, k, k, causal=True)
+        K3.flash_fill(q, k, v, causal=True)
+
+
+# (Sq, Sk, hd, hd_v, causal, window, q_start): cross-attention lengths both
+# ways, a causal suffix of the keys (q_start = Sk - Sq), a window, MLA's
+# value width of its own, and stablelm-12b's head width 160
+CROSS_CASES = [(77, 150, 16, 16, False, None, 0),
+               (150, 77, 16, 16, False, None, 0),
+               (77, 150, 64, 64, False, None, 0),
+               (150, 77, 64, 64, False, None, 0),
+               (77, 150, 16, 16, True, None, 73),
+               (77, 150, 32, 32, True, 24, 73),
+               (100, 60, 24, 16, False, None, 0),
+               (70, 130, 48, 32, True, None, 60),
+               (100, 100, 160, 160, True, None, 0)]
+
+
+@pytest.mark.parametrize("Sq,Sk,hd,hd_v,causal,window,q_start", CROSS_CASES)
+def test_model_path_cross_length_matches_jax_vjp(Sq, Sk, hd, hd_v, causal,
+                                                 window, q_start, rng):
+    """The port's ``layers.flash_attention`` against JAX's on k/v of their
+    own length Sk, with ``q_start`` and v of its own width: the output and
+    ``jax.vjp``'s dq, dk, dv within 2e-5, f32, G 2 (the tolerance of
+    ``test_backward_matches_jax_vjp``)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models.layers import flash_attention as jflash
+    from repro_torch.models.layers import flash_attention
+    q = rng.normal(size=(2, Sq, 4, hd)).astype(np.float32)
+    k = rng.normal(size=(2, Sk, 2, hd)).astype(np.float32)
+    v = rng.normal(size=(2, Sk, 2, hd_v)).astype(np.float32)
+    do = rng.normal(size=(2, Sq, 4, hd_v)).astype(np.float32)
+    kw = dict(causal=causal, window=window, q_start=q_start)
+    out, vjp = jax.vjp(lambda *a: jflash(*a, chunk=64, **kw),
+                       *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.tensor(t, requires_grad=True) for t in (q, k, v))
+    got = flash_attention(tq, tk, tv, **kw)
+    assert tuple(got.shape) == (2, Sq, 4, hd_v)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(out), **TOL)
+    grads = torch.autograd.grad(got, (tq, tk, tv), torch.as_tensor(do))
+    for name, g, w in zip("qkv", grads, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL,
+                                   err_msg=f"d{name}")
+    with torch.no_grad():                # the serving path: forward alone
+        alone = flash_attention(tq, tk, tv, **kw)
+    assert torch.equal(alone, got.detach())
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_kernel_matches_plain(dtype):
     """K3 on the card against its plain version on the same card, over
-    G 1 and 4, S in {1, 63, 64, 65, 1000}, hd 16-128, and causal, causal
+    G 1 and 4, S in {1, 63, 64, 65, 1000}, hd 16-160, and causal, causal
     with a window, and non-causal with k_len masks.  f32 (p in f32):
     2e-5.  bf16 (p in bf16 on both sides): one bf16 ulp more, on integer
     q and k (exact scores); on normal q and k also one ulp of each p
@@ -477,7 +530,7 @@ def test_single_bf16_rounding_of_p_and_ds_fails_the_rule(rng):
 def test_cuda_backward_matches_plain(dtype):
     """K3's backward kernels against ``flash_backward_plain`` on the card,
     on the kernel forward's own output and lse, over G 1 and 4, S in {1,
-    63, 64, 65, 1000}, hd 16-128, causal, causal with a window and
+    63, 64, 65, 1000}, hd 16-160, causal, causal with a window and
     non-causal with a k_len mask (``_grad_close``); a second call on the
     same inputs gives the same bits (no atomics: a resumed bf16 run depends
     on it); the forward's lse against the plain forward's within 2e-5."""
@@ -520,3 +573,75 @@ def test_cuda_backward_matches_plain(dtype):
                                    w.float().cpu().numpy(),
                                    dtype == torch.bfloat16,
                                    terms[name]), f"d{name} {what}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_cross_length_matches_plain(dtype):
+    """K3's forward and backward kernels at Sq != Sk against their plain
+    versions on the card: whisper-medium's cross-attention lengths (448
+    queries over 1500 keys, 4 key/value heads), non-causal, G 1 and 4, and
+    causal suffixes (q_start = Sk - Sq) with and without a window, hd 64,
+    128 and 160 (``_bf16_close`` on exact scores, ``_grad_close``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K3 is CUDA C++ with no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(7)
+    cases = [(448, 1500, 64, 1, False, None), (448, 1500, 64, 4, False, None),
+             (200, 1000, 128, 1, True, None), (65, 300, 160, 4, True, 40),
+             (300, 65, 160, 1, False, None)]
+    for Sq, Sk, hd, G, causal, window in cases:
+        q = rng.normal(size=(1, Sq, 4 * G, hd))
+        k = rng.normal(size=(1, Sk, 4, hd))
+        v = rng.normal(size=(1, Sk, 4, hd))
+        q, k = (np.round(t * 1.5).clip(-3, 3) for t in (q, k))
+        q, k, v = (torch.as_tensor(t, device="cuda").to(dtype)
+                   for t in (q, k, v))
+        kw = dict(causal=causal, window=window,
+                  q_start=Sk - Sq if causal else 0)
+        what = str((Sq, Sk, hd, G, causal, window))
+        out, lse = K3.flash_fill(q, k, v, p_dtype=dtype, return_lse=True,
+                                 **kw)
+        want, want_lse = K3.flash_attention_plain(q, k, v, p_dtype=dtype,
+                                                  return_lse=True, **kw)
+        assert out.shape == (1, Sq, 4 * G, hd), what
+        g, w = (t.float().cpu().numpy() for t in (out, want))
+        if dtype == torch.float32:
+            np.testing.assert_allclose(g, w, **TOL, err_msg=what)
+        else:
+            assert _bf16_close(g, w), what
+        np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(),
+                                   **TOL, err_msg=what)
+        do = torch.randn_like(out)
+        before = K3.bwd_launches
+        got = K3.flash_backward(q, k, v, out, lse, do, **kw)
+        assert K3.bwd_launches == before + 1
+        ref = K3.flash_backward_plain(q, k, v, out, lse, do, **kw)
+        top = [float(t.abs().max()) for t in (q, k, v, do)]
+        terms = {"q": top[3] * top[2] * top[1] / hd ** 0.5,
+                 "k": top[3] * top[2] * top[0] / hd ** 0.5, "v": top[3]}
+        for name, a, b in zip("qkv", got, ref):
+            assert _grad_close(a.float().cpu().numpy(),
+                               b.float().cpu().numpy(),
+                               dtype == torch.bfloat16,
+                               terms[name]), f"d{name} {what}"
+
+
+@pytest.mark.gpu
+def test_cuda_rejects_value_width():
+    """v of another width than q and k (MLA's) is taken by the plain
+    versions only: on a CUDA tensor the forward and the backward raise,
+    naming ROADMAP item 15f, and launch nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K3 is CUDA C++ with no CPU mode)")
+    q = torch.zeros((1, 64, 2, 32), device="cuda")
+    k = torch.zeros((1, 64, 2, 32), device="cuda")
+    v = torch.zeros((1, 64, 2, 16), device="cuda")
+    before = (K3.launches, K3.bwd_launches)
+    with pytest.raises(ValueError, match="15f"):
+        K3.flash_fill(q, k, v, causal=True)
+    o = torch.zeros((1, 64, 2, 16), device="cuda")
+    lse = torch.zeros((1, 64, 2), device="cuda")
+    with pytest.raises(ValueError, match="15f"):
+        K3.flash_backward(q, k, v, o, lse, o, causal=True)
+    assert (K3.launches, K3.bwd_launches) == before

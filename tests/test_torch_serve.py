@@ -19,7 +19,8 @@ from repro_torch.launch.serve import serve_lm
 from repro_torch.models.params import from_jax
 from repro_torch.serve import Request, ServeSession
 
-ARCHS = ["olmo-1b", "rwkv6-3b"]
+ARCHS = ["olmo-1b", "rwkv6-3b", "stablelm-12b", "phi3-medium-14b",
+         "command-r-plus-104b"]
 
 
 def _models(arch, seed=0):
