@@ -10,11 +10,14 @@ logsumexp instantiation, ``prob.call_genotype``, ``prob.call_site``), the
 serving layer (the gateway's ``AlignmentService`` with K2's prefilter and
 degrade path, ``GenotypingService``, ``ReadMappingService``; ``tiled_align``
 and the ``banded`` engine; the alignment launcher ``serve_alignments``), LM
-serving (``ServeSession``: per-slot prefill on K3 for olmo-1b and
-stablelm-12b, K4 for rwkv6-3b, batched greedy decode; prefill and decode of
-phi3-medium-14b and command-r-plus-104b) and LM training
-(``launch.train.train_loop``: AdamW steps of olmo-1b and stablelm-12b on K3
-and rwkv6-3b on K4, forward and backward kernels).  It holds every CUDA kernel
+serving (``ServeSession``: per-slot prefill on K3 for olmo-1b,
+stablelm-12b, qwen3-moe-30b-a3b and llava-next-mistral-7b, K4 for rwkv6-3b,
+batched greedy decode; prefill and decode of phi3-medium-14b,
+command-r-plus-104b, llava's patch-prefixed prompt and whisper-medium's
+encoder-decoder) and LM training (``launch.train.train_loop``: AdamW steps
+of olmo-1b, stablelm-12b, whisper-medium, llava-next-mistral-7b and
+qwen3-moe-30b-a3b on K3 and rwkv6-3b on K4, forward and backward
+kernels).  It holds every CUDA kernel
 against its plain PyTorch version at the shapes those paths give it, times
 K1-K4 and the two backward kernels, and prints one JSON line listing the
 kernels and, last,
@@ -213,7 +216,31 @@ Phases:
      ``flash_backward_plain``; step time, tokens/s, peak memory;
  27. ``serve_alignments`` at the JAX launcher's defaults on the card (32
      pairs of 128, #2): results == the CPU's reference engine, K1 launched;
-     ``python3 -m repro_torch.launch.serve --mode align`` exits 0.
+     ``python3 -m repro_torch.launch.serve --mode align`` exits 0;
+ 28. qwen3-moe-30b-a3b at full width (48 layers, 128 experts top-8, 30.5 B
+     parameters, bf16, random from seed 0) serves phase 12's traffic: K3
+     launched 16 x 48 times, K4 never, K3 held on layer 0; the choices
+     capacity 1.25 drops in one prefill, per layer; the f32 logits check on
+     the layers an f32 copy fits, the prefill held to ``forward`` over the
+     prompt alone and each of the two positions to ``forward`` over prompt
+     + 1 where every token up to it was routed alike (the others counted
+     as skipped: a later token can take an earlier one's slot), and both
+     held at a capacity where nothing drops, a spoiled cache failing;
+ 29. whisper-medium at full width (24 + 24 layers): 8 windows of 1500
+     frames, prompts of 4-32 tokens, each prefilled alone (K3 72 times:
+     encoder, causal self-attention, cross-attention at Sq != Sk) into one
+     cache of 448 decoder slots, 64 batched greedy decode steps; K3 held on
+     layer 0's encoder and cross inputs; the prefill and first decode
+     logits held to ``forward`` in f32, a spoiled cache failing;
+ 30. llava-next-mistral-7b at full width serves phase 12's traffic as
+     phase 24 does, then one prefill of 2880 patch embeddings + 512 tokens
+     and 32 decode steps after ``grow_cache`` (K3 once a layer, held on
+     layer 0), every logit of them held to ``forward`` in f32;
+ 31. whisper-medium at full depth, llava at 4 of 32 layers and qwen3-moe at
+     2 of 48 train through ``train_loop`` as phase 18 does (frames and
+     patches as its frontend prefix makes them; qwen3-moe's moe_aux logged
+     and finite), each run's last recorded K3 backward held to plain; the
+     three reduced configs on the card against the CPU as phase 20 does.
 """
 from __future__ import annotations
 
@@ -308,6 +335,16 @@ K3_SUFFIX = (1, 200, 1000, 8, 128)
 # layers need about 200 GB, 4 (2.14 B parameters) fit one card
 FIT_SPARE = 10e9
 STABLELM_TRAIN_LAYERS = 4
+# slice 12: whisper-medium's traffic (phase 29): windows of 30 s at 50
+# frames a second, decoder prompts, decode steps, and the self cache at
+# whisper's published decoder context of 448 tokens; llava's patch-prefixed
+# prompt (phase 30); the training depths of phase 31 (at about 17 bytes a
+# parameter all 32 of llava's layers need about 120 GB and all 48 of
+# qwen3-moe's about 520 GB; 4 and 2 layers fit beside their embeddings)
+WHISPER_ITEMS, WHISPER_FRAMES, WHISPER_PROMPTS = 8, 1500, (4, 32)
+WHISPER_DECODE, WHISPER_CTX = 64, 448
+LLAVA_PROMPT, LLAVA_DECODE = 512, 32
+LLAVA_TRAIN_LAYERS, QWEN3_TRAIN_LAYERS = 4, 2
 # training traffic of phases 18 and 19: 4 sequences of OLMo-1B's published
 # context (2048 tokens) a step
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 2048
@@ -3102,10 +3139,10 @@ def _detached(slot):
 
 
 def _lm_batch_s(cfg):
-    """Host seconds of one LMBatcher batch of the training traffic."""
-    from repro_torch.data import LMBatcher
-    it = iter(LMBatcher(vocab=cfg.vocab_size, batch=TRAIN_BATCH,
-                        seq=TRAIN_SEQ, seed=SEED))
+    """Host seconds of one batch of the training traffic (train_loop's
+    stream, frontend prefix included)."""
+    from repro_torch.launch.train import batches
+    it = batches(cfg, TRAIN_BATCH, TRAIN_SEQ, SEED)
     t0 = time.perf_counter()
     next(it)
     return time.perf_counter() - t0
@@ -3131,21 +3168,27 @@ def _train_full(arch, mod, bwd_name, n_fwd, n_bwd, phase, cfg=None,
     n = count_params(cfg)
     cut = "" if cfg.n_layers == full.n_layers else \
         f"; depth cut to {cfg.n_layers} of {full.n_layers} layers"
+    what = {"vlm": " positions (patches, then tokens)",
+            "audio": " tokens beside as many frames"}.get(cfg.frontend,
+                                                         " tokens")
     print(f"[{phase}] {arch} trains at full width ({n:,} parameters, "
           f"{cfg.param_dtype}, remat {cfg.remat}{cut}): {TRAIN_STEPS} AdamW "
-          f"steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens through train_loop",
+          f"steps of {TRAIN_BATCH} x {TRAIN_SEQ}{what} through train_loop",
           flush=True)
     batch_s = _lm_batch_s(cfg)
     mods = _reset_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     stamps, counts, losses, gns = [time.perf_counter()], [], [], []
+    auxs = []
 
     slot, first = {}, {}
 
     def on_metrics(step, metrics):
         losses.append(float(metrics["loss"]))
         gns.append(float(metrics["grad_norm"]))
+        if "moe_aux" in metrics:
+            auxs.append(float(metrics["moe_aux"]))
         stamps.append(time.perf_counter())
         counts.append((mod.launches, mod.bwd_launches))
         if keep_first and not first:
@@ -3165,6 +3208,8 @@ def _train_full(arch, mod, bwd_name, n_fwd, n_bwd, phase, cfg=None,
           f"{arch}: loss or grad norm not finite: {losses}, {gns}")
     check(np.mean(losses[-2:]) < losses[0], f"{arch}: the loss did not "
           f"fall: {losses}")
+    check(len(auxs) == (TRAIN_STEPS if cfg.n_experts else 0)
+          and all(np.isfinite(auxs)), f"{arch}: moe_aux logged {auxs}")
     per_step = [(b[0] - a[0], b[1] - a[1])
                 for a, b in zip([(0, 0)] + counts, counts)]
     check(all(c == (n_fwd, n_bwd) for c in per_step),
@@ -3175,7 +3220,9 @@ def _train_full(arch, mod, bwd_name, n_fwd, n_bwd, phase, cfg=None,
     del state
     torch.cuda.empty_cache()
     print(f"    losses {', '.join(f'{x:.4f}' for x in losses)}; grad norms "
-          f"{', '.join(f'{x:.3f}' for x in gns)}", flush=True)
+          f"{', '.join(f'{x:.3f}' for x in gns)}"
+          + (f"; moe_aux {', '.join(f'{x:.4f}' for x in auxs)}" if auxs
+             else ""), flush=True)
     print(f"    step time median {step_s:.3f} s over steps 2-{TRAIN_STEPS} "
           f"({min(steps[1:]):.3f}-{max(steps[1:]):.3f}; step 1 "
           f"{steps[0]:.3f} s with the state's set-up), "
@@ -3188,7 +3235,7 @@ def _train_full(arch, mod, bwd_name, n_fwd, n_bwd, phase, cfg=None,
            "steps_s": steps, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ
            / step_s, "peak_bytes": peak, "batch_s": batch_s,
            "fwd_launches": counts[-1][0], "bwd_launches": counts[-1][1],
-           "last": slot}
+           "moe_aux": auxs, "last": slot}
     return dict(run, first=first) if keep_first else run
 
 
@@ -3196,14 +3243,13 @@ def _profile_train_step(cfg, state):
     """torch.profiler over one more step of the trained state (after the
     run's counts are read): device busy share and the top kernels."""
     import torch
-    from repro_torch.data import LMBatcher
+    from repro_torch.launch.train import batches
     from repro_torch.optim import AdamWConfig, constant
     from repro_torch.train import make_train_step
     step = make_train_step(cfg, AdamWConfig(weight_decay=0.01),
                            constant(1e-4))
-    toks = next(iter(LMBatcher(vocab=cfg.vocab_size, batch=TRAIN_BATCH,
-                               seq=TRAIN_SEQ, seed=SEED)))["tokens"]
-    batch = {"tokens": torch.as_tensor(toks, device=DEVICE)}
+    batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in
+             next(batches(cfg, TRAIN_BATCH, TRAIN_SEQ, SEED)).items()}
     return _device_profile(lambda: step(state, batch),
                            f"one {cfg.name} training step")
 
@@ -3285,29 +3331,28 @@ def _numpy_state(cfg, seed):
             "step": np.int32(0)}
 
 
-def phase_train_card_vs_cpu():
+def phase_train_card_vs_cpu(archs=("olmo-1b", "rwkv6-3b"), phase=20):
     """The reduced configs in f32 (TF32 off) train on the card and on the
     CPU from one numpy-made state: TRAIN_CPU_STEPS steps of make_train_step
-    on the same LMBatcher batches, every loss and grad norm within
-    TRAIN_CPU_TOL; then a checkpoint saved on the card after step 2 and
-    restored by restore_latest gives a step-3 loss bit-equal to the
-    unbroken run's."""
+    on the same batches of train_loop's stream (frontend prefix included),
+    every loss and grad norm within TRAIN_CPU_TOL; then a checkpoint saved
+    on the card after step 2 and restored by restore_latest gives a step-3
+    loss bit-equal to the unbroken run's."""
     import numpy as np
     import torch
     from repro_torch import checkpoint, configs
     from repro_torch import train as train_mod
-    from repro_torch.data import LMBatcher
+    from repro_torch.launch.train import batches as stream
     from repro_torch.optim import AdamWConfig, constant
     t0 = time.perf_counter()
     ckdir = ROOT / "build" / "smoke_ckpt"
     out = []
-    for arch in ("olmo-1b", "rwkv6-3b"):
+    for arch in archs:
         cfg = configs.get(arch, reduced=True)
         opt = AdamWConfig(weight_decay=0.01)
         tree = _numpy_state(cfg, SEED)
-        it = iter(LMBatcher(vocab=cfg.vocab_size, batch=4, seq=64,
-                            seed=SEED))
-        batches = [next(it)["tokens"] for _ in range(TRAIN_CPU_STEPS)]
+        it = stream(cfg, 4, 64, SEED)
+        batches = [next(it) for _ in range(TRAIN_CPU_STEPS)]
         step = train_mod.make_train_step(cfg, opt, constant(1e-3))
         runs = {}
         shutil.rmtree(ckdir, ignore_errors=True)
@@ -3315,8 +3360,8 @@ def phase_train_card_vs_cpu():
             state = train_mod.state_from_jax(cfg, opt, tree, dev)
             rec = []
             for i, b in enumerate(batches):
-                state, m = step(state, {"tokens": torch.as_tensor(
-                    b, device=dev)})
+                state, m = step(state, {k: torch.as_tensor(v, device=dev)
+                                        for k, v in b.items()})
                 rec.append((float(m["loss"]), float(m["grad_norm"])))
                 if dev == DEVICE and i == 1:
                     checkpoint.save(str(ckdir), 2, state)
@@ -3330,8 +3375,8 @@ def phase_train_card_vs_cpu():
         like = train_mod.state_from_jax(cfg, opt, tree, DEVICE)
         restored, at = checkpoint.restore_latest(str(ckdir), like, DEVICE)
         check(at == 2, f"{arch}: restore_latest found step {at}")
-        restored, m = step(restored, {"tokens": torch.as_tensor(
-            batches[2], device=DEVICE)})
+        restored, m = step(restored, {k: torch.as_tensor(v, device=DEVICE)
+                                      for k, v in batches[2].items()})
         resumed = (float(m["loss"]), float(m["grad_norm"]))
         check(resumed[0] == card[2][0], f"{arch}: the step-3 loss after "
               f"restore_latest is {resumed[0]!r}, the unbroken run's "
@@ -3345,8 +3390,8 @@ def phase_train_card_vs_cpu():
                    f"{resumed[0]!r}, grad norm "
                    f"{'bit-equal' if resumed[1] == card[2][1] else 'differs'}"
                    f" ({resumed[1]!r} / {card[2][1]!r})")
-    print(f"[20] card == CPU training on the reduced configs in f32 "
-          f"({TRAIN_CPU_STEPS} steps of 4 x 64 tokens from one numpy-made "
+    print(f"[{phase}] card == CPU training on the reduced configs in f32 "
+          f"({TRAIN_CPU_STEPS} steps of 4 x 64 positions from one numpy-made "
           f"state; loss within {TRAIN_CPU_TOL[0]}, grad norm within "
           f"{TRAIN_CPU_TOL[1]} relative): " + "; ".join(out)
           + f" in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3790,13 +3835,15 @@ def phase_stablelm():
     return _serve_k3("stablelm-12b", 24)
 
 
-def _serve_k3(arch, phase):
+def _serve_k3(arch, phase, logits_check=None, after=None):
     """``arch`` at full width (random from seed SEED) serves the phase's
     traffic on K3: K3 launched once a layer a request, K4 never; K3 held to
     its plain version on layer 0 of the longest prompt; K3's share of the
     prefill and a profile of one prefill and three decode steps; the
     prefill and first decode logits held to ``forward`` on as many layers
-    as an f32 copy fits with FIT_SPARE to spare (all of olmo-1b's)."""
+    as an f32 copy fits with FIT_SPARE to spare (all of olmo-1b's), by
+    ``logits_check(cfg, params, longest)`` where given; then
+    ``after(cfg, params, longest)``, whose dict joins the result."""
     import torch
     from repro_torch import configs
     from repro_torch.kernels.flash_attn import kernel as K3
@@ -3838,11 +3885,14 @@ def _serve_k3(arch, phase):
                "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
                "decode_steps": st["steps"], "k3_prefill_s": k3_s}
     del run
-    _decode_vs_forward_cut(cfg, params, longest)
+    extra = (logits_check or _decode_vs_forward_cut)(cfg, params,
+                                                     longest) or {}
+    extra.update(after(cfg, params, longest) if after else {})
     del params
     torch.cuda.empty_cache()
     print(f"    phase {phase}: {time.perf_counter() - t0:.1f} s", flush=True)
-    return {"k3_launches": launches, "k3_err": err, "serve": summary}
+    return {"k3_launches": launches, "k3_err": err, "serve": summary,
+            **extra}
 
 
 def _prefill_decode_run(cfg, params, prompt, what):
@@ -4012,13 +4062,512 @@ def phase_align_launcher():
     return {"k1_launches": k1, "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# Slice 12 (phases 28-31): MoE, the encoder-decoder, the multimodal prefix
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def _recording_routes():
+    """Within the block, every call of ``moe.route`` keeps its experts and
+    keep mask, token-major ((groups x group) rows of top_k), in order."""
+    from repro_torch.models import moe
+    calls, orig = [], moe.route
+
+    def record(cfg, router, xt, C):
+        out = orig(cfg, router, xt, C)
+        calls.append((out[2].reshape(-1, cfg.top_k),
+                      out[4].reshape(-1, cfg.top_k)))
+        return out
+    moe.route = record
+    try:
+        yield calls
+    finally:
+        moe.route = orig
+
+
+def _moe_drops(cfg, params, prompt):
+    """One bf16 prefill of ``prompt`` at full depth: per layer, the prompt's
+    tokens that lose at least one of their top_k choices to the capacity,
+    and the choices lost (pad rows of the ragged last group left out)."""
+    import torch
+    from repro_torch.models import lm
+    toks = torch.as_tensor(prompt, dtype=torch.int64, device=DEVICE)[None]
+    Lp = toks.shape[1]
+    with _recording_routes() as calls:
+        lm.prefill(cfg, params, {"tokens": toks})
+    tokens = [int((~keep[:Lp]).any(-1).sum()) for _, keep in calls]
+    choices = [int((~keep[:Lp]).sum()) for _, keep in calls]
+    check(len(calls) == cfg.n_layers, f"{cfg.name}: {len(calls)} routes in "
+          f"one prefill, not {cfg.n_layers}")
+    print(f"    capacity {cfg.capacity_factor} drops during one prefill of "
+          f"{Lp} tokens (groups of {cfg.moe_group}): per layer, tokens with "
+          f"a dropped choice {tokens} ({sum(tokens)} of {Lp * cfg.n_layers} "
+          f"token-layers), choices dropped {sum(choices)} of "
+          f"{Lp * cfg.top_k * cfg.n_layers} "
+          f"({100 * sum(choices) / (Lp * cfg.top_k * cfg.n_layers):.2f} %)",
+          flush=True)
+    return {"drop_tokens_per_layer": tokens, "drop_choices": sum(choices),
+            "choices": Lp * cfg.top_k * cfg.n_layers}
+
+
+def _moe_logits_check(cfg, params, prompt):
+    """The f32 logits check of an MoE model, on as many layers as an f32
+    copy fits with FIT_SPARE to spare.  The router groups tokens, so a
+    token's expert choices can depend on the tokens after it (a later
+    token's first choice outranks an earlier token's second for a slot),
+    in JAX as here: ``forward`` over prompt + 1 routes its last group
+    otherwise than prefill + decode do.  So the prefill logits are held to
+    ``forward`` over the prompt alone (the same groups: always compared),
+    and the prefill and decode logits to ``forward`` over prompt + 1 at
+    positions Lp - 1 and Lp only where every token up to that position got
+    the same experts and keep mask in every layer (each route recorded);
+    the other positions are counted as skipped.  Then, at a capacity where
+    nothing can drop (``capacity_factor = n_experts / top_k``: an expert
+    takes a whole group), routing is token by token and both positions are
+    held to ``forward`` over prompt + 1; a decode from a cache with layer
+    0's keys zeroed must miss that check."""
+    import dataclasses
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.models.params import tree_map
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    n = _layers_that_fit(cfg, 4, free)
+    cut, cut_params = _cut(cfg, params, n)
+    cfg32 = dataclasses.replace(cut, param_dtype=torch.float32,
+                                compute_dtype=torch.float32)
+    params32 = tree_map(lambda t: t.float(), cut_params)
+    toks = torch.as_tensor(prompt, dtype=torch.int64, device=DEVICE)[None]
+    Lp = toks.shape[1]
+    with _recording_routes() as served:
+        logits_p, logits_d, nxt = _prefill_decode(cfg32, params32, toks)
+    batch = {"tokens": torch.cat([toks, nxt[:, None]], 1)}
+    with _recording_routes() as fwd:
+        ref = lm.forward(cfg32, params32, batch)["logits"][0, Lp - 1:]
+    alone = lm.forward(cfg32, params32, {"tokens": toks})["logits"][0, -1]
+    same = torch.ones(Lp + 1, dtype=torch.bool, device=DEVICE)
+    for layer in range(n):
+        (ip, kp), (idd, kd), (jf, kf) = served[layer], served[n + layer], \
+            fwd[layer]
+        idx = torch.cat([ip[:Lp], idd[:1]])
+        keep = torch.cat([kp[:Lp], kd[:1]])
+        same &= (idx == jf[:Lp + 1]).all(-1) & (keep == kf[:Lp + 1]).all(-1)
+    comparable = [bool(same[:Lp].all()), bool(same.all())]
+    diff = float((logits_p - alone).abs().max())
+    check(torch.allclose(logits_p, alone, atol=2e-3, rtol=1e-3),
+          f"{cfg.name}: f32 prefill logits differ from forward over the "
+          f"prompt by up to {diff:.3g}")
+    errs = []
+    for i, (got, ok) in enumerate(zip((logits_p, logits_d), comparable)):
+        if ok:
+            e = float((got - ref[i]).abs().max())
+            check(torch.allclose(got, ref[i], atol=2e-3, rtol=1e-3),
+                  f"{cfg.name}: f32 logits at position {Lp - 1 + i} differ "
+                  f"from forward over prompt + 1 by up to {e:.3g}")
+            errs.append(f"position {Lp - 1 + i} {e:.3g}")
+    skipped = comparable.count(False)
+    differ = int((~same).sum())
+    del ref, alone
+
+    nodrop = dataclasses.replace(cfg32, capacity_factor=cfg.n_experts
+                                 / cfg.top_k)
+    ref = lm.forward(nodrop, params32, batch)["logits"][0, Lp - 1:]
+    full = []
+    for i, got in enumerate(_prefill_decode(nodrop, params32, toks,
+                                            nxt)[:2]):
+        e = float((got - ref[i]).abs().max())
+        check(torch.allclose(got, ref[i], atol=2e-3, rtol=1e-3),
+              f"{cfg.name}: at no-drop capacity the f32 logits at position "
+              f"{Lp - 1 + i} differ from forward by up to {e:.3g}")
+        full.append(e)
+    spoiled = _prefill_decode(nodrop, params32, toks, nxt, spoil=True)[1]
+    miss = float((spoiled - ref[1]).abs().max())
+    check(not torch.allclose(spoiled, ref[1], atol=2e-3, rtol=1e-3),
+          f"{cfg.name}: a decode from a spoiled cache passes the f32 check")
+    del params32, ref
+    torch.cuda.empty_cache()
+    print(f"    f32 logits on {n} of {cfg.n_layers} layers (an f32 copy "
+          f"beside {free / 1e9:.1f} GB free, {FIT_SPARE / 1e9:.0f} GB to "
+          f"spare; TF32 off; within 2e-3 / 1e-3): prefill vs forward over "
+          f"the prompt alone max |diff| {diff:.3g}; vs forward over prompt "
+          f"+ 1: {', '.join(errs) or 'none compared'}; {skipped} of 2 "
+          f"positions skipped ({differ} of {Lp + 1} tokens routed otherwise "
+          f"in some layer); at capacity factor {nodrop.capacity_factor:g} "
+          f"(no drop possible) the prefill and decode logits vs forward "
+          f"over prompt + 1: max |diff| {full[0]:.3g} and {full[1]:.3g}, "
+          f"and a decode with layer 0's keys zeroed misses by {miss:.3g} "
+          f"and fails the check", flush=True)
+    return {"f32_layers": n, "skipped_positions": skipped,
+            "nodrop_f32_err": max(full)}
+
+
+def phase_qwen3_moe():
+    """qwen3-moe-30b-a3b at full width serves phase 12's traffic on K3;
+    the capacity's drops during one prefill; the MoE f32 logits check."""
+    return _serve_k3("qwen3-moe-30b-a3b", 28, logits_check=_moe_logits_check,
+                     after=lambda cfg, params, longest: _moe_drops(
+                         cfg, params, longest))
+
+
+def _whisper_inputs(cfg):
+    """WHISPER_ITEMS windows of WHISPER_FRAMES frame embeddings (f32,
+    N(0, 0.02^2) as LMBatcher's frames, from a generator seeded SEED on
+    the card) and decoder prompts of WHISPER_PROMPTS tokens (numpy seed
+    SEED)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(WHISPER_PROMPTS[0], WHISPER_PROMPTS[1] + 1,
+                        WHISPER_ITEMS)
+    prompts = [torch.as_tensor(rng.integers(0, cfg.vocab_size, int(n)),
+                               dtype=torch.int64, device=DEVICE)[None]
+               for n in lens]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    frames = torch.randn((WHISPER_ITEMS, WHISPER_FRAMES, cfg.d_model),
+                         generator=gen, device=DEVICE) * 0.02
+    return frames, prompts
+
+
+def _whisper_prefill_decode(cfg, params, frames, toks, nxt=None,
+                            spoil=False):
+    """Prefill one item, splice its cache into a zero cache of Lp + 1
+    decoder slots, decode ``nxt`` (default the greedy token); ``spoil``
+    zeroes layer 0's self keys first.  -> (prefill logits, decode logits,
+    nxt)."""
+    import torch
+    from repro_torch.models import whisper
+    from repro_torch.models.params import tree_map
+    from repro_torch.serve.engine import _splice
+    Lp = toks.shape[1]
+    logits_p, built, k_len = whisper.prefill(cfg, params, {
+        "frames": frames, "tokens": toks})
+    if nxt is None:
+        nxt = torch.argmax(logits_p, -1)
+    cache = whisper.init_cache(cfg, 1, Lp + 1, frames.shape[1], DEVICE)
+    tree_map(lambda big, one: _splice(big, one, 0), cache, built)
+    if spoil:
+        cache["self"]["k"][0].zero_()
+    logits_d, _ = whisper.decode_step(cfg, params, cache, nxt, k_len)
+    return logits_p[0], logits_d[0], nxt
+
+
+def phase_whisper():
+    """whisper-medium at full width: WHISPER_ITEMS windows of 30 s (1500
+    frames) each prefilled alone through ``whisper.prefill`` (K3 a layer
+    for the encoder's self-attention, the decoder's causal self-attention
+    and its cross-attention at Sq != Sk) and spliced into one
+    ``init_cache`` of WHISPER_CTX decoder slots, then WHISPER_DECODE
+    batched greedy ``decode_step``s (decode attention in plain torch);
+    K3 held on layer 0's encoder and cross-attention inputs; the prefill
+    and first decode logits held to ``forward`` in f32 (the whole f32 copy
+    fits), and a decode with layer 0's self keys zeroed must miss."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attn import kernel as K3
+    from repro_torch.models import layers, mixers, whisper
+    from repro_torch.models.params import tree_map
+    from repro_torch.serve.engine import _splice
+    t0 = time.perf_counter()
+    cfg = configs.get("whisper-medium")
+    L, Le, H, hd = cfg.n_layers, cfg.n_enc_layers, cfg.n_heads, cfg.head_dim
+    print(f"[29] whisper-medium at full width ({Le} + {L} layers, d "
+          f"{cfg.d_model}, {H} heads of {hd}): {WHISPER_ITEMS} windows of "
+          f"{WHISPER_FRAMES} frames, prompts of {WHISPER_PROMPTS[0]}-"
+          f"{WHISPER_PROMPTS[1]} tokens, {WHISPER_DECODE} decode steps on "
+          f"a {WHISPER_CTX}-token self cache", flush=True)
+    params = _full_params(cfg)
+    frames, prompts = _whisper_inputs(cfg)
+    _whisper_prefill_decode(cfg, params, frames[:1], prompts[0])   # warm
+    cache = whisper.init_cache(cfg, WHISPER_ITEMS, WHISPER_CTX,
+                               WHISPER_FRAMES, DEVICE)
+    k_len = torch.zeros(WHISPER_ITEMS, dtype=torch.int32, device=DEVICE)
+    last = torch.zeros(WHISPER_ITEMS, dtype=torch.int64, device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mods = _reset_counts()
+    t1 = time.perf_counter()
+    for i, toks in enumerate(prompts):
+        logits, built, _ = whisper.prefill(cfg, params, {
+            "frames": frames[i:i + 1], "tokens": toks})
+        tree_map(lambda big, one: _splice(big, one, i), cache, built)
+        last[i] = torch.argmax(logits[0])
+        k_len[i] = toks.shape[1]
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t1
+    counts = [m.launches for m in mods]
+    per = Le + 2 * L
+    check(counts == [0, 0, WHISPER_ITEMS * per, 0],
+          f"whisper prefills launched K1-K4 {counts}, want K3 "
+          f"{WHISPER_ITEMS} x {per}")
+    mods = _reset_counts()
+    t2 = time.perf_counter()
+    out = []
+    for _ in range(WHISPER_DECODE):
+        logits, cache = whisper.decode_step(cfg, params, cache, last, k_len)
+        last = torch.argmax(logits, -1)
+        k_len = k_len + 1
+        out.append(last)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t2
+    peak = torch.cuda.max_memory_allocated()
+    check(all(m.launches == 0 for m in mods), "whisper decode launched a "
+          "kernel of K1-K4 (its attention is plain torch)")
+    toks_out = torch.stack(out, 1)
+    check(bool(((toks_out >= 0) & (toks_out < cfg.vocab_eff)).all()),
+          "whisper decoded a token outside the vocabulary")
+    del cache
+
+    # K3 against plain on layer 0's encoder and cross-attention inputs
+    before = K3.launches
+    enc0 = tree_map(lambda t: t[0], params["enc"]["stack"])
+    dt = torch.bfloat16
+    x = frames[:1].to(dt) + params["enc"]["pos"][:WHISPER_FRAMES].to(dt)[None]
+    h = layers.norm_apply(cfg, enc0["norm1"], x)
+    qe = mixers._proj(h, enc0["attn"]["wq"])
+    ke, ve = (mixers._proj(h, enc0["attn"][w]) for w in ("wk", "wv"))
+    err_e = _k3_hold(qe, ke, ve, "whisper encoder layer 0", causal=False)[0]
+    enc_out = whisper.encode(cfg, params, frames[:1])
+    dec0 = tree_map(lambda t: t[0], params["dec"]["stack"])
+    hx = layers.norm_apply(cfg, dec0["norm_x"], whisper._dec_embed(
+        cfg, params, prompts[0]))
+    qx = mixers._proj(hx, dec0["cross"]["wq"])
+    kx, vx = (mixers._proj(enc_out, dec0["cross"][w]) for w in ("wk", "wv"))
+    err_x = _k3_hold(qx, kx, vx, "whisper cross layer 0 (the embedded "
+                     "prompt as its input)", causal=False)[0]
+    K3.launches = before
+
+    # K3's share of the prefills: each launch shape timed alone
+    def timed(Sq, Sk, causal):
+        q = torch.randn((1, Sq, H, hd), device=DEVICE, dtype=dt)
+        kv = [torch.randn((1, Sk, H, hd), device=DEVICE, dtype=dt)
+              for _ in range(2)]
+        fn = lambda: K3.flash_fill(q, *kv, causal=causal, p_dtype=dt)
+        fn()
+        return cuda_time_ms(fn, 3)
+    enc_ms = timed(WHISPER_FRAMES, WHISPER_FRAMES, False)
+    k3_s = 0.0
+    for toks in prompts:
+        n = toks.shape[1]
+        k3_s += Le * enc_ms + L * (timed(n, n, True)
+                                   + timed(n, WHISPER_FRAMES, False))
+    k3_s /= 1e3
+    K3.launches = before
+
+    # f32: prefill and first decode against forward
+    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32,
+                                compute_dtype=torch.float32)
+    params32 = tree_map(lambda t: t.float(), params)
+    toks = prompts[0]
+    Lp = toks.shape[1]
+    lp, ld, nxt = _whisper_prefill_decode(cfg32, params32, frames[:1], toks)
+    ref = whisper.forward(cfg32, params32, {
+        "frames": frames[:1], "tokens": torch.cat([toks, nxt[:, None]], 1)
+    })["logits"][0, Lp - 1:]
+    errs = []
+    for i, got in enumerate((lp, ld)):
+        e = float((got - ref[i]).abs().max())
+        check(torch.allclose(got, ref[i], atol=2e-3, rtol=1e-3),
+              f"whisper-medium: f32 logits at position {Lp - 1 + i} differ "
+              f"from the f32 forward by up to {e:.3g}")
+        errs.append(e)
+    spoiled = _whisper_prefill_decode(cfg32, params32, frames[:1], toks, nxt,
+                                      spoil=True)[1]
+    miss = float((spoiled - ref[1]).abs().max())
+    check(not torch.allclose(spoiled, ref[1], atol=2e-3, rtol=1e-3),
+          "whisper-medium: a decode from a spoiled cache passes the f32 check")
+    K3.launches = before
+    del params, params32, ref, enc_out
+    torch.cuda.empty_cache()
+    step_ms = 1e3 * decode_s / WHISPER_DECODE
+    lens = sorted(p.shape[1] for p in prompts)
+    print(f"    {WHISPER_ITEMS} prefills ({Le} encoder layers over "
+          f"{WHISPER_FRAMES} frames, prompts {lens}): "
+          f"{prefill_s:.3f} s ({1e3 * prefill_s / WHISPER_ITEMS:.1f} ms an "
+          f"item), K3 {counts[2]} launches ({per} a prefill), K3 "
+          f"{k3_s:.3f} s of it ({100 * k3_s / prefill_s:.1f} %, each "
+          f"launch shape timed alone); {WHISPER_DECODE} decode steps on "
+          f"{WHISPER_ITEMS} slots: {decode_s:.3f} s ({step_ms:.2f} ms a "
+          f"step, {WHISPER_ITEMS * WHISPER_DECODE / decode_s:.0f} tokens/s); "
+          f"peak device memory {peak / 2**30:.2f} GiB", flush=True)
+    print(f"    K3 == plain ({K3_PARITY}) on layer 0's encoder q/k/v "
+          f"{tuple(qe.shape)} (max |diff| {err_e:.3g}) and cross q "
+          f"{tuple(qx.shape)} over k/v {tuple(kx.shape)} (max |diff| "
+          f"{err_x:.3g}); f32 prefill and first decode logits vs the f32 "
+          f"forward (within 2e-3 / 1e-3): max |diff| {errs[0]:.3g} and "
+          f"{errs[1]:.3g}; a decode with layer 0's self keys zeroed misses by "
+          f"{miss:.3g} and fails the check; phase 29: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {"k3_launches": counts[2], "k3_per_prefill": per,
+            "k3_err": max(err_e, err_x), "prefill_s": prefill_s,
+            "decode_step_ms": step_ms, "k3_prefill_s": k3_s,
+            "peak_gib": peak / 2**30}
+
+
+def _llava_prefix(cfg, params, longest):
+    """One ``lm.prefill`` of LLAVA_PATCHES patch embeddings ahead of a
+    LLAVA_PROMPT-token prompt, ``grow_cache`` and LLAVA_DECODE greedy
+    decode steps (timed, K3 once a layer); K3 held on layer 0's q/k/v of
+    that prefill; then the same in f32 on as many layers as an f32 copy
+    fits with FIT_SPARE to spare, the prefill and every decode step's
+    logits held to ``forward`` over the prefix, the prompt and the decoded
+    tokens."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.llava_next_mistral_7b import LLAVA_PATCHES
+    from repro_torch.kernels.flash_attn import kernel as K3
+    from repro_torch.models import layers, lm, mixers
+    from repro_torch.models.params import tree_map
+    rng = np.random.default_rng(SEED)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, LLAVA_PROMPT),
+                           dtype=torch.int64, device=DEVICE)[None]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    pe = torch.randn((1, LLAVA_PATCHES, cfg.d_model), generator=gen,
+                     device=DEVICE) * 0.02
+    Lp = LLAVA_PATCHES + LLAVA_PROMPT
+
+    def run(c, p):
+        logits, cache, k_len = lm.prefill(c, p, {"prefix_embeds": pe,
+                                                 "tokens": toks})
+        check(int(k_len[0]) == Lp, f"llava prefill k_len {int(k_len[0])}, "
+              f"not {Lp}")
+        cache = lm.grow_cache(c, cache, 1, Lp + LLAVA_DECODE)
+        out, fed = [logits[0]], []
+        for i in range(LLAVA_DECODE):
+            nxt = torch.argmax(out[-1])[None]
+            fed.append(nxt)
+            logits, cache = lm.decode_step(c, p, cache, nxt, k_len + i)
+            out.append(logits[0])
+        return out, torch.cat(fed)
+
+    run(cfg, params)                                        # warm
+    torch.cuda.synchronize()
+    mods = _reset_counts()
+    t0 = time.perf_counter()
+    logits, cache, k_len = lm.prefill(cfg, params, {"prefix_embeds": pe,
+                                                    "tokens": toks})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts = [m.launches for m in mods]
+    check(counts == [0, 0, cfg.n_layers, 0], f"llava prefix prefill "
+          f"launched K1-K4 {counts}, want K3 {cfg.n_layers} times")
+    cache = lm.grow_cache(cfg, cache, 1, Lp + LLAVA_DECODE)
+    nxt = torch.argmax(logits, -1)
+    t1 = time.perf_counter()
+    for i in range(LLAVA_DECODE):
+        logits, cache = lm.decode_step(cfg, params, cache, nxt, k_len + i)
+        nxt = torch.argmax(logits, -1)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t1) / LLAVA_DECODE
+    check([m.launches for m in mods] == counts, "llava decode launched a "
+          "kernel of K1-K4")
+    del cache
+
+    before = K3.launches
+    p0 = tree_map(lambda t: t[0], params["groups"][0])["sub0"]
+    x, _ = lm._assemble_input(cfg, params, {"prefix_embeds": pe,
+                                            "tokens": toks})
+    h = layers.norm_apply(cfg, p0["norm1"], x)
+    pos = torch.arange(Lp, dtype=torch.int32, device=DEVICE)[None]
+    q, k, v = mixers.attn_qkv(cfg, p0["mixer"], h, pos)
+    err = _k3_hold(q, k, v, "llava layer 0 with the patch prefix",
+                   causal=True)[0]
+    K3.launches = before
+
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    n = _layers_that_fit(cfg, 4, free)
+    cut, cut_params = _cut(cfg, params, n)
+    cfg32 = dataclasses.replace(cut, param_dtype=torch.float32,
+                                compute_dtype=torch.float32)
+    params32 = tree_map(lambda t: t.float(), cut_params)
+    got, fed = run(cfg32, params32)
+    ref = lm.forward(cfg32, params32, {
+        "prefix_embeds": pe, "tokens": torch.cat([toks[0], fed])[None]
+    })["logits"][0, Lp - 1:]
+    worst = 0.0
+    for i, g in enumerate(got):
+        e = float((g - ref[i]).abs().max())
+        check(torch.allclose(g, ref[i], atol=2e-3, rtol=1e-3),
+              f"llava: f32 logits at position {Lp - 1 + i} (prefix "
+              f"{LLAVA_PATCHES}) differ from forward by up to {e:.3g}")
+        worst = max(worst, e)
+    K3.launches = before
+    del params32, ref
+    torch.cuda.empty_cache()
+    print(f"    patch prefix: one prefill of {LLAVA_PATCHES} patch "
+          f"embeddings + {LLAVA_PROMPT} tokens in {prefill_s:.3f} s "
+          f"({Lp / prefill_s:.0f} positions/s, K3 {counts[2]} launches), "
+          f"{LLAVA_DECODE} decode steps after grow_cache at {step_ms:.2f} ms "
+          f"a step; K3 == plain on layer 0's q/k/v {tuple(q.shape)} over "
+          f"{tuple(k.shape)} (max |diff| {err:.3g}); f32 on {n} of "
+          f"{cfg.n_layers} layers: the prefill and {LLAVA_DECODE} decode "
+          f"logits within 2e-3 / 1e-3 of forward over the prefix, the "
+          f"prompt and the decoded tokens, max |diff| {worst:.3g}",
+          flush=True)
+    return {"prefix_prefill_s": prefill_s, "prefix_decode_step_ms": step_ms,
+            "prefix_k3_launches": counts[2], "prefix_k3_err": err,
+            "prefix_f32_layers": n}
+
+
+def phase_llava():
+    """llava-next-mistral-7b at full width serves phase 12's (token-only)
+    traffic on K3, then the patch-prefixed prefill and decode."""
+    return _serve_k3("llava-next-mistral-7b", 30, after=_llava_prefix)
+
+
+def phase_train_slice12():
+    """Phase 31: whisper-medium at full depth, llava-next-mistral-7b at
+    LLAVA_TRAIN_LAYERS of its layers and qwen3-moe-30b-a3b at
+    QWEN3_TRAIN_LAYERS of its layers train through train_loop as phase 18
+    does (frames and patches as train_loop's frontend prefix makes them);
+    each run's last recorded K3 backward held against
+    flash_backward_plain; then the three reduced configs trained on the
+    card and on the CPU from one numpy-made state, as phase 20."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attn import kernel as K3
+    out = {}
+    runs = (("whisper-medium", None),
+            ("llava-next-mistral-7b", LLAVA_TRAIN_LAYERS),
+            ("qwen3-moe-30b-a3b", QWEN3_TRAIN_LAYERS))
+    for arch, layers_ in runs:
+        full = configs.get(arch)
+        cfg = full if layers_ is None else \
+            dataclasses.replace(full, n_layers=layers_)
+        attn = cfg.n_enc_layers + 2 * cfg.n_layers if cfg.enc_dec else \
+            cfg.n_layers
+        n = attn * cfg.accum_steps          # K3 forward passes a step
+        run = _train_full(arch, K3, "flash_backward", 2 * n, n, 31, cfg=cfg)
+        args, kw = _detached(run.pop("last"))
+        before = (K3.launches, K3.bwd_launches)
+        err = _hold_k3_bwd(args, kw, f"{arch}, last step's last backward")
+        K3.launches, K3.bwd_launches = before
+        print(f"    K3 backward == plain ({K3_BWD_PARITY}) on the last "
+              f"recorded q/k/v/o/lse/dO {tuple(args[0].shape)} over "
+              f"{tuple(args[1].shape)}, {args[0].dtype}: max |diff| "
+              f"{err:.3g}", flush=True)
+        del args, kw
+        torch.cuda.empty_cache()
+        out[arch] = dict(run, k3_err=err, layers=cfg.n_layers)
+    phase_train_card_vs_cpu(tuple(a for a, _ in runs), 31)
+    return out
+
+
+def _slug(arch):
+    return arch.split("-")[0]
+
+
 def _train_summary(run, kern):
-    """A training phase's numbers for the kernels' JSON line."""
+    """A training phase's numbers for the kernels' JSON line (the kernel's
+    own times where the phase took them)."""
     return {"step_s": run["step_s"], "tokens_per_s": run["tokens_per_s"],
             "device_busy_share": run["profile_busy"],
             "peak_gib": run["peak_bytes"] / 2**30, "losses": run["losses"],
-            "kernel_share": run[f"{kern}_share"],
-            "fwd_ms": run[f"{kern}_fwd_ms"], "bwd_ms": run[f"{kern}_bwd_ms"]}
+            "kernel_share": run.get(f"{kern}_share"),
+            "fwd_ms": run.get(f"{kern}_fwd_ms"),
+            "bwd_ms": run.get(f"{kern}_bwd_ms")}
 
 
 def main() -> int:
@@ -4083,6 +4632,10 @@ def main() -> int:
         dense = phase_phi3_command_r()
         stablelm_train = phase_train_stablelm()
         align = phase_align_launcher()
+        qwen3 = phase_qwen3_moe()
+        whisper = phase_whisper()
+        llava = phase_llava()
+        train12 = phase_train_slice12()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4132,12 +4685,29 @@ def main() -> int:
         "launches_command_r": dense["command_r"]["k3_launches"],
         "command_r_layers": dense["command_r"]["layers"],
         "launches_train_stablelm": stablelm_train["fwd_launches"],
+        "launches_qwen3_moe": qwen3["k3_launches"],
+        "launches_whisper_prefills": whisper["k3_launches"],
+        "launches_whisper_per_prefill": whisper["k3_per_prefill"],
+        "launches_llava": llava["k3_launches"],
+        "launches_llava_prefix_prefill": llava["prefix_k3_launches"],
+        **{f"launches_train_{_slug(a)}": r["fwd_launches"]
+           for a, r in train12.items()},
         "head_dims": list(K3_HEAD_DIMS), "parity": K3_PARITY,
         "max_abs_err": max(k3_err, olmo["k3_err"], stablelm["k3_err"],
                            dense["phi3"]["k3_err"],
-                           dense["command_r"]["k3_err"]),
+                           dense["command_r"]["k3_err"], qwen3["k3_err"],
+                           whisper["k3_err"], llava["k3_err"],
+                           llava["prefix_k3_err"]),
         "max_abs_err_hd160": k3_160_err, "max_abs_err_cross": k3_x_err,
         "stablelm_serve": stablelm["serve"], "ptxas": ptxas["flash_fill"],
+        "qwen3_moe_serve": dict(qwen3["serve"], **{k: qwen3[k] for k in (
+            "drop_tokens_per_layer", "drop_choices", "choices",
+            "f32_layers", "skipped_positions", "nodrop_f32_err")}),
+        "whisper": {k: whisper[k] for k in (
+            "prefill_s", "decode_step_ms", "k3_prefill_s", "peak_gib")},
+        "llava_serve": dict(llava["serve"], **{k: llava[k] for k in (
+            "prefix_prefill_s", "prefix_decode_step_ms",
+            "prefix_f32_layers")}),
         **k3_new["fwd"],
         **k3_timing}, {
         "name": "wkv6_fill", "route": "cuda",
@@ -4151,13 +4721,19 @@ def main() -> int:
         "replaces": "src/repro/models/layers.py:163",
         "launches": olmo_train["bwd_launches"], "parity": K3_BWD_PARITY,
         "launches_train_stablelm": stablelm_train["bwd_launches"],
+        **{f"launches_train_{_slug(a)}": r["bwd_launches"]
+           for a, r in train12.items()},
         "head_dims": list(K3_HEAD_DIMS),
         "max_abs_err": max(k3b_err, olmo_train["k3_err"],
-                           stablelm_train["k3_err"]),
+                           stablelm_train["k3_err"],
+                           *(r["k3_err"] for r in train12.values())),
         "max_abs_err_hd160": k3b_160_err, "max_abs_err_cross": k3b_x_err,
         "train": _train_summary(olmo_train, "k3"),
         "train_stablelm": dict(_train_summary(stablelm_train, "k3"),
                                layers=stablelm_train["layers"]),
+        **{f"train_{_slug(a)}": dict(_train_summary(r, "k3"),
+                                     layers=r["layers"], moe_aux=r["moe_aux"])
+           for a, r in train12.items()},
         **k3_new["bwd"],
         "ptxas": ptxas["flash_backward"], **k3b_timing}, {
         "name": "wkv6_backward", "route": "cuda",

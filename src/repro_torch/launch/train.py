@@ -22,18 +22,33 @@ import torch
 
 from repro_torch import checkpoint, configs
 from repro_torch import train as train_mod
+from repro_torch.configs.llava_next_mistral_7b import LLAVA_PATCHES
 from repro_torch.data import LMBatcher
 from repro_torch.optim import AdamWConfig, cosine_with_warmup
 from repro_torch.serve.engine import resolve_device
+
+
+def batches(cfg, batch: int, seq: int, seed: int = 0):
+    """The training stream of ``cfg``: ``LMBatcher(seed=seed)`` batches of
+    ``batch`` x ``seq`` positions, with JAX's launcher's frontend prefix (a
+    vlm config's first ``min(LLAVA_PATCHES, seq // 2)`` positions are patch
+    embeddings and the rest tokens; an audio config takes ``seq`` frames
+    beside ``seq`` tokens)."""
+    prefix = (min(LLAVA_PATCHES, seq // 2) if cfg.frontend == "vlm"
+              else (seq if cfg.frontend == "audio" else 0))
+    return iter(LMBatcher(
+        vocab=cfg.vocab_size, batch=batch,
+        seq=(seq - prefix) if cfg.frontend == "vlm" else seq, seed=seed,
+        frontend=cfg.frontend, d_model=cfg.d_model, prefix=prefix))
 
 
 def train_loop(cfg, *, steps: int, batch: int, seq: int, lr: float = 3e-4,
                ckpt_dir=None, ckpt_every: int = 50, device="cuda",
                opt_cfg=None, log_every: int = 10, seed: int = 0,
                on_metrics=None, mesh=None):
-    """Train ``cfg`` for ``steps`` steps of ``batch`` x ``seq`` tokens from
-    ``LMBatcher(seed=seed)``, AdamW (``opt_cfg``, default weight decay
-    0.01) under ``cosine_with_warmup(lr, max(steps // 20, 5), steps)``.
+    """Train ``cfg`` for ``steps`` steps of ``batches(cfg, batch, seq,
+    seed)``, AdamW (``opt_cfg``, default weight decay 0.01) under
+    ``cosine_with_warmup(lr, max(steps // 20, 5), steps)``.
     ``on_metrics(step, metrics)`` is called at every logged step.  Returns
     (state, last metrics)."""
     if mesh is not None:
@@ -54,9 +69,7 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, lr: float = 3e-4,
             print(f"resumed from step {at}", flush=True)
 
     step_fn = train_mod.make_train_step(cfg, opt_cfg, lr_fn)
-    data = iter(LMBatcher(vocab=cfg.vocab_size, batch=batch, seq=seq,
-                          seed=seed, frontend=cfg.frontend,
-                          d_model=cfg.d_model))
+    data = batches(cfg, batch, seq, seed)
 
     stop = {"now": False}
 

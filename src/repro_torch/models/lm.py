@@ -1,4 +1,5 @@
-"""Decoder-only LM over the ported mixers (port of ``repro/models/lm.py``).
+"""Decoder-only LM over the ported mixers and FFNs (port of
+``repro/models/lm.py``).
 
 A config's ``layer_plan()`` splits the stack into groups; each group's
 parameters are one tree stacked on a leading layer axis, and a Python loop
@@ -8,6 +9,9 @@ their backward kernels, and with ``cfg.remat`` each period runs under
 ``torch.utils.checkpoint``, as JAX wraps it in ``jax.checkpoint``),
 'prefill' (last-position logits and the built KV/state cache) and 'decode'
 (one token against a cache, which is updated in place and returned).
+``forward`` and ``prefill`` take an optional multimodal prefix
+(``batch["prefix_embeds"]``, llava's patch embeddings) ahead of the tokens;
+``forward`` returns the MoE load-balance loss summed over the layers.
 """
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ from typing import Any, Dict, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from . import mixers
+from . import mixers, moe
 from .layers import mlp_apply, mlp_defs, norm_apply, norm_defs
 from .params import (ParamDef, leaves, stack_defs, to_dtype, tree_map,
                      unflatten)
@@ -44,16 +48,22 @@ def _mixer_apply(cfg, kind, p, x, ctx, cache):
 def _ffn_defs(cfg, kind):
     if kind == "dense":
         return mlp_defs(cfg)
+    if kind == "moe":
+        return moe.moe_defs(cfg)
     if kind == "rwkv_cm":
         return mixers.rwkv_cm_defs(cfg)
     raise ValueError(kind)
 
 
 def _ffn_apply(cfg, kind, p, x, ctx, cache):
+    """-> (y, new_cache, aux)."""
     if kind == "dense":
-        return mlp_apply(cfg, p, x), None
+        return mlp_apply(cfg, p, x), None, 0.0
+    if kind == "moe":
+        y, aux = moe.moe_apply(cfg, p, x)
+        return y, None, aux
     if kind == "rwkv_cm":
-        return mixers.rwkv_cm_apply(cfg, p, x, ctx, cache)
+        return (*mixers.rwkv_cm_apply(cfg, p, x, ctx, cache), 0.0)
     raise ValueError(kind)
 
 
@@ -75,19 +85,19 @@ def _layer_apply(cfg, kind, ffn_kind, p, x, ctx, cache):
         h = norm_apply(cfg, p["norm1"], x)
         ym, mc = _mixer_apply(cfg, kind, p["mixer"], h, ctx,
                               cache.get("mixer"))
-        yf, fc = _ffn_apply(cfg, ffn_kind, p["ffn"], h, ctx,
-                            cache.get("ffn"))
+        yf, fc, aux = _ffn_apply(cfg, ffn_kind, p["ffn"], h, ctx,
+                                 cache.get("ffn"))
         x = x + ym + yf
     else:
         ym, mc = _mixer_apply(cfg, kind, p["mixer"],
                               norm_apply(cfg, p["norm1"], x), ctx,
                               cache.get("mixer"))
         x = x + ym
-        yf, fc = _ffn_apply(cfg, ffn_kind, p["ffn"],
-                            norm_apply(cfg, p["norm2"], x), ctx,
-                            cache.get("ffn"))
+        yf, fc, aux = _ffn_apply(cfg, ffn_kind, p["ffn"],
+                                 norm_apply(cfg, p["norm2"], x), ctx,
+                                 cache.get("ffn"))
         x = x + yf
-    return x, {"mixer": mc, "ffn": fc}
+    return x, {"mixer": mc, "ffn": fc}, aux
 
 
 def _period_defs(cfg, mixers_t, ffn_kind):
@@ -96,11 +106,13 @@ def _period_defs(cfg, mixers_t, ffn_kind):
 
 
 def _period_apply(cfg, mixers_t, ffn_kind, p, x, ctx, cache):
-    ncs = {}
+    ncs, aux = {}, 0.0
     for t, k in enumerate(mixers_t):
-        x, ncs[f"sub{t}"] = _layer_apply(cfg, k, ffn_kind, p[f"sub{t}"], x,
-                                         ctx, (cache or {}).get(f"sub{t}"))
-    return x, ncs
+        x, ncs[f"sub{t}"], a = _layer_apply(
+            cfg, k, ffn_kind, p[f"sub{t}"], x, ctx,
+            (cache or {}).get(f"sub{t}"))
+        aux = aux + a
+    return x, ncs, aux
 
 
 def _copy_into(view, new):
@@ -119,31 +131,36 @@ def _unstack(p_group, repeat):
 
 
 def _group_apply(cfg, plan_entry, p_group, x, ctx, cache_group):
-    """One group, layer by layer.  Prefill returns the layer-stacked cache;
-    decode writes each layer's new cache into ``cache_group``; train runs
-    each period under ``checkpoint`` when ``cfg.remat``."""
+    """One group, layer by layer -> (x, cache, aux summed over the group's
+    layers).  Prefill returns the layer-stacked cache; decode writes each
+    layer's new cache into ``cache_group``; train runs each period under
+    ``checkpoint`` when ``cfg.remat``."""
     mixers_t, ffn_kind, repeat = plan_entry
     mode = ctx["mode"]
+    aux = 0.0
     if mode == "train":
         def period(pp, xc):
-            return _period_apply(cfg, mixers_t, ffn_kind, pp, xc, ctx,
-                                 None)[0]
+            xo, _, a = _period_apply(cfg, mixers_t, ffn_kind, pp, xc, ctx,
+                                     None)
+            return xo, a
         for pp in _unstack(p_group, repeat):
-            x = (checkpoint(period, pp, x, use_reentrant=False)
-                 if cfg.remat else period(pp, x))
-        return x, None
+            x, a = (checkpoint(period, pp, x, use_reentrant=False)
+                    if cfg.remat else period(pp, x))
+            aux = aux + a
+        return x, None, aux
     built = []
     for layer, pp in enumerate(_unstack(p_group, repeat)):
         cc = (tree_map(lambda t: t[layer], cache_group)
               if mode == "decode" else None)
-        x, nc = _period_apply(cfg, mixers_t, ffn_kind, pp, x, ctx, cc)
+        x, nc, a = _period_apply(cfg, mixers_t, ffn_kind, pp, x, ctx, cc)
+        aux = aux + a
         if mode == "prefill":
             built.append(nc)
         elif mode == "decode":
             tree_map(_copy_into, cc, nc)
     if mode == "prefill":
-        return x, tree_map(lambda *ts: torch.stack(ts), *built)
-    return x, cache_group
+        return x, tree_map(lambda *ts: torch.stack(ts), *built), aux
+    return x, cache_group, aux
 
 
 # ---------------------------------------------------------------------------
@@ -168,6 +185,21 @@ def _embed(cfg, params, tokens):
     return params["embed"]["table"][tokens].to(to_dtype(cfg.compute_dtype))
 
 
+def _assemble_input(cfg, params, batch):
+    """tokens (and an optional multimodal prefix of embeddings ahead of
+    them) -> (x (B, S, D), prefix length)."""
+    dev = params["embed"]["table"].device
+    parts, prefix = [], 0
+    if "prefix_embeds" in batch:           # llava's patch embeddings
+        pe = torch.as_tensor(batch["prefix_embeds"], device=dev)
+        parts.append(pe.to(to_dtype(cfg.compute_dtype)))
+        prefix = pe.shape[1]
+    if batch.get("tokens") is not None:
+        parts.append(_embed(cfg, params, torch.as_tensor(
+            batch["tokens"], device=dev)))
+    return (parts[0] if len(parts) == 1 else torch.cat(parts, 1)), prefix
+
+
 def _head(cfg, params, x):
     """f32 logits: products of the working dtype accumulated in f32, as
     JAX's ``preferred_element_type=F32``."""
@@ -181,25 +213,28 @@ def _positions(S, device):
 
 
 def forward(cfg, params, batch):
-    """Train-mode forward: full-sequence f32 logits."""
-    tokens = torch.as_tensor(batch["tokens"])
-    x = _embed(cfg, params, tokens.to(params["embed"]["table"].device))
+    """Train-mode forward: full-sequence f32 logits (prefix positions
+    included), the MoE aux loss summed over layers, the prefix length."""
+    x, prefix = _assemble_input(cfg, params, batch)
     ctx = {"mode": "train", "positions": _positions(x.shape[1], x.device)}
+    aux = 0.0
     for plan_entry, pg in zip(cfg.layer_plan(), params["groups"]):
-        x, _ = _group_apply(cfg, plan_entry, pg, x, ctx, None)
+        x, _, a = _group_apply(cfg, plan_entry, pg, x, ctx, None)
+        aux = aux + a
     h = norm_apply(cfg, params["final_norm"], x)
-    return {"logits": _head(cfg, params, h), "aux_loss": 0.0, "prefix": 0}
+    return {"logits": _head(cfg, params, h), "aux_loss": aux,
+            "prefix": prefix}
 
 
 def prefill(cfg, params, batch):
-    """-> (last-position logits (B, V), cache, k_len (B,))."""
-    tokens = torch.as_tensor(batch["tokens"])
-    x = _embed(cfg, params, tokens.to(params["embed"]["table"].device))
+    """-> (last-position logits (B, V), cache, k_len (B,)); the cache and
+    k_len count the prefix positions too."""
+    x, _ = _assemble_input(cfg, params, batch)
     B, S = x.shape[:2]
     ctx = {"mode": "prefill", "positions": _positions(S, x.device)}
     caches = []
     for plan_entry, pg in zip(cfg.layer_plan(), params["groups"]):
-        x, nc = _group_apply(cfg, plan_entry, pg, x, ctx, None)
+        x, nc, _ = _group_apply(cfg, plan_entry, pg, x, ctx, None)
         caches.append(nc)
     h = norm_apply(cfg, params["final_norm"], x[:, -1:])
     logits = _head(cfg, params, h)[:, 0]
@@ -213,7 +248,7 @@ def decode_step(cfg, params, cache, token, k_len):
     x = _embed(cfg, params, token[:, None])
     ctx = {"mode": "decode", "k_len": k_len, "positions": k_len[:, None]}
     for plan_entry, pg, cg in zip(cfg.layer_plan(), params["groups"], cache):
-        x, _ = _group_apply(cfg, plan_entry, pg, x, ctx, cg)
+        x, _, _ = _group_apply(cfg, plan_entry, pg, x, ctx, cg)
     h = norm_apply(cfg, params["final_norm"], x)
     return _head(cfg, params, h)[:, 0], cache
 

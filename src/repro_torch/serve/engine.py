@@ -6,7 +6,9 @@ A ``ServeSession`` owns a (L, B, S_max, ...) cache; requests occupy slots.
 slot; ``step()`` decodes one token for every slot (greedy, or sampled at
 ``temperature > 0``); finished slots are freed and refilled.  The session
 runs on ``device`` ("cuda" unless the caller passes "cpu") and raises when
-CUDA is asked for and absent.
+CUDA is asked for and absent.  Encoder-decoder configs (whisper) are
+refused, as in JAX: drive ``models.whisper``'s ``prefill`` and
+``decode_step`` directly.
 """
 from __future__ import annotations
 
@@ -56,6 +58,10 @@ class ServeSession:
     def __init__(self, cfg, params, batch_slots: int, max_len: int,
                  temperature: float = 0.0, seed: int = 0, device="cuda",
                  record_logits: bool = False):
+        if cfg.enc_dec:
+            raise ValueError(f"{cfg.name}: ServeSession serves decoder-only "
+                             f"configs; drive an encoder-decoder through "
+                             f"models.whisper's prefill and decode_step")
         self.model = get_model(cfg)
         self.device = resolve_device(device)
         self.cfg, self.params = cfg, params

@@ -1,7 +1,7 @@
 """Next-token cross-entropy with the z-loss, and the MoE and multi-token
-prediction terms (port of ``repro/train/loss.py``).  The MoE and MTP terms
-are written as JAX writes them; ``models.get_model`` still refuses the
-configs that produce them."""
+prediction terms (port of ``repro/train/loss.py``).  The MTP term is
+written as JAX writes it; ``models.get_model`` still refuses the configs
+that produce it."""
 from __future__ import annotations
 
 import torch

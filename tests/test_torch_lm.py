@@ -2,7 +2,9 @@
 reduced configs in f32 with weights carried across by
 ``repro_torch.models.params.from_jax``: the layers, the attention mixer
 (with and without a sliding window), the RWKV-6 time and channel mixes,
-and whole-model ``forward``/``prefill``/``decode_step``.  Tolerances:
+and whole-model ``forward``/``prefill``/``decode_step`` (llava with a
+prefix of patch embeddings, qwen3-moe through the MoE FFN at its reduced
+config's no-drop capacity).  Tolerances:
 2e-5 for a layer and 1e-4 for a mixer (f32 sums in other orders, over
 more terms in a mixer), and the whole-model
 tolerances of ``tests/test_models.py`` (2e-4 / 1e-4 for forward and
@@ -21,6 +23,7 @@ import pytest
 import torch
 
 from repro import configs as jconfigs
+from repro.models import get_model as jget_model
 from repro.models import layers as jlayers
 from repro.models import lm as jlm
 from repro.models import mixers as jmixers
@@ -30,7 +33,7 @@ from repro_torch.models import get_model, layers, lm, mixers
 from repro_torch.models.params import count_params, from_jax, init_params
 
 ARCHS = ["olmo-1b", "rwkv6-3b", "stablelm-12b", "phi3-medium-14b",
-         "command-r-plus-104b"]
+         "command-r-plus-104b", "qwen3-moe-30b-a3b", "llava-next-mistral-7b"]
 LAYER_TOL = dict(rtol=2e-5, atol=2e-5)
 # a mixer sums a few thousand f32 products per output, of magnitude ~10
 MIXER_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -224,7 +227,22 @@ def test_rwkv6_time_and_channel_mix(rng):
 MODELS = {"olmo-1b": {}, "rwkv6-3b": {},
           "olmo-1b-local": {"pattern": ("attn", "attn_local"), "window": 8},
           "stablelm-12b": {}, "phi3-medium-14b": {},
-          "command-r-plus-104b": {}}
+          "command-r-plus-104b": {}, "qwen3-moe-30b-a3b": {},
+          "llava-next-mistral-7b": {}}
+
+
+def _lm_batch(cfg, rng, B, S):
+    """numpy tokens (B, S) and, for a vlm config, a prefix of S // 4
+    patch embeddings ahead of them."""
+    b = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
+    if cfg.frontend == "vlm":
+        b["prefix_embeds"] = rng.normal(
+            size=(B, S // 4, cfg.d_model)).astype(np.float32)
+    return b
+
+
+def _as(batch, fn):
+    return {k: fn(v) for k, v in batch.items()}
 
 
 @pytest.mark.parametrize("name", sorted(MODELS))
@@ -234,19 +252,23 @@ def test_forward_prefill_decode_match_jax(name, rng):
     jp = jlm.init(jc, jax.random.PRNGKey(0))
     pp = from_jax(pc, jax.tree.map(np.asarray, jp), "cpu")
     B, S = 2, 40
-    toks = rng.integers(0, jc.vocab_size, (B, S))
-    want = jlm.forward(jc, jp, {"tokens": jnp.asarray(toks)})["logits"]
-    got = lm.forward(pc, pp, {"tokens": torch.as_tensor(toks)})["logits"]
+    batch = _lm_batch(jc, rng, B, S)
+    toks = batch["tokens"]
+    jout = jlm.forward(jc, jp, _as(batch, jnp.asarray))
+    pout = lm.forward(pc, pp, _as(batch, torch.as_tensor))
+    want, got = jout["logits"], pout["logits"]
     np.testing.assert_allclose(_np(got), _np(want), atol=2e-4, rtol=1e-4)
+    assert pout["prefix"] == jout["prefix"]
+    np.testing.assert_allclose(float(pout["aux_loss"]),
+                               float(jout["aux_loss"]), rtol=1e-5)
 
-    jl, jcache, jk = jlm.prefill(jc, jp, {"tokens": jnp.asarray(
-        toks[:, :S - 1])})
-    pl, pcache, pk = lm.prefill(pc, pp, {"tokens": torch.as_tensor(
-        toks[:, :S - 1])})
+    head = dict(batch, tokens=toks[:, :S - 1])
+    jl, jcache, jk = jlm.prefill(jc, jp, _as(head, jnp.asarray))
+    pl, pcache, pk = lm.prefill(pc, pp, _as(head, torch.as_tensor))
     np.testing.assert_allclose(_np(pl), _np(jl), atol=2e-4, rtol=1e-4)
     np.testing.assert_array_equal(_np(pk), _np(jk))
-    jcache = jlm.grow_cache(jc, jcache, B, S + 3)
-    pcache = lm.grow_cache(pc, pcache, B, S + 3)
+    jcache = jlm.grow_cache(jc, jcache, B, int(jk[0]) + 4)
+    pcache = lm.grow_cache(pc, pcache, B, int(pk[0]) + 4)
     jd, _ = jlm.decode_step(jc, jp, jcache, jnp.asarray(toks[:, -1]), jk)
     pd, _ = lm.decode_step(pc, pp, pcache, torch.as_tensor(toks[:, -1]), pk)
     np.testing.assert_allclose(_np(pd), _np(jd), atol=2e-3, rtol=1e-3)
@@ -290,25 +312,30 @@ def _leaves(tree):
     return leaves(tree)
 
 
+def _jax_defs(cfg):
+    return jget_model(cfg).param_defs(cfg)
+
+
 def _jax_count(cfg):
-    """The parameters JAX's ``param_defs`` declares, counted in Python
-    ints: ``jparams.count_params`` multiplies each shape in int32 and
-    wraps past 2^31 (a stacked leaf of stablelm-12b's MLP holds 2.8 G)."""
-    defs = jax.tree.leaves(jlm.param_defs(cfg),
+    """The parameters JAX's ``param_defs`` declares, counted in int64:
+    ``jparams.count_params`` multiplies each shape in int32 and wraps past
+    2^31 (a stacked leaf of stablelm-12b's MLP holds 2.8 G, qwen3-moe's
+    stacked experts 9.66 G)."""
+    defs = jax.tree.leaves(_jax_defs(cfg),
                            is_leaf=lambda d: isinstance(d, jparams.ParamDef))
     sizes = [int(np.prod(d.shape, dtype=np.int64)) for d in defs]
     return sum(sizes), max(sizes)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["whisper-medium"])
 def test_full_config_param_counts_equal_jax(arch):
     jc = jconfigs.get(arch)
     want, biggest = _jax_count(jc)
     assert count_params(pconfigs.get(arch)) == want
     if biggest < 2 ** 31:                # JAX's own count does not wrap
-        assert jparams.count_params(jlm.param_defs(jc)) == want
+        assert jparams.count_params(_jax_defs(jc)) == want
     assert count_params(pconfigs.get(arch, reduced=True)) == \
-        jparams.count_params(jlm.param_defs(jconfigs.get(arch, reduced=True)))
+        jparams.count_params(_jax_defs(jconfigs.get(arch, reduced=True)))
 
 
 def test_from_jax_checks_shapes_and_keys():
@@ -350,10 +377,17 @@ def test_init_params_kinds():
 
 
 @pytest.mark.parametrize("arch,why", [
-    ("deepseek-v3-671b", "MoE"), ("recurrentgemma-9b", "rglru"),
-    ("whisper-medium", "encoder-decoder"), ("llava-next-mistral-7b", "vlm")])
+    ("deepseek-v3-671b", "mla"),
+    ("deepseek-v3-671b", "multi-token prediction"),
+    ("recurrentgemma-9b", "rglru"),
+    ("olmo-1b-mtp", "multi-token prediction")])
 def test_get_model_refuses_unported(arch, why):
-    j = jconfigs.get(arch, reduced=True)
+    """DeepSeek-V3 (MLA, multi-token prediction) and RecurrentGemma
+    (RG-LRU) are refused, naming item 15; so is multi-token prediction on
+    an otherwise ported config."""
+    j = jconfigs.get(arch.removesuffix("-mtp"), reduced=True)
+    if arch.endswith("-mtp"):
+        j = dataclasses.replace(j, mtp=True)
     fields = {f.name for f in dataclasses.fields(pconfigs.ModelConfig)}
     cfg = pconfigs.ModelConfig(**{
         k: v for k, v in dataclasses.asdict(j).items()
@@ -398,13 +432,13 @@ def test_model_gradients_match_jax(arch, remat, rng):
     from repro_torch.train.loss import lm_loss
     jc, pc = _cfgs(arch, remat=remat)
     jp = _random_defs(jlm.param_defs(jc), 5)
-    toks = rng.integers(0, jc.vocab_size, (2, 33)).astype(np.int32)
-    jb = {"tokens": jnp.asarray(toks)}
+    batch = _lm_batch(jc, rng, 2, 33)
+    jb = _as(batch, jnp.asarray)
     jl, jg = jax.value_and_grad(
         lambda p: jlm_loss(jc, jlm.forward(jc, p, jb), jb)[0])(jp)
     pp = from_jax(pc, jax.tree.map(np.asarray, jp), "cpu")
     live = [t.detach().requires_grad_() for t in leaves(pp)]
-    pb = {"tokens": torch.as_tensor(toks)}
+    pb = _as(batch, torch.as_tensor)
     loss, _ = lm_loss(pc, lm.forward(pc, unflatten(pp, live), pb), pb)
     got = torch.autograd.grad(loss, live)
     np.testing.assert_allclose(float(loss.detach()), float(jl), rtol=1e-6)

@@ -20,7 +20,7 @@ from repro_torch.models.params import from_jax
 from repro_torch.serve import Request, ServeSession
 
 ARCHS = ["olmo-1b", "rwkv6-3b", "stablelm-12b", "phi3-medium-14b",
-         "command-r-plus-104b"]
+         "command-r-plus-104b", "qwen3-moe-30b-a3b", "llava-next-mistral-7b"]
 
 
 def _models(arch, seed=0):
@@ -116,6 +116,17 @@ def test_prompt_must_fit_the_cache():
     sess = ServeSession(pc, pp, batch_slots=1, max_len=8, device="cpu")
     with pytest.raises(ValueError):
         sess.add(Request(rid=0, prompt=np.zeros(8, np.int32), max_new=2))
+
+
+def test_session_refuses_encoder_decoder():
+    """An encoder-decoder config is refused at construction, as JAX's
+    session asserts ("use whisper-specific driver for enc-dec")."""
+    pc = pconfigs.get("whisper-medium", reduced=True)
+    with pytest.raises(ValueError, match="encoder-decoder"):
+        ServeSession(pc, {}, batch_slots=1, max_len=8, device="cpu")
+    jc = jconfigs.get("whisper-medium", reduced=True)
+    with pytest.raises(AssertionError, match="enc-dec"):
+        JSession(jc, {}, batch_slots=1, max_len=8)
 
 
 def test_cuda_default_raises_without_a_card():
