@@ -11,13 +11,15 @@ serving layer (the gateway's ``AlignmentService`` with K2's prefilter and
 degrade path, ``GenotypingService``, ``ReadMappingService``; ``tiled_align``
 and the ``banded`` engine; the alignment launcher ``serve_alignments``), LM
 serving (``ServeSession``: per-slot prefill on K3 for olmo-1b,
-stablelm-12b, qwen3-moe-30b-a3b and llava-next-mistral-7b, K4 for rwkv6-3b,
-batched greedy decode; prefill and decode of phi3-medium-14b,
-command-r-plus-104b, llava's patch-prefixed prompt and whisper-medium's
-encoder-decoder) and LM training (``launch.train.train_loop``: AdamW steps
-of olmo-1b, stablelm-12b, whisper-medium, llava-next-mistral-7b and
-qwen3-moe-30b-a3b on K3 and rwkv6-3b on K4, forward and backward
-kernels).  It holds every CUDA kernel
+stablelm-12b, qwen3-moe-30b-a3b, llava-next-mistral-7b, recurrentgemma-9b
+(K3 at hd 256 beside the RG-LRU) and deepseek-v3-671b (K3 at q/k 192 over
+v 128, the absorbed MLA decode), K4 for rwkv6-3b, batched greedy decode;
+prefill and decode of phi3-medium-14b, command-r-plus-104b, llava's
+patch-prefixed prompt and whisper-medium's encoder-decoder) and LM
+training (``launch.train.train_loop``: AdamW steps of olmo-1b,
+stablelm-12b, whisper-medium, llava-next-mistral-7b, qwen3-moe-30b-a3b,
+recurrentgemma-9b and deepseek-v3-671b (with its MTP head) on K3 and
+rwkv6-3b on K4, forward and backward kernels).  It holds every CUDA kernel
 against its plain PyTorch version at the shapes those paths give it, times
 K1-K4 and the two backward kernels, and prints one JSON line listing the
 kernels and, last,
@@ -115,15 +117,15 @@ Phases:
      run on the first 2048 requests, over the clean run's channel grid
      (compile_s at boot and while serving, a Chrome trace under build/
      that passes validate_chrome_trace, the workers' span totals); the
-     whole stream warm-started with 1, 2, 2 and 1 workers in turns, each
-     == the clean run; the same stream under FaultPlan(seed=0, kill
+     first 2048 requests warm-started with 1, 2, 2 and 1 workers in turns,
+     each == the clean run; the whole stream under FaultPlan(seed=0, kill
      w0 at dispatch 1, launch failures p 0.1): bit-identical, no double
      completion, submitted == resolved + dead_lettered; the first 2048
      requests with degrade="myers" past a watermark: each degraded
      edit_distance == plain K2's.  Then 256 of phase G's sites through
      ``GenotypingService`` (each call == phase G's), 4096 of phase 8's reads
      through ``ReadMappingService`` (SAM lines == map_reads), ``tiled_align``
-     of a 10 kb #2 pair (tile 256, overlap 64) on K1 == on the reference
+     of a 5 kb #2 pair (tile 256, overlap 64) on K1 == on the reference
      engine, and #11-13 on ``banded`` (256 pairs of 200-400 bases) == the
      reference engine, #12 with xdrop 10 == the CPU;
   (K1 and K2 are timed by kernel_device_ms: the device time of 20
@@ -194,8 +196,8 @@ Phases:
  22. K3 at Sq != Sk, forward and backward vs plain: whisper-medium's
      cross-attention (448 queries over 1500 keys, 16 heads of 64,
      non-causal) and a causal suffix (200 over 1000, q_start 800, hd 128),
-     f32 and bf16; v of another width than q and k raises on the card
-     (ROADMAP item 15f) and launches nothing;
+     f32 and bf16; v of width 16 beside q and k of 32, a pair K3 is not
+     built for, raises on the card and launches nothing;
  23. K3 timed in turns with SDPA: forward at (1, 1536, 32 / 8 heads, 160)
      causal, backward alone at (4, 2048, 32 / 8, 160) causal, both at the
      cross-attention shape; plain versions, bounds, the card's power limit;
@@ -240,7 +242,36 @@ Phases:
      2 of 48 train through ``train_loop`` as phase 18 does (frames and
      patches as its frontend prefix makes them; qwen3-moe's moe_aux logged
      and finite), each run's last recorded K3 backward held to plain; the
-     three reduced configs on the card against the CPU as phase 20 does.
+     three reduced configs on the card against the CPU as phase 20 does;
+ 32. K3's forward and backward at hd 256 and at q/k 192 with v 128 vs
+     their plain versions (K3_WIDTH_CASES: G 1 and 8 at 256, G 1 at
+     192/128; causal / window 64 / non-causal / k_len S/2 + 1 x
+     K3_WIDTH_SWEEP_S; forward f32 and bf16 exact and normal, backward f32 and
+     bf16 on 0xFF blocks, a second call bit-equal), pairs not built
+     raising; then the bf16 kernels timed alone in turns with SDPA
+     (PyTorch's default dispatch, named by the backend it picks, else the
+     first fused backend that takes the shape, or "none" with their
+     refusals) at recurrentgemma-9b's local attention (1, 4096, 16 / 1,
+     256, window 2048) and training shape (4, 2048), and at MLA's (1,
+     1536, 128, 192 / 128) and training shape (1, 2048), beside their
+     plain versions and bounds (2 (hd + hd_v) FLOP a live pair forward,
+     6 hd + 4 hd_v backward, at 989 TFLOP/s);
+ 33. recurrentgemma-9b at full width and depth (38 layers, 9.63 B
+     parameters) serves RG_REQUESTS prompts of 2048-3072 tokens (every
+     window ring full) on 8 slots of 4096: K3 launched 12 times a prefill,
+     K4 never; K3 held on the first attention sublayer; prefill seconds,
+     ms a decode step, peak memory; the logits held to ``forward``;
+ 34. deepseek-v3-671b at full width, its 3 first_dense layers and the
+     MoE layers that fit (printed), serves phase 12's traffic: K3 at
+     (192, 128) once a layer a prefill, the absorbed MLA decode, the
+     sigmoid router and shared expert; capacity drops; the logits held to
+     ``forward`` on the dense layers;
+ 35. recurrentgemma-9b (1 period: RG-LRU, RG-LRU, local attention) and
+     deepseek-v3-671b (MLA layers with a dense FFN and the MTP head, no MoE
+     layer) train through ``train_loop`` as phase 18 does, K3's backward at
+     the new widths counted a step and its last recorded call held to
+     plain; the two reduced configs on the card against the CPU as phase
+     20 does.
 """
 from __future__ import annotations
 
@@ -329,6 +360,36 @@ K3_HD160_TRAIN = (4, 2048, 32, 8, 160)
 K3_CROSS = (1, 448, 1500, 16, 64)
 K3_CROSS_ROUNDS = (3 * ROUNDS, 5 * ROUND_LAUNCHES)   # its timing's rounds
 K3_SUFFIX = (1, 200, 1000, 8, 128)
+# slice 13: K3 at recurrentgemma-9b's local attention (16 query heads of 256
+# over one key/value head, window 2048) and at DeepSeek-V3's MLA (128 heads,
+# q/k of 128 + 64 rotary columns, v of 128), at the serving path's longest
+# prompts and at training shapes (B, S, H, Kh, hd, hd_v, window; MLA's is
+# deepseek's microbatch in phase 35); and the correctness sweep's pairs
+# (hd, hd_v, G) at H 8 and its lengths
+K3_RG_TIMED = (1, 4096, 16, 1, 256, 256, 2048)
+K3_RG_TRAIN = (4, 2048, 16, 1, 256, 256, 2048)
+K3_MLA_TIMED = (1, 1536, 128, 128, 192, 128, None)
+K3_MLA_TRAIN = (1, 2048, 128, 128, 192, 128, None)
+K3_WIDTH_CASES = ((256, 256, 1), (256, 256, 8), (192, 128, 1))
+K3_WIDTH_SWEEP_S = (77, 1000)
+# phase 33: recurrentgemma-9b's traffic, prompts past its window of 2048 so
+# that every ring is full when decode starts (a ring grown past a shorter
+# prompt counts its empty slots as keys: ROADMAP queue 3), on SERVE_SLOTS
+# slots.  Phase 35's training depths: at about 17 bytes a parameter of
+# training state, recurrentgemma's embedding and head alone (2.1 B
+# parameters over a vocabulary of 256,000) take 36 GB, and its f32 logits
+# 4.2 GB a copy a microbatch; at 2 periods (3.28 B) its peak was 66.66 GiB
+# of the H100's 79.18 and it ran out of memory in one of three runs, so 1
+# period; deepseek at 2 MLA layers with a dense FFN and the MTP head (3.71
+# B) peaked at 63.06 GiB, and at 1 layer its loss did not fall in 8 steps
+# in one run, so 2
+RG_REQUESTS, RG_PROMPT_LENS, RG_MAX_LEN = 8, (2048, 3072), 4096
+RG_TRAIN_PERIODS, DEEPSEEK_TRAIN_LAYERS = 1, 2
+# deepseek-v3's reduced config has q/k of 16 + 8 over v of 16, a pair K3's
+# CUDA kernels are not built for; phase 35 trains it on the card and the
+# CPU at the full config's head widths (q/k 128 + 64 over v 128), every
+# other field reduced
+DEEPSEEK_CARD_WIDTHS = {"head_dim": 128, "rope_dim": 64}
 # bytes left free beside a depth-cut copy (the f32 checks of phases 24-25,
 # command-r-plus-104b's depth), and stablelm-12b's training depth: at about
 # 17 bytes a parameter (olmo-1b's training peak: 19.93 GiB for 1.18 B) all 40
@@ -379,7 +440,9 @@ SV_WARM = 2048                   # the warm run takes the stream's first
 SV_DEGRADE = 2048                # the degrade run takes the stream's first
 SV_WATERMARK = SV_DEGRADE - 4 * SV_BLOCK  # ... and its first batches degrade
 SV_SITES, SV_READS = 256, 4096
-SV_TILE_LEN, SV_TILE, SV_OVERLAP = 10_000, 256, 64
+# the tiled pair: 5 kb since PR 23 (10 kb took 64 s of the script's time
+# limit, 40 s of it on the reference engine)
+SV_TILE_LEN, SV_TILE, SV_OVERLAP = 5_000, 256, 64
 SV_BANDED_PAIRS, SV_BANDED_LENS, SV_XDROP = 256, (200, 400), 10
 # phase T: the autotuner's candidates kept by the cost model, timing
 # repeats per candidate, and rounds x launches of each K1 time alone
@@ -622,6 +685,40 @@ def _dirty_allocator(*like):
     ptrs = {b.data_ptr() for b in blocks}
     del blocks
     return ptrs
+
+
+@contextlib.contextmanager
+def _k3_dirty_outputs():
+    """Within the block, K3's wrapper module allocates through a stand-in
+    for ``torch`` whose ``empty`` and ``empty_like`` fill every tensor they
+    make with 0xFF bytes (its lse; dq, dk, dv, delta), so a kernel must
+    write every byte it returns.  Yields the set of their addresses.  (The
+    caching allocator does not promise to hand a freed block of the size
+    back, which ``_dirty_allocator`` relies on.)"""
+    import torch
+    from repro_torch.kernels.flash_attn import kernel as K3
+    made = set()
+
+    def dirty(fn):
+        def make(*args, **kw):
+            t = fn(*args, **kw)
+            if t.numel():
+                t.view(torch.uint8).fill_(0xFF)
+            made.add(t.data_ptr())
+            return t
+        return staticmethod(make)
+
+    class Stand:
+        empty = dirty(torch.empty)
+        empty_like = dirty(torch.empty_like)
+
+        def __getattr__(self, name):
+            return getattr(torch, name)
+    K3.torch = Stand()
+    try:
+        yield made
+    finally:
+        K3.torch = torch
 
 
 def phase_kernel_vs_plain(rng):
@@ -2075,14 +2172,16 @@ def phase_service(geno, mapping):
     check(warm == clean[:SV_WARM], "service: the warm run's results differ")
     lat_warm = _sv_latency(wsvc, wlat)
 
-    # E: one worker against two on the whole stream, warm-started over the
-    # same grid, in turns (1, 2, 2, 1) in one process state
+    # E: one worker against two on the warm run's first SV_WARM requests
+    # (the whole stream until PR 23: 96 s of the script's time limit),
+    # warm-started over the same grid, in turns (1, 2, 2, 1) in one process
+    # state
     turns = {1: [], 2: []}
     for w in (1, 2, 2, 1):
-        res, asvc, astats, _, alat = _sv_run(stream, n_workers=w,
+        res, asvc, astats, _, alat = _sv_run(stream[:SV_WARM], n_workers=w,
                                              warm_start=grid)
-        check(res == clean, f"service with {w} workers: results differ "
-              f"from the clean run")
+        check(res == clean[:SV_WARM], f"service with {w} workers: results "
+              f"differ from the clean run")
         turns[w].append({"wall_s": astats["wall_s"],
                          **_sv_latency(asvc, alat)})
 
@@ -2151,10 +2250,11 @@ def phase_service(geno, mapping):
           f"{_latency_text(lat_warm)} (traced: "
           f"{trace_path.relative_to(ROOT)}, {len(obj['traceEvents'])} "
           f"events, valid)", flush=True)
-    print("    workers, warm-started, the whole stream, in turns 1, 2, 2, 1: "
+    print(f"    workers, warm-started, the first {SV_WARM} requests, in "
+          f"turns 1, 2, 2, 1: "
           + "; ".join(
               f"{w} worker{'s' * (w > 1)} "
-              + ", ".join(f"{t['wall_s']:.3f} s ({n / t['wall_s']:.0f} "
+              + ", ".join(f"{t['wall_s']:.3f} s ({SV_WARM / t['wall_s']:.0f} "
                           f"requests/s, p50 {t['p50_s']:.3f} s, p99 "
                           f"{t['p99_s']:.3f} s)" for t in turns[w])
               for w in (1, 2)) + "; every result == the clean run",
@@ -2182,7 +2282,8 @@ def phase_service(geno, mapping):
             "warm_boot_dummy_compile_s": boot_compile,
             "warm_serve_compile_s": warm_compile,
             "workers_in_turns": {
-                str(w): [n / t["wall_s"] for t in turns[w]] for w in (1, 2)},
+                str(w): [SV_WARM / t["wall_s"] for t in turns[w]]
+                for w in (1, 2)},
             "k1_genotyping": k1_geno, "k1_mapping": k1_map,
             "k2_mapping": k2_map, "k1_tiling": k1_tile}
 
@@ -2506,22 +2607,24 @@ def _reset_counts():
     return mods
 
 
-def _serve_requests(cfg):
-    """SERVE_REQUESTS random prompts, lengths uniform in PROMPT_LENS, from
-    numpy seed SEED."""
+def _serve_requests(cfg, n=SERVE_REQUESTS, lens=PROMPT_LENS):
+    """``n`` random prompts, lengths uniform in ``lens``, from numpy seed
+    SEED."""
     import numpy as np
     from repro_torch.serve import Request
     rng = np.random.default_rng(SEED)
-    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, SERVE_REQUESTS)
+    lens = rng.integers(lens[0], lens[1] + 1, n)
     return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n)
                     .astype(np.int32), max_new=MAX_NEW)
             for i, n in enumerate(lens)]
 
 
-def _serve(cfg, params):
-    """Warm up, then serve the phase's traffic with every launch count at
-    0; returns the finished requests, the session, its wall time, the peak
-    device memory and the launch counts of K1-K4 over the run."""
+def _serve(cfg, params, reqs=None, max_len=SERVE_MAX_LEN):
+    """Warm up, then serve the phase's traffic (``reqs``, by default
+    ``_serve_requests(cfg)``, on SERVE_SLOTS slots of ``max_len``) with every
+    launch count at 0; returns the finished requests, the session, its wall
+    time, the peak device memory and the launch counts of K1-K4 over the
+    run."""
     import torch
     from repro_torch.serve import Request, ServeSession
     warm = ServeSession(cfg, params, batch_slots=1, max_len=64,
@@ -2530,8 +2633,8 @@ def _serve(cfg, params):
                       max_new=2)])
     del warm
     sess = ServeSession(cfg, params, batch_slots=SERVE_SLOTS,
-                        max_len=SERVE_MAX_LEN, device=DEVICE)
-    reqs = _serve_requests(cfg)
+                        max_len=max_len, device=DEVICE)
+    reqs = reqs or _serve_requests(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mods = _reset_counts()
@@ -2549,7 +2652,7 @@ def _serve(cfg, params):
     print(f"    {cfg.name} serving {len(reqs)} requests (prompts "
           f"{min(len(r.prompt) for r in reqs)}-"
           f"{max(len(r.prompt) for r in reqs)}, {MAX_NEW} new tokens each) "
-          f"on {SERVE_SLOTS} slots x {SERVE_MAX_LEN}: {wall:.3f} s wall; "
+          f"on {SERVE_SLOTS} slots x {max_len}: {wall:.3f} s wall; "
           f"time to first token mean {sum(ttft) / len(ttft):.3f} s, max "
           f"{max(ttft):.3f} s; prefill {st['prefill_tokens']} tokens in "
           f"{st['prefill_s']:.3f} s "
@@ -2670,8 +2773,9 @@ def _rms(x):
 def _prefill_decode(cfg, params, toks, nxt=None, spoil=False):
     """Prefill logits of ``toks``, and the decode logits of ``nxt`` (by
     default the greedy token) at the next position, and ``nxt``; ``spoil``
-    zeroes layer 0's first mixer cache leaf (the attention keys, or the
-    WKV state) before the decode step."""
+    zeroes every leaf of layer 0's mixer cache (the attention keys and
+    values, the WKV state and shift, MLA's latent, the RG-LRU's state and
+    conv history) before the decode step."""
     import torch
     from repro_torch.models import lm
     Lp = toks.shape[1]
@@ -2680,8 +2784,8 @@ def _prefill_decode(cfg, params, toks, nxt=None, spoil=False):
         nxt = torch.argmax(logits_p, -1)
     cache = lm.grow_cache(cfg, cache, 1, Lp + 1)
     if spoil:
-        leaves = cache[0]["sub0"]["mixer"]
-        leaves[next(iter(leaves))][0].zero_()
+        for leaf in cache[0]["sub0"]["mixer"].values():
+            leaf[0].zero_()
     logits_d, _ = lm.decode_step(cfg, params, cache, nxt, k_len)
     return logits_p[0], logits_d[0], nxt
 
@@ -2997,22 +3101,22 @@ def _k3_bwd_case(rng, q, k, v, mask, what):
     import torch
     from repro_torch.kernels.flash_attn import kernel as K3
     dtype = q.dtype
-    lse_like = torch.empty(q.shape[:3], device=DEVICE)
-    dirty = _dirty_allocator(q, lse_like)
-    out, lse = K3.flash_fill(q, k, v, p_dtype=dtype, return_lse=True, **mask)
+    with _k3_dirty_outputs() as dirty:
+        out, lse = K3.flash_fill(q, k, v, p_dtype=dtype, return_lse=True,
+                                 **mask)
     torch.cuda.synchronize()
-    check(lse.data_ptr() in dirty, "K3's lse did not land on the 0xFF block")
+    check(lse.data_ptr() in dirty, "K3's lse was not made on a 0xFF block")
     _, want_lse = K3.flash_attention_plain(q, k, v, return_lse=True, **mask)
     lse_err = float((lse - want_lse).abs().max())
     check(torch.allclose(lse, want_lse, rtol=2e-5, atol=2e-5),
           f"K3 lse != plain: {what} (max |diff| {lse_err})")
     do = torch.as_tensor(rng.normal(size=out.shape), dtype=dtype,
                          device=DEVICE)
-    dirty = _dirty_allocator(q, k, v)
-    got = K3.flash_backward(q, k, v, out, lse, do, **mask)
+    with _k3_dirty_outputs() as dirty:
+        got = K3.flash_backward(q, k, v, out, lse, do, **mask)
     torch.cuda.synchronize()
     check(all(g.data_ptr() in dirty for g in got),
-          "K3's dq, dk, dv did not land on the 0xFF blocks")
+          "K3's dq, dk, dv were not made on 0xFF blocks")
     again = K3.flash_backward(q, k, v, out, lse, do, **mask)
     check(all(torch.equal(g, a) for g, a in zip(got, again)),
           f"K3 backward: a second call differs, {what}")
@@ -3337,7 +3441,9 @@ def phase_train_card_vs_cpu(archs=("olmo-1b", "rwkv6-3b"), phase=20):
     on the same batches of train_loop's stream (frontend prefix included),
     every loss and grad norm within TRAIN_CPU_TOL; then a checkpoint saved
     on the card after step 2 and restored by restore_latest gives a step-3
-    loss bit-equal to the unbroken run's."""
+    loss bit-equal to the unbroken run's.  An entry of ``archs`` may be
+    (name, changes): the reduced config with those fields replaced."""
+    import dataclasses
     import numpy as np
     import torch
     from repro_torch import checkpoint, configs
@@ -3348,7 +3454,8 @@ def phase_train_card_vs_cpu(archs=("olmo-1b", "rwkv6-3b"), phase=20):
     ckdir = ROOT / "build" / "smoke_ckpt"
     out = []
     for arch in archs:
-        cfg = configs.get(arch, reduced=True)
+        arch, changes = (arch, {}) if isinstance(arch, str) else arch
+        cfg = dataclasses.replace(configs.get(arch, reduced=True), **changes)
         opt = AdamWConfig(weight_decay=0.01)
         tree = _numpy_state(cfg, SEED)
         it = stream(cfg, 4, 64, SEED)
@@ -3384,7 +3491,9 @@ def phase_train_card_vs_cpu(archs=("olmo-1b", "rwkv6-3b"), phase=20):
         shutil.rmtree(ckdir, ignore_errors=True)
         rel = max(abs(c[0] - p[0]) / abs(p[0]) for c, p in zip(card, cpu))
         relg = max(abs(c[1] - p[1]) / abs(p[1]) for c, p in zip(card, cpu))
-        out.append(f"{arch}: losses {', '.join(f'{c[0]:.6f}' for c in card)}"
+        at = f" (at {changes})" if changes else ""
+        out.append(f"{arch}{at}: losses "
+                   f"{', '.join(f'{c[0]:.6f}' for c in card)}"
                    f" (largest relative difference from the CPU {rel:.2g}, "
                    f"grad norms {relg:.2g}); resumed step 3 loss bit-equal "
                    f"{resumed[0]!r}, grad norm "
@@ -3440,17 +3549,20 @@ def entry_ptxas():
     return out
 
 
-def _k3_bwd_bound(B, Sq, Sk, H, Kh, hd, causal, card_flops):
-    """Least time of K3's backward, q (B, Sq, H, hd) over k/v (B, Sk, Kh,
-    hd), bf16 inputs, causal with q_start = Sk - Sq: 10 hd FLOP per live
-    (query, key) pair (s, dp, dv, dk, dq) at ``card_flops``, or q, k, v, O,
-    dO and lse read once and dq, dk, dv written once at the card's memory
-    rate."""
+def _k3_bwd_bound(B, Sq, Sk, H, Kh, hd, causal, card_flops, hd_v=None,
+                  window=None):
+    """Least time of K3's backward, q (B, Sq, H, hd) over k (B, Sk, Kh, hd)
+    and v (B, Sk, Kh, hd_v, by default hd), bf16 inputs, causal with
+    q_start = Sk - Sq, under ``window``: 6 hd + 4 hd_v FLOP per live
+    (query, key) pair (s, dk, dq over hd; dp, dv over hd_v; 10 hd at equal
+    widths) at ``card_flops``, or q, k, v, O, dO and lse read once and dq,
+    dk, dv written once at the card's memory rate."""
     from repro_torch.tune.cost import MEM_BYTES_PER_S
-    pairs = k3_pairs(Sq, causal, None, None, Sk, Sk - Sq if causal else 0)
-    flops = pairs * 10 * hd * B * H
-    nbytes = 2 * (4 * B * Sq * H * hd + 4 * B * Sk * Kh * hd) + \
-        4 * B * Sq * H
+    hd_v = hd_v or hd
+    pairs = k3_pairs(Sq, causal, window, None, Sk, Sk - Sq if causal else 0)
+    flops = pairs * (6 * hd + 4 * hd_v) * B * H
+    nbytes = 2 * (2 * B * Sq * H * (hd + hd_v) +
+                  2 * B * Sk * Kh * (hd + hd_v)) + 4 * B * Sq * H
     ops_ms, bytes_ms = flops / card_flops * 1e3, nbytes / MEM_BYTES_PER_S * 1e3
     return (max(ops_ms, bytes_ms),
             "operations" if ops_ms >= bytes_ms else "bytes", flops, nbytes)
@@ -3532,13 +3644,15 @@ def timing_backward():
 # Slice 11: K3 at hd 160 and at cross lengths; stablelm-12b, phi3-medium-14b
 # and command-r-plus-104b at full width; the alignment launcher
 # ---------------------------------------------------------------------------
-def _k3_inputs(rng, B, Sq, Sk, H, Kh, hd, dtype, exact=False):
-    """q (B, Sq, H, hd) and k/v (B, Sk, Kh, hd) from ``rng`` on the card;
-    ``exact``: integer q and k (exact scores)."""
+def _k3_inputs(rng, B, Sq, Sk, H, Kh, hd, dtype, exact=False, hd_v=None):
+    """q (B, Sq, H, hd), k (B, Sk, Kh, hd) and v (B, Sk, Kh, hd_v, by
+    default hd) from ``rng`` on the card; ``exact``: integer q and k (exact
+    scores)."""
     import numpy as np
     import torch
     q = rng.normal(size=(B, Sq, H, hd))
-    k, v = (rng.normal(size=(B, Sk, Kh, hd)) for _ in range(2))
+    k = rng.normal(size=(B, Sk, Kh, hd))
+    v = rng.normal(size=(B, Sk, Kh, hd_v or hd))
     if exact:
         q, k = (np.round(t * 1.5).clip(-3, 3) for t in (q, k))
     return tuple(torch.as_tensor(t, dtype=dtype, device=DEVICE)
@@ -3590,9 +3704,9 @@ def phase_k3_cross(rng):
     """K3's forward and backward at Sq != Sk against their plain versions:
     whisper-medium's cross-attention (K3_CROSS, non-causal) and a causal
     suffix of the keys (K3_SUFFIX, q_start = Sk - Sq), f32 and bf16
-    (bf16 forward on exact and on normal scores); then v of another width
-    than q and k raises on the card, naming ROADMAP item 15f, and launches
-    nothing."""
+    (bf16 forward on exact and on normal scores); then v of width 16 beside
+    q and k of 32, a pair K3 is not built for, raises on the card, naming
+    the pairs it is built for, and launches nothing."""
     import torch
     from repro_torch.kernels.flash_attn import kernel as K3
     t0 = time.perf_counter()
@@ -3623,12 +3737,12 @@ def phase_k3_cross(rng):
         try:
             call()
         except ValueError as e:
-            check("15f" in str(e), f"hd_v != hd raised without naming item "
-                  f"15f: {e}")
+            check(str(K3.WIDTH_PAIRS) in str(e), f"(32, 16) raised without "
+                  f"naming the width pairs K3 is built for: {e}")
         else:
-            check(False, "K3 took v of another width on the card")
+            check(False, "K3 took v of width 16 beside q/k of 32 on the card")
     check((K3.launches, K3.bwd_launches) == counts,
-          "a refused hd_v != hd call launched K3")
+          "a refused (32, 16) call launched K3")
     K3.launches, K3.bwd_launches = before
     print(f"[22] K3 at Sq != Sk == plain on {n} cases (q {K3_CROSS[1]} over "
           f"k/v {K3_CROSS[2]}, {K3_CROSS[3]} heads of {K3_CROSS[4]}, "
@@ -3637,110 +3751,204 @@ def phase_k3_cross(rng):
           f"{K3_SUFFIX[2] - K3_SUFFIX[1]}; f32, bf16 exact and normal): "
           f"forward max |diff| {fwd_err:.3g}, backward {bwd_err:.3g} "
           f"({K3_BWD_PARITY}); v of width 16 beside q/k of 32 raises "
-          f"naming item 15f, nothing launched; "
+          f"naming the pairs K3 is built for, nothing launched; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return fwd_err, bwd_err
 
 
-def _k3_fwd_timing(B, Sq, Sk, H, Kh, hd, causal, label, rounds=ROUNDS,
-                   launches=ROUND_LAUNCHES):
-    """K3's forward in turns with scaled_dot_product_attention (a
-    yardstick the port never calls) at one shape, bf16, beside its plain
-    version and its bound: 4 hd FLOP a live pair at 989 TFLOP/s, or q, k,
-    v read once and o written once; ``rounds`` of ``launches`` each."""
+def _sdpa_yardstick(q, k, v, causal, window, q_start, grad=False):
+    """``scaled_dot_product_attention`` over K3's function on q (B, Sq, H,
+    hd), k, v in the model's layout (a yardstick the port never calls):
+    the causal mask of a suffix (q_start = Sk - Sq) and a window that cuts
+    keys are an explicit boolean mask, else ``is_causal``; grouped heads by
+    ``enable_gqa``.  First PyTorch's own dispatch, named by the backend it
+    picks (``torch._fused_sdp_choice``), unless that is the unfused math
+    path; then each fused backend alone (cuDNN, flash, memory-efficient),
+    grouped heads by ``enable_gqa`` and then with k/v repeated to H heads.
+    With ``grad`` a candidate must also run the backward.  Returns (fn,
+    backend, (qt, kt, vt) in SDPA's layout, the refusals before it) where
+    fn() is the call, or (None, "none", ..., refusals) when no fused
+    backend takes the shape."""
+    import warnings
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    Sq, Sk, H, Kh = q.shape[1], k.shape[1], q.shape[2], k.shape[2]
+    cut = window is not None and q_start + Sq - 1 >= window
+    mask = None
+    if cut or (causal and (Sq != Sk or q_start)):
+        qpos = torch.arange(Sq, device=DEVICE)[:, None] + q_start
+        kpos = torch.arange(Sk, device=DEVICE)[None, :]
+        mask = torch.ones((Sq, Sk), dtype=torch.bool, device=DEVICE)
+        if causal:
+            mask &= kpos <= qpos
+        if cut:
+            mask &= kpos > qpos - window
+    is_causal = causal and mask is None
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(grad)
+                  for t in (q, k, v))
+    try:
+        choice = SDPBackend(torch._fused_sdp_choice(
+            qt, kt, vt, attn_mask=mask, is_causal=is_causal,
+            enable_gqa=H != Kh)).name
+    except (AttributeError, RuntimeError, TypeError, ValueError):
+        choice = "not reported"
+    attempts = [] if choice == "MATH" else [
+        (f"default dispatch, {choice.lower()}", None, False)]
+    for name, backend in (("cuDNN", SDPBackend.CUDNN_ATTENTION),
+                          ("flash", SDPBackend.FLASH_ATTENTION),
+                          ("memory-efficient",
+                           SDPBackend.EFFICIENT_ATTENTION)):
+        attempts += [(name, backend, repeat)
+                     for repeat in ((False, True) if H != Kh else (False,))]
+    refusals = []
+    for name, backend, repeat in attempts:
+        if repeat:
+            kk, vv = (t.detach().repeat_interleave(H // Kh, 1)
+                      .requires_grad_(grad) for t in (kt, vt))
+        else:
+            kk, vv = kt, vt
+        kw = dict(enable_gqa=True) if H != Kh and not repeat else {}
+
+        def fn(kk=kk, vv=vv, kw=kw, backend=backend):
+            with (sdpa_kernel(backend) if backend is not None
+                  else contextlib.nullcontext()):
+                return F.scaled_dot_product_attention(
+                    qt, kk, vv, attn_mask=mask, is_causal=is_causal, **kw)
+        label = name + (f" (k/v repeated to {H} heads)" if repeat else "")
+        with warnings.catch_warnings(record=True) as said:
+            warnings.simplefilter("always")
+            try:
+                out = fn()
+                if grad:
+                    torch.autograd.grad(out, (qt, kk, vv),
+                                        torch.ones_like(out))
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                why = "; ".join(str(w.message).splitlines()[0]
+                                for w in said) or str(e).splitlines()[0]
+                refusals.append(f"{label}: {why}")
+                continue
+        return fn, label, (qt, kk, vv), refusals
+    return None, "none", (qt, kt, vt), refusals
+
+
+def _sdpa_text(backend, refusals, times, launches):
+    if backend == "none":
+        return f"SDPA: none of its fused backends takes it ({'; '.join(refusals)})"
+    return f"SDPA ({backend}) {_spread(times, launches)}"
+
+
+def _k3_fwd_timing(B, Sq, Sk, H, Kh, hd, causal, label, rounds=ROUNDS,
+                   launches=ROUND_LAUNCHES, hd_v=None, window=None):
+    """K3's forward in turns with scaled_dot_product_attention
+    (``_sdpa_yardstick``) at one shape, bf16, v of width ``hd_v`` (default
+    hd), under ``window``, beside its plain version and its bound:
+    2 (hd + hd_v) FLOP a live pair at 989 TFLOP/s, or q, k, v read once and
+    o written once; ``rounds`` of ``launches`` each."""
+    import torch
     from repro_torch.kernels.flash_attn import kernel as K3
     from repro_torch.tune.cost import MEM_BYTES_PER_S
+    hd_v = hd_v or hd
     bf = dict(device=DEVICE, dtype=torch.bfloat16)
     q = torch.randn((B, Sq, H, hd), **bf)
-    k, v = (torch.randn((B, Sk, Kh, hd), **bf) for _ in range(2))
+    k = torch.randn((B, Sk, Kh, hd), **bf)
+    v = torch.randn((B, Sk, Kh, hd_v), **bf)
     qs = Sk - Sq if causal else 0
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    gqa = dict(enable_gqa=True) if H != Kh else {}
-    # SDPA's is_causal aligns the mask to the top left; a causal suffix
-    # (q_start = Sk - Sq) needs its explicit lower-right mask
-    mask = None if not causal or Sq == Sk else torch.ones(
-        (Sq, Sk), dtype=torch.bool, device=DEVICE).tril(Sk - Sq)
+    kw = dict(causal=causal, window=window, q_start=qs)
+    sdpa, backend, _, refusals = _sdpa_yardstick(q, k, v, causal, window, qs)
     t3, tlib = _in_turns(
-        lambda: K3.flash_fill(q, k, v, causal=causal, q_start=qs,
-                              p_dtype=torch.bfloat16),
-        lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
-            **gqa), rounds, launches)
-    K3.flash_attention_plain(q, k, v, causal=causal, q_start=qs,
-                             p_dtype=torch.bfloat16)
+        lambda: K3.flash_fill(q, k, v, p_dtype=torch.bfloat16, **kw), sdpa,
+        rounds, launches)
+    K3.flash_attention_plain(q, k, v, p_dtype=torch.bfloat16, **kw)
     plain_ms = cuda_time_ms(lambda: K3.flash_attention_plain(
-        q, k, v, causal=causal, q_start=qs, p_dtype=torch.bfloat16), 2)
-    pairs = k3_pairs(Sq, causal, None, None, Sk, qs)
-    flops = pairs * 4 * hd * B * H
-    nbytes = 2 * (2 * B * Sq * H * hd + 2 * B * Sk * Kh * hd)
+        q, k, v, p_dtype=torch.bfloat16, **kw), 2)
+    pairs = k3_pairs(Sq, causal, window, None, Sk, qs)
+    flops = pairs * 2 * (hd + hd_v) * B * H
+    nbytes = 2 * (B * Sq * H * (hd + hd_v) + B * Sk * Kh * (hd + hd_v))
     ops_ms, bytes_ms = flops / BF16_FLOPS * 1e3, nbytes / MEM_BYTES_PER_S * 1e3
-    ms, lib_ms = statistics.median(t3), statistics.median(tlib)
-    out = {"shape": [B, Sq, Sk, H, Kh, hd], "causal": causal, "ms": ms,
-           "ms_range": [min(t3), max(t3)], "plain_ms": plain_ms,
-           "library_ms": lib_ms, "library_ms_range": [min(tlib), max(tlib)],
+    ms = statistics.median(t3)
+    lib_ms = statistics.median(tlib) if tlib else None
+    out = {"shape": [B, Sq, Sk, H, Kh, hd, hd_v], "causal": causal,
+           "window": window, "ms": ms, "ms_range": [min(t3), max(t3)],
+           "plain_ms": plain_ms, "library_ms": lib_ms,
+           "library_ms_range": [min(tlib), max(tlib)] if tlib else None,
+           "library_backend": backend,
            "bound_ms": max(ops_ms, bytes_ms),
            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
-    print(f"     K3 forward, {label}, q {(B, Sq, H, hd)} over k/v "
-          f"{(B, Sk, Kh, hd)}, bf16, causal {causal}: K3 "
-          f"{_spread(t3, launches)}; SDPA {_spread(tlib, launches)}; K3 / "
-          f"SDPA {ms / lib_ms:.2f}x; plain "
+    if backend == "none":
+        out["library_refusals"] = refusals
+    ratio = f"; K3 / SDPA {ms / lib_ms:.2f}x" if lib_ms else ""
+    print(f"     K3 forward, {label}, q {(B, Sq, H, hd)} over k "
+          f"{(B, Sk, Kh, hd)}, v of {hd_v}, bf16, causal {causal}, window "
+          f"{window}: K3 {_spread(t3, launches)}; "
+          f"{_sdpa_text(backend, refusals, tlib, launches)}{ratio}; plain "
           f"{plain_ms:.2f} ms; bound {out['bound_ms']:.4f} ms by "
-          f"{out['bound_by']} ({flops / 1e9:.3f} GFLOP, 4 x {hd} a live "
-          f"pair; {nbytes} B); {flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+          f"{out['bound_by']} ({flops / 1e9:.3f} GFLOP, 2 x ({hd} + {hd_v}) "
+          f"a live pair over {pairs} live pairs a head; {nbytes} B); "
+          f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
     return out
 
 
 def _k3_bwd_timing(B, Sq, Sk, H, Kh, hd, causal, label, rounds=ROUNDS,
-                   launches=ROUND_LAUNCHES):
+                   launches=ROUND_LAUNCHES, hd_v=None, window=None):
     """K3's backward alone in turns with SDPA's backward alone
-    (``torch.autograd.grad`` on a retained SDPA graph, the same function:
-    q, k, v, O, lse and dO in, dq, dk, dv out) at one shape, bf16, beside
-    its plain version and ``_k3_bwd_bound`` at bf16's and f32's peak;
-    ``rounds`` of ``launches`` each."""
+    (``torch.autograd.grad`` on a retained graph of ``_sdpa_yardstick``'s
+    call, the same function: q, k, v, O, lse and dO in, dq, dk, dv out) at
+    one shape, bf16, v of width ``hd_v`` (default hd), under ``window``,
+    beside its plain version and ``_k3_bwd_bound`` at bf16's and f32's
+    peak; ``rounds`` of ``launches`` each."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attn import kernel as K3
+    hd_v = hd_v or hd
     bf = dict(device=DEVICE, dtype=torch.bfloat16)
-    q, do = (torch.randn((B, Sq, H, hd), **bf) for _ in range(2))
-    k, v = (torch.randn((B, Sk, Kh, hd), **bf) for _ in range(2))
+    q = torch.randn((B, Sq, H, hd), **bf)
+    do = torch.randn((B, Sq, H, hd_v), **bf)
+    k = torch.randn((B, Sk, Kh, hd), **bf)
+    v = torch.randn((B, Sk, Kh, hd_v), **bf)
     qs = Sk - Sq if causal else 0
-    kw = dict(causal=causal, q_start=qs)
-    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
-                  for t in (q, k, v))
-    dot = do.transpose(1, 2).contiguous()
-    gqa = dict(enable_gqa=True) if H != Kh else {}
-    mask = None if not causal or Sq == Sk else torch.ones(
-        (Sq, Sk), dtype=torch.bool, device=DEVICE).tril(Sk - Sq)
-    out_lib = F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None, **gqa)
+    kw = dict(causal=causal, window=window, q_start=qs)
+    sdpa, backend, ins, refusals = _sdpa_yardstick(q, k, v, causal, window,
+                                                   qs, grad=True)
+    lib = None
+    if sdpa:
+        out_lib, dot = sdpa(), do.transpose(1, 2).contiguous()
+
+        def lib():
+            return torch.autograd.grad(out_lib, ins, dot, retain_graph=True)
     out, lse = K3.flash_fill(q, k, v, p_dtype=torch.bfloat16,
                              return_lse=True, **kw)
     tb, tlib = _in_turns(
-        lambda: K3.flash_backward(q, k, v, out, lse, do, **kw),
-        lambda: torch.autograd.grad(out_lib, (qt, kt, vt), dot,
-                                    retain_graph=True), rounds, launches)
+        lambda: K3.flash_backward(q, k, v, out, lse, do, **kw), lib, rounds,
+        launches)
     K3.flash_backward_plain(q, k, v, out, lse, do, **kw)
     plain_ms = cuda_time_ms(lambda: K3.flash_backward_plain(
         q, k, v, out, lse, do, **kw), 1)
     bound, by, flops, nbytes = _k3_bwd_bound(B, Sq, Sk, H, Kh, hd, causal,
-                                             BF16_FLOPS)
-    bound32 = _k3_bwd_bound(B, Sq, Sk, H, Kh, hd, causal, F32_FLOPS)[0]
-    ms, lib_ms = statistics.median(tb), statistics.median(tlib)
-    res = {"shape": [B, Sq, Sk, H, Kh, hd], "causal": causal, "ms": ms,
-           "ms_range": [min(tb), max(tb)], "plain_ms": plain_ms,
-           "library_ms": lib_ms, "library_ms_range": [min(tlib), max(tlib)],
-           "bound_ms": bound, "bound_by": by, "bound_f32_ms": bound32}
-    print(f"     K3 backward alone, {label}, q {(B, Sq, H, hd)} over k/v "
-          f"{(B, Sk, Kh, hd)}, bf16, causal {causal}: K3 "
-          f"{_spread(tb, launches)}; SDPA's backward alone "
-          f"{_spread(tlib, launches)}; K3 / SDPA {ms / lib_ms:.2f}x "
-          f"(medians); plain {plain_ms:.2f} ms; bound {bound:.4f} ms by {by} "
-          f"({flops / 1e9:.3f} GFLOP, 10 x {hd} a live pair, at 989 TFLOP/s "
+                                             BF16_FLOPS, hd_v, window)
+    bound32 = _k3_bwd_bound(B, Sq, Sk, H, Kh, hd, causal, F32_FLOPS, hd_v,
+                            window)[0]
+    ms = statistics.median(tb)
+    lib_ms = statistics.median(tlib) if tlib else None
+    res = {"shape": [B, Sq, Sk, H, Kh, hd, hd_v], "causal": causal,
+           "window": window, "ms": ms, "ms_range": [min(tb), max(tb)],
+           "plain_ms": plain_ms, "library_ms": lib_ms,
+           "library_ms_range": [min(tlib), max(tlib)] if tlib else None,
+           "library_backend": backend, "bound_ms": bound, "bound_by": by,
+           "bound_f32_ms": bound32}
+    if backend == "none":
+        res["library_refusals"] = refusals
+    ratio = f"; K3 / SDPA {ms / lib_ms:.2f}x (medians)" if lib_ms else ""
+    work = f"6 x {hd} + 4 x {hd_v}"
+    print(f"     K3 backward alone, {label}, q {(B, Sq, H, hd)} over k "
+          f"{(B, Sk, Kh, hd)}, v of {hd_v}, bf16, causal {causal}, window "
+          f"{window}: K3 {_spread(tb, launches)}; "
+          f"{_sdpa_text(backend, refusals, tlib, launches)}'s backward alone"
+          f"{ratio}; plain {plain_ms:.2f} ms; bound {bound:.4f} ms by {by} "
+          f"({flops / 1e9:.3f} GFLOP, {work} a live pair, at 989 TFLOP/s "
           f"bf16; {bound32:.4f} ms at 67 TFLOP/s f32; {nbytes} B); "
-          f"{flops / ms / 1e9:.1f} TFLOP/s of the 10 x {hd} needed, "
-          f"{2 * flops / ms / 1e9:.1f} of the 20 x {hd} the tensor-core "
+          f"{flops / ms / 1e9:.1f} TFLOP/s of the {work} needed, "
+          f"{2 * flops / ms / 1e9:.1f} of about twice that the tensor-core "
           f"kernels issue", flush=True)
     return res
 
@@ -3774,12 +3982,15 @@ def phase_timing_k3_slice11():
 
 def _cut(cfg, params, n):
     """``cfg`` and ``params`` cut to their first ``n`` layers (views of the
-    layer-stacked group, no copy)."""
+    first layer-stacked group, no copy); ``n`` whole periods of it."""
     import dataclasses
     from repro_torch.models.params import tree_map
-    check(len(params["groups"]) == 1, f"{cfg.name}: one layer group")
+    mixers_t, _, repeat = cfg.layer_plan()[0]
+    p = len(mixers_t)
+    check(n % p == 0 and 0 < n // p <= repeat, f"{cfg.name}: {n} layers are "
+          f"not whole periods of its first group ({repeat} of {p})")
     return (dataclasses.replace(cfg, n_layers=n),
-            dict(params, groups=[tree_map(lambda t: t[:n],
+            dict(params, groups=[tree_map(lambda t: t[:n // p],
                                           params["groups"][0])]))
 
 
@@ -3798,33 +4009,66 @@ def _layers_that_fit(cfg, bytes_per_param, free):
 
 
 def _decode_vs_forward_cut(cfg, params, prompt):
-    """``_decode_vs_forward`` on as many of the model's layers as an f32
-    copy of them fits beside the card's resident state with FIT_SPARE to
-    spare; prints the cut."""
+    """``_decode_vs_forward`` on as many of the model's layers (whole
+    periods of its first group, or all of them) as an f32 copy of them fits
+    beside the card's resident state with FIT_SPARE to spare; prints the
+    cut."""
     import torch
     torch.cuda.empty_cache()
     free = torch.cuda.mem_get_info()[0]
     n = _layers_that_fit(cfg, 4, free)
+    if n < cfg.n_layers:
+        p = len(cfg.layer_plan()[0][0])
+        n = max(p, n - n % p)
     print(f"    the f32 check runs on {n} of {cfg.n_layers} layers (its f32 "
           f"copy beside {torch.cuda.memory_allocated() / 1e9:.1f} GB "
           f"resident, {free / 1e9:.1f} GB free, {FIT_SPARE / 1e9:.0f} GB to "
           f"spare)", flush=True)
-    _decode_vs_forward(*_cut(cfg, params, n), prompt)
+    _decode_vs_forward(*(_cut(cfg, params, n) if n < cfg.n_layers
+                         else (cfg, params)), prompt)
+
+
+def _first_attention(cfg, params, prompt):
+    """The first attention sublayer of ``cfg`` (GQA, sliding-window or
+    MLA) applied to ``prompt``'s normed embeddings: its q, k, v as K3
+    receives them and K3's mask and scale arguments."""
+    import math
+    import torch
+    from repro_torch.models import layers, lm, mixers
+    from repro_torch.models.params import tree_map
+    toks = torch.as_tensor(prompt, dtype=torch.int64, device=DEVICE)[None]
+    x = lm._embed(cfg, params, toks)
+    mixers_t = cfg.layer_plan()[0][0]
+    t = next(i for i, k in enumerate(mixers_t)
+             if k in ("attn", "attn_local", "mla"))
+    p = tree_map(lambda a: a[0], params["groups"][0])[f"sub{t}"]
+    h = layers.norm_apply(cfg, p["norm1"], x)
+    pos = torch.arange(len(prompt), dtype=torch.int32, device=DEVICE)[None]
+    if mixers_t[t] == "mla":
+        q, k, v = mixers.mla_qkv(cfg, p["mixer"], h, pos)[:3]
+        mask = dict(causal=True, scale=1.0 / math.sqrt(cfg.head_dim
+                                                       + cfg.rope_dim))
+    else:
+        q, k, v = mixers.attn_qkv(cfg, p["mixer"], h, pos)
+        mask = dict(causal=True, window=cfg.window
+                    if mixers_t[t] == "attn_local" else None)
+    return q, k, v, mask, t
 
 
 def _hold_layer0(cfg, params, prompt, what):
-    """K3 against its plain version on layer 0's q/k/v of ``prompt``."""
-    import torch
+    """K3 against its plain version on the q/k/v that the first attention
+    sublayer of the first period makes of ``prompt`` (layer 0's, and for a
+    model led by recurrent layers that sublayer applied to the normed
+    embeddings)."""
     from repro_torch.kernels.flash_attn import kernel as K3
-    from repro_torch.models import mixers
     before = K3.launches
-    p0, h = _layer0_input(cfg, params, prompt)
-    pos = torch.arange(len(prompt), dtype=torch.int32, device=DEVICE)[None]
-    q, k, v = mixers.attn_qkv(cfg, p0["mixer"], h, pos)
-    err, share, err32 = _k3_hold(q, k, v, what, causal=True)
+    q, k, v, mask, t = _first_attention(cfg, params, prompt)
+    err, share, err32 = _k3_hold(q, k, v, what, **mask)
     K3.launches = before
-    print(f"    K3 == plain ({K3_PARITY}) on layer 0's q/k/v of the longest "
-          f"prompt, q {tuple(q.shape)} k/v {tuple(k.shape)}, {q.dtype}: max "
+    where = "layer 0's" if t == 0 else f"sublayer {t}'s (on the embeddings)"
+    print(f"    K3 == plain ({K3_PARITY}) on {where} q/k/v of the longest "
+          f"prompt, q {tuple(q.shape)} k {tuple(k.shape)} v "
+          f"{tuple(v.shape)}, {q.dtype}, window {mask.get('window')}: max "
           f"|diff| {err:.3g}; {share:.3g} of outputs beyond 2e-5 plus one "
           f"ulp; against plain with p kept in f32: max |diff| {err32:.3g}",
           flush=True)
@@ -3835,11 +4079,33 @@ def phase_stablelm():
     return _serve_k3("stablelm-12b", 24)
 
 
-def _serve_k3(arch, phase, logits_check=None, after=None):
-    """``arch`` at full width (random from seed SEED) serves the phase's
-    traffic on K3: K3 launched once a layer a request, K4 never; K3 held to
-    its plain version on layer 0 of the longest prompt; K3's share of the
-    prefill and a profile of one prefill and three decode steps; the
+def _attention_layers(cfg):
+    """The layers of ``cfg`` that run K3 (GQA, sliding-window, MLA)."""
+    return sum(repeat * sum(k in ("attn", "attn_local", "mla")
+                            for k in mixers_t)
+               for mixers_t, _, repeat in cfg.layer_plan())
+
+
+def _k3_shape(cfg):
+    """(H, Kh, hd, hd_v, window, scale) of the K3 calls ``cfg`` makes."""
+    import math
+    kinds = cfg.layer_plan()[0][0]
+    if "mla" in kinds:
+        hd = cfg.head_dim + cfg.rope_dim
+        return (cfg.n_heads_eff, cfg.n_heads_eff, hd, cfg.head_dim, None,
+                1.0 / math.sqrt(hd))
+    return (cfg.n_heads_eff, cfg.n_kv_eff, cfg.head_dim, cfg.head_dim,
+            cfg.window if "attn_local" in kinds else None, None)
+
+
+def _serve_k3(arch, phase, logits_check=None, after=None, cfg=None,
+              reqs=None, max_len=SERVE_MAX_LEN):
+    """``arch`` at full width (random from seed SEED; ``cfg``: a depth cut
+    of it) serves the phase's traffic (``reqs`` on SERVE_SLOTS slots of
+    ``max_len``; by default phase 12's) on K3: K3 launched once an
+    attention layer a request, K4 never; K3 held to its plain version on
+    the first attention layer's q/k/v of the longest prompt; K3's share of
+    the prefill and a profile of one prefill and three decode steps; the
     prefill and first decode logits held to ``forward`` on as many layers
     as an f32 copy fits with FIT_SPARE to spare (all of olmo-1b's), by
     ``logits_check(cfg, params, longest)`` where given; then
@@ -3848,42 +4114,50 @@ def _serve_k3(arch, phase, logits_check=None, after=None):
     from repro_torch import configs
     from repro_torch.kernels.flash_attn import kernel as K3
     t0 = time.perf_counter()
-    cfg = configs.get(arch)
-    print(f"[{phase}] {arch} at full width ({cfg.n_layers} layers, d "
+    full = configs.get(arch)
+    cfg = cfg or full
+    cut = "" if cfg.n_layers == full.n_layers else \
+        f", depth cut to {cfg.n_layers} of {full.n_layers}"
+    print(f"[{phase}] {arch} at full width ({cfg.n_layers} layers{cut}, d "
           f"{cfg.d_model}, {cfg.n_heads_eff} / {cfg.n_kv_eff} heads of "
           f"{cfg.head_dim})", flush=True)
     params = _full_params(cfg)
-    run = _serve(cfg, params)
-    want = SERVE_REQUESTS * cfg.n_layers
+    run = _serve(cfg, params, reqs, max_len)
+    n_attn = _attention_layers(cfg)
+    want = len(run["done"]) * n_attn
     check(run["counts"][2] == want, f"{arch} serving launched K3 "
           f"{run['counts'][2]} times, not {want}")
     check(run["counts"][3] == 0, f"{arch} serving launched K4")
     longest = max(run["done"], key=lambda r: len(r.prompt)).prompt
-    err = _hold_layer0(cfg, params, longest, f"{arch} layer 0")
+    err = _hold_layer0(cfg, params, longest, f"{arch} first attention")
     before = K3.launches
-    H, Kh, hd = cfg.n_heads_eff, cfg.n_kv_eff, cfg.head_dim
+    H, Kh, hd, hd_v, window, scale = _k3_shape(cfg)
 
     def k3_at(n):
-        q = torch.randn((1, n, H, hd), device=DEVICE, dtype=torch.bfloat16)
-        kv = [torch.randn((1, n, Kh, hd), device=DEVICE,
-                          dtype=torch.bfloat16) for _ in range(2)]
-        return lambda: K3.flash_fill(q, *kv, causal=True,
-                                     p_dtype=torch.bfloat16)
+        bf = dict(device=DEVICE, dtype=torch.bfloat16)
+        q = torch.randn((1, n, H, hd), **bf)
+        k = torch.randn((1, n, Kh, hd), **bf)
+        v = torch.randn((1, n, Kh, hd_v), **bf)
+        return lambda: K3.flash_fill(q, k, v, causal=True, window=window,
+                                     scale=scale, p_dtype=torch.bfloat16)
     k3_s = _kernel_share(k3_at, [len(r.prompt) for r in run["done"]],
-                         cfg.n_layers)
+                         n_attn)
     _profile_serving(cfg, params, run["session"], longest)
     K3.launches = before
     st = run["stats"]
     print(f"    where the time goes: prefill {st['prefill_s']:.3f} s "
           f"({100 * st['prefill_s'] / run['wall']:.1f} % of wall; K3 "
           f"{k3_s:.3f} s of it, {100 * k3_s / st['prefill_s']:.1f} %, from "
-          f"each prompt's K3 timed alone x {cfg.n_layers} layers), decode "
-          f"{st['decode_s']:.3f} s "
-          f"({100 * st['decode_s'] / run['wall']:.1f} %)", flush=True)
+          f"each prompt's K3 timed alone x {n_attn} attention layers), "
+          f"decode {st['decode_s']:.3f} s "
+          f"({100 * st['decode_s'] / run['wall']:.1f} %; "
+          f"{1e3 * st['decode_s'] / st['steps']:.2f} ms a step)", flush=True)
     launches = run["counts"][2]
     summary = {"wall_s": run["wall"], "peak_gib": run["peak"] / 2**30,
                "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
-               "decode_steps": st["steps"], "k3_prefill_s": k3_s}
+               "decode_steps": st["steps"],
+               "decode_step_ms": 1e3 * st["decode_s"] / st["steps"],
+               "k3_prefill_s": k3_s}
     del run
     extra = (logits_check or _decode_vs_forward_cut)(cfg, params,
                                                      longest) or {}
@@ -3892,7 +4166,7 @@ def _serve_k3(arch, phase, logits_check=None, after=None):
     torch.cuda.empty_cache()
     print(f"    phase {phase}: {time.perf_counter() - t0:.1f} s", flush=True)
     return {"k3_launches": launches, "k3_err": err, "serve": summary,
-            **extra}
+            "layers": cfg.n_layers, **extra}
 
 
 def _prefill_decode_run(cfg, params, prompt, what):
@@ -4096,17 +4370,18 @@ def _moe_drops(cfg, params, prompt):
         lm.prefill(cfg, params, {"tokens": toks})
     tokens = [int((~keep[:Lp]).any(-1).sum()) for _, keep in calls]
     choices = [int((~keep[:Lp]).sum()) for _, keep in calls]
-    check(len(calls) == cfg.n_layers, f"{cfg.name}: {len(calls)} routes in "
-          f"one prefill, not {cfg.n_layers}")
+    n_moe = sum(r for _, f, r in cfg.layer_plan() if f == "moe")
+    check(len(calls) == n_moe, f"{cfg.name}: {len(calls)} routes in one "
+          f"prefill, not {n_moe}")
     print(f"    capacity {cfg.capacity_factor} drops during one prefill of "
-          f"{Lp} tokens (groups of {cfg.moe_group}): per layer, tokens with "
-          f"a dropped choice {tokens} ({sum(tokens)} of {Lp * cfg.n_layers} "
+          f"{Lp} tokens (groups of {cfg.moe_group}): per MoE layer, tokens "
+          f"with a dropped choice {tokens} ({sum(tokens)} of {Lp * n_moe} "
           f"token-layers), choices dropped {sum(choices)} of "
-          f"{Lp * cfg.top_k * cfg.n_layers} "
-          f"({100 * sum(choices) / (Lp * cfg.top_k * cfg.n_layers):.2f} %)",
+          f"{Lp * cfg.top_k * n_moe} "
+          f"({100 * sum(choices) / (Lp * cfg.top_k * n_moe):.2f} %)",
           flush=True)
     return {"drop_tokens_per_layer": tokens, "drop_choices": sum(choices),
-            "choices": Lp * cfg.top_k * cfg.n_layers}
+            "choices": Lp * cfg.top_k * n_moe}
 
 
 def _moe_logits_check(cfg, params, prompt):
@@ -4555,6 +4830,221 @@ def phase_train_slice12():
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice 13: K3 at hd 256 and at q/k 192 with v 128; recurrentgemma-9b
+# (RG-LRU) and deepseek-v3-671b (MLA, multi-token prediction)
+# ---------------------------------------------------------------------------
+def phase_k3_widths(rng):
+    """Phase 32, checks: K3's forward and backward against their plain
+    versions at hd 256 and at (hd 192, hd_v 128) (K3_WIDTH_CASES: G 1 and
+    8, MQA, at 256; G 1 at 192/128, MLA's): causal, causal with window 64,
+    non-causal, non-causal with k_len S/2 + 1; S in K3_WIDTH_SWEEP_S;
+    forward f32, bf16 on exact and on normal scores (K3_PARITY), backward
+    f32 and bf16
+    (K3_BWD_PARITY, lse within 2e-5, 0xFF blocks, a second call bit-equal);
+    then pairs K3 is not built for raise and launch nothing."""
+    import torch
+    from repro_torch.kernels.flash_attn import kernel as K3
+    t0 = time.perf_counter()
+    before = (K3.launches, K3.bwd_launches)
+    errs = {}
+    kinds = ((torch.float32, False), (torch.bfloat16, True),
+             (torch.bfloat16, False))
+    nf = nb = 0
+    for (hd, hd_v, G), (causal, window, kl), S in itertools.product(
+            K3_WIDTH_CASES, ((True, None, None), (True, 64, None),
+                             (False, None, None), (False, None, "half")),
+            K3_WIDTH_SWEEP_S):
+        mask = dict(causal=causal, window=window,
+                    k_len=None if kl is None else S // 2 + 1)
+        e = errs.setdefault((hd, hd_v), {"fwd": 0.0, "share": 0.0,
+                                         "bwd": 0.0, "lse": 0.0})
+        for dtype, exact in kinds:
+            q, k, v = _k3_inputs(rng, 2, S, S, 8, 8 // G, hd, dtype, exact,
+                                 hd_v)
+            what = (f"hd {hd}, hd_v {hd_v}, {mask}, G {G}, S {S}, {dtype}, "
+                    f"{'exact' if exact else 'normal'} scores")
+            err, sh, _ = _k3_hold(q, k, v, what, exact, **mask)
+            e["fwd"], e["share"] = max(e["fwd"], err), max(e["share"], sh)
+            nf += 1
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _k3_inputs(rng, 2, S, S, 8, 8 // G, hd, dtype,
+                                 hd_v=hd_v)
+            err, le = _k3_bwd_case(rng, q, k, v, mask, f"hd {hd}, hd_v "
+                                   f"{hd_v}, {mask}, G {G}, S {S}, {dtype}")
+            e["bwd"], e["lse"] = max(e["bwd"], err), max(e["lse"], le)
+            nb += 1
+    counts = (K3.launches, K3.bwd_launches)
+    for hd, hd_v in ((32, 16), (256, 128), (128, 192)):
+        q = torch.zeros((1, 64, 2, hd), device=DEVICE)
+        v = torch.zeros((1, 64, 2, hd_v), device=DEVICE)
+        lse = torch.zeros((1, 64, 2), device=DEVICE)
+        for call in (lambda: K3.flash_fill(q, q, v, causal=True),
+                     lambda: K3.flash_backward(q, q, v, v, lse, v,
+                                               causal=True)):
+            try:
+                call()
+            except ValueError as e:
+                check(str(K3.WIDTH_PAIRS) in str(e), f"({hd}, {hd_v}) raised "
+                      f"without naming the pairs K3 takes: {e}")
+            else:
+                check(False, f"K3 took ({hd}, {hd_v}) on the card")
+    check((K3.launches, K3.bwd_launches) == counts,
+          "a refused width pair launched K3")
+    K3.launches, K3.bwd_launches = before
+    text = "; ".join(
+        f"({hd}, {hd_v}): forward max |diff| {e['fwd']:.3g} (largest share "
+        f"beyond 2e-5 plus one ulp {e['share']:.3g}), backward {e['bwd']:.3g}"
+        f", lse {e['lse']:.3g}" for (hd, hd_v), e in errs.items())
+    print(f"[32] K3 at the new widths == plain: forward on {nf} cases "
+          f"({K3_PARITY}), backward and lse on {nb} cases ({K3_BWD_PARITY}; "
+          f"0xFF blocks, a second call bit-equal); (hd, hd_v, G) in "
+          f"{K3_WIDTH_CASES} x causal / window 64 / non-causal / k_len "
+          f"S/2 + 1 x S {K3_WIDTH_SWEEP_S}: {text}; (32, 16), (256, 128) and "
+          f"(128, 192) raise naming the pairs K3 is built for, nothing "
+          f"launched; {time.perf_counter() - t0:.1f} s", flush=True)
+    return errs
+
+
+def phase_timing_k3_slice13():
+    """Phase 32, times: K3's bf16 forward and backward alone at
+    recurrentgemma-9b's local attention and at DeepSeek-V3's MLA, serving
+    and training shapes, each in turns with SDPA where one of its fused
+    backends takes the shape (``_sdpa_yardstick``), beside the card's name
+    and power limit."""
+    from repro_torch.kernels.flash_attn import kernel as K3
+    before = (K3.launches, K3.bwd_launches)
+    t0 = time.perf_counter()
+    print(f"[32] K3 timed at the new widths, in turns with "
+          f"scaled_dot_product_attention ({nvidia_smi('name,power.limit')})",
+          flush=True)
+    out = {"fwd": {}, "bwd": {}}
+    for key, shape, what in (
+            ("hd256", K3_RG_TIMED, "recurrentgemma-9b serving"),
+            ("mla", K3_MLA_TIMED, "deepseek-v3 MLA serving")):
+        B, S, H, Kh, hd, hd_v, window = shape
+        out["fwd"][key] = _k3_fwd_timing(B, S, S, H, Kh, hd, True, what,
+                                         hd_v=hd_v, window=window)
+    for key, shape, what in (
+            ("hd256", K3_RG_TRAIN, "recurrentgemma-9b training"),
+            ("mla", K3_MLA_TRAIN, "deepseek-v3 MLA training")):
+        B, S, H, Kh, hd, hd_v, window = shape
+        out["bwd"][key] = _k3_bwd_timing(B, S, S, H, Kh, hd, True, what,
+                                         hd_v=hd_v, window=window)
+    K3.launches, K3.bwd_launches = before
+    print(f"     {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def phase_recurrentgemma():
+    """Phase 33: recurrentgemma-9b at full width and depth (38 layers: 12
+    periods of RG-LRU, RG-LRU, local attention and 2 RG-LRU layers) serves
+    RG_REQUESTS prompts of RG_PROMPT_LENS tokens on SERVE_SLOTS slots of
+    RG_MAX_LEN through ServeSession: K3 at hd 256, 16 query heads over one
+    key/value head, window 2048, once an attention layer (12) a prefill;
+    the RG-LRU's doubling scan in prefill and its f32 state and conv
+    history in decode; K3 held on the first attention sublayer; the logits
+    held to ``forward`` (f32 on as many periods as fit)."""
+    from repro_torch import configs
+    cfg = configs.get("recurrentgemma-9b")
+    return _serve_k3("recurrentgemma-9b", 33,
+                     reqs=_serve_requests(cfg, RG_REQUESTS, RG_PROMPT_LENS),
+                     max_len=RG_MAX_LEN)
+
+
+def _deepseek_logits_check(cfg, params, prompt):
+    """The logits check of phase 34 on the first_dense layers: an f32 copy
+    of a single MoE layer (11.5 B parameters, 46 GB) does not fit beside the
+    served bf16 model, so ``_decode_vs_forward`` runs on the dense MLA
+    layers alone (their plan has no routing), in bf16 and in f32."""
+    import dataclasses
+    cut = dataclasses.replace(cfg, n_layers=cfg.first_dense)
+    print(f"    the logits check runs on the {cut.n_layers} first_dense "
+          f"layers (MLA with a dense FFN) of {cfg.n_layers}", flush=True)
+    _decode_vs_forward(cut, dict(params, groups=params["groups"][:1]),
+                       prompt)
+    return {"logits_check_layers": cut.n_layers}
+
+
+def phase_deepseek():
+    """Phase 34: deepseek-v3-671b at full width: its 3 first_dense layers
+    and as many MoE layers as the card holds in bf16 with FIT_SPARE to
+    spare (printed) serve phase 12's traffic through ServeSession: K3 at
+    q/k 192 over v 128 once a layer a prefill, the absorbed MLA decode over
+    the latent cache, the sigmoid router and the shared expert at their
+    published widths; K3 held on layer 0; the capacity's drops in one
+    prefill; the logits held to ``forward`` on the dense layers."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.models.params import count_params
+    full = configs.get("deepseek-v3-671b")
+    dense = count_params(dataclasses.replace(full, n_layers=full.first_dense))
+    per = count_params(dataclasses.replace(
+        full, n_layers=full.first_dense + 1)) - dense
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    k = int((free - FIT_SPARE - 2 * dense) // (2 * per))
+    k = max(1, min(full.n_layers - full.first_dense, k))
+    cfg = dataclasses.replace(full, n_layers=full.first_dense + k)
+    print(f"[34] deepseek-v3-671b: {full.first_dense} first_dense layers and "
+          f"{k} MoE layers of {full.n_layers - full.first_dense} ({per:,} "
+          f"parameters each, {2 * per / 1e9:.1f} GB in bf16) fit "
+          f"{free / 1e9:.1f} GB free with {FIT_SPARE / 1e9:.0f} GB to spare",
+          flush=True)
+    return _serve_k3("deepseek-v3-671b", 34, cfg=cfg,
+                     logits_check=_deepseek_logits_check,
+                     after=lambda c, p, longest: _moe_drops(c, p, longest))
+
+
+def phase_train_slice13():
+    """Phase 35: recurrentgemma-9b at full width and RG_TRAIN_PERIODS
+    periods (RG-LRU, RG-LRU, local attention), and deepseek-v3-671b's
+    first DEEPSEEK_TRAIN_LAYERS MLA layers with a dense FFN and its MTP
+    head, no MoE layer (one full-width MoE layer's AdamW state, 11.5 B
+    parameters at 17 bytes, does not fit one card), train through
+    train_loop as phase 18 does (K3 at hd 256 and at q/k 192 over v 128,
+    forward and backward, counted a step); each run's last recorded K3
+    backward held to flash_backward_plain; then the two reduced configs
+    trained on the card and on the CPU from one numpy-made state, as phase
+    20 (deepseek's at DEEPSEEK_CARD_WIDTHS)."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attn import kernel as K3
+    rg, ds = configs.get("recurrentgemma-9b"), configs.get("deepseek-v3-671b")
+    periods, dense = RG_TRAIN_PERIODS, DEEPSEEK_TRAIN_LAYERS
+    # K3 a microbatch: each attention layer's forward twice under remat
+    # (recomputed in the backward) and its backward once; the MTP block
+    # runs outside remat, its forward once
+    runs = (("recurrentgemma-9b",
+             dataclasses.replace(rg, n_layers=3 * periods), 2 * periods,
+             periods),
+            ("deepseek-v3-671b",
+             dataclasses.replace(ds, n_layers=dense, first_dense=dense),
+             2 * dense + 1, dense + 1))
+    out = {}
+    for arch, cfg, n_fwd, n_bwd in runs:
+        a = cfg.accum_steps
+        run = _train_full(arch, K3, "flash_backward", n_fwd * a, n_bwd * a,
+                          35, cfg=cfg)
+        args, kw = _detached(run.pop("last"))
+        before = (K3.launches, K3.bwd_launches)
+        err = _hold_k3_bwd(args, kw, f"{arch}, last step's last backward")
+        K3.launches, K3.bwd_launches = before
+        print(f"    K3 backward == plain ({K3_BWD_PARITY}) on the last "
+              f"recorded q/k/v/o/lse/dO: q {tuple(args[0].shape)}, k "
+              f"{tuple(args[1].shape)}, v {tuple(args[2].shape)}, "
+              f"{args[0].dtype}, window {kw.get('window')}: max |diff| "
+              f"{err:.3g}", flush=True)
+        del args, kw
+        torch.cuda.empty_cache()
+        out[arch] = dict(run, k3_err=err, layers=cfg.n_layers)
+    phase_train_card_vs_cpu(("recurrentgemma-9b",
+                             ("deepseek-v3-671b", DEEPSEEK_CARD_WIDTHS)), 35)
+    return out
+
+
 def _slug(arch):
     return arch.split("-")[0]
 
@@ -4588,6 +5078,8 @@ def main() -> int:
     import numpy as np
     from repro_torch.core import alphabets
     from repro_torch.kernels.flash_attn.kernel import HEAD_DIMS as K3_HEAD_DIMS
+    from repro_torch.kernels.flash_attn.kernel import \
+        VALUE_WIDTHS as K3_VALUE_WIDTHS
     # every f32 comparison on the card runs in full f32, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4636,6 +5128,11 @@ def main() -> int:
         whisper = phase_whisper()
         llava = phase_llava()
         train12 = phase_train_slice12()
+        k3w_err = phase_k3_widths(rng)
+        k3_13 = phase_timing_k3_slice13()
+        rgemma = phase_recurrentgemma()
+        deepseek = phase_deepseek()
+        train13 = phase_train_slice13()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4692,13 +5189,32 @@ def main() -> int:
         "launches_llava_prefix_prefill": llava["prefix_k3_launches"],
         **{f"launches_train_{_slug(a)}": r["fwd_launches"]
            for a, r in train12.items()},
-        "head_dims": list(K3_HEAD_DIMS), "parity": K3_PARITY,
+        "launches_recurrentgemma": rgemma["k3_launches"],
+        "launches_deepseek": deepseek["k3_launches"],
+        "deepseek_layers": deepseek["layers"],
+        **{f"launches_train_{_slug(a)}": r["fwd_launches"]
+           for a, r in train13.items()},
+        "head_dims": list(K3_HEAD_DIMS),
+        "value_widths": [list(p) for p in K3_VALUE_WIDTHS],
+        "parity": K3_PARITY,
         "max_abs_err": max(k3_err, olmo["k3_err"], stablelm["k3_err"],
                            dense["phi3"]["k3_err"],
                            dense["command_r"]["k3_err"], qwen3["k3_err"],
                            whisper["k3_err"], llava["k3_err"],
-                           llava["prefix_k3_err"]),
+                           llava["prefix_k3_err"], rgemma["k3_err"],
+                           deepseek["k3_err"],
+                           *(e["fwd"] for e in k3w_err.values())),
         "max_abs_err_hd160": k3_160_err, "max_abs_err_cross": k3_x_err,
+        "max_abs_err_hd256": max(k3w_err[(256, 256)]["fwd"],
+                                 rgemma["k3_err"]),
+        "max_abs_err_qk192_v128": max(k3w_err[(192, 128)]["fwd"],
+                                      deepseek["k3_err"]),
+        "recurrentgemma_serve": rgemma["serve"],
+        "deepseek_serve": dict(deepseek["serve"], layers=deepseek["layers"],
+                               **{k: deepseek[k] for k in (
+                                   "drop_choices", "choices",
+                                   "logits_check_layers")}),
+        "slice13": k3_13["fwd"],
         "stablelm_serve": stablelm["serve"], "ptxas": ptxas["flash_fill"],
         "qwen3_moe_serve": dict(qwen3["serve"], **{k: qwen3[k] for k in (
             "drop_tokens_per_layer", "drop_choices", "choices",
@@ -4723,17 +5239,27 @@ def main() -> int:
         "launches_train_stablelm": stablelm_train["bwd_launches"],
         **{f"launches_train_{_slug(a)}": r["bwd_launches"]
            for a, r in train12.items()},
+        **{f"launches_train_{_slug(a)}": r["bwd_launches"]
+           for a, r in train13.items()},
         "head_dims": list(K3_HEAD_DIMS),
+        "value_widths": [list(p) for p in K3_VALUE_WIDTHS],
         "max_abs_err": max(k3b_err, olmo_train["k3_err"],
                            stablelm_train["k3_err"],
-                           *(r["k3_err"] for r in train12.values())),
+                           *(r["k3_err"] for r in train12.values()),
+                           *(r["k3_err"] for r in train13.values()),
+                           *(e["bwd"] for e in k3w_err.values())),
         "max_abs_err_hd160": k3b_160_err, "max_abs_err_cross": k3b_x_err,
+        "max_abs_err_hd256": max(k3w_err[(256, 256)]["bwd"],
+                                 train13["recurrentgemma-9b"]["k3_err"]),
+        "max_abs_err_qk192_v128": max(k3w_err[(192, 128)]["bwd"],
+                                      train13["deepseek-v3-671b"]["k3_err"]),
+        "slice13": k3_13["bwd"],
         "train": _train_summary(olmo_train, "k3"),
         "train_stablelm": dict(_train_summary(stablelm_train, "k3"),
                                layers=stablelm_train["layers"]),
         **{f"train_{_slug(a)}": dict(_train_summary(r, "k3"),
                                      layers=r["layers"], moe_aux=r["moe_aux"])
-           for a, r in train12.items()},
+           for a, r in (*train12.items(), *train13.items())},
         **k3_new["bwd"],
         "ptxas": ptxas["flash_backward"], **k3b_timing}, {
         "name": "wkv6_backward", "route": "cuda",

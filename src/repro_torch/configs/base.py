@@ -133,8 +133,7 @@ def register(cfg: ModelConfig, reduced: ModelConfig):
 
 def get(name: str, reduced: bool = False) -> ModelConfig:
     if name not in REGISTRY:
-        raise KeyError(f"architecture {name!r} is not ported (ported: "
-                       f"{sorted(REGISTRY)}; the others are ROADMAP queue 1 "
-                       f"item 15)")
+        raise KeyError(f"no architecture {name!r} (registered: "
+                       f"{sorted(REGISTRY)})")
     cfg, red = REGISTRY[name]
     return red if reduced else cfg

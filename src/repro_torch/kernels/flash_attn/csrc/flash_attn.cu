@@ -30,9 +30,15 @@
 //   registers: each row lives in one quad of lanes, reduced by two
 //   shuffles.  The masks, the scale and the sentinel act on the f32 score
 //   fragments; an element's row and key follow the mma fragment layout.
-//   Shared memory is 87 KB at hd 128 and 107.5 KB at hd 160 (rows of 336
-//   bytes, 21 16-byte units, still 8 distinct bank groups an ldmatrix), so
-//   two blocks fit an SM.  The grid
+//   Shared memory is 87 KB at hd 128, 107.5 KB at hd 160 (rows of 336
+//   bytes, 21 16-byte units, still 8 distinct bank groups an ldmatrix) and
+//   109 KB at q/k 192 with v 128, so two blocks fit an SM.  At hd 256 the
+//   ring of two stages would take 165 KB, one block an SM; it keeps one
+//   stage instead (99 KB, two blocks an SM, each hiding the other's loads),
+//   and its O accumulator alone is 128 registers a thread, so q's fragments
+//   are not held across the k-tiles but read again by ldmatrix at each
+//   k-step (QREG below): 243 registers, no spill (ptxas on the H100; 224
+//   at 192 / 128, 235 at hd 160).  The grid
 //   is (head, q-tile, batch row) with the last q-tile first, so under a
 //   causal mask the blocks with the most live k-tiles start first across
 //   the whole launch and the light ones fill the tail.  The cp.async,
@@ -47,9 +53,11 @@
 //   threads per (64-row q-tile, head, batch row), the tiles widened to f32
 //   in shared memory (q and k transposed for float4 reads), a 4 x 4 score
 //   patch per thread, one warp per 8 rows for the softmax, p kept in f32,
-//   and for p v each thread owning one output column (hd dividing 256) or,
-//   at hd 160, each warp 8 rows and each lane the columns lane + 32 c.
-//   Shared memory is 146 KB at hd 160, one block an SM.
+//   and for p v each thread owning one output column (hd_v dividing 256)
+//   or, at hd_v 160, each warp 8 rows and each lane the columns lane + 32 c.
+//   Shared memory is 146 KB at hd 160 and 218 KB at hd 256 (within the
+//   227 KB a block may have), one block an SM; at hd 256 ptxas keeps 128
+//   registers and spills 32 bytes of the 64 accumulators a thread.
 //
 // Common to both: a loop over 64-row k-tiles inside the block takes the
 // place of the TPU's sequential ("arbitrary") k grid axis, and k-tiles
@@ -63,11 +71,14 @@
 // window masks (q_start = Sk - Sq: the queries are the keys' last Sq
 // positions).  Rows past Sq and keys past Sk are loaded as zeros, masked
 // and not stored, so any lengths work (the Pallas kernel needs S to be a
-// multiple of its block).  Head widths 16, 32, 64, 128 and 160, v as wide
-// as q and k.
+// multiple of its block).  q and k have one width (HDQK) and v and o another
+// (HDV): q k^T runs over HDQK, p v and the output over HDV.  The pairs
+// built are (d, d) for d in 16, 32, 64, 128, 160 and 256 (recurrentgemma's
+// local attention) and (192, 128) (DeepSeek's MLA: q/k carry 128 + 64
+// rotary columns, v 128).
 //
-// What bounds it.  The work is 2 * S_live * hd multiply-adds per query row
-// (S_live its unmasked keys; q . k and p v) against one read of q, k, v
+// What bounds it.  The work is S_live * (hd_qk + hd_v) multiply-adds per
+// query row (S_live its unmasked keys; q . k and p v) against one read of q, k, v
 // and one write of o: far above the card's bytes-to-operations balance,
 // so the arithmetic rate binds: 989 TFLOP/s of bf16 on the tensor cores
 // (wgmma's rate; mma.sync reaches a part of it), 67 TFLOP/s of f32 on the
@@ -115,13 +126,13 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int HD>
+template <int HDQK, int HDV>
 constexpr size_t smem_floats() {
-  return (size_t)HD * (BQ + PAD) + (size_t)HD * (BK + PAD) +
-         (size_t)BK * HD + (size_t)BQ * (BK + PAD) + 3 * BQ;
+  return (size_t)HDQK * (BQ + PAD) + (size_t)HDQK * (BK + PAD) +
+         (size_t)BK * HDV + (size_t)BQ * (BK + PAD) + 3 * BQ;
 }
 
-template <typename T, int HD>
+template <typename T, int HDQK, int HDV>
 __global__ void __launch_bounds__(THREADS) flash_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
@@ -129,21 +140,21 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(
     int window, float scale) {
   constexpr int QS = BQ + PAD;
   constexpr int KS = BK + PAD;
-  // p v: one output column a thread where hd divides the block (NRG row
-  // groups of RPT rows), else (hd 160) 8 rows a warp (WR) and the columns
-  // lane + 32 c a lane (NCOL)
-  constexpr bool COLS = THREADS % HD == 0;
-  constexpr int NRG = COLS ? THREADS / HD : 1;
+  // p v: one output column a thread where hd_v divides the block (NRG row
+  // groups of RPT rows), else (hd_v 160) 8 rows a warp (WR) and the
+  // columns lane + 32 c a lane (NCOL)
+  constexpr bool COLS = THREADS % HDV == 0;
+  constexpr int NRG = COLS ? THREADS / HDV : 1;
   constexpr int RPT = BQ / NRG;
   constexpr int WR = BQ / (THREADS / 32);
-  constexpr int NCOL = HD / 32;
+  constexpr int NCOL = HDV / 32;
   constexpr int ACC = COLS ? RPT : WR * NCOL;
-  static_assert(COLS ? BQ % NRG == 0 : HD % 32 == 0, "tiling");
+  static_assert(COLS ? BQ % NRG == 0 : HDV % 32 == 0, "tiling");
   extern __shared__ __align__(16) float smem[];
-  float* Qt = smem;                  // [HD][QS]
-  float* Kt = Qt + HD * QS;          // [HD][KS]
-  float* Vs = Kt + HD * KS;          // [BK][HD]
-  float* Ps = Vs + BK * HD;          // [BQ][KS]
+  float* Qt = smem;                  // [HDQK][QS]
+  float* Kt = Qt + HDQK * QS;        // [HDQK][KS]
+  float* Vs = Kt + HDQK * KS;        // [BK][HDV]
+  float* Ps = Vs + BK * HDV;         // [BQ][KS]
   float* row_m = Ps + BQ * KS;
   float* row_l = row_m + BQ;
   float* row_a = row_l + BQ;
@@ -154,14 +165,16 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kh = h / (H / Kh);
-  const size_t q_stride = (size_t)H * HD;    // between positions
-  const size_t kv_stride = (size_t)Kh * HD;
-  const T* qb = q + (size_t)b * Sq * q_stride + (size_t)h * HD;
-  const T* kb = k + (size_t)b * Sk * kv_stride + (size_t)kh * HD;
-  const T* vb = v + (size_t)b * Sk * kv_stride + (size_t)kh * HD;
-  T* ob = o + (size_t)b * Sq * q_stride + (size_t)h * HD;
+  const size_t q_stride = (size_t)H * HDQK;  // between positions
+  const size_t o_stride = (size_t)H * HDV;
+  const size_t k_stride = (size_t)Kh * HDQK;
+  const size_t v_stride = (size_t)Kh * HDV;
+  const T* qb = q + (size_t)b * Sq * q_stride + (size_t)h * HDQK;
+  const T* kb = k + (size_t)b * Sk * k_stride + (size_t)kh * HDQK;
+  const T* vb = v + (size_t)b * Sk * v_stride + (size_t)kh * HDV;
+  T* ob = o + (size_t)b * Sq * o_stride + (size_t)h * HDV;
 
-  for (int e = tid; e < BQ * HD; e += THREADS) {
+  for (int e = tid; e < BQ * HDQK; e += THREADS) {
     const int i = e % BQ, d = e / BQ;
     const int pos = q0 + i;
     Qt[d * QS + i] = pos < Sq ? to_f32(qb[(size_t)pos * q_stride + d]) : 0.f;
@@ -170,8 +183,8 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(
     row_m[tid] = NEG_INF;
     row_l[tid] = 0.f;
   }
-  const int od = tid % HD;
-  const int org = tid / HD;
+  const int od = tid % HDV;
+  const int org = tid / HDV;
   float acc[ACC];
 #pragma unroll
   for (int r = 0; r < ACC; ++r) acc[r] = 0.f;
@@ -185,17 +198,17 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(
     const int k0 = kt * BK;
     if (!tile_live(k0, qa0, k_len, causal, window)) continue;  // uniform
     __syncthreads();       // the previous tile's readers are done
-    for (int e = tid; e < BK * HD; e += THREADS) {
+    for (int e = tid; e < BK * HDQK; e += THREADS) {
       const int j = e % BK, d = e / BK;
       const int pos = k0 + j;
       Kt[d * KS + j] =
-          pos < Sk ? to_f32(kb[(size_t)pos * kv_stride + d]) : 0.f;
+          pos < Sk ? to_f32(kb[(size_t)pos * k_stride + d]) : 0.f;
     }
-    for (int e = tid; e < BK * HD; e += THREADS) {
-      const int j = e / HD, d = e % HD;
+    for (int e = tid; e < BK * HDV; e += THREADS) {
+      const int j = e / HDV, d = e % HDV;
       const int pos = k0 + j;
-      Vs[j * HD + d] =
-          pos < Sk ? to_f32(vb[(size_t)pos * kv_stride + d]) : 0.f;
+      Vs[j * HDV + d] =
+          pos < Sk ? to_f32(vb[(size_t)pos * v_stride + d]) : 0.f;
     }
     __syncthreads();
 
@@ -205,7 +218,7 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(
 #pragma unroll
       for (int c = 0; c < 4; ++c) s[a][c] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
+    for (int d = 0; d < HDQK; ++d) {
       const float4 qa = *reinterpret_cast<const float4*>(&Qt[d * QS + 4 * ty]);
       const float4 kc = *reinterpret_cast<const float4*>(&Kt[d * KS + 4 * tx]);
       const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
@@ -256,8 +269,8 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(
 #pragma unroll
       for (int r = 0; r < RPT; ++r) acc[r] *= row_a[org + NRG * r];
       for (int j = 0; j < BK; j += 4) {
-        const float v0 = Vs[(j + 0) * HD + od], v1 = Vs[(j + 1) * HD + od];
-        const float v2 = Vs[(j + 2) * HD + od], v3 = Vs[(j + 3) * HD + od];
+        const float v0 = Vs[(j + 0) * HDV + od], v1 = Vs[(j + 1) * HDV + od];
+        const float v2 = Vs[(j + 2) * HDV + od], v3 = Vs[(j + 3) * HDV + od];
 #pragma unroll
         for (int r = 0; r < RPT; ++r) {
           const float4 p = *reinterpret_cast<const float4*>(
@@ -279,7 +292,7 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(
         for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
           for (int c = 0; c < NCOL; ++c)
-            vv[jj][c] = Vs[(j + jj) * HD + lane + 32 * c];
+            vv[jj][c] = Vs[(j + jj) * HDV + lane + 32 * c];
 #pragma unroll
         for (int r = 0; r < WR; ++r) {
           const float4 p = *reinterpret_cast<const float4*>(
@@ -303,7 +316,7 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(
       const int i = org + NRG * r;
       const int pos = q0 + i;
       if (pos < Sq)
-        store(&ob[(size_t)pos * q_stride + od],
+        store(&ob[(size_t)pos * o_stride + od],
               acc[r] / fmaxf(row_l[i], 1e-30f));
     }
   } else {
@@ -315,7 +328,7 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(
       const float l = fmaxf(row_l[i], 1e-30f);
 #pragma unroll
       for (int c = 0; c < NCOL; ++c)
-        store(&ob[(size_t)pos * q_stride + lane + 32 * c],
+        store(&ob[(size_t)pos * o_stride + lane + 32 * c],
               acc[r * NCOL + c] / l);
     }
   }
@@ -332,26 +345,45 @@ constexpr int MMA_THREADS = 32 * MMA_WARPS;
 static_assert(BQ == 16 * MMA_WARPS && BQ == BK && BK == TILE_ROWS,
               "mma tiling");
 
-template <int HD>
-constexpr size_t mma_smem_bytes() {      // q-tile, then 2 stages of k and v
-  return (size_t)(BQ + 4 * BK) * (HD + SPAD) * sizeof(bf16);
+// The k/v ring's stages: two where two blocks still fit an SM (half of its
+// 228 KB less 1 KB reserved a block), else one.
+template <int HDQK, int HDV>
+struct MmaStages {
+  static constexpr int value =
+      (BQ + 2 * BK) * (HDQK + SPAD) * 2 + 2 * BK * (HDV + SPAD) * 2 <=
+              113 * 1024
+          ? 2
+          : 1;
+};
+
+template <int HDQK, int HDV>
+constexpr size_t mma_smem_bytes() {      // q-tile, then the stages of k and v
+  constexpr int st = MmaStages<HDQK, HDV>::value;
+  return (size_t)(BQ + st * BK) * (HDQK + SPAD) * sizeof(bf16) +
+         (size_t)st * BK * (HDV + SPAD) * sizeof(bf16);
 }
 
-template <int HD>
+template <int HDQK, int HDV>
 __global__ void __launch_bounds__(MMA_THREADS, 2) flash_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
     int Sq, int Sk, int q_start, int H, int Kh, int k_len, int causal,
     int window, float scale) {
-  static_assert(HD % 16 == 0, "head width");
-  constexpr int RS = HD + SPAD;
-  constexpr int KSTEPS = HD / 16;        // k16 steps of q k^T
-  constexpr int NT = HD / 8;             // n8 tiles of the output
+  static_assert(HDQK % 16 == 0 && HDV % 16 == 0, "head width");
+  constexpr int RQ = HDQK + SPAD;        // row strides of q/k and of v
+  constexpr int RV = HDV + SPAD;
+  constexpr int KSTEPS = HDQK / 16;      // k16 steps of q k^T
+  constexpr int NT = HDV / 8;            // n8 tiles of the output
   constexpr int ST = BK / 8;             // n8 tiles of the scores
+  constexpr int STAGES = MmaStages<HDQK, HDV>::value;
+  // q's A fragments held in registers across the k-tiles, unless they and
+  // the O accumulator would take more than 160 registers a thread (hd 256:
+  // 64 + 128); then read again by ldmatrix at each k-step
+  constexpr bool QREG = 4 * KSTEPS + 4 * NT <= 160;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][RS]
-  bf16* Ks = Qs + BQ * RS;                         // [2][BK][RS]
-  bf16* Vs = Ks + 2 * BK * RS;                     // [2][BK][RS]
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][RQ]
+  bf16* Ks = Qs + BQ * RQ;                         // [STAGES][BK][RQ]
+  bf16* Vs = Ks + STAGES * BK * RQ;                // [STAGES][BK][RV]
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, tig = lane % 4;  // fragment row, column pair
@@ -363,12 +395,14 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_mma_kernel(
   const int qa0 = q_start + q0;                      // and its position
   const int b = blockIdx.z;
   const int kh = h / (H / Kh);
-  const size_t q_stride = (size_t)H * HD;
-  const size_t kv_stride = (size_t)Kh * HD;
-  const bf16* qb = q + (size_t)b * Sq * q_stride + (size_t)h * HD;
-  const bf16* kb = k + (size_t)b * Sk * kv_stride + (size_t)kh * HD;
-  const bf16* vb = v + (size_t)b * Sk * kv_stride + (size_t)kh * HD;
-  bf16* ob = o + (size_t)b * Sq * q_stride + (size_t)h * HD;
+  const size_t q_stride = (size_t)H * HDQK;
+  const size_t o_stride = (size_t)H * HDV;
+  const size_t k_stride = (size_t)Kh * HDQK;
+  const size_t v_stride = (size_t)Kh * HDV;
+  const bf16* qb = q + (size_t)b * Sq * q_stride + (size_t)h * HDQK;
+  const bf16* kb = k + (size_t)b * Sk * k_stride + (size_t)kh * HDQK;
+  const bf16* vb = v + (size_t)b * Sk * v_stride + (size_t)kh * HDV;
+  bf16* ob = o + (size_t)b * Sq * o_stride + (size_t)h * HDV;
 
   // Each condition of tile_live is monotone in k0, so the live k-tiles
   // are one run kt_lo .. kt_hi.
@@ -380,15 +414,15 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_mma_kernel(
       kt_hi = kt;
     }
 
-  load_tile<HD, MMA_THREADS>(Qs, qb, q_stride, q0, Sq);
+  load_tile<HDQK, MMA_THREADS>(Qs, qb, q_stride, q0, Sq);
   if (kt_lo <= kt_hi) {
-    load_tile<HD, MMA_THREADS>(Ks, kb, kv_stride, kt_lo * BK, Sk);
-    load_tile<HD, MMA_THREADS>(Vs, vb, kv_stride, kt_lo * BK, Sk);
+    load_tile<HDQK, MMA_THREADS>(Ks, kb, k_stride, kt_lo * BK, Sk);
+    load_tile<HDV, MMA_THREADS>(Vs, vb, v_stride, kt_lo * BK, Sk);
   }
   cp_async_commit();
 
   const int row_w = 16 * warp;           // the warp's first row in the tile
-  uint32_t qf[KSTEPS][4];
+  uint32_t qf[QREG ? KSTEPS : 1][4];
   float acc[NT][4];
 #pragma unroll
   for (int n = 0; n < NT; ++n)
@@ -398,26 +432,38 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_mma_kernel(
   float l_r[2] = {0.f, 0.f};             // this lane's share of the row sum
 
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
-    const int st = (kt - kt_lo) & 1;
-    if (kt < kt_hi) {                    // the next tile, into the other stage
-      load_tile<HD, MMA_THREADS>(Ks + (st ^ 1) * BK * RS, kb, kv_stride,
-                                 (kt + 1) * BK, Sk);
-      load_tile<HD, MMA_THREADS>(Vs + (st ^ 1) * BK * RS, vb, kv_stride,
-                                 (kt + 1) * BK, Sk);
-      cp_async_commit();
-      cp_async_wait<1>();
+    int st = 0;
+    if constexpr (STAGES == 2) {
+      st = (kt - kt_lo) & 1;
+      if (kt < kt_hi) {                  // the next tile, into the other stage
+        load_tile<HDQK, MMA_THREADS>(Ks + (st ^ 1) * BK * RQ, kb, k_stride,
+                                     (kt + 1) * BK, Sk);
+        load_tile<HDV, MMA_THREADS>(Vs + (st ^ 1) * BK * RV, vb, v_stride,
+                                    (kt + 1) * BK, Sk);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
     } else {
+      if (kt > kt_lo) {                  // the last tile's readers are done
+        load_tile<HDQK, MMA_THREADS>(Ks, kb, k_stride, kt * BK, Sk);
+        load_tile<HDV, MMA_THREADS>(Vs, vb, v_stride, kt * BK, Sk);
+        cp_async_commit();
+      }
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (kt == kt_lo) {
+    if constexpr (QREG) {
+      if (kt == kt_lo) {
 #pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks)
-        ldmatrix_x4(qf[ks], smem_addr(Qs + (row_w + lane % 16) * RS +
-                                      ks * 16 + (lane / 16) * 8));
+        for (int ks = 0; ks < KSTEPS; ++ks)
+          ldmatrix_x4(qf[ks], smem_addr(Qs + (row_w + lane % 16) * RQ +
+                                        ks * 16 + (lane / 16) * 8));
+      }
     }
-    const bf16* Kt = Ks + st * BK * RS;
-    const bf16* Vt = Vs + st * BK * RS;
+    const bf16* Kt = Ks + st * BK * RQ;
+    const bf16* Vt = Vs + st * BK * RV;
 
     // s = q k^T: octet n of keys in s[n]
     float s[ST][4];
@@ -426,15 +472,24 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_mma_kernel(
 #pragma unroll
       for (int c = 0; c < 4; ++c) s[n][c] = 0.f;
 #pragma unroll
-    for (int ks = 0; ks < KSTEPS; ++ks)
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      uint32_t qa[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) qa[r] = qf[ks][r];
+      } else {
+        ldmatrix_x4(qa, smem_addr(Qs + (row_w + lane % 16) * RQ + ks * 16 +
+                                  (lane / 16) * 8));
+      }
 #pragma unroll
       for (int n = 0; n < ST; n += 2) {
         uint32_t kf[4];
-        ldmatrix_x4(kf, smem_addr(Kt + (n * 8 + lane % 8 + (lane / 16) * 8) * RS +
+        ldmatrix_x4(kf, smem_addr(Kt + (n * 8 + lane % 8 + (lane / 16) * 8) * RQ +
                                   ks * 16 + ((lane / 8) % 2) * 8));
-        mma_bf16(s[n], qf[ks], kf[0], kf[1]);
-        mma_bf16(s[n + 1], qf[ks], kf[2], kf[3]);
+        mma_bf16(s[n], qa, kf[0], kf[1]);
+        mma_bf16(s[n + 1], qa, kf[2], kf[3]);
       }
+    }
 
     // scale, mask (element c of octet n: row g + 8 (c / 2), key
     // 8 n + 2 tig + c % 2), row max
@@ -495,7 +550,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_mma_kernel(
       for (int n = 0; n < NT; n += 2) {
         uint32_t vf[4];
         ldmatrix_x4_trans(vf, smem_addr(Vt + (16 * j + lane % 8 +
-                                              ((lane / 8) % 2) * 8) * RS +
+                                              ((lane / 8) % 2) * 8) * RV +
                                         n * 8 + (lane / 16) * 8));
         mma_bf16(acc[n], pa, vf[0], vf[1]);
         mma_bf16(acc[n + 1], pa, vf[2], vf[3]);
@@ -517,7 +572,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_mma_kernel(
     if (pos >= Sq) continue;
     if (lse != nullptr && tig == 0)
       lse[((size_t)b * Sq + pos) * H + h] = m_r[r] + logf(l_r[r]);
-    bf16* orow = ob + (size_t)pos * q_stride + 2 * tig;
+    bf16* orow = ob + (size_t)pos * o_stride + 2 * tig;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) = __floats2bfloat162_rn(
@@ -531,43 +586,45 @@ struct Args {                // the launch's shapes and masks
   float scale;
 };
 
-template <int HD>
+template <int HDQK, int HDV>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                float* lse, const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_floats<HD>() * sizeof(float);
+  constexpr size_t smem = smem_floats<HDQK, HDV>() * sizeof(float);
+  static_assert(smem <= 232448, "f32 tiles exceed a block's shared memory");
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<float, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_kernel<float, HDQK, HDV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
-  flash_kernel<float, HD><<<grid, THREADS, smem, stream>>>(
+  flash_kernel<float, HDQK, HDV><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, a.Sq, a.Sk,
       a.q_start, a.H, a.Kh, a.k_len, a.causal, a.window, a.scale);
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+template <int HDQK, int HDV>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 float* lse, const Args& a, cudaStream_t stream) {
-  const size_t smem = mma_smem_bytes<HD>();
+  constexpr size_t smem = mma_smem_bytes<HDQK, HDV>();
+  static_assert(smem <= 232448, "bf16 tiles exceed a block's shared memory");
   cudaError_t err = cudaFuncSetAttribute(
-      flash_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_mma_kernel<HDQK, HDV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(a.H, (a.Sq + BQ - 1) / BQ, a.B);
-  flash_mma_kernel<HD><<<grid, MMA_THREADS, smem, stream>>>(
+  flash_mma_kernel<HDQK, HDV><<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, a.Sq, a.Sk,
       a.q_start, a.H, a.Kh, a.k_len, a.causal, a.window, a.scale);
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+template <int HDQK, int HDV>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
            float* lse, const Args& a, cudaStream_t s) {
-  if (dtype == 0) return launch_f32<HD>(q, k, v, o, lse, a, s);
-  if (dtype == 1) return launch_bf16<HD>(q, k, v, o, lse, a, s);
+  if (dtype == 0) return launch_f32<HDQK, HDV>(q, k, v, o, lse, a, s);
+  if (dtype == 1) return launch_bf16<HDQK, HDV>(q, k, v, o, lse, a, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -576,29 +633,35 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // dtype: 0 float32 (CUDA-core kernel, p in f32), 1 bfloat16 (tensor-core
-// kernel, p rounded to bf16 for p v); q, k, v and o alike.  hd: 16, 32, 64,
-// 128 or 160; q/o (B, Sq, H, hd) and k/v (B, Sk, Kh, hd), contiguous,
-// 16-byte aligned; query row i sits at position q_start + i for the causal
-// and window masks; k_len <= Sk keys are live; window <= 0: no window.
-// lse, if not null, (B, Sq, H) float32, gets each row's log-sum-exp m +
-// log(max(l, 1e-30)) of its f32 scores, as JAX's _flash_fwd returns it for
-// the backward.  One CUDA launch.  Returns the CUDA error code of the
-// launch (0 on success).
-int flash_fill_launch(int dtype, int hd, const void* q, const void* k,
-                      const void* v, void* o, void* lse, int B, int Sq,
-                      int Sk, int q_start, int H, int Kh, int k_len,
+// kernel, p rounded to bf16 for p v); q, k, v and o alike.  (hd, hd_v):
+// (16, 16), (32, 32), (64, 64), (128, 128), (160, 160), (256, 256) or
+// (192, 128); q (B, Sq, H, hd), k (B, Sk, Kh, hd), v (B, Sk, Kh, hd_v) and
+// o (B, Sq, H, hd_v), contiguous, 16-byte aligned; query row i sits at
+// position q_start + i for the causal and window masks; k_len <= Sk keys
+// are live; window <= 0: no window.  lse, if not null, (B, Sq, H) float32,
+// gets each row's log-sum-exp m + log(max(l, 1e-30)) of its f32 scores, as
+// JAX's _flash_fwd returns it for the backward.  One CUDA launch.  Returns
+// the CUDA error code of the launch (0 on success).
+int flash_fill_launch(int dtype, int hd, int hd_v, const void* q,
+                      const void* k, const void* v, void* o, void* lse, int B,
+                      int Sq, int Sk, int q_start, int H, int Kh, int k_len,
                       int causal, int window, float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return 0;
   if (Sk < 0 || Kh <= 0 || H % Kh) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   const Args a{B, Sq, Sk, q_start, H, Kh, k_len, causal, window, scale};
-  switch (hd) {
-    case 16: return launch<16>(dtype, q, k, v, o, l, a, s);
-    case 32: return launch<32>(dtype, q, k, v, o, l, a, s);
-    case 64: return launch<64>(dtype, q, k, v, o, l, a, s);
-    case 128: return launch<128>(dtype, q, k, v, o, l, a, s);
-    case 160: return launch<160>(dtype, q, k, v, o, l, a, s);
+  if (hd == hd_v) {
+    switch (hd) {
+      case 16: return launch<16, 16>(dtype, q, k, v, o, l, a, s);
+      case 32: return launch<32, 32>(dtype, q, k, v, o, l, a, s);
+      case 64: return launch<64, 64>(dtype, q, k, v, o, l, a, s);
+      case 128: return launch<128, 128>(dtype, q, k, v, o, l, a, s);
+      case 160: return launch<160, 160>(dtype, q, k, v, o, l, a, s);
+      case 256: return launch<256, 256>(dtype, q, k, v, o, l, a, s);
+    }
+  } else if (hd == 192 && hd_v == 128) {
+    return launch<192, 128>(dtype, q, k, v, o, l, a, s);
   }
   return (int)cudaErrorInvalidValue;
 }

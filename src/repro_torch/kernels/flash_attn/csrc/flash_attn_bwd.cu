@@ -19,10 +19,13 @@
 //
 // Queries and keys have lengths of their own, Sq and Sk, and query row i
 // sits at position q_start + i for the masks, as in the forward
-// (flash_attn.cu); head widths 16, 32, 64, 128 and 160, v as wide as q and
-// k.
+// (flash_attn.cu).  q and k have one width (HDQK) and v and dO another
+// (HDV), as in the forward: s, dq and dk run over HDQK, dp, dv and
+// delta = rowsum(dO O) over HDV.  The pairs built are the forward's: (d, d)
+// for d in 16, 32, 64, 128, 160 and 256, and (192, 128) (MLA).
 //
-// Three launches on one stream (four for bf16 at hd 160):
+// Three kinds of launch on one stream (several of a kind at the wider
+// pairs; flash_bwd_launch lists them):
 //   1. delta, one warp per (position, head) row;
 //   2. dk and dv, one block per (key/value head, 64-row k-tile, batch row):
 //      the k- and v-tiles stay in shared memory while the block walks the
@@ -77,15 +80,28 @@
 //   of 32; the dq launch takes its 64 keys in two passes of 32, so s and
 //   dp hold 16 registers each beside dq's 80.  Each output element is
 //   still written by one block.  Shared memory at hd 160: 129 KB (dq),
-//   130 KB (dk, dv), one block an SM.
+//   130 KB (dk, dv), one block an SM.  At q/k 192 with v 128 the dv launch
+//   holds 64 accumulator registers (queries in passes of 32) and the dk
+//   launch 96 (passes of 16), and dq's 96 take the keys in passes of 16;
+//   shared memory 126-127 KB.  At hd 256 one gradient's accumulators
+//   alone would be 128 registers a thread, so every gradient is also cut
+//   by columns (Plan: CW): dv, dk and dq each take two launches of 128
+//   columns from col0 0 and 128, each recomputing s^T (and dp^T) over all
+//   256; shared memory 198-199 KB, one block an SM.  A bf16 backward call is
+//   four launches at hd 160 and at (192, 128) and seven at hd 256.
 // * f32 (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel) is the correctness
 //   path: the CUDA-core kernels of the first version.  Tiles widened to f32
 //   in shared memory (rows padded by one float), each of 256 threads owning
 //   a 4 x 4 patch of the 64 x 64 score tile and a 4 x hd/16 patch of its
-//   output tile.  Shared memory is 194 KB at hd 160, one block an SM.
+//   output tile.  Shared memory is 194 KB at hd 160 and at (192, 128),
+//   one block an SM.  At hd 256 the four tiles would take 263 KB, past a
+//   block's 227 KB, so the _x kernels hold three (214 KB), one taking q
+//   and dO, or k and v, in turn, and dv and dk take launches of their own
+//   (four launches a call).
 //
-// What bounds it.  Per live (query, key) pair the function needs 10 hd
-// FLOP (s, dp, dv, dk, dq: 2 hd each) against reading q, k, v, O, dO once
+// What bounds it.  Per live (query, key) pair the function needs
+// 6 hd_qk + 4 hd_v FLOP (s, dk, dq over hd_qk, dp, dv over hd_v: 2 each;
+// 10 hd at equal widths) against reading q, k, v, O, dO once
 // and writing dq, dk, dv: operations bind, at 989 TFLOP/s of bf16 on the
 // tensor cores.  The bf16 kernels issue 20 hd a pair: the split doubles
 // dv, dk and dq (16 hd) and the dq launch recomputes s and dp (4 hd).
@@ -141,16 +157,16 @@ __device__ __forceinline__ bool key_live(int qpos, int kpos, int k_len,
 // f32: the CUDA-core kernels (correctness path), and the delta launch both
 // types share
 // ---------------------------------------------------------------------------
-// 64 rows of one head, rows row0 .. row0 + 63 of a (S, heads, HD) slab
-// with row_stride elements between rows, as f32 into dst[64][HD + 1];
+// 64 rows of one head, rows row0 .. row0 + 63 of a (S, heads, W) slab
+// with row_stride elements between rows, as f32 into dst[64][W + 1];
 // rows past S are zeros.
-template <typename T, int HD>
+template <typename T, int W>
 __device__ __forceinline__ void load_rows(float* dst, const T* src,
                                           size_t row_stride, int row0,
                                           int S) {
-  constexpr int RS = HD + 1;
-  for (int e = threadIdx.x; e < 64 * HD; e += THREADS) {
-    const int row = e / HD, d = e % HD;
+  constexpr int RS = W + 1;
+  for (int e = threadIdx.x; e < 64 * W; e += THREADS) {
+    const int row = e / W, d = e % W;
     const int pos = row0 + row;
     dst[row * RS + d] =
         pos < S ? to_f32(src[(size_t)pos * row_stride + d]) : 0.f;
@@ -158,17 +174,17 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src,
 }
 
 // out[a][c] = sum_d A[4 ty + a][d] B[tx + 16 c][d] over one 64 x 64 tile
-// pair (rows of A and B HD + 1 floats apart).
-template <int HD>
+// pair (rows of A and B W + 1 floats apart).
+template <int W>
 __device__ __forceinline__ void tile_dots(float (&out)[4][4], const float* A,
                                           const float* B, int ty, int tx) {
-  constexpr int RS = HD + 1;
+  constexpr int RS = W + 1;
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
     for (int c = 0; c < 4; ++c) out[a][c] = 0.f;
 #pragma unroll 4
-  for (int d = 0; d < HD; ++d) {
+  for (int d = 0; d < W; ++d) {
     float av[4], bv[4];
 #pragma unroll
     for (int a = 0; a < 4; ++a) av[a] = A[(4 * ty + a) * RS + d];
@@ -181,13 +197,24 @@ __device__ __forceinline__ void tile_dots(float (&out)[4][4], const float* A,
   }
 }
 
+// p of row i of the q-tile at row q0 (position q_start + q0 + i) and the
+// key at kpos, from their dot q . k: exactly _flash_core_bwd's arithmetic,
+// s = dot * scale, masked to -1e30, p = exp(s - lse); rows at or past Sq
+// get p = 0.
+__device__ __forceinline__ float recompute_p(float dot, int i, int q0,
+                                             int q_start, int kpos, int Sq,
+                                             int k_len, int causal,
+                                             int window, float scale,
+                                             const float* lse_s) {
+  const float s = key_live(q_start + q0 + i, kpos, k_len, causal, window)
+                      ? dot * scale : NEG_INF;
+  return q0 + i < Sq ? expf(s - lse_s[i]) : 0.f;
+}
+
 // p and ds of the thread's patch of one (q-tile, k-tile) pair, from the
 // q/dO tiles (Qs, Ds), the k/v tiles (Ks, Vs) and the rows' lse and delta:
-// exactly _flash_core_bwd's arithmetic, s = (q . k) * scale, masked to
-// -1e30, p = exp(s - lse), ds = p (dp - delta) * scale.  Row i of the
-// q-tile at row q0 sits at position q_start + q0 + i; rows at or past Sq
-// get p = ds = 0.
-template <int HD>
+// ds = p (dp - delta) * scale.
+template <int HDQK, int HDV>
 __device__ __forceinline__ void p_and_ds(float (&p)[4][4], float (&ds)[4][4],
                                          const float* Qs, const float* Ds,
                                          const float* Ks, const float* Vs,
@@ -197,43 +224,49 @@ __device__ __forceinline__ void p_and_ds(float (&p)[4][4], float (&ds)[4][4],
                                          int k_len, int causal, int window,
                                          float scale, int ty, int tx) {
   float dp[4][4];
-  tile_dots<HD>(p, Qs, Ks, ty, tx);
-  tile_dots<HD>(dp, Ds, Vs, ty, tx);
+  tile_dots<HDQK>(p, Qs, Ks, ty, tx);
+  tile_dots<HDV>(dp, Ds, Vs, ty, tx);
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int i = 4 * ty + a;
-    const int qpos = q_start + q0 + i;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      const int kpos = k0 + tx + 16 * c;
-      const float s = key_live(qpos, kpos, k_len, causal, window)
-                          ? p[a][c] * scale : NEG_INF;
-      const float pr = q0 + i < Sq ? expf(s - lse_s[i]) : 0.f;
+      const float pr = recompute_p(p[a][c], i, q0, q_start, k0 + tx + 16 * c,
+                                   Sq, k_len, causal, window, scale, lse_s);
       p[a][c] = pr;
       ds[a][c] = pr * (dp[a][c] - del_s[i]) * scale;
     }
   }
 }
 
-template <int HD>
+template <int HDQK, int HDV>
 constexpr size_t smem_floats() {   // four 64-row tiles, p, ds, lse, delta
-  return 4 * (size_t)64 * (HD + 1) + 2 * (size_t)BQ * PS + 2 * BQ;
+  return 2 * (size_t)64 * (HDQK + 1) + 2 * (size_t)64 * (HDV + 1) +
+         2 * (size_t)BQ * PS + 2 * BQ;
 }
 
+// Whether the four tiles exceed a block's 227 KB of shared memory (hd 256:
+// 263 KB), so the f32 launches hold three tiles, one of them taking q and
+// dO (or k and v) in turn (the _x kernels below).
+template <int HDQK, int HDV>
+struct XBuf {
+  static constexpr bool value = smem_floats<HDQK, HDV>() * 4 > 232448;
+};
+
 // ---------------------------------------------------------------------------
-// 1. delta = rowsum(dO * O), one warp per (position, head) row
+// 1. delta = rowsum(dO * O), one warp per (position, head) row of HDV
 // ---------------------------------------------------------------------------
-template <typename T, int HD>
+template <typename T, int HDV>
 __global__ void __launch_bounds__(THREADS) flash_bwd_delta_kernel(
     const T* __restrict__ o, const T* __restrict__ dout,
     float* __restrict__ delta, size_t rows) {
   const size_t row = ((size_t)blockIdx.x * THREADS + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
-  const T* orow = o + row * HD;
-  const T* drow = dout + row * HD;
+  const T* orow = o + row * HDV;
+  const T* drow = dout + row * HDV;
   float acc = 0.f;
-  for (int d = lane; d < HD; d += 32)
+  for (int d = lane; d < HDV; d += 32)
     acc = fmaf(to_f32(drow[d]), to_f32(orow[d]), acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -244,21 +277,22 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_delta_kernel(
 // ---------------------------------------------------------------------------
 // 2. dk, dv of one k-tile of one key/value head
 // ---------------------------------------------------------------------------
-template <typename T, int HD>
+template <typename T, int HDQK, int HDV>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
     int Sq, int Sk, int q_start, int H, int Kh, int k_len, int causal,
     int window, float scale) {
-  constexpr int RS = HD + 1;
-  constexpr int NC = HD / 16;          // output columns per thread
+  constexpr int RQ = HDQK + 1, RV = HDV + 1;
+  constexpr int NCK = HDQK / 16;       // dk columns per thread
+  constexpr int NCV = HDV / 16;        // dv columns per thread
   extern __shared__ float smem[];
-  float* Ks = smem;                    // [BK][RS]
-  float* Vs = Ks + BK * RS;            // [BK][RS]
-  float* Qs = Vs + BK * RS;            // [BQ][RS]
-  float* Ds = Qs + BQ * RS;            // [BQ][RS] dO
-  float* Ps = Ds + BQ * RS;            // [BQ][PS] p
+  float* Ks = smem;                    // [BK][RQ]
+  float* Vs = Ks + BK * RQ;            // [BK][RV]
+  float* Qs = Vs + BK * RV;            // [BQ][RQ]
+  float* Ds = Qs + BQ * RQ;            // [BQ][RV] dO
+  float* Ps = Ds + BQ * RV;            // [BQ][PS] p
   float* Ss = Ps + BQ * PS;            // [BQ][PS] ds
   float* lse_s = Ss + BQ * PS;         // [BQ]
   float* del_s = lse_s + BQ;           // [BQ]
@@ -267,29 +301,34 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(
   // k-tile 0 first: under a causal mask it has the most live q-tiles
   const int kh = blockIdx.x, k0 = blockIdx.y * BK, b = blockIdx.z;
   const int G = H / Kh;
-  const size_t q_stride = (size_t)H * HD;
-  const size_t kv_stride = (size_t)Kh * HD;
-  const size_t kv_base = (size_t)b * Sk * kv_stride + (size_t)kh * HD;
-  load_rows<T, HD>(Ks, k + kv_base, kv_stride, k0, Sk);
-  load_rows<T, HD>(Vs, v + kv_base, kv_stride, k0, Sk);
+  const size_t q_stride = (size_t)H * HDQK, o_stride = (size_t)H * HDV;
+  const size_t k_stride = (size_t)Kh * HDQK, v_stride = (size_t)Kh * HDV;
+  const size_t k_base = (size_t)b * Sk * k_stride + (size_t)kh * HDQK;
+  const size_t v_base = (size_t)b * Sk * v_stride + (size_t)kh * HDV;
+  load_rows<T, HDQK>(Ks, k + k_base, k_stride, k0, Sk);
+  load_rows<T, HDV>(Vs, v + v_base, v_stride, k0, Sk);
 
-  float dka[4][NC], dva[4][NC];
+  float dka[4][NCK], dva[4][NCV];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int a = 0; a < 4; ++a) {
 #pragma unroll
-    for (int c = 0; c < NC; ++c) dka[a][c] = dva[a][c] = 0.f;
+    for (int c = 0; c < NCK; ++c) dka[a][c] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NCV; ++c) dva[a][c] = 0.f;
+  }
 
   const int n_q = (Sq + BQ - 1) / BQ;
   for (int g = 0; g < G; ++g) {
     const int h = kh * G + g;
-    const size_t q_base = (size_t)b * Sq * q_stride + (size_t)h * HD;
+    const size_t q_base = (size_t)b * Sq * q_stride + (size_t)h * HDQK;
+    const size_t o_base = (size_t)b * Sq * o_stride + (size_t)h * HDV;
     for (int qt = 0; qt < n_q; ++qt) {
       const int q0 = qt * BQ;
       if (!tile_live(k0, q_start + q0, k_len, causal, window))
         continue;                      // block-uniform
       __syncthreads();                 // the last pair's readers are done
-      load_rows<T, HD>(Qs, q + q_base, q_stride, q0, Sq);
-      load_rows<T, HD>(Ds, dout + q_base, q_stride, q0, Sq);
+      load_rows<T, HDQK>(Qs, q + q_base, q_stride, q0, Sq);
+      load_rows<T, HDV>(Ds, dout + o_base, o_stride, q0, Sq);
       if (tid < BQ) {
         const int pos = q0 + tid;
         const size_t row = ((size_t)b * Sq + pos) * H + h;
@@ -298,8 +337,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(
       }
       __syncthreads();
       float p[4][4], ds[4][4];
-      p_and_ds<HD>(p, ds, Qs, Ds, Ks, Vs, lse_s, del_s, q0, q_start, k0, Sq,
-                   k_len, causal, window, scale, ty, tx);
+      p_and_ds<HDQK, HDV>(p, ds, Qs, Ds, Ks, Vs, lse_s, del_s, q0, q_start,
+                          k0, Sq, k_len, causal, window, scale, ty, tx);
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -310,24 +349,25 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(
       __syncthreads();
       // dv[j][n] += sum_i p[i][j] dO[i][n];  dk[j][n] += sum_i ds[i][j] q[i][n]
       for (int i = 0; i < BQ; ++i) {
-        float pj[4], sj[4], dov[NC], qv[NC];
+        float pj[4], sj[4], dov[NCV], qv[NCK];
 #pragma unroll
         for (int a = 0; a < 4; ++a) {
           pj[a] = Ps[i * PS + 4 * ty + a];
           sj[a] = Ss[i * PS + 4 * ty + a];
         }
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          dov[c] = Ds[i * RS + tx + 16 * c];
-          qv[c] = Qs[i * RS + tx + 16 * c];
-        }
+        for (int c = 0; c < NCV; ++c) dov[c] = Ds[i * RV + tx + 16 * c];
 #pragma unroll
-        for (int a = 0; a < 4; ++a)
+        for (int c = 0; c < NCK; ++c) qv[c] = Qs[i * RQ + tx + 16 * c];
 #pragma unroll
-          for (int c = 0; c < NC; ++c) {
+        for (int a = 0; a < 4; ++a) {
+#pragma unroll
+          for (int c = 0; c < NCV; ++c)
             dva[a][c] = fmaf(pj[a], dov[c], dva[a][c]);
+#pragma unroll
+          for (int c = 0; c < NCK; ++c)
             dka[a][c] = fmaf(sj[a], qv[c], dka[a][c]);
-          }
+        }
       }
     }
   }
@@ -335,21 +375,234 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(
   for (int a = 0; a < 4; ++a) {
     const int pos = k0 + 4 * ty + a;
     if (pos >= Sk) continue;
-    T* dkr = dk + kv_base + (size_t)pos * kv_stride;
-    T* dvr = dv + kv_base + (size_t)pos * kv_stride;
+    T* dkr = dk + k_base + (size_t)pos * k_stride;
+    T* dvr = dv + v_base + (size_t)pos * v_stride;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      dkr[tx + 16 * c] = from_f32<T>(dka[a][c]);
-      dvr[tx + 16 * c] = from_f32<T>(dva[a][c]);
-    }
+    for (int c = 0; c < NCK; ++c) dkr[tx + 16 * c] = from_f32<T>(dka[a][c]);
+#pragma unroll
+    for (int c = 0; c < NCV; ++c) dvr[tx + 16 * c] = from_f32<T>(dva[a][c]);
   }
 }
 
 // ---------------------------------------------------------------------------
 // 3. dq of one q-tile of one head
 // ---------------------------------------------------------------------------
-template <typename T, int HD>
+template <typename T, int HDQK, int HDV>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dq, int Sq, int Sk,
+    int q_start, int H, int Kh, int k_len, int causal, int window,
+    float scale) {
+  constexpr int RQ = HDQK + 1, RV = HDV + 1;
+  constexpr int NC = HDQK / 16;
+  extern __shared__ float smem[];
+  float* Ks = smem;
+  float* Vs = Ks + BK * RQ;
+  float* Qs = Vs + BK * RV;
+  float* Ds = Qs + BQ * RQ;
+  float* Ss = Ds + BQ * RV + BQ * PS;  // ds (the p tile is not needed)
+  float* lse_s = Ss + BQ * PS;
+  float* del_s = lse_s + BQ;
+
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  // the last q-tile first: under a causal mask it has the most live k-tiles
+  const int h = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int b = blockIdx.z;
+  const int kh = h / (H / Kh);
+  const size_t q_stride = (size_t)H * HDQK, o_stride = (size_t)H * HDV;
+  const size_t k_stride = (size_t)Kh * HDQK, v_stride = (size_t)Kh * HDV;
+  const size_t q_base = (size_t)b * Sq * q_stride + (size_t)h * HDQK;
+  const size_t o_base = (size_t)b * Sq * o_stride + (size_t)h * HDV;
+  const size_t k_base = (size_t)b * Sk * k_stride + (size_t)kh * HDQK;
+  const size_t v_base = (size_t)b * Sk * v_stride + (size_t)kh * HDV;
+  load_rows<T, HDQK>(Qs, q + q_base, q_stride, q0, Sq);
+  load_rows<T, HDV>(Ds, dout + o_base, o_stride, q0, Sq);
+  if (tid < BQ) {
+    const int pos = q0 + tid;
+    const size_t row = ((size_t)b * Sq + pos) * H + h;
+    lse_s[tid] = pos < Sq ? lse[row] : 0.f;
+    del_s[tid] = pos < Sq ? delta[row] : 0.f;
+  }
+
+  float dqa[4][NC];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) dqa[a][c] = 0.f;
+
+  const int n_k = (Sk + BK - 1) / BK;
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int k0 = kt * BK;
+    if (!tile_live(k0, q_start + q0, k_len, causal, window))
+      continue;                        // block-uniform
+    __syncthreads();                   // the last tile's readers are done
+    load_rows<T, HDQK>(Ks, k + k_base, k_stride, k0, Sk);
+    load_rows<T, HDV>(Vs, v + v_base, v_stride, k0, Sk);
+    __syncthreads();
+    float p[4][4], ds[4][4];
+    p_and_ds<HDQK, HDV>(p, ds, Qs, Ds, Ks, Vs, lse_s, del_s, q0, q_start, k0,
+                        Sq, k_len, causal, window, scale, ty, tx);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        Ss[(4 * ty + a) * PS + tx + 16 * c] = ds[a][c];
+    __syncthreads();
+    // dq[i][n] += sum_j ds[i][j] k[j][n]
+    for (int j = 0; j < BK; ++j) {
+      float sv[4], kv[NC];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) sv[a] = Ss[(4 * ty + a) * PS + j];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) kv[c] = Ks[j * RQ + tx + 16 * c];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) dqa[a][c] = fmaf(sv[a], kv[c], dqa[a][c]);
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int pos = q0 + 4 * ty + a;
+    if (pos >= Sq) continue;
+    T* dqr = dq + q_base + (size_t)pos * q_stride;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) dqr[tx + 16 * c] = from_f32<T>(dqa[a][c]);
+  }
+}
+
+// What a launch of a dk/dv kernel computes: both (bf16 at equal widths up
+// to 128), or dv alone and dk alone, in launches of their own.
+enum Part { DKDV = 0, DV = 1, DK = 2 };
+
+// ---------------------------------------------------------------------------
+// 2x, 3x. f32 at hd 256 (XBuf): the same arithmetic as kernels 2 and 3 in
+// the same order, with three tiles in shared memory.  dv and dk take
+// launches of their own (PART): the dv launch holds k and one tile that
+// takes q (for p), then dO (for dv += p^T dO); the dk launch holds k, v and
+// one tile that takes dO (for dp), then q (for p, ds and dk += ds^T q).
+// The dq launch holds q and dO and one tile that takes v (for dp), then k
+// (for p, ds and dq += ds k).  214 KB at hd 256, one block an SM.
+// ---------------------------------------------------------------------------
+template <int HD, int PART>
+constexpr size_t dkdv_x_smem_floats() {
+  return (size_t)(PART == DK ? 3 : 2) * 64 * (HD + 1) + (size_t)BQ * PS +
+         2 * BQ;
+}
+
+template <int HD>
+constexpr size_t dq_x_smem_floats() {
+  return (size_t)3 * 64 * (HD + 1) + (size_t)BQ * PS + 2 * BQ;
+}
+
+template <typename T, int HD, int PART>
+__global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_x_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+    int Sq, int Sk, int q_start, int H, int Kh, int k_len, int causal,
+    int window, float scale) {
+  static_assert(PART == DV || PART == DK, "one gradient a launch");
+  constexpr bool GK = PART == DK;
+  constexpr int RS = HD + 1;
+  constexpr int NC = HD / 16;
+  extern __shared__ float smem[];
+  float* Ks = smem;                    // [BK][RS]
+  float* Xs = Ks + BK * RS;            // [BQ][RS] q or dO
+  float* Ws = Xs + BQ * RS;            // [BQ][PS] p (dv) or ds (dk)
+  float* lse_s = Ws + BQ * PS;         // [BQ]
+  float* del_s = lse_s + BQ;           // [BQ]
+  float* Vs = del_s + BQ;              // [BK][RS], the dk launch's
+
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int kh = blockIdx.x, k0 = blockIdx.y * BK, b = blockIdx.z;
+  const int G = H / Kh;
+  const size_t q_stride = (size_t)H * HD;
+  const size_t kv_stride = (size_t)Kh * HD;
+  const size_t kv_base = (size_t)b * Sk * kv_stride + (size_t)kh * HD;
+  load_rows<T, HD>(Ks, k + kv_base, kv_stride, k0, Sk);
+  if constexpr (GK) load_rows<T, HD>(Vs, v + kv_base, kv_stride, k0, Sk);
+
+  float acc[4][NC];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[a][c] = 0.f;
+
+  const int n_q = (Sq + BQ - 1) / BQ;
+  for (int g = 0; g < G; ++g) {
+    const int h = kh * G + g;
+    const size_t q_base = (size_t)b * Sq * q_stride + (size_t)h * HD;
+    for (int qt = 0; qt < n_q; ++qt) {
+      const int q0 = qt * BQ;
+      if (!tile_live(k0, q_start + q0, k_len, causal, window))
+        continue;                      // block-uniform
+      __syncthreads();                 // the last pair's readers are done
+      load_rows<T, HD>(Xs, (GK ? dout : q) + q_base, q_stride, q0, Sq);
+      if (tid < BQ) {
+        const int pos = q0 + tid;
+        const size_t row = ((size_t)b * Sq + pos) * H + h;
+        lse_s[tid] = pos < Sq ? lse[row] : 0.f;
+        del_s[tid] = pos < Sq ? delta[row] : 0.f;
+      }
+      __syncthreads();
+      float dp[4][4];
+      if constexpr (GK) {
+        tile_dots<HD>(dp, Xs, Vs, ty, tx);
+        __syncthreads();
+        load_rows<T, HD>(Xs, q + q_base, q_stride, q0, Sq);
+        __syncthreads();
+      }
+      float s[4][4];
+      tile_dots<HD>(s, Xs, Ks, ty, tx);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int i = 4 * ty + a;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float pr = recompute_p(s[a][c], i, q0, q_start,
+                                       k0 + tx + 16 * c, Sq, k_len, causal,
+                                       window, scale, lse_s);
+          float w = pr;
+          if constexpr (GK) w = pr * (dp[a][c] - del_s[i]) * scale;
+          Ws[i * PS + tx + 16 * c] = w;
+        }
+      }
+      __syncthreads();
+      if constexpr (!GK) {
+        load_rows<T, HD>(Xs, dout + q_base, q_stride, q0, Sq);
+        __syncthreads();
+      }
+      // acc[j][n] += sum_i w[i][j] x[i][n]: dv (w = p, x = dO) or dk
+      // (w = ds, x = q)
+      for (int i = 0; i < BQ; ++i) {
+        float wj[4], xv[NC];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) wj[a] = Ws[i * PS + 4 * ty + a];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) xv[c] = Xs[i * RS + tx + 16 * c];
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int c = 0; c < NC; ++c) acc[a][c] = fmaf(wj[a], xv[c], acc[a][c]);
+      }
+    }
+  }
+  T* out = GK ? dk : dv;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int pos = k0 + 4 * ty + a;
+    if (pos >= Sk) continue;
+    T* row = out + kv_base + (size_t)pos * kv_stride;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) row[tx + 16 * c] = from_f32<T>(acc[a][c]);
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(THREADS) flash_bwd_dq_x_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dq, int Sq, int Sk,
@@ -358,16 +611,14 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
   constexpr int RS = HD + 1;
   constexpr int NC = HD / 16;
   extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + BK * RS;
-  float* Qs = Vs + BK * RS;
-  float* Ds = Qs + BQ * RS;
-  float* Ss = Ds + BQ * RS + BQ * PS;  // ds (the p tile is not needed)
+  float* Qs = smem;                    // [BQ][RS]
+  float* Ds = Qs + BQ * RS;            // [BQ][RS] dO
+  float* Xs = Ds + BQ * RS;            // [BK][RS] v or k
+  float* Ss = Xs + BK * RS;            // [BQ][PS] ds
   float* lse_s = Ss + BQ * PS;
   float* del_s = lse_s + BQ;
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  // the last q-tile first: under a causal mask it has the most live k-tiles
   const int h = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
   const int b = blockIdx.z;
@@ -397,25 +648,32 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
     if (!tile_live(k0, q_start + q0, k_len, causal, window))
       continue;                        // block-uniform
     __syncthreads();                   // the last tile's readers are done
-    load_rows<T, HD>(Ks, k + kv_base, kv_stride, k0, Sk);
-    load_rows<T, HD>(Vs, v + kv_base, kv_stride, k0, Sk);
+    load_rows<T, HD>(Xs, v + kv_base, kv_stride, k0, Sk);
     __syncthreads();
-    float p[4][4], ds[4][4];
-    p_and_ds<HD>(p, ds, Qs, Ds, Ks, Vs, lse_s, del_s, q0, q_start, k0, Sq,
-                 k_len, causal, window, scale, ty, tx);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        Ss[(4 * ty + a) * PS + tx + 16 * c] = ds[a][c];
+    float dp[4][4], s[4][4];
+    tile_dots<HD>(dp, Ds, Xs, ty, tx);
     __syncthreads();
-    // dq[i][n] += sum_j ds[i][j] k[j][n]
+    load_rows<T, HD>(Xs, k + kv_base, kv_stride, k0, Sk);
+    __syncthreads();
+    tile_dots<HD>(s, Qs, Xs, ty, tx);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int i = 4 * ty + a;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float pr = recompute_p(s[a][c], i, q0, q_start,
+                                     k0 + tx + 16 * c, Sq, k_len, causal,
+                                     window, scale, lse_s);
+        Ss[i * PS + tx + 16 * c] = pr * (dp[a][c] - del_s[i]) * scale;
+      }
+    }
+    __syncthreads();
     for (int j = 0; j < BK; ++j) {
       float sv[4], kv[NC];
 #pragma unroll
       for (int a = 0; a < 4; ++a) sv[a] = Ss[(4 * ty + a) * PS + j];
 #pragma unroll
-      for (int c = 0; c < NC; ++c) kv[c] = Ks[j * RS + tx + 16 * c];
+      for (int c = 0; c < NC; ++c) kv[c] = Xs[j * RS + tx + 16 * c];
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -437,35 +695,48 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
 // ---------------------------------------------------------------------------
 constexpr int MMA_WARPS = 4;           // 16 key (dk/dv) or query (dq) rows each
 constexpr int MMA_THREADS = 32 * MMA_WARPS;
-// What a launch of the dk/dv kernel computes: both (hd <= 128), or at
-// hd 160 dv alone and dk alone, in launches of their own.
-enum Part { DKDV = 0, DV = 1, DK = 2 };
-template <int HD>
-struct SplitDkDv { static constexpr bool value = HD > 128; };
-// Queries per pass of the dk/dv kernel: at hd 128, passes of 32 spill
-// (255 registers and 72 bytes); passes of 16 fit in 248.  A launch of dk
-// or dv alone holds one set of accumulators and takes passes of 32.
-template <int HD, int PART>
-struct Qsub {
-  static constexpr int value = PART == DKDV && HD >= 128 ? 16 : 32;
+// How the bf16 launches cut the work at a width pair: dk and dv in one
+// launch up to hd 128 at equal widths, else in launches of their own; and
+// the columns of dk, dv and dq a launch accumulates (CW): all of them up
+// to 192, halves at 256 (two launches each, col0 0 and 128), so that no
+// launch holds more than 96 accumulator registers a thread for one
+// gradient (dk alone at 256 would hold 128).
+template <int HDQK, int HDV>
+struct Plan {
+  static constexpr bool split = HDQK != HDV || HDQK > 128;
+  static constexpr int cw_k = HDQK > 192 ? HDQK / 2 : HDQK;
+  static constexpr int cw_v = HDV > 192 ? HDV / 2 : HDV;
 };
-// Keys per pass of the dq kernel: at hd 160, dq's accumulators take 80
-// registers a thread, so s and dp cover 32 keys at a time.
-template <int HD>
-struct Ksub { static constexpr int value = HD > 128 ? 32 : 64; };
+// Queries per pass of the dk/dv kernel, by the accumulator registers a
+// launch holds (CW / 2 for each of dk and dv it computes): at hd 128 both
+// (128) in passes of 32 spill (255 registers and 72 bytes), passes of 16
+// fit in 248; 80 (hd 160, dk or dv alone) and fewer take passes of 32.
+template <int CW, int PART>
+struct Qsub {
+  static constexpr int acc = (PART == DKDV ? 2 : 1) * CW / 2;
+  static constexpr int value = acc > 80 ? 16 : 32;
+};
+// Keys per pass of the dq kernel: s and dp cover 64 keys beside up to 64
+// accumulator registers, 32 beside 80 (hd 160), 16 beside 96 (dq at 192).
+template <int CW>
+struct Ksub {
+  static constexpr int value = CW / 2 <= 64 ? 64 : CW / 2 <= 80 ? 32 : 16;
+};
 static_assert(BQ == 16 * MMA_WARPS && BQ == BK && BK == TILE_ROWS,
               "mma tiling");
 static_assert(MMA_THREADS == 2 * BQ, "one lse or delta load a thread");
 
-template <int HD>
+template <int HDQK, int HDV>
 constexpr size_t dkdv_mma_smem_bytes() {  // k, v; 2 stages of q, dO; lse, delta
-  return (size_t)(2 * BK + 4 * BQ) * (HD + SPAD) * sizeof(bf16) +
+  return (size_t)(BK + 2 * BQ) * (HDQK + SPAD) * sizeof(bf16) +
+         (size_t)(BK + 2 * BQ) * (HDV + SPAD) * sizeof(bf16) +
          4 * (size_t)BQ * sizeof(float);
 }
 
-template <int HD>
+template <int HDQK, int HDV>
 constexpr size_t dq_mma_smem_bytes() {    // q, dO; 2 stages of k, v
-  return (size_t)(2 * BQ + 4 * BK) * (HD + SPAD) * sizeof(bf16);
+  return (size_t)(BQ + 2 * BK) * (HDQK + SPAD) * sizeof(bf16) +
+         (size_t)(BQ + 2 * BK) * (HDV + SPAD) * sizeof(bf16);
 }
 
 // The live tiles of a run: tile_live(k0, q0) over t = 0 .. n - 1 as the
@@ -491,31 +762,35 @@ __device__ __forceinline__ void live_run(int n, int at, bool over_q,
 
 // ---------------------------------------------------------------------------
 // 2. dk, dv of one k-tile of one key/value head, on the tensor cores (PART:
-//    both, or dv or dk alone)
+//    both, or dv or dk alone; CW of the gradient's columns from col0)
 // ---------------------------------------------------------------------------
-template <int HD, int PART>
+template <int HDQK, int HDV, int PART, int CW>
 __global__ void __launch_bounds__(MMA_THREADS, 2) flash_bwd_dkdv_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk,
     int q_start, int H, int Kh, int k_len, int causal, int window,
-    float scale) {
-  static_assert(HD % 16 == 0, "head width");
+    float scale, int col0) {
+  static_assert(HDQK % 16 == 0 && HDV % 16 == 0 && CW % 16 == 0,
+                "head width");
+  static_assert(PART != DKDV || (HDQK == HDV && CW == HDQK), "both at once");
   constexpr bool DO_DV = PART != DK;     // dv += p^T dO
   constexpr bool DO_DK = PART != DV;     // dp^T, ds^T and dk += ds^T q
-  constexpr int RS = HD + SPAD;
-  constexpr int KSTEPS = HD / 16;        // k16 steps of k q^T and v dO^T
-  constexpr int NT = HD / 8;             // n8 tiles of dk and dv
-  constexpr int QSUB = Qsub<HD, PART>::value;
+  constexpr int RQ = HDQK + SPAD, RV = HDV + SPAD;
+  constexpr int KQ = HDQK / 16;          // k16 steps of k q^T
+  constexpr int KV = HDV / 16;           // and of v dO^T
+  constexpr int KMAX = KQ > KV ? KQ : KV;
+  constexpr int NT = CW / 8;             // n8 tiles of the launch's columns
+  constexpr int QSUB = Qsub<CW, PART>::value;
   static_assert(BQ % QSUB == 0 && QSUB % 16 == 0, "query passes");
   constexpr int ST = QSUB / 8;           // n8 tiles (query octets) of a pass
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [BK][RS]
-  bf16* Vs = Ks + BK * RS;                         // [BK][RS]
-  bf16* Qs = Vs + BK * RS;                         // [2][BQ][RS]
-  bf16* Ds = Qs + 2 * BQ * RS;                     // [2][BQ][RS] dO
-  float* lse_s = reinterpret_cast<float*>(Ds + 2 * BQ * RS);  // [2][BQ]
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [BK][RQ]
+  bf16* Qs = Ks + BK * RQ;                         // [2][BQ][RQ]
+  bf16* Vs = Qs + 2 * BQ * RQ;                     // [BK][RV]
+  bf16* Ds = Vs + BK * RV;                         // [2][BQ][RV] dO
+  float* lse_s = reinterpret_cast<float*>(Ds + 2 * BQ * RV);  // [2][BQ]
   float* del_s = lse_s + 2 * BQ;                               // [2][BQ]
 
   const int tid = threadIdx.x;
@@ -524,10 +799,10 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_bwd_dkdv_mma_kernel(
   // k-tile 0 first: under a causal mask it has the most live q-tiles
   const int kh = blockIdx.x, k0 = blockIdx.y * BK, b = blockIdx.z;
   const int G = H / Kh;
-  const size_t q_stride = (size_t)H * HD;
-  const size_t kv_stride = (size_t)Kh * HD;
-  const size_t kv_base = (size_t)b * Sk * kv_stride + (size_t)kh * HD;
-  const size_t q_batch = (size_t)b * Sq * q_stride;
+  const size_t q_stride = (size_t)H * HDQK, o_stride = (size_t)H * HDV;
+  const size_t k_stride = (size_t)Kh * HDQK, v_stride = (size_t)Kh * HDV;
+  const size_t k_base = (size_t)b * Sk * k_stride + (size_t)kh * HDQK;
+  const size_t v_base = (size_t)b * Sk * v_stride + (size_t)kh * HDV;
 
   int qt_lo, qt_hi;
   live_run((Sq + BQ - 1) / BQ, k0, true, q_start, k_len, causal, window,
@@ -540,19 +815,20 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_bwd_dkdv_mma_kernel(
   auto issue = [&](int it, int st) {
     const int h = kh * G + it / n_run;
     const int q0 = (qt_lo + it % n_run) * BQ;
-    const size_t q_base = q_batch + (size_t)h * HD;
-    load_tile<HD, MMA_THREADS>(Qs + st * BQ * RS, q + q_base, q_stride, q0,
-                               Sq);
-    load_tile<HD, MMA_THREADS>(Ds + st * BQ * RS, dout + q_base, q_stride, q0,
-                               Sq);
+    load_tile<HDQK, MMA_THREADS>(
+        Qs + st * BQ * RQ, q + (size_t)b * Sq * q_stride + (size_t)h * HDQK,
+        q_stride, q0, Sq);
+    load_tile<HDV, MMA_THREADS>(
+        Ds + st * BQ * RV, dout + (size_t)b * Sq * o_stride + (size_t)h * HDV,
+        o_stride, q0, Sq);
     const int pos = q0 + tid % BQ;
     const size_t row = ((size_t)b * Sq + pos) * H + h;
     return pos < Sq ? (tid < BQ ? lse[row] : delta[row]) : 0.f;
   };
 
-  load_tile<HD, MMA_THREADS>(Ks, k + kv_base, kv_stride, k0, Sk);
+  load_tile<HDQK, MMA_THREADS>(Ks, k + k_base, k_stride, k0, Sk);
   if constexpr (DO_DK)
-    load_tile<HD, MMA_THREADS>(Vs, v + kv_base, kv_stride, k0, Sk);
+    load_tile<HDV, MMA_THREADS>(Vs, v + v_base, v_stride, k0, Sk);
   if (total > 0) {
     const float x = issue(0, 0);
     (tid < BQ ? lse_s : del_s)[tid % BQ] = x;
@@ -583,8 +859,8 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_bwd_dkdv_mma_kernel(
     __syncthreads();
     const int q0 = (qt_lo + it % n_run) * BQ;  // the tile's first row
     const int qa0 = q_start + q0;              // and its position
-    const bf16* Qt = Qs + st * BQ * RS;
-    const bf16* Dt = Ds + st * BQ * RS;
+    const bf16* Qt = Qs + st * BQ * RQ;
+    const bf16* Dt = Ds + st * BQ * RV;
     const float* lse_t = lse_s + st * BQ;
     const float* del_t = del_s + st * BQ;
     const bool edge = k0 + BK > k_len || (causal && k0 + BK - 1 > qa0) ||
@@ -600,21 +876,24 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_bwd_dkdv_mma_kernel(
 #pragma unroll
         for (int c = 0; c < 4; ++c) sT[n][c] = dpT[n][c] = 0.f;
 #pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks) {
+      for (int ks = 0; ks < KMAX; ++ks) {
+        const bool on_q = ks < KQ, on_v = DO_DK && ks < KV;
         uint32_t ka[4], va[4];
-        const int a_off = (row_w + lane % 16) * RS + ks * 16 + (lane / 16) * 8;
-        ldmatrix_x4(ka, smem_addr(Ks + a_off));
-        if constexpr (DO_DK) ldmatrix_x4(va, smem_addr(Vs + a_off));
+        const int a_row = row_w + lane % 16, a_col = ks * 16 + (lane / 16) * 8;
+        if (on_q) ldmatrix_x4(ka, smem_addr(Ks + a_row * RQ + a_col));
+        if (on_v) ldmatrix_x4(va, smem_addr(Vs + a_row * RV + a_col));
 #pragma unroll
         for (int n = 0; n < ST; n += 2) {
-          const int b_off = (qs + n * 8 + lane % 8 + (lane / 16) * 8) * RS +
-                            ks * 16 + ((lane / 8) % 2) * 8;
+          const int b_row = qs + n * 8 + lane % 8 + (lane / 16) * 8;
+          const int b_col = ks * 16 + ((lane / 8) % 2) * 8;
           uint32_t qf[4], df[4];
-          ldmatrix_x4(qf, smem_addr(Qt + b_off));
-          mma_bf16(sT[n], ka, qf[0], qf[1]);
-          mma_bf16(sT[n + 1], ka, qf[2], qf[3]);
-          if constexpr (DO_DK) {
-            ldmatrix_x4(df, smem_addr(Dt + b_off));
+          if (on_q) {
+            ldmatrix_x4(qf, smem_addr(Qt + b_row * RQ + b_col));
+            mma_bf16(sT[n], ka, qf[0], qf[1]);
+            mma_bf16(sT[n + 1], ka, qf[2], qf[3]);
+          }
+          if (on_v) {
+            ldmatrix_x4(df, smem_addr(Dt + b_row * RV + b_col));
             mma_bf16(dpT[n], va, df[0], df[1]);
             mma_bf16(dpT[n + 1], va, df[2], df[3]);
           }
@@ -639,11 +918,13 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_bwd_dkdv_mma_kernel(
           sT[n][c] = p;
           if constexpr (DO_DK) dpT[n][c] = p * (dpT[n][c] - del_t[i]) * scale;
         }
-      // dv += p^T dO, dk += ds^T q, p and ds split in two bf16 halves:
-      // queries qs + 16 j .. + 15 are octets 2 j and 2 j + 1
+      // dv += p^T dO, dk += ds^T q over the launch's columns, p and ds
+      // split in two bf16 halves: queries qs + 16 j .. + 15 are octets 2 j
+      // and 2 j + 1
 #pragma unroll
       for (int j = 0; j < QSUB / 16; ++j) {
         const int row = qs + 16 * j + lane % 8 + ((lane / 8) % 2) * 8;
+        const int col = col0 + (lane / 16) * 8;
         uint32_t hi[4], lo[4];
         if constexpr (DO_DV) {
 #pragma unroll
@@ -653,8 +934,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_bwd_dkdv_mma_kernel(
 #pragma unroll
           for (int n = 0; n < NT; n += 2) {
             uint32_t df[4];
-            ldmatrix_x4_trans(df, smem_addr(Dt + row * RS + n * 8 +
-                                            (lane / 16) * 8));
+            ldmatrix_x4_trans(df, smem_addr(Dt + row * RV + col + n * 8));
             mma_bf16(dva[n], hi, df[0], df[1]);
             mma_bf16(dva[n], lo, df[0], df[1]);
             mma_bf16(dva[n + 1], hi, df[2], df[3]);
@@ -669,8 +949,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_bwd_dkdv_mma_kernel(
 #pragma unroll
           for (int n = 0; n < NT; n += 2) {
             uint32_t qf[4];
-            ldmatrix_x4_trans(qf, smem_addr(Qt + row * RS + n * 8 +
-                                            (lane / 16) * 8));
+            ldmatrix_x4_trans(qf, smem_addr(Qt + row * RQ + col + n * 8));
             mma_bf16(dka[n], hi, qf[0], qf[1]);
             mma_bf16(dka[n], lo, qf[0], qf[1]);
             mma_bf16(dka[n + 1], hi, qf[2], qf[3]);
@@ -693,8 +972,8 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_bwd_dkdv_mma_kernel(
   for (int r = 0; r < 2; ++r) {
     const int pos = k0 + row_w + g + 8 * r;
     if (pos >= Sk) continue;
-    bf16* dkr = dk + kv_base + (size_t)pos * kv_stride + 2 * tig;
-    bf16* dvr = dv + kv_base + (size_t)pos * kv_stride + 2 * tig;
+    bf16* dkr = dk + k_base + (size_t)pos * k_stride + col0 + 2 * tig;
+    bf16* dvr = dv + v_base + (size_t)pos * v_stride + col0 + 2 * tig;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       if constexpr (DO_DK)
@@ -708,27 +987,31 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_bwd_dkdv_mma_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// 3. dq of one q-tile of one head, on the tensor cores
+// 3. dq of one q-tile of one head, on the tensor cores (CW of its columns
+//    from col0)
 // ---------------------------------------------------------------------------
-template <int HD>
+template <int HDQK, int HDV, int CW>
 __global__ void __launch_bounds__(MMA_THREADS, 2) flash_bwd_dq_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     bf16* __restrict__ dq, int Sq, int Sk, int q_start, int H, int Kh,
-    int k_len, int causal, int window, float scale) {
-  static_assert(HD % 16 == 0, "head width");
-  constexpr int RS = HD + SPAD;
-  constexpr int KSTEPS = HD / 16;        // k16 steps of q k^T and dO v^T
-  constexpr int NT = HD / 8;             // n8 tiles of dq
-  constexpr int KSUB = Ksub<HD>::value;  // keys per pass of a k-tile
+    int k_len, int causal, int window, float scale, int col0) {
+  static_assert(HDQK % 16 == 0 && HDV % 16 == 0 && CW % 16 == 0,
+                "head width");
+  constexpr int RQ = HDQK + SPAD, RV = HDV + SPAD;
+  constexpr int KQ = HDQK / 16;          // k16 steps of q k^T
+  constexpr int KV = HDV / 16;           // and of dO v^T
+  constexpr int KMAX = KQ > KV ? KQ : KV;
+  constexpr int NT = CW / 8;             // n8 tiles of the launch's columns
+  constexpr int KSUB = Ksub<CW>::value;  // keys per pass of a k-tile
   static_assert(BK % KSUB == 0 && KSUB % 16 == 0, "key passes");
   constexpr int ST = KSUB / 8;           // n8 tiles (key octets) of a pass
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][RS]
-  bf16* Ds = Qs + BQ * RS;                         // [BQ][RS] dO
-  bf16* Ks = Ds + BQ * RS;                         // [2][BK][RS]
-  bf16* Vs = Ks + 2 * BK * RS;                     // [2][BK][RS]
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][RQ]
+  bf16* Ks = Qs + BQ * RQ;                         // [2][BK][RQ]
+  bf16* Ds = Ks + 2 * BK * RQ;                     // [BQ][RV] dO
+  bf16* Vs = Ds + BQ * RV;                         // [2][BK][RV]
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, tig = lane % 4;
@@ -738,20 +1021,22 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_bwd_dq_mma_kernel(
   const int qa0 = q_start + q0;                      // and its position
   const int b = blockIdx.z;
   const int kh = h / (H / Kh);
-  const size_t q_stride = (size_t)H * HD;
-  const size_t kv_stride = (size_t)Kh * HD;
-  const size_t q_base = (size_t)b * Sq * q_stride + (size_t)h * HD;
-  const size_t kv_base = (size_t)b * Sk * kv_stride + (size_t)kh * HD;
+  const size_t q_stride = (size_t)H * HDQK, o_stride = (size_t)H * HDV;
+  const size_t k_stride = (size_t)Kh * HDQK, v_stride = (size_t)Kh * HDV;
+  const size_t q_base = (size_t)b * Sq * q_stride + (size_t)h * HDQK;
+  const size_t o_base = (size_t)b * Sq * o_stride + (size_t)h * HDV;
+  const size_t k_base = (size_t)b * Sk * k_stride + (size_t)kh * HDQK;
+  const size_t v_base = (size_t)b * Sk * v_stride + (size_t)kh * HDV;
 
   int kt_lo, kt_hi;
   live_run((Sk + BK - 1) / BK, qa0, false, q_start, k_len, causal, window,
            kt_lo, kt_hi);
 
-  load_tile<HD, MMA_THREADS>(Qs, q + q_base, q_stride, q0, Sq);
-  load_tile<HD, MMA_THREADS>(Ds, dout + q_base, q_stride, q0, Sq);
+  load_tile<HDQK, MMA_THREADS>(Qs, q + q_base, q_stride, q0, Sq);
+  load_tile<HDV, MMA_THREADS>(Ds, dout + o_base, o_stride, q0, Sq);
   if (kt_lo <= kt_hi) {
-    load_tile<HD, MMA_THREADS>(Ks, k + kv_base, kv_stride, kt_lo * BK, Sk);
-    load_tile<HD, MMA_THREADS>(Vs, v + kv_base, kv_stride, kt_lo * BK, Sk);
+    load_tile<HDQK, MMA_THREADS>(Ks, k + k_base, k_stride, kt_lo * BK, Sk);
+    load_tile<HDV, MMA_THREADS>(Vs, v + v_base, v_stride, kt_lo * BK, Sk);
   }
   cp_async_commit();
 
@@ -776,18 +1061,18 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_bwd_dq_mma_kernel(
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
     const int st = (kt - kt_lo) & 1;
     if (kt < kt_hi) {                    // the next tile, into the other stage
-      load_tile<HD, MMA_THREADS>(Ks + (st ^ 1) * BK * RS, k + kv_base,
-                                 kv_stride, (kt + 1) * BK, Sk);
-      load_tile<HD, MMA_THREADS>(Vs + (st ^ 1) * BK * RS, v + kv_base,
-                                 kv_stride, (kt + 1) * BK, Sk);
+      load_tile<HDQK, MMA_THREADS>(Ks + (st ^ 1) * BK * RQ, k + k_base,
+                                   k_stride, (kt + 1) * BK, Sk);
+      load_tile<HDV, MMA_THREADS>(Vs + (st ^ 1) * BK * RV, v + v_base,
+                                  v_stride, (kt + 1) * BK, Sk);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* Kt = Ks + st * BK * RS;
-    const bf16* Vt = Vs + st * BK * RS;
+    const bf16* Kt = Ks + st * BK * RQ;
+    const bf16* Vt = Vs + st * BK * RV;
     const int k0 = kt * BK;
     const bool edge = k0 + BK > k_len || (causal && k0 + BK - 1 > qa0) ||
                       (window > 0 && k0 <= qa0 + BQ - 1 - window);
@@ -801,22 +1086,27 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_bwd_dq_mma_kernel(
 #pragma unroll
         for (int c = 0; c < 4; ++c) s[n][c] = dp[n][c] = 0.f;
 #pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks) {
+      for (int ks = 0; ks < KMAX; ++ks) {
+        const bool on_q = ks < KQ, on_v = ks < KV;
         uint32_t qa[4], da[4];
-        const int a_off = (row_w + lane % 16) * RS + ks * 16 + (lane / 16) * 8;
-        ldmatrix_x4(qa, smem_addr(Qs + a_off));
-        ldmatrix_x4(da, smem_addr(Ds + a_off));
+        const int a_row = row_w + lane % 16, a_col = ks * 16 + (lane / 16) * 8;
+        if (on_q) ldmatrix_x4(qa, smem_addr(Qs + a_row * RQ + a_col));
+        if (on_v) ldmatrix_x4(da, smem_addr(Ds + a_row * RV + a_col));
 #pragma unroll
         for (int n = 0; n < ST; n += 2) {
-          const int b_off = (kk + n * 8 + lane % 8 + (lane / 16) * 8) * RS +
-                            ks * 16 + ((lane / 8) % 2) * 8;
+          const int b_row = kk + n * 8 + lane % 8 + (lane / 16) * 8;
+          const int b_col = ks * 16 + ((lane / 8) % 2) * 8;
           uint32_t kf[4], vf[4];
-          ldmatrix_x4(kf, smem_addr(Kt + b_off));
-          mma_bf16(s[n], qa, kf[0], kf[1]);
-          mma_bf16(s[n + 1], qa, kf[2], kf[3]);
-          ldmatrix_x4(vf, smem_addr(Vt + b_off));
-          mma_bf16(dp[n], da, vf[0], vf[1]);
-          mma_bf16(dp[n + 1], da, vf[2], vf[3]);
+          if (on_q) {
+            ldmatrix_x4(kf, smem_addr(Kt + b_row * RQ + b_col));
+            mma_bf16(s[n], qa, kf[0], kf[1]);
+            mma_bf16(s[n + 1], qa, kf[2], kf[3]);
+          }
+          if (on_v) {
+            ldmatrix_x4(vf, smem_addr(Vt + b_row * RV + b_col));
+            mma_bf16(dp[n], da, vf[0], vf[1]);
+            mma_bf16(dp[n + 1], da, vf[2], vf[3]);
+          }
         }
       }
       // ds (element c of octet n: row g + 8 (c / 2), key
@@ -835,8 +1125,8 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_bwd_dq_mma_kernel(
           const float p = in_r[r] ? expf(x - lse_r[r]) : 0.f;
           s[n][c] = p * (dp[n][c] - del_r[r]) * scale;
         }
-      // dq += ds k, ds split in two bf16 halves: keys kk + 16 j .. + 15
-      // are octets 2 j and 2 j + 1
+      // dq += ds k over the launch's columns, ds split in two bf16 halves:
+      // keys kk + 16 j .. + 15 are octets 2 j and 2 j + 1
 #pragma unroll
       for (int j = 0; j < KSUB / 16; ++j) {
         uint32_t sh[4], sl[4];
@@ -845,12 +1135,12 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_bwd_dq_mma_kernel(
           const int n = 2 * j + r / 2, c = 2 * (r % 2);
           split_bf16(s[n][c], s[n][c + 1], sh[r], sl[r]);
         }
+        const int row = kk + 16 * j + lane % 8 + ((lane / 8) % 2) * 8;
+        const int col = col0 + (lane / 16) * 8;
 #pragma unroll
         for (int n = 0; n < NT; n += 2) {
           uint32_t kf[4];
-          ldmatrix_x4_trans(kf, smem_addr(Kt + (kk + 16 * j + lane % 8 +
-                                                ((lane / 8) % 2) * 8) * RS +
-                                          n * 8 + (lane / 16) * 8));
+          ldmatrix_x4_trans(kf, smem_addr(Kt + row * RQ + col + n * 8));
           mma_bf16(acc[n], sh, kf[0], kf[1]);
           mma_bf16(acc[n], sl, kf[0], kf[1]);
           mma_bf16(acc[n + 1], sh, kf[2], kf[3]);
@@ -866,7 +1156,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_bwd_dq_mma_kernel(
   for (int r = 0; r < 2; ++r) {
     const int pos = q0 + row_w + g + 8 * r;
     if (pos >= Sq) continue;
-    bf16* dqr = dq + q_base + (size_t)pos * q_stride + 2 * tig;
+    bf16* dqr = dq + q_base + (size_t)pos * q_stride + col0 + 2 * tig;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
       *reinterpret_cast<__nv_bfloat162*>(dqr + 8 * n) =
@@ -886,27 +1176,20 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T, int HD>
+template <typename T, int HDV>
 cudaError_t launch_delta(const void* o, const void* dout, void* delta,
                          size_t rows, cudaStream_t stream) {
   const unsigned blocks = (unsigned)((rows * 32 + THREADS - 1) / THREADS);
-  flash_bwd_delta_kernel<T, HD><<<blocks, THREADS, 0, stream>>>(
+  flash_bwd_delta_kernel<T, HDV><<<blocks, THREADS, 0, stream>>>(
       static_cast<const T*>(o), static_cast<const T*>(dout),
       static_cast<float*>(delta), rows);
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int HDQK, int HDV>
 int launch_f32(const void* q, const void* k, const void* v, const void* o,
                const void* lse, const void* dout, void* dq, void* dk,
                void* dv, void* delta, const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_floats<HD>() * sizeof(float);
-  cudaError_t err = set_smem(flash_bwd_dkdv_kernel<float, HD>, smem);
-  if (err == cudaSuccess) err = set_smem(flash_bwd_dq_kernel<float, HD>, smem);
-  if (err == cudaSuccess)
-    err = launch_delta<float, HD>(o, dout, delta, (size_t)a.B * a.Sq * a.H,
-                                  stream);
-  if (err != cudaSuccess) return (int)err;
   const int n_tq = (a.Sq + BQ - 1) / BQ, n_tk = (a.Sk + BK - 1) / BK;
   const float* fq = static_cast<const float*>(q);
   const float* fk = static_cast<const float*>(k);
@@ -914,46 +1197,95 @@ int launch_f32(const void* q, const void* k, const void* v, const void* o,
   const float* fdo = static_cast<const float*>(dout);
   const float* fl = static_cast<const float*>(lse);
   const float* fd = static_cast<const float*>(delta);
-  if (n_tk > 0) {
-    flash_bwd_dkdv_kernel<float, HD><<<dim3(a.Kh, n_tk, a.B), THREADS, smem,
-                                       stream>>>(
-        fq, fk, fv, fdo, fl, fd, static_cast<float*>(dk),
-        static_cast<float*>(dv), a.Sq, a.Sk, a.q_start, a.H, a.Kh, a.k_len,
-        a.causal, a.window, a.scale);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  float* fdq = static_cast<float*>(dq);
+  float* fdk = static_cast<float*>(dk);
+  float* fdv = static_cast<float*>(dv);
+  const dim3 kv_grid(a.Kh, n_tk, a.B), q_grid(a.H, n_tq, a.B);
+  cudaError_t err = launch_delta<float, HDV>(o, dout, delta,
+                                             (size_t)a.B * a.Sq * a.H, stream);
+  if (err != cudaSuccess) return (int)err;
+  if constexpr (XBuf<HDQK, HDV>::value) {
+    static_assert(HDQK == HDV, "three tiles at one width");
+    constexpr int HD = HDQK;
+    constexpr size_t s_dv = dkdv_x_smem_floats<HD, DV>() * sizeof(float);
+    constexpr size_t s_dk = dkdv_x_smem_floats<HD, DK>() * sizeof(float);
+    constexpr size_t s_dq = dq_x_smem_floats<HD>() * sizeof(float);
+    static_assert(s_dk <= 232448 && s_dq <= 232448, "f32 tiles");
+    err = set_smem(flash_bwd_dkdv_x_kernel<float, HD, DV>, s_dv);
+    if (err == cudaSuccess)
+      err = set_smem(flash_bwd_dkdv_x_kernel<float, HD, DK>, s_dk);
+    if (err == cudaSuccess) err = set_smem(flash_bwd_dq_x_kernel<float, HD>, s_dq);
+    if (err != cudaSuccess) return (int)err;
+    if (n_tk > 0) {
+      flash_bwd_dkdv_x_kernel<float, HD, DV><<<kv_grid, THREADS, s_dv,
+                                               stream>>>(
+          fq, fk, fv, fdo, fl, fd, fdk, fdv, a.Sq, a.Sk, a.q_start, a.H, a.Kh,
+          a.k_len, a.causal, a.window, a.scale);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+      flash_bwd_dkdv_x_kernel<float, HD, DK><<<kv_grid, THREADS, s_dk,
+                                               stream>>>(
+          fq, fk, fv, fdo, fl, fd, fdk, fdv, a.Sq, a.Sk, a.q_start, a.H, a.Kh,
+          a.k_len, a.causal, a.window, a.scale);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    }
+    flash_bwd_dq_x_kernel<float, HD><<<q_grid, THREADS, s_dq, stream>>>(
+        fq, fk, fv, fdo, fl, fd, fdq, a.Sq, a.Sk, a.q_start, a.H, a.Kh,
+        a.k_len, a.causal, a.window, a.scale);
+    return (int)cudaGetLastError();
+  } else {
+    constexpr size_t smem = smem_floats<HDQK, HDV>() * sizeof(float);
+    err = set_smem(flash_bwd_dkdv_kernel<float, HDQK, HDV>, smem);
+    if (err == cudaSuccess)
+      err = set_smem(flash_bwd_dq_kernel<float, HDQK, HDV>, smem);
+    if (err != cudaSuccess) return (int)err;
+    if (n_tk > 0) {
+      flash_bwd_dkdv_kernel<float, HDQK, HDV><<<kv_grid, THREADS, smem,
+                                                stream>>>(
+          fq, fk, fv, fdo, fl, fd, fdk, fdv, a.Sq, a.Sk, a.q_start, a.H, a.Kh,
+          a.k_len, a.causal, a.window, a.scale);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    }
+    flash_bwd_dq_kernel<float, HDQK, HDV><<<q_grid, THREADS, smem, stream>>>(
+        fq, fk, fv, fdo, fl, fd, fdq, a.Sq, a.Sk, a.q_start, a.H, a.Kh,
+        a.k_len, a.causal, a.window, a.scale);
+    return (int)cudaGetLastError();
   }
-  flash_bwd_dq_kernel<float, HD><<<dim3(a.H, n_tq, a.B), THREADS, smem,
-                                   stream>>>(
-      fq, fk, fv, fdo, fl, fd, static_cast<float*>(dq), a.Sq, a.Sk,
-      a.q_start, a.H, a.Kh, a.k_len, a.causal, a.window, a.scale);
-  return (int)cudaGetLastError();
 }
 
-template <int HD, int PART>
+template <int HDQK, int HDV, int PART, int CW>
 cudaError_t launch_dkdv_mma(const bf16* q, const bf16* k, const bf16* v,
                             const bf16* dout, const float* lse,
                             const float* delta, void* dk, void* dv,
                             const Args& a, cudaStream_t stream) {
-  const size_t smem = dkdv_mma_smem_bytes<HD>();
-  cudaError_t err = set_smem(flash_bwd_dkdv_mma_kernel<HD, PART>, smem);
+  constexpr size_t smem = dkdv_mma_smem_bytes<HDQK, HDV>();
+  static_assert(smem <= 232448, "bf16 dk/dv tiles");
+  cudaError_t err = set_smem(flash_bwd_dkdv_mma_kernel<HDQK, HDV, PART, CW>,
+                             smem);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_mma_kernel<HD, PART><<<dim3(a.Kh, (a.Sk + BK - 1) / BK, a.B),
-                                        MMA_THREADS, smem, stream>>>(
-      q, k, v, dout, lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), a.Sq, a.Sk, a.q_start, a.H, a.Kh, a.k_len,
-      a.causal, a.window, a.scale);
-  return cudaGetLastError();
+  constexpr int width = PART == DK ? HDQK : HDV;
+  for (int col0 = 0; col0 < width; col0 += CW) {
+    flash_bwd_dkdv_mma_kernel<HDQK, HDV, PART, CW>
+        <<<dim3(a.Kh, (a.Sk + BK - 1) / BK, a.B), MMA_THREADS, smem,
+           stream>>>(q, k, v, dout, lse, delta, static_cast<bf16*>(dk),
+                     static_cast<bf16*>(dv), a.Sq, a.Sk, a.q_start, a.H,
+                     a.Kh, a.k_len, a.causal, a.window, a.scale, col0);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
-template <int HD>
+template <int HDQK, int HDV>
 int launch_bf16(const void* q, const void* k, const void* v, const void* o,
                 const void* lse, const void* dout, void* dq, void* dk,
                 void* dv, void* delta, const Args& a, cudaStream_t stream) {
-  const size_t smem_q = dq_mma_smem_bytes<HD>();
-  cudaError_t err = set_smem(flash_bwd_dq_mma_kernel<HD>, smem_q);
+  using P = Plan<HDQK, HDV>;
+  constexpr int CWQ = P::cw_k;           // dq's columns a launch, as dk's
+  constexpr size_t smem_q = dq_mma_smem_bytes<HDQK, HDV>();
+  static_assert(smem_q <= 232448, "bf16 dq tiles");
+  cudaError_t err = set_smem(flash_bwd_dq_mma_kernel<HDQK, HDV, CWQ>, smem_q);
   if (err == cudaSuccess)
-    err = launch_delta<bf16, HD>(o, dout, delta, (size_t)a.B * a.Sq * a.H,
-                                 stream);
+    err = launch_delta<bf16, HDV>(o, dout, delta, (size_t)a.B * a.Sq * a.H,
+                                  stream);
   if (err != cudaSuccess) return (int)err;
   const bf16* bq = static_cast<const bf16*>(q);
   const bf16* bk = static_cast<const bf16*>(k);
@@ -962,33 +1294,39 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* o,
   const float* fl = static_cast<const float*>(lse);
   const float* fd = static_cast<const float*>(delta);
   if (a.Sk > 0) {
-    if constexpr (SplitDkDv<HD>::value) {
-      err = launch_dkdv_mma<HD, DV>(bq, bk, bv, bdo, fl, fd, dk, dv, a,
-                                    stream);
+    if constexpr (P::split) {
+      err = launch_dkdv_mma<HDQK, HDV, DV, P::cw_v>(bq, bk, bv, bdo, fl, fd,
+                                                    dk, dv, a, stream);
       if (err == cudaSuccess)
-        err = launch_dkdv_mma<HD, DK>(bq, bk, bv, bdo, fl, fd, dk, dv, a,
-                                      stream);
+        err = launch_dkdv_mma<HDQK, HDV, DK, P::cw_k>(bq, bk, bv, bdo, fl, fd,
+                                                      dk, dv, a, stream);
     } else {
-      err = launch_dkdv_mma<HD, DKDV>(bq, bk, bv, bdo, fl, fd, dk, dv, a,
-                                      stream);
+      err = launch_dkdv_mma<HDQK, HDV, DKDV, HDQK>(bq, bk, bv, bdo, fl, fd,
+                                                   dk, dv, a, stream);
     }
     if (err != cudaSuccess) return (int)err;
   }
-  flash_bwd_dq_mma_kernel<HD><<<dim3(a.H, (a.Sq + BQ - 1) / BQ, a.B),
-                                MMA_THREADS, smem_q, stream>>>(
-      bq, bk, bv, bdo, fl, fd, static_cast<bf16*>(dq), a.Sq, a.Sk, a.q_start,
-      a.H, a.Kh, a.k_len, a.causal, a.window, a.scale);
-  return (int)cudaGetLastError();
+  for (int col0 = 0; col0 < HDQK; col0 += CWQ) {
+    flash_bwd_dq_mma_kernel<HDQK, HDV, CWQ>
+        <<<dim3(a.H, (a.Sq + BQ - 1) / BQ, a.B), MMA_THREADS, smem_q,
+           stream>>>(bq, bk, bv, bdo, fl, fd, static_cast<bf16*>(dq), a.Sq,
+                     a.Sk, a.q_start, a.H, a.Kh, a.k_len, a.causal, a.window,
+                     a.scale, col0);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
-template <int HD>
+template <int HDQK, int HDV>
 int launch(int dtype, const void* q, const void* k, const void* v,
            const void* o, const void* lse, const void* dout, void* dq,
            void* dk, void* dv, void* delta, const Args& a, cudaStream_t s) {
   if (dtype == 0)
-    return launch_f32<HD>(q, k, v, o, lse, dout, dq, dk, dv, delta, a, s);
+    return launch_f32<HDQK, HDV>(q, k, v, o, lse, dout, dq, dk, dv, delta, a,
+                                 s);
   if (dtype == 1)
-    return launch_bf16<HD>(q, k, v, o, lse, dout, dq, dk, dv, delta, a, s);
+    return launch_bf16<HDQK, HDV>(q, k, v, o, lse, dout, dq, dk, dv, delta, a,
+                                  s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -997,30 +1335,42 @@ int launch(int dtype, const void* q, const void* k, const void* v,
 extern "C" {
 
 // dtype: 0 float32 (the CUDA-core kernels), 1 bfloat16 (the tensor-core
-// kernels), for q, k, v, o, dout, dq, dk and dv alike; hd: 16, 32, 64, 128
-// or 160; q, o, dout, dq (B, Sq, H, hd) and k, v, dk, dv (B, Sk, Kh, hd),
-// contiguous, 16-byte aligned; lse (B, Sq, H) float32 from the forward;
-// delta (B, Sq, H) float32 scratch.  q_start and the masks as
-// flash_fill_launch.  Three CUDA launches on `stream` (four for bf16 at
-// hd 160; no dk/dv launch when Sk is 0).  Returns the CUDA error code of
-// the first launch that fails (0 on success).
-int flash_bwd_launch(int dtype, int hd, const void* q, const void* k,
-                     const void* v, const void* o, const void* lse,
-                     const void* dout, void* dq, void* dk, void* dv,
-                     void* delta, int B, int Sq, int Sk, int q_start, int H,
-                     int Kh, int k_len, int causal, int window, float scale,
-                     void* stream) {
+// kernels), for q, k, v, o, dout, dq, dk and dv alike; (hd, hd_v) as
+// flash_fill_launch takes them: (d, d) for d in 16, 32, 64, 128, 160, 256,
+// and (192, 128); q and dq (B, Sq, H, hd), o and dout (B, Sq, H, hd_v), k
+// and dk (B, Sk, Kh, hd), v and dv (B, Sk, Kh, hd_v), contiguous, 16-byte
+// aligned; lse (B, Sq, H) float32 from the forward; delta (B, Sq, H)
+// float32 scratch.  q_start and the masks as flash_fill_launch.  Launches
+// on `stream`: delta, then dk/dv and dq (bf16: one dk/dv launch up to hd
+// 128, dv and dk apart above, each in column halves at hd 256, dq in
+// column halves at hd 256; f32: one dk/dv launch, dv and dk apart at hd
+// 256; no dk/dv launch when Sk is 0).  Returns the CUDA error code of the
+// first launch that fails (0 on success).
+int flash_bwd_launch(int dtype, int hd, int hd_v, const void* q,
+                     const void* k, const void* v, const void* o,
+                     const void* lse, const void* dout, void* dq, void* dk,
+                     void* dv, void* delta, int B, int Sq, int Sk,
+                     int q_start, int H, int Kh, int k_len, int causal,
+                     int window, float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return 0;
   if (Sk < 0 || Kh <= 0 || H % Kh) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Args a{B, Sq, Sk, q_start, H, Kh, k_len, causal, window, scale};
-  switch (hd) {
-    case 16: return launch<16>(dtype, q, k, v, o, lse, dout, dq, dk, dv, delta, a, s);
-    case 32: return launch<32>(dtype, q, k, v, o, lse, dout, dq, dk, dv, delta, a, s);
-    case 64: return launch<64>(dtype, q, k, v, o, lse, dout, dq, dk, dv, delta, a, s);
-    case 128: return launch<128>(dtype, q, k, v, o, lse, dout, dq, dk, dv, delta, a, s);
-    case 160: return launch<160>(dtype, q, k, v, o, lse, dout, dq, dk, dv, delta, a, s);
+#define K3_BWD(QK, V) \
+  launch<QK, V>(dtype, q, k, v, o, lse, dout, dq, dk, dv, delta, a, s)
+  if (hd == hd_v) {
+    switch (hd) {
+      case 16: return K3_BWD(16, 16);
+      case 32: return K3_BWD(32, 32);
+      case 64: return K3_BWD(64, 64);
+      case 128: return K3_BWD(128, 128);
+      case 160: return K3_BWD(160, 160);
+      case 256: return K3_BWD(256, 256);
+    }
+  } else if (hd == 192 && hd_v == 128) {
+    return K3_BWD(192, 128);
   }
+#undef K3_BWD
   return (int)cudaErrorInvalidValue;
 }
 

@@ -14,9 +14,10 @@ position ``q_start + i`` for the causal and window masks (the last Sq of
 the keys' positions when ``q_start = Sk - Sq``); keys sit at 0 .. Sk - 1.
 Any Sq and Sk: the kernel masks the ragged edges itself.  A CUDA tensor
 goes to the CUDA kernel in ``csrc/flash_attn.cu``, which is built for the
-head widths ``HEAD_DIMS`` and for hd_v = hd (a v of another width, MLA's,
-raises there: ROADMAP item 15f); a CPU tensor goes to
-``flash_attention_plain``, which takes any widths.  Nothing falls back from
+width pairs ``WIDTH_PAIRS`` (hd, hd_v): hd = hd_v for each of
+``HEAD_DIMS``, and MLA's q/k of 192 with v of 128 (``VALUE_WIDTHS``); any
+other pair raises there.  A CPU tensor goes to ``flash_attention_plain``,
+which takes any widths.  Nothing falls back from
 one to the other.
 
 ``p_dtype`` is the type p (the softmax numerator) is rounded to before
@@ -46,13 +47,15 @@ from repro_torch.kernels import aligned16
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attn.cu"
 SOURCE_BWD = Path(__file__).resolve().parent / "csrc" / "flash_attn_bwd.cu"
 BLOCK = 64                   # the CUDA kernel's q- and k-tile rows
-HEAD_DIMS = (16, 32, 64, 128, 160)
+HEAD_DIMS = (16, 32, 64, 128, 160, 256)
+VALUE_WIDTHS = ((192, 128),)        # (hd, hd_v) pairs with hd_v != hd
+WIDTH_PAIRS = tuple((d, d) for d in HEAD_DIMS) + VALUE_WIDTHS
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 NEG_INF = -1e30
 
 # CUDA kernel launches since import (or since a caller reset it to 0): the
-# forward's, and the backward's (one per call of its three launches); the
-# plain versions do not count.
+# forward's, and the backward's (one per call, whatever launches it takes);
+# the plain versions do not count.
 launches = 0
 bwd_launches = 0
 
@@ -124,7 +127,7 @@ def _lib():
         from repro_torch.kernels import build
         lib = build.load(SOURCE).lib
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_fill_launch.argtypes = ([i, i] + [p] * 5 + [i] * 9
+        lib.flash_fill_launch.argtypes = ([i, i, i] + [p] * 5 + [i] * 9
                                           + [ctypes.c_float, p])
         lib.flash_fill_launch.restype = i
         _LIB = lib
@@ -135,22 +138,19 @@ def _check_kernel_args(q, v):
     if q.dtype not in DTYPES:
         raise ValueError(f"K3 takes {sorted(map(str, DTYPES))}, not "
                          f"{q.dtype}")
-    if q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"K3 is instantiated for head widths {HEAD_DIMS}, "
-                         f"not {q.shape[-1]}")
-    if v.shape[-1] != q.shape[-1]:
-        raise ValueError(f"K3's CUDA kernels take v of q's width "
-                         f"{q.shape[-1]}, not {v.shape[-1]}: a value width "
-                         f"of its own (MLA) is ROADMAP item 15f")
+    pair = (q.shape[-1], v.shape[-1])
+    if pair not in WIDTH_PAIRS:
+        raise ValueError(f"K3's CUDA kernels are instantiated for the (hd, "
+                         f"hd_v) pairs {WIDTH_PAIRS}, not {pair}")
 
 
 def _launch(q, k, v, causal, window, k_len, scale, with_lse, q_start):
     global launches
     B, Sq, H, hd = q.shape
-    Sk, Kh = k.shape[1], k.shape[2]
+    Sk, Kh, hd_v = k.shape[1], k.shape[2], v.shape[3]
     _check_kernel_args(q, v)
     lib = _lib()
-    out = torch.empty_like(q)
+    out = q.new_empty((B, Sq, H, hd_v))
     lse = (torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
            if with_lse else None)
     if q.numel() == 0:
@@ -158,14 +158,15 @@ def _launch(q, k, v, causal, window, k_len, scale, with_lse, q_start):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_fill_launch(
-            DTYPES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), lse.data_ptr() if with_lse else None, B, Sq, Sk,
+            DTYPES[q.dtype], hd, hd_v, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if with_lse else None, B, Sq, Sk,
             q_start, H, Kh, _key_len(k, k_len), int(causal),
             -1 if window is None else int(window), scale, stream)
     if err:
         raise RuntimeError(f"K3 flash_fill launch failed: CUDA error {err} "
                            f"(B={B}, Sq={Sq}, Sk={Sk}, H={H}, Kh={Kh}, "
-                           f"hd={hd}, {q.dtype})")
+                           f"hd={hd}, hd_v={hd_v}, {q.dtype})")
     launches += 1
     return out, lse
 
@@ -261,8 +262,8 @@ def flash_backward(q, k, v, o, lse, do, *, causal: bool, window=None,
     dtype: p recomputed in f32 from lse, every product accumulated in f32.
     Shapes and masks as ``flash_fill``: o and do (B, Sq, H, hd_v), lse
     (B, Sq, H).  A CUDA tensor goes to the kernels of
-    ``csrc/flash_attn_bwd.cu`` (three or four launches; ``bwd_launches``
-    counts the call once): f32 inputs to the CUDA-core kernels, every
+    ``csrc/flash_attn_bwd.cu`` (three to seven launches, by the widths;
+    ``bwd_launches`` counts the call once): f32 inputs to the CUDA-core kernels, every
     product in f32; bf16 inputs to the tensor-core kernels, which multiply
     p and ds as two bf16 halves each (hi + lo, within about 2^-17 of the
     f32 product).  A CPU tensor goes to ``flash_backward_plain``.  Nothing
@@ -298,7 +299,7 @@ def _lib_bwd():
         from repro_torch.kernels import build
         lib = build.load(SOURCE_BWD).lib
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_bwd_launch.argtypes = ([i, i] + [p] * 10 + [i] * 9
+        lib.flash_bwd_launch.argtypes = ([i, i, i] + [p] * 10 + [i] * 9
                                          + [ctypes.c_float, p])
         lib.flash_bwd_launch.restype = i
         _LIB_BWD = lib
@@ -308,7 +309,7 @@ def _lib_bwd():
 def _launch_bwd(q, k, v, o, lse, do, causal, window, k_len, scale, q_start):
     global bwd_launches
     B, Sq, H, hd = q.shape
-    Sk, Kh = k.shape[1], k.shape[2]
+    Sk, Kh, hd_v = k.shape[1], k.shape[2], v.shape[3]
     _check_kernel_args(q, v)
     lib = _lib_bwd()
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
@@ -318,15 +319,16 @@ def _launch_bwd(q, k, v, o, lse, do, causal, window, k_len, scale, q_start):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_bwd_launch(
-            DTYPES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), B, Sq, Sk,
+            DTYPES[q.dtype], hd, hd_v, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+            B, Sq, Sk,
             q_start, H, Kh, _key_len(k, k_len), int(causal),
             -1 if window is None else int(window), scale, stream)
     if err:
         raise RuntimeError(f"K3 backward launch failed: CUDA error {err} "
                            f"(B={B}, Sq={Sq}, Sk={Sk}, H={H}, Kh={Kh}, "
-                           f"hd={hd}, {q.dtype})")
+                           f"hd={hd}, hd_v={hd_v}, {q.dtype})")
     bwd_launches += 1
     return dq, dk, dv
 

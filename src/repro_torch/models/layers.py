@@ -86,9 +86,11 @@ def flash_attention(q, k, v, *, causal: bool, window: Optional[int],
     ``flash_attention`` (Sk may differ from Sq, as in cross-attention, and
     hd_v from hd, as in MLA).  ``q_start``: the position of q[0] for the
     causal and window masks (keys sit at 0 .. Sk - 1); ``k_len``: keys at
-    and past it are masked.  On a CUDA tensor this is one launch of K3,
-    which masks the ragged edges itself (hd_v = hd only: item 15f); on a
-    CPU tensor it is K3's plain version, over the same 64-row tiles.  p is
+    and past it are masked; ``scale`` defaults to 1/sqrt(hd).  On a CUDA
+    tensor this is one launch of K3, which masks the ragged edges itself
+    (built for the (hd, hd_v) pairs ``K3.WIDTH_PAIRS``: hd = hd_v from 16
+    to 256, and MLA's 192 over 128); on a CPU tensor it is K3's plain
+    version, over the same 64-row tiles.  p is
     rounded to v's dtype before p v on both devices, as JAX's model path
     casts it.  Where autograd records, it goes through
     ``K3.FlashAttnFunction`` (the forward also writes its lse; the

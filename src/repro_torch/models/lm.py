@@ -11,7 +11,9 @@ their backward kernels, and with ``cfg.remat`` each period runs under
 (one token against a cache, which is updated in place and returned).
 ``forward`` and ``prefill`` take an optional multimodal prefix
 (``batch["prefix_embeds"]``, llava's patch embeddings) ahead of the tokens;
-``forward`` returns the MoE load-balance loss summed over the layers.
+``forward`` returns the MoE load-balance loss summed over the layers and,
+where the config has multi-token prediction (DeepSeek-V3), the MTP head's
+logits.
 """
 from __future__ import annotations
 
@@ -31,6 +33,8 @@ P = ParamDef
 _MIXER_DEFS = {
     "attn": mixers.attn_defs,
     "attn_local": mixers.attn_defs,
+    "mla": mixers.mla_defs,
+    "rglru": mixers.rglru_defs,
     "rwkv6": mixers.rwkv6_defs,
 }
 
@@ -40,6 +44,10 @@ def _mixer_apply(cfg, kind, p, x, ctx, cache):
         return mixers.attn_apply(cfg, p, x, ctx, cache, window=None)
     if kind == "attn_local":
         return mixers.attn_apply(cfg, p, x, ctx, cache, window=cfg.window)
+    if kind == "mla":
+        return mixers.mla_apply(cfg, p, x, ctx, cache)
+    if kind == "rglru":
+        return mixers.rglru_apply(cfg, p, x, ctx, cache)
     if kind == "rwkv6":
         return mixers.rwkv6_apply(cfg, p, x, ctx, cache)
     raise ValueError(kind)
@@ -175,7 +183,20 @@ def param_defs(cfg) -> Dict[str, Any]:
     defs["final_norm"] = norm_defs(cfg, D)
     if not cfg.tie_embeddings:
         defs["head"] = {"w": P((D, V), init="fan_in")}
+    if cfg.mtp:
+        defs["mtp"] = {
+            "norm_h": norm_defs(cfg, D),
+            "norm_e": norm_defs(cfg, D),
+            "proj": P((2 * D, D), init="fan_in"),
+            "block": _layer_defs(cfg, cfg.pattern[0], _mtp_ffn(cfg)),
+        }
     return defs
+
+
+def _mtp_ffn(cfg):
+    """The MTP block's FFN: dense when the config starts with dense layers
+    (DeepSeek-V3's first_dense) or has no experts, else MoE."""
+    return "dense" if cfg.first_dense or not cfg.n_experts else "moe"
 
 
 # ---------------------------------------------------------------------------
@@ -214,7 +235,8 @@ def _positions(S, device):
 
 def forward(cfg, params, batch):
     """Train-mode forward: full-sequence f32 logits (prefix positions
-    included), the MoE aux loss summed over layers, the prefix length."""
+    included), the MoE aux loss summed over layers, the prefix length, and
+    with ``cfg.mtp`` and tokens the MTP head's logits (``mtp_logits``)."""
     x, prefix = _assemble_input(cfg, params, batch)
     ctx = {"mode": "train", "positions": _positions(x.shape[1], x.device)}
     aux = 0.0
@@ -222,8 +244,27 @@ def forward(cfg, params, batch):
         x, _, a = _group_apply(cfg, plan_entry, pg, x, ctx, None)
         aux = aux + a
     h = norm_apply(cfg, params["final_norm"], x)
-    return {"logits": _head(cfg, params, h), "aux_loss": aux,
-            "prefix": prefix}
+    out = {"logits": _head(cfg, params, h), "aux_loss": aux,
+           "prefix": prefix}
+    if cfg.mtp and batch.get("tokens") is not None:
+        tokens = torch.as_tensor(batch["tokens"], device=h.device)
+        out["mtp_logits"] = _mtp_logits(cfg, params, h, tokens, ctx, prefix)
+    return out
+
+
+def _mtp_logits(cfg, params, h, tokens, ctx, prefix):
+    """DeepSeek-style depth-1 multi-token prediction head: the trunk's
+    final-normed state at position t with the embedding of token t + 1,
+    through one block of the first mixer kind, predicts token t + 2; it
+    shares the output head (the block's aux loss is dropped, as in JAX)."""
+    mp = params["mtp"]
+    emb = _embed(cfg, params, tokens[:, 1:])               # token t + 1
+    z = torch.cat([norm_apply(cfg, mp["norm_h"], h[:, prefix:-1]),
+                   norm_apply(cfg, mp["norm_e"], emb)], -1) @ mp["proj"]
+    mctx = dict(ctx, positions=_positions(z.shape[1], z.device))
+    z, _, _ = _layer_apply(cfg, cfg.pattern[0], _mtp_ffn(cfg), mp["block"],
+                           z, mctx, None)
+    return _head(cfg, params, z)
 
 
 def prefill(cfg, params, batch):
@@ -273,6 +314,13 @@ def _mixer_cache_spec(cfg, kind, B, S):
         return {"k": CacheLeaf((B, W, K, hd), dt),
                 "v": CacheLeaf((B, W, K, hd), dt),
                 "slot_pos": CacheLeaf((B, W), torch.int32)}
+    if kind == "mla":
+        return {"ckv": CacheLeaf((B, S, cfg.kv_lora), dt),
+                "krope": CacheLeaf((B, S, cfg.rope_dim), dt)}
+    if kind == "rglru":
+        W = cfg.lru_width
+        return {"h": CacheLeaf((B, W), torch.float32),
+                "conv": CacheLeaf((B, cfg.conv_width - 1, W), dt)}
     if kind == "rwkv6":
         H = cfg.rwkv_heads
         return {"state": CacheLeaf((B, H, hd, hd), torch.float32),

@@ -1,6 +1,7 @@
 """Temporal-mixing sublayers (port of ``repro/models/mixers.py``): GQA
-attention (full causal and sliding window) and the RWKV-6 time mix and
-channel mix.  MLA and RG-LRU are not ported yet (ROADMAP queue 1 item 15).
+attention (full causal and sliding window), DeepSeek's multi-head latent
+attention (MLA), the RG-LRU recurrence of RecurrentGemma, and the RWKV-6
+time mix and channel mix.
 
 Every mixer exposes ``<kind>_defs(cfg)`` and
 ``<kind>_apply(cfg, p, x, ctx, cache) -> (y, new_cache)``; ``ctx`` keys:
@@ -14,12 +15,14 @@ the same tensors.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.wkv6 import kernel as K4
-from .layers import decode_attention, flash_attention, rms_head_norm, \
-    rope_apply
+from .layers import NEG_INF, _gelu, decode_attention, flash_attention, \
+    rms_head_norm, rope_apply
 from .params import ParamDef
 
 P = ParamDef
@@ -124,6 +127,179 @@ def _attn_decode(cfg, p, x, ctx, cache, window):
         o = decode_attention(q, kc, vc, k_len=k_len + 1, window=window,
                              slot_pos=sp)
     return _out(o, p["wo"]), new_cache
+
+
+# ===========================================================================
+# MLA: DeepSeek multi-head latent attention
+# ===========================================================================
+def mla_defs(cfg):
+    D, H, hd = cfg.d_model, cfg.n_heads_eff, cfg.head_dim
+    ql, kl, rd = cfg.q_lora, cfg.kv_lora, cfg.rope_dim
+    return {
+        "wdq": P((D, ql), init="fan_in"),
+        "q_norm": P((ql,), init="ones"),
+        "wuq": P((ql, H, hd + rd), init="fan_in"),
+        "wdkv": P((D, kl + rd), init="fan_in"),
+        "kv_norm": P((kl,), init="ones"),
+        "wuk": P((kl, H, hd), init="fan_in"),
+        "wuv": P((kl, H, hd), init="fan_in"),
+        "wo": P((H, hd, D), init="fan_in"),
+    }
+
+
+def _mla_qc(cfg, p, x, pos):
+    """The query path and the compressed kv latent, shared by every mode:
+    q without and with rotary (B, S, H, hd) and (B, S, H, rope_dim), the
+    normed latent ckv (B, S, kv_lora) and the shared rotary key (B, S,
+    rope_dim).  JAX's ``_rms`` is ``rms_head_norm``'s arithmetic."""
+    hd, rd = cfg.head_dim, cfg.rope_dim
+    q = _proj(rms_head_norm(p["q_norm"], x @ p["wdq"]), p["wuq"])
+    q_nope, q_rope = q[..., :hd], rope_apply(q[..., hd:], pos,
+                                             cfg.rope_theta)
+    ckv_full = x @ p["wdkv"]
+    ckv = rms_head_norm(p["kv_norm"], ckv_full[..., :cfg.kv_lora])
+    k_rope = rope_apply(ckv_full[..., None, cfg.kv_lora:], pos,
+                        cfg.rope_theta)[..., 0, :]
+    return q_nope, q_rope, ckv, k_rope
+
+
+def mla_apply(cfg, p, x, ctx, cache, **_):
+    """Train and prefill decompress k and v and run K3 with q/k of width
+    hd + rope_dim and v of width hd (K3's (192, 128) pair at DeepSeek-V3's
+    widths), scale 1/sqrt(hd + rope_dim); prefill caches the latent.
+    Decode is the absorbed form over the latent cache."""
+    if ctx["mode"] == "decode":
+        return _mla_decode(cfg, p, x, ctx, cache)
+    q, k, v, ckv, k_rope = mla_qkv(cfg, p, x, ctx["positions"])
+    o = flash_attention(q, k, v, causal=True, window=None,
+                        scale=1.0 / math.sqrt(cfg.head_dim + cfg.rope_dim))
+    new_cache = ({"ckv": ckv, "krope": k_rope}
+                 if ctx["mode"] == "prefill" else None)
+    return _out(o, p["wo"]), new_cache
+
+
+def mla_qkv(cfg, p, x, positions):
+    """The q, k, v that K3 receives in a train/prefill pass (q and k of
+    width hd + rope_dim, v of width hd, k decompressed from the latent and
+    the shared rotary key broadcast over the heads), and the latent cache
+    leaves ckv and krope."""
+    q_nope, q_rope, ckv, k_rope = _mla_qc(cfg, p, x, positions)
+    k_nope, v = _proj(ckv, p["wuk"]), _proj(ckv, p["wuv"])
+    H, rd = q_nope.shape[2], cfg.rope_dim
+    k_rope_h = k_rope[:, :, None, :].expand(*k_rope.shape[:2], H, rd)
+    return (torch.cat([q_nope, q_rope], -1),
+            torch.cat([k_nope, k_rope_h], -1), v, ckv, k_rope)
+
+
+def _mla_decode(cfg, p, x, ctx, cache):
+    """Absorbed-projection decode: the cache holds only the (kv_lora +
+    rope_dim)-wide latent a token; W_UK is absorbed into the query and
+    W_UV applied after the softmax, plain torch as JAX's einsums (scores
+    and the context accumulated in f32, p cast to the cache's dtype)."""
+    k_len = ctx["k_len"]
+    q_nope, q_rope, ckv_new, krope_new = _mla_qc(cfg, p, x, k_len[:, None])
+    ckv = _write_slot(cache["ckv"], ckv_new, k_len)
+    krope = _write_slot(cache["krope"], krope_new, k_len)
+    q_c = torch.einsum("bshk,lhk->bshl", q_nope, p["wuk"])
+    s = (torch.einsum("bshl,btl->bhst", q_c.float(), ckv.float())
+         + torch.einsum("bshr,btr->bhst", q_rope.float(), krope.float()))
+    s = s * (1.0 / math.sqrt(cfg.head_dim + cfg.rope_dim))
+    valid = torch.arange(ckv.shape[1], device=x.device)[None, :] < \
+        (k_len + 1)[:, None]
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    pr = torch.softmax(s, dim=-1)
+    ctx_c = torch.einsum("bhst,btl->bshl", pr.to(ckv.dtype).float(),
+                         ckv.float()).to(x.dtype)
+    o = torch.einsum("bshl,lhk->bshk", ctx_c, p["wuv"])
+    return _out(o, p["wo"]), {"ckv": ckv, "krope": krope}
+
+
+# ===========================================================================
+# RG-LRU recurrent block (RecurrentGemma / Griffin)
+# ===========================================================================
+def rglru_defs(cfg):
+    D, W, CW = cfg.d_model, cfg.lru_width, cfg.conv_width
+    NB = cfg.n_heads                      # block-diagonal gate blocks
+    Wb = W // NB
+    return {
+        "w_x": P((D, W), init="fan_in"),
+        "w_gate": P((D, W), init="fan_in"),
+        "conv_w": P((CW, W), init="fan_in"),
+        "conv_b": P((W,), init="zeros"),
+        "w_rg": P((NB, Wb, Wb), init="fan_in"),
+        "b_rg": P((W,), init="zeros"),
+        "w_ig": P((NB, Wb, Wb), init="fan_in"),
+        "b_ig": P((W,), init="zeros"),
+        "lam": P((W,), init="ones"),
+        "w_out": P((W, D), init="fan_in"),
+    }
+
+
+_LRU_C = 8.0
+
+
+def _block_diag(u, w):
+    """u: (..., W) x block-diagonal w: (NB, Wb, Wb) -> (..., W)."""
+    NB, Wb, _ = w.shape
+    ub = u.reshape(*u.shape[:-1], NB, Wb)
+    return torch.einsum("...nw,nwv->...nv", ub, w).reshape(u.shape)
+
+
+def _lru_gates(p, u):
+    """(log a, input gate), both f32: log a = -8 r softplus(lambda)."""
+    r = torch.sigmoid(_block_diag(u, p["w_rg"]) + p["b_rg"]).float()
+    i = torch.sigmoid(_block_diag(u, p["w_ig"]) + p["b_ig"]).float()
+    return -_LRU_C * r * F.softplus(p["lam"].float()), i
+
+
+def _lru_input(log_a, i, uc):
+    """b = sqrt(1 - a^2) (i u): the gated, normalised input, f32."""
+    return torch.sqrt(torch.clamp(1 - torch.exp(2 * log_a), min=1e-12)) \
+        * (i * uc.float())
+
+
+def lru_scan(log_a, b):
+    """h_t = a_t h_(t-1) + b_t from h = 0 over axis 1, as JAX's
+    ``lax.associative_scan`` of (log a, b) under the combine
+    (a1 + a2, exp(a2) b1 + b2): a doubling scan in log space, ceil(log2 S)
+    whole-sequence elementwise steps (each position t takes the pair d
+    places back, the identity (0, 0) before the start).  Not a Python
+    loop over positions: at S = 4096 and 26 RG-LRU layers that would be
+    about 10^5 launches a pass.  The partial sums differ from JAX's tree
+    in order only."""
+    S, d = log_a.shape[1], 1
+    while d < S:
+        pad = (0, 0, d, 0)
+        b = torch.exp(log_a) * F.pad(b[:, :S - d], pad) + b
+        log_a = log_a + F.pad(log_a[:, :S - d], pad)
+        d *= 2
+    return b
+
+
+def rglru_apply(cfg, p, x, ctx, cache, **_):
+    CW = cfg.conv_width
+    gate = _gelu(x @ p["w_gate"])
+    u = x @ p["w_x"]
+    if ctx["mode"] == "decode":
+        hist = torch.cat([cache["conv"], u], 1)          # (B, CW, W)
+        uc = torch.einsum("bcw,cw->bw", hist, p["conv_w"])[:, None] \
+            + p["conv_b"]
+        log_a, i = _lru_gates(p, uc)
+        h = torch.exp(log_a)[:, 0] * cache["h"] + \
+            _lru_input(log_a, i, uc)[:, 0]               # (B, W) f32 state
+        y = (h[:, None].to(x.dtype) * gate) @ p["w_out"]
+        return y, {"h": h, "conv": hist[:, 1:]}
+    # train / prefill: causal depthwise conv, then the scan
+    S = u.shape[1]
+    uc = sum(F.pad(u, (0, 0, CW - 1 - k, 0))[:, :S] * p["conv_w"][k]
+             for k in range(CW)) + p["conv_b"]
+    log_a, i = _lru_gates(p, uc)
+    h = lru_scan(log_a, _lru_input(log_a, i, uc))
+    y = (h.to(x.dtype) * gate) @ p["w_out"]
+    new_cache = None
+    if ctx["mode"] == "prefill":
+        new_cache = {"h": h[:, -1], "conv": u[:, S - (CW - 1):]}
+    return y, new_cache
 
 
 # ===========================================================================

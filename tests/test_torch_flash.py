@@ -7,16 +7,19 @@ bf16 against the JAX model path ``repro.models.layers.flash_attention``;
 the backward (``flash_backward_plain`` and ``FlashAttnFunction``) and the
 forward's lse against ``jax.vjp`` of that function and its ``_flash_fwd``
 (2e-5); the model-layout entry ``models.layers.flash_attention`` at k/v of
-their own length, with ``q_start``, with v of its own width and at head
-width 160, forward and ``jax.vjp`` (2e-5); and, on a GPU only, the CUDA
-kernels, forward and backward, against their plain versions (head widths
-16-160, cross lengths), and their refusal of v of another width.
+their own length, with ``q_start``, with v of its own width, at head
+width 160, at 256 over one key/value head and at MLA's q/k 192 over v
+128, forward and ``jax.vjp`` (2e-5); and, on a GPU only, the CUDA
+kernels, forward and backward, against their plain versions (every width
+pair they are built for, cross lengths), and their refusal of the pairs
+they are not built for.
 
 The JAX package is imported inside the CPU tests only, so that
 ``pytest -m gpu`` runs this file on a GPU machine without JAX."""
 from __future__ import annotations
 
 import itertools
+import re
 
 import numpy as np
 import pytest
@@ -27,10 +30,10 @@ from repro_torch.kernels.flash_attn import kernel as K3
 TOL = dict(rtol=2e-5, atol=2e-5)
 
 
-def _qkv(rng, B, S, H, K, hd):
+def _qkv(rng, B, S, H, K, hd, hd_v=None):
     return (rng.normal(size=(B, S, H, hd)).astype(np.float32),
             rng.normal(size=(B, S, K, hd)).astype(np.float32),
-            rng.normal(size=(B, S, K, hd)).astype(np.float32))
+            rng.normal(size=(B, S, K, hd_v or hd)).astype(np.float32))
 
 
 def _port(q, k, v, blk=K3.BLOCK, **kw):
@@ -235,9 +238,12 @@ def test_rejects_bad_shapes(shapes):
         K3.flash_fill(q, k, v, causal=True)
 
 
-# (Sq, Sk, hd, hd_v, causal, window, q_start): cross-attention lengths both
-# ways, a causal suffix of the keys (q_start = Sk - Sq), a window, MLA's
-# value width of its own, and stablelm-12b's head width 160
+# (Sq, Sk, hd, hd_v, causal, window, q_start[, key/value heads, default 2
+# under 4 query heads]): cross-attention lengths both ways, a causal suffix
+# of the keys (q_start = Sk - Sq), a window, MLA's value width of its own,
+# stablelm-12b's head width 160, recurrentgemma-9b's local attention (hd
+# 256, a window, one key/value head) and DeepSeek-V3's MLA widths (q/k 192
+# over v 128, causal)
 CROSS_CASES = [(77, 150, 16, 16, False, None, 0),
                (150, 77, 16, 16, False, None, 0),
                (77, 150, 64, 64, False, None, 0),
@@ -246,23 +252,34 @@ CROSS_CASES = [(77, 150, 16, 16, False, None, 0),
                (77, 150, 32, 32, True, 24, 73),
                (100, 60, 24, 16, False, None, 0),
                (70, 130, 48, 32, True, None, 60),
-               (100, 100, 160, 160, True, None, 0)]
+               (100, 100, 160, 160, True, None, 0),
+               (100, 100, 256, 256, True, 24, 0, 1),
+               (100, 100, 192, 128, True, None, 0)]
 
 
-@pytest.mark.parametrize("Sq,Sk,hd,hd_v,causal,window,q_start", CROSS_CASES)
+def _cross_id(case):
+    """The case's values joined by '-', a key/value-head count other than 2
+    appended as kv<n>."""
+    kv = case[7] if len(case) > 7 else 2
+    return "-".join(map(str, case[:7])) + ("" if kv == 2 else f"-kv{kv}")
+
+
+@pytest.mark.parametrize("Sq,Sk,hd,hd_v,causal,window,q_start,kv", [
+    c[:7] + (c[7] if len(c) > 7 else 2,) for c in CROSS_CASES],
+    ids=[_cross_id(c) for c in CROSS_CASES])
 def test_model_path_cross_length_matches_jax_vjp(Sq, Sk, hd, hd_v, causal,
-                                                 window, q_start, rng):
+                                                 window, q_start, kv, rng):
     """The port's ``layers.flash_attention`` against JAX's on k/v of their
     own length Sk, with ``q_start`` and v of its own width: the output and
-    ``jax.vjp``'s dq, dk, dv within 2e-5, f32, G 2 (the tolerance of
-    ``test_backward_matches_jax_vjp``)."""
+    ``jax.vjp``'s dq, dk, dv within 2e-5, f32, 4 query heads over ``kv``
+    key/value heads (the tolerance of ``test_backward_matches_jax_vjp``)."""
     import jax
     import jax.numpy as jnp
     from repro.models.layers import flash_attention as jflash
     from repro_torch.models.layers import flash_attention
     q = rng.normal(size=(2, Sq, 4, hd)).astype(np.float32)
-    k = rng.normal(size=(2, Sk, 2, hd)).astype(np.float32)
-    v = rng.normal(size=(2, Sk, 2, hd_v)).astype(np.float32)
+    k = rng.normal(size=(2, Sk, kv, hd)).astype(np.float32)
+    v = rng.normal(size=(2, Sk, kv, hd_v)).astype(np.float32)
     do = rng.normal(size=(2, Sq, 4, hd_v)).astype(np.float32)
     kw = dict(causal=causal, window=window, q_start=q_start)
     out, vjp = jax.vjp(lambda *a: jflash(*a, chunk=64, **kw),
@@ -285,8 +302,9 @@ def test_model_path_cross_length_matches_jax_vjp(Sq, Sk, hd, hd_v, causal,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_kernel_matches_plain(dtype):
     """K3 on the card against its plain version on the same card, over
-    G 1 and 4, S in {1, 63, 64, 65, 1000}, hd 16-160, and causal, causal
-    with a window, and non-causal with k_len masks.  f32 (p in f32):
+    G 1 and 4, S in {1, 63, 64, 65, 1000}, every (hd, hd_v) pair it is
+    built for (``K3.WIDTH_PAIRS``: hd 16-256, and 192 over 128), and
+    causal, causal with a window, and non-causal with k_len masks.  f32 (p in f32):
     2e-5.  bf16 (p in bf16 on both sides): one bf16 ulp more, on integer
     q and k (exact scores); on normal q and k also one ulp of each p
     (``_bf16_close``'s ``pv``)."""
@@ -300,10 +318,10 @@ def test_cuda_kernel_matches_plain(dtype):
         masks = [(True, None, None), (True, 16, None),
                  (False, None, S // 2 + 1), (True, 64, S // 3 + 1)]
         for G in (1, 4):
-            for hd in K3.HEAD_DIMS:
+            for hd, hd_v in K3.WIDTH_PAIRS:
                 for (causal, window, k_len), kind in itertools.product(
                         masks, kinds):
-                    q, k, v = _qkv(rng, 2, S, 4 * G, 4, hd)
+                    q, k, v = _qkv(rng, 2, S, 4 * G, 4, hd, hd_v)
                     if kind == "exact":
                         q, k = (np.round(t * 1.5).clip(-3, 3)
                                 for t in (q, k))
@@ -317,7 +335,8 @@ def test_cuda_kernel_matches_plain(dtype):
                     want = K3.flash_attention_plain(q, k, v, **kw)
                     torch.cuda.synchronize()
                     g, w = (t.float().cpu().numpy() for t in (got, want))
-                    what = str((S, G, hd, causal, window, k_len, kind))
+                    what = str((S, G, hd, hd_v, causal, window, k_len,
+                                kind))
                     if dtype == torch.float32:
                         np.testing.assert_allclose(g, w, **TOL, err_msg=what)
                         continue
@@ -530,7 +549,8 @@ def test_single_bf16_rounding_of_p_and_ds_fails_the_rule(rng):
 def test_cuda_backward_matches_plain(dtype):
     """K3's backward kernels against ``flash_backward_plain`` on the card,
     on the kernel forward's own output and lse, over G 1 and 4, S in {1,
-    63, 64, 65, 1000}, hd 16-160, causal, causal with a window and
+    63, 64, 65, 1000}, every (hd, hd_v) pair (``K3.WIDTH_PAIRS``), causal,
+    causal with a window and
     non-causal with a k_len mask (``_grad_close``); a second call on the
     same inputs gives the same bits (no atomics: a resumed bf16 run depends
     on it); the forward's lse against the plain forward's within 2e-5."""
@@ -541,10 +561,10 @@ def test_cuda_backward_matches_plain(dtype):
     for S in (1, 63, 64, 65, 1000):
         masks = [(True, None, None), (True, 16, None),
                  (False, None, S // 2 + 1)]
-        for G, hd, (causal, window, k_len) in itertools.product(
-                (1, 4), K3.HEAD_DIMS, masks):
+        for G, (hd, hd_v), (causal, window, k_len) in itertools.product(
+                (1, 4), K3.WIDTH_PAIRS, masks):
             q, k, v = (torch.as_tensor(t, device="cuda").to(dtype)
-                       for t in _qkv(rng, 2, S, 4 * G, 4, hd))
+                       for t in _qkv(rng, 2, S, 4 * G, 4, hd, hd_v))
             kw = dict(causal=causal, window=window, k_len=k_len)
             out, lse = K3.flash_fill(q, k, v, p_dtype=dtype,
                                      return_lse=True, **kw)
@@ -557,7 +577,7 @@ def test_cuda_backward_matches_plain(dtype):
             again = K3.flash_backward(q, k, v, out, lse, do, **kw)
             want = K3.flash_backward_plain(q, k, v, out, lse, do, **kw)
             torch.cuda.synchronize()
-            what = str((S, G, hd, causal, window, k_len))
+            what = str((S, G, hd, hd_v, causal, window, k_len))
             assert all(torch.equal(g, a) for g, a in zip(got, again)), \
                 f"a second call differs: {what}"
             np.testing.assert_allclose(lse.cpu().numpy(),
@@ -629,19 +649,21 @@ def test_cuda_cross_length_matches_plain(dtype):
 
 @pytest.mark.gpu
 def test_cuda_rejects_value_width():
-    """v of another width than q and k (MLA's) is taken by the plain
-    versions only: on a CUDA tensor the forward and the backward raise,
-    naming ROADMAP item 15f, and launch nothing."""
+    """Width pairs K3's CUDA kernels are not built for (v of another width
+    than q and k other than MLA's 192 over 128, or a head width outside
+    16-256) are taken by the plain versions only: on a CUDA tensor the
+    forward and the backward raise, naming the pairs they are built for,
+    and launch nothing."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (K3 is CUDA C++ with no CPU mode)")
-    q = torch.zeros((1, 64, 2, 32), device="cuda")
-    k = torch.zeros((1, 64, 2, 32), device="cuda")
-    v = torch.zeros((1, 64, 2, 16), device="cuda")
     before = (K3.launches, K3.bwd_launches)
-    with pytest.raises(ValueError, match="15f"):
-        K3.flash_fill(q, k, v, causal=True)
-    o = torch.zeros((1, 64, 2, 16), device="cuda")
-    lse = torch.zeros((1, 64, 2), device="cuda")
-    with pytest.raises(ValueError, match="15f"):
-        K3.flash_backward(q, k, v, o, lse, o, causal=True)
+    for hd, hd_v in ((32, 16), (256, 128), (128, 192), (48, 48)):
+        assert (hd, hd_v) not in K3.WIDTH_PAIRS
+        q = torch.zeros((1, 64, 2, hd), device="cuda")
+        v = torch.zeros((1, 64, 2, hd_v), device="cuda")
+        lse = torch.zeros((1, 64, 2), device="cuda")
+        with pytest.raises(ValueError, match=re.escape(str(K3.WIDTH_PAIRS))):
+            K3.flash_fill(q, q, v, causal=True)
+        with pytest.raises(ValueError, match=re.escape(str(K3.WIDTH_PAIRS))):
+            K3.flash_backward(q, q, v, v, lse, v, causal=True)
     assert (K3.launches, K3.bwd_launches) == before

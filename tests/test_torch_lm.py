@@ -4,7 +4,10 @@ reduced configs in f32 with weights carried across by
 (with and without a sliding window), the RWKV-6 time and channel mixes,
 and whole-model ``forward``/``prefill``/``decode_step`` (llava with a
 prefix of patch embeddings, qwen3-moe through the MoE FFN at its reduced
-config's no-drop capacity).  Tolerances:
+config's no-drop capacity, recurrentgemma's RG-LRU beside local
+attention, deepseek-v3's MLA with its MTP head's logits; the RG-LRU and
+MLA mixers alone are in ``tests/test_torch_rglru.py`` and
+``tests/test_torch_mla.py``).  Tolerances:
 2e-5 for a layer and 1e-4 for a mixer (f32 sums in other orders, over
 more terms in a mixer), and the whole-model
 tolerances of ``tests/test_models.py`` (2e-4 / 1e-4 for forward and
@@ -29,11 +32,12 @@ from repro.models import lm as jlm
 from repro.models import mixers as jmixers
 from repro.models import params as jparams
 from repro_torch import configs as pconfigs
-from repro_torch.models import get_model, layers, lm, mixers
+from repro_torch.models import get_model, layers, lm, mixers, whisper
 from repro_torch.models.params import count_params, from_jax, init_params
 
 ARCHS = ["olmo-1b", "rwkv6-3b", "stablelm-12b", "phi3-medium-14b",
-         "command-r-plus-104b", "qwen3-moe-30b-a3b", "llava-next-mistral-7b"]
+         "command-r-plus-104b", "qwen3-moe-30b-a3b", "llava-next-mistral-7b",
+         "recurrentgemma-9b", "deepseek-v3-671b"]
 LAYER_TOL = dict(rtol=2e-5, atol=2e-5)
 # a mixer sums a few thousand f32 products per output, of magnitude ~10
 MIXER_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -228,7 +232,33 @@ MODELS = {"olmo-1b": {}, "rwkv6-3b": {},
           "olmo-1b-local": {"pattern": ("attn", "attn_local"), "window": 8},
           "stablelm-12b": {}, "phi3-medium-14b": {},
           "command-r-plus-104b": {}, "qwen3-moe-30b-a3b": {},
-          "llava-next-mistral-7b": {}}
+          "llava-next-mistral-7b": {}, "recurrentgemma-9b": {},
+          "deepseek-v3-671b": {}}
+
+
+# Weights drawn by the port's ``init_params`` (fan_in over one layer's input
+# width) and carried into JAX, where JAX's own init divides a stacked leaf
+# by the square root of its layer count (ROADMAP queue 3): recurrentgemma's
+# reduced groups repeat once, so JAX's init gives every projection N(0, 1)
+# and its activations reach the hundreds, where f32 sums taken in another
+# order move 1.5e-4 of the logits (as whisper's, tests/test_torch_whisper.py).
+PORT_INIT = {"recurrentgemma-9b"}
+
+
+def _model_params(arch, jc, pc, seed, noise=0.0):
+    """(JAX tree, port tree) of one set of weights: JAX's init (``noise``:
+    moved by N(0, noise), ``_random_defs``), or for PORT_INIT the port's,
+    plus N(0, noise)."""
+    if arch not in PORT_INIT:
+        jp = (_random_defs(jlm.param_defs(jc), seed) if noise else
+              jlm.init(jc, jax.random.PRNGKey(seed)))
+        return jp, from_jax(pc, jax.tree.map(np.asarray, jp), "cpu")
+    from repro_torch.models.params import tree_map
+    rng = np.random.default_rng(seed)
+    tree = tree_map(lambda t: t.numpy() + noise * rng.normal(
+        size=t.shape).astype(np.float32),
+        init_params(pc, torch.Generator().manual_seed(seed), "cpu"))
+    return jax.tree.map(jnp.asarray, tree), from_jax(pc, tree, "cpu")
 
 
 def _lm_batch(cfg, rng, B, S):
@@ -249,8 +279,7 @@ def _as(batch, fn):
 def test_forward_prefill_decode_match_jax(name, rng):
     arch = name.removesuffix("-local")
     jc, pc = _cfgs(arch, **MODELS[name])
-    jp = jlm.init(jc, jax.random.PRNGKey(0))
-    pp = from_jax(pc, jax.tree.map(np.asarray, jp), "cpu")
+    jp, pp = _model_params(arch, jc, pc, 0)
     B, S = 2, 40
     batch = _lm_batch(jc, rng, B, S)
     toks = batch["tokens"]
@@ -258,6 +287,11 @@ def test_forward_prefill_decode_match_jax(name, rng):
     pout = lm.forward(pc, pp, _as(batch, torch.as_tensor))
     want, got = jout["logits"], pout["logits"]
     np.testing.assert_allclose(_np(got), _np(want), atol=2e-4, rtol=1e-4)
+    assert set(pout) == set(jout)            # mtp_logits with cfg.mtp
+    if "mtp_logits" in jout:
+        np.testing.assert_allclose(_np(pout["mtp_logits"]),
+                                   _np(jout["mtp_logits"]), atol=2e-4,
+                                   rtol=1e-4)
     assert pout["prefix"] == jout["prefix"]
     np.testing.assert_allclose(float(pout["aux_loss"]),
                                float(jout["aux_loss"]), rtol=1e-5)
@@ -376,25 +410,17 @@ def test_init_params_kinds():
     assert torch.equal(again["embed"]["table"], p["embed"]["table"])
 
 
-@pytest.mark.parametrize("arch,why", [
-    ("deepseek-v3-671b", "mla"),
-    ("deepseek-v3-671b", "multi-token prediction"),
-    ("recurrentgemma-9b", "rglru"),
-    ("olmo-1b-mtp", "multi-token prediction")])
-def test_get_model_refuses_unported(arch, why):
-    """DeepSeek-V3 (MLA, multi-token prediction) and RecurrentGemma
-    (RG-LRU) are refused, naming item 15; so is multi-token prediction on
-    an otherwise ported config."""
-    j = jconfigs.get(arch.removesuffix("-mtp"), reduced=True)
-    if arch.endswith("-mtp"):
-        j = dataclasses.replace(j, mtp=True)
-    fields = {f.name for f in dataclasses.fields(pconfigs.ModelConfig)}
-    cfg = pconfigs.ModelConfig(**{
-        k: v for k, v in dataclasses.asdict(j).items()
-        if k in fields and k not in ("param_dtype", "compute_dtype")})
-    with pytest.raises(NotImplementedError, match="item 15") as e:
-        get_model(cfg)
-    assert why in str(e.value)
+@pytest.mark.parametrize("arch", sorted(jconfigs.ARCH_NAMES))
+def test_get_model_takes_every_registered_architecture(arch):
+    """Every architecture the JAX package registers is registered in the
+    port, under the same name, and ``get_model`` returns its module (whisper
+    for the encoder-decoder, lm for the rest), full and reduced."""
+    for reduced in (False, True):
+        j = jconfigs.get(arch, reduced=reduced)
+        p = pconfigs.get(arch, reduced=reduced)
+        assert p.name == j.name
+        assert get_model(p) is (whisper if j.enc_dec else lm)
+    assert arch in pconfigs.ARCH_NAMES
 
 
 def test_windowed_cache_grown_past_the_prompt_matches_jax(rng):
@@ -431,12 +457,11 @@ def test_model_gradients_match_jax(arch, remat, rng):
     from repro_torch.models.params import leaves, unflatten
     from repro_torch.train.loss import lm_loss
     jc, pc = _cfgs(arch, remat=remat)
-    jp = _random_defs(jlm.param_defs(jc), 5)
+    jp, pp = _model_params(arch, jc, pc, 5, noise=0.1)
     batch = _lm_batch(jc, rng, 2, 33)
     jb = _as(batch, jnp.asarray)
     jl, jg = jax.value_and_grad(
         lambda p: jlm_loss(jc, jlm.forward(jc, p, jb), jb)[0])(jp)
-    pp = from_jax(pc, jax.tree.map(np.asarray, jp), "cpu")
     live = [t.detach().requires_grad_() for t in leaves(pp)]
     pb = _as(batch, torch.as_tensor)
     loss, _ = lm_loss(pc, lm.forward(pc, unflatten(pp, live), pb), pb)

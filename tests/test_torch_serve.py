@@ -6,6 +6,7 @@ are fixed before the first run."""
 from __future__ import annotations
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -16,17 +17,27 @@ from repro.serve import Request as JRequest
 from repro.serve import ServeSession as JSession
 from repro_torch import configs as pconfigs
 from repro_torch.launch.serve import serve_lm
-from repro_torch.models.params import from_jax
+from repro_torch.models.params import from_jax, init_params, tree_map
 from repro_torch.serve import Request, ServeSession
 
 ARCHS = ["olmo-1b", "rwkv6-3b", "stablelm-12b", "phi3-medium-14b",
-         "command-r-plus-104b", "qwen3-moe-30b-a3b", "llava-next-mistral-7b"]
+         "command-r-plus-104b", "qwen3-moe-30b-a3b", "llava-next-mistral-7b",
+         "recurrentgemma-9b", "deepseek-v3-671b"]
 
 
 def _models(arch, seed=0):
+    """Both packages' reduced model on one set of weights: JAX's init, or
+    for recurrentgemma the port's (its reduced groups repeat once, and
+    JAX's init divides a stacked leaf by the square root of the layer
+    count, ROADMAP queue 3, so every projection would be N(0, 1))."""
     jc = jconfigs.get(arch, reduced=True)
     pc = pconfigs.get(arch, reduced=True)
-    jp = jlm.init(jc, jax.random.PRNGKey(seed))
+    if arch == "recurrentgemma-9b":
+        tree = tree_map(lambda t: t.numpy(), init_params(
+            pc, torch.Generator().manual_seed(seed), "cpu"))
+        jp = jax.tree.map(jnp.asarray, tree)
+    else:
+        jp = jlm.init(jc, jax.random.PRNGKey(seed))
     return jc, jp, pc, from_jax(pc, jax.tree.map(np.asarray, jp), "cpu")
 
 
