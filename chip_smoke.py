@@ -271,7 +271,19 @@ Phases:
      layer) train through ``train_loop`` as phase 18 does, K3's backward at
      the new widths counted a step and its last recorded call held to
      plain; the two reduced configs on the card against the CPU as phase
-     20 does.
+     20 does;
+  M. the placement path (ROADMAP item 14) on a process group of one rank
+     over NCCL and ``make_host_mesh()``'s (1, 1) data x model mesh: (a)
+     ``make_sharded_aligner`` on phase 4's 8192 windows in their padded
+     blocks, bit-equal to ``align_batch`` (score, end cell, moves) with
+     K1 launched once a block; (b) ``AlignmentService(mesh=)`` drains
+     phase S's first 2048 requests, results equal to the unsharded
+     service's, placement ``data@data=1xmodel=1``; (c) olmo-1b at full
+     width through ``train_loop(mesh=)`` under TRAIN_RULES, 3 steps,
+     losses within 2e-6 relative of phase 18's first three, K3 launched a
+     step as in phase 18, step time and peak memory beside phase 18's;
+     (d) its parameters saved from the mesh and restored with no mesh,
+     bit-equal.  Every phase's seconds are printed as it ends.
 """
 from __future__ import annotations
 
@@ -451,6 +463,12 @@ TUNE_TOP_K, TUNE_ITERS, TUNE_ROUNDS, TUNE_LAUNCHES = 4, 20, 3, 10
 XD_PAIRS, XD_LENS, XD_BLOCK, XD_VALUES, XD_STRIP = 256, (200, 400), 256, \
     (4, 40), 8
 XD_HELD = 32
+# phase M, the placement path on a mesh of one rank: phase 4's windows
+# through the sharded aligner, phase S's first requests through the
+# sharded service, olmo-1b's first steps of phase 18 through
+# train_loop(mesh=), and their relative tolerance against phase 18's
+# losses
+MESH_REQUESTS, MESH_STEPS, MESH_LOSS_RTOL = 2048, 3, 2e-6
 
 
 class SmokeFailure(RuntimeError):
@@ -5045,6 +5063,206 @@ def phase_train_slice13():
     return out
 
 
+def _mesh_aligner(mesh, blocks):
+    """Phase M (a): phase 4's padded blocks through make_sharded_aligner
+    and through align_batch, K1 counted on the sharded run alone."""
+    import torch
+    from repro_torch.core import batch as core_batch
+    from repro_torch.core import kernels_zoo
+    from repro_torch.core.spec_utils import params_on_device
+    from repro_torch.kernels.wavefront import kernel as K1
+    spec, params = kernels_zoo.make(2)
+    params = params_on_device(params, DEVICE)
+    aligner = core_batch.make_sharded_aligner(spec, mesh)
+    aligner(params, *blocks[0][1:])                       # warm-up
+    want = [core_batch.align_batch(spec, params, *b[1:], device=DEVICE)
+            for b in blocks]
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = [aligner(params, *b[1:]) for b in blocks]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K1.launches
+    check(launches == len(blocks), f"[M] sharded aligner launched K1 "
+          f"{launches} times for {len(blocks)} blocks")
+    n = 0
+    for g, w in zip(got, want):
+        for f in ("score", "end_i", "end_j", "moves", "n_moves"):
+            check(torch.equal(getattr(g, f), getattr(w, f)),
+                  f"[M] sharded aligner: {f} differs from align_batch")
+        n += g.score.shape[0]
+    print(f"[M] (a) make_sharded_aligner #2 over the 'data' axis, phase 4's "
+          f"{n} windows in {len(blocks)} padded blocks: {wall:.3f} s wall; "
+          f"K1 launches {launches}; score, end cell and moves (so the "
+          f"CIGAR) bit-equal to align_batch", flush=True)
+    return {"k1_launches": launches, "pairs": n, "wall_s": wall}
+
+
+def _mesh_service(mesh):
+    """Phase M (b): phase S's first MESH_REQUESTS requests drained by the
+    service with mesh= and without, the same settings."""
+    import numpy as np
+    from repro_torch.core import alphabets
+    from repro_torch.kernels.myers import kernel as K2
+    from repro_torch.kernels.wavefront import kernel as K1
+    from repro_torch.runtime import plan as plan_mod
+    from repro_torch.serve import AlignRequest, AlignmentService
+    rng = np.random.default_rng(SEED)
+    genome = alphabets.random_dna(rng, 1_000_000)
+    stream = _sv_stream(rng, genome)[:MESH_REQUESTS]
+
+    def drain(**kw):
+        svc = AlignmentService(max_len=SV_MAX_LEN, block=SV_BLOCK,
+                               prefilter=SV_PREFILTER, device=DEVICE, **kw)
+        reqs = [AlignRequest(rid=rid, kernel=k, query=q, ref=r)
+                for rid, k, q, r, _ in stream]
+        for r in reqs:
+            svc.submit(r)
+        t0 = time.perf_counter()
+        svc.drain()
+        return [r.result for r in reqs], time.perf_counter() - t0
+
+    plain, plain_s = drain()
+    plan_mod.clear_plan_cache(keep_stats=True)
+    _reset_counts()
+    sharded, wall = drain(mesh=mesh)
+    k1, k2 = K1.launches, K2.launches
+    placements = sorted({k.placement for k in
+                         plan_mod.plan_cache_info()["keys"]} - {None})
+    check(k1 > 0, "[M] the sharded service did not launch K1")
+    check(sharded == plain, "[M] the sharded service's results differ from "
+          "the unsharded service's")
+    check(placements == ["data@data=1xmodel=1"],
+          f"[M] sharded service placements {placements}")
+    print(f"[M] (b) AlignmentService(mesh=) drained phase S's first "
+          f"{len(stream)} requests in {wall:.3f} s (unsharded "
+          f"{plain_s:.3f} s): results equal, placement {placements[0]}, "
+          f"K1 launches {k1}, K2 (prefilter) {k2}", flush=True)
+    return {"k1_launches": k1, "k2_launches": k2, "wall_s": wall,
+            "plain_s": plain_s, "placements": placements}
+
+
+def _mesh_train(mesh, olmo_train):
+    """Phase M (c) and (d): olmo-1b at full width through
+    train_loop(mesh=) under TRAIN_RULES, phase 18's first MESH_STEPS steps
+    (the same seed, schedule and batches: the warm-up's learning rate does
+    not depend on the step count), K3 counted a step; then its parameters
+    and step saved from the mesh and restored with no mesh."""
+    import statistics as st
+    import tempfile
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch import checkpoint, configs
+    from repro_torch.kernels.flash_attn import kernel as K3
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.params import leaves
+    cfg = configs.get("olmo-1b")
+    _reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stamps, counts, losses = [time.perf_counter()], [], []
+
+    def on_metrics(step, metrics):
+        losses.append(float(metrics["loss"]))
+        stamps.append(time.perf_counter())
+        counts.append((K3.launches, K3.bwd_launches))
+
+    state, _ = train_loop(cfg, steps=MESH_STEPS, batch=TRAIN_BATCH,
+                          seq=TRAIN_SEQ, log_every=1, device=DEVICE,
+                          mesh=mesh, on_metrics=on_metrics)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    want = olmo_train["losses"][:MESH_STEPS]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+    check(len(losses) == MESH_STEPS and rel <= MESH_LOSS_RTOL,
+          f"[M] sharded losses {losses} vs phase 18's {want}: rel {rel:.3g}")
+    per_step = [(b[0] - a[0], b[1] - a[1])
+                for a, b in zip([(0, 0)] + counts, counts)]
+    check(all(c == (2 * 16, 16) for c in per_step),
+          f"[M] K3 launches per sharded step {per_step}, phase 18 (32, 16)")
+    flat = leaves(state)
+    check(all(isinstance(t, DTensor) for t in flat),
+          "[M] a state leaf is not a DTensor")
+    steps = [b - a for a, b in zip(stamps, stamps[1:])]
+    step_s = st.median(steps[1:])
+    print(f"[M] (c) olmo-1b at full width through train_loop(mesh=) under "
+          f"TRAIN_RULES: losses {', '.join(f'{x:.6f}' for x in losses)} "
+          f"(phase 18: {', '.join(f'{x:.6f}' for x in want)}; max rel "
+          f"{rel:.3g}); K3 launches a step {per_step[0]} as phase 18's; "
+          f"step time median {step_s:.3f} s over steps 2-{MESH_STEPS} "
+          f"(phase 18: {olmo_train['step_s']:.3f} s); peak device memory "
+          f"{peak / 2**30:.2f} GiB (phase 18: "
+          f"{olmo_train['peak_bytes'] / 2**30:.2f} GiB)", flush=True)
+
+    tmp = tempfile.mkdtemp(prefix="mesh_ckpt_")
+    try:
+        part = {"params": state["params"], "step": state["step"]}
+        t0 = time.perf_counter()
+        checkpoint.save(tmp, MESH_STEPS, part)
+        back, at = checkpoint.restore_latest(tmp, part)
+        ck_s = time.perf_counter() - t0
+        same = at == MESH_STEPS and all(
+            not isinstance(b, DTensor) and torch.equal(b, a.to_local())
+            for a, b in zip(leaves(part), leaves(back)))
+        nbytes = sum(b.numel() * b.element_size() for b in leaves(back))
+        check(same, "[M] the checkpoint restored with no mesh differs")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del state, back, part
+    torch.cuda.empty_cache()
+    print(f"[M] (d) parameters and step ({nbytes / 2**30:.2f} GiB) saved "
+          f"from the mesh and restored with mesh=None: bit-equal "
+          f"({ck_s:.1f} s)", flush=True)
+    return {"losses": losses, "loss_rel": rel, "step_s": step_s,
+            "steps_s": steps, "peak_bytes": peak,
+            "fwd_launches": counts[-1][0], "bwd_launches": counts[-1][1],
+            "ckpt_s": ck_s, "ckpt_bytes": nbytes,
+            "phase18_step_s": olmo_train["step_s"],
+            "phase18_peak_bytes": olmo_train["peak_bytes"]}
+
+
+def phase_mesh(blocks, olmo_train):
+    """Phase M: the placement path (ROADMAP item 14) on the card, a
+    process group of one rank over NCCL and make_host_mesh()'s (1, 1)
+    data x model mesh: (a) the sharded aligner, (b) the sharded service,
+    (c) sharded training and (d) a checkpoint from the mesh restored with
+    no mesh; the group is destroyed at the end."""
+    import datetime
+    import os
+    import tempfile
+    import torch.distributed as dist
+    import logging
+    from repro_torch.launch.mesh import make_host_mesh
+    # DTensor warns of two all-reduces for (Partial, Partial) on every
+    # step; on one rank they are no-ops
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+        logging.ERROR)
+    t_phase = time.perf_counter()
+    store = tempfile.mkdtemp(prefix="mesh_store_")
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(store, "store"), 1),
+        rank=0, world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_host_mesh()
+        check(tuple(mesh.mesh.shape) == (1, 1) and mesh.mesh_dim_names
+              == ("data", "model"), f"[M] host mesh {mesh}")
+        print(f"[M] the placement path: {dist.get_backend()}, one rank, "
+              f"make_host_mesh() "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}",
+              flush=True)
+        out = {"aligner": _mesh_aligner(mesh, blocks),
+               "service": _mesh_service(mesh),
+               "train": _mesh_train(mesh, olmo_train)}
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[M] phase M took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def _slug(arch):
     return arch.split("-")[0]
 
@@ -5058,6 +5276,15 @@ def _train_summary(run, kern):
             "kernel_share": run.get(f"{kern}_share"),
             "fwd_ms": run.get(f"{kern}_fwd_ms"),
             "bwd_ms": run.get(f"{kern}_bwd_ms")}
+
+
+def _timed(phase, *args):
+    """``phase(*args)``, its seconds printed on a line of their own."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f"[time] {phase.__name__}: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
 
 
 def main() -> int:
@@ -5086,53 +5313,54 @@ def main() -> int:
 
     t0 = time.perf_counter()
     try:
-        card = phase_identity()
-        phase_build()
-        ptxas = entry_ptxas()
+        card = _timed(phase_identity)
+        _timed(phase_build)
+        ptxas = _timed(entry_ptxas)
         rng = np.random.default_rng(SEED)
-        max_err = phase_kernel_vs_plain(rng)
-        ext_err = phase_ext_vs_plain(rng)
+        max_err = _timed(phase_kernel_vs_plain, rng)
+        ext_err = _timed(phase_ext_vs_plain, rng)
         genome = alphabets.random_dna(rng, 1_000_000)
-        launches, blocks = phase_main_path(rng, genome)
-        long_blocks = phase_long_reads(rng, genome)
-        timing = phase_path_shapes(blocks, long_blocks, card)
-        tuned = phase_tune(card)
-        xdrop = phase_xdrop(genome)
-        k2_err = phase_k2_vs_plain(rng)
-        mapper = phase_mapper(card)
-        k2_timing = phase_k2_timing(mapper["screen"], card)
-        geno = phase_genotyping(card)
-        phase_posterior(geno["sites"])
-        service = phase_service(geno, mapper)
+        launches, blocks = _timed(phase_main_path, rng, genome)
+        long_blocks = _timed(phase_long_reads, rng, genome)
+        timing = _timed(phase_path_shapes, blocks, long_blocks, card)
+        tuned = _timed(phase_tune, card)
+        xdrop = _timed(phase_xdrop, genome)
+        k2_err = _timed(phase_k2_vs_plain, rng)
+        mapper = _timed(phase_mapper, card)
+        k2_timing = _timed(phase_k2_timing, mapper["screen"], card)
+        geno = _timed(phase_genotyping, card)
+        _timed(phase_posterior, geno["sites"])
+        service = _timed(phase_service, geno, mapper)
         del mapper["mapper"], mapper["reads"], geno["sites"]
-        k3_err = phase_k3_vs_plain(rng)
-        k4_err = phase_k4_vs_plain(rng)
-        olmo = phase_olmo()
-        rwkv = phase_rwkv()
-        phase_card_vs_cpu()
-        k3_timing, k4_timing = phase_timing_k3_k4()
-        k3b_timing, k4b_timing = timing_backward()
-        k3b_err = phase_k3_bwd_vs_plain(rng)
-        k4b_err = phase_k4_bwd_vs_plain(rng)
-        olmo_train = phase_train_olmo()
-        rwkv_train = phase_train_rwkv()
-        phase_train_card_vs_cpu()
-        k3_160_err, k3b_160_err = phase_k3_hd160(rng)
-        k3_x_err, k3b_x_err = phase_k3_cross(rng)
-        k3_new = phase_timing_k3_slice11()
-        stablelm = phase_stablelm()
-        dense = phase_phi3_command_r()
-        stablelm_train = phase_train_stablelm()
-        align = phase_align_launcher()
-        qwen3 = phase_qwen3_moe()
-        whisper = phase_whisper()
-        llava = phase_llava()
-        train12 = phase_train_slice12()
-        k3w_err = phase_k3_widths(rng)
-        k3_13 = phase_timing_k3_slice13()
-        rgemma = phase_recurrentgemma()
-        deepseek = phase_deepseek()
-        train13 = phase_train_slice13()
+        k3_err = _timed(phase_k3_vs_plain, rng)
+        k4_err = _timed(phase_k4_vs_plain, rng)
+        olmo = _timed(phase_olmo)
+        rwkv = _timed(phase_rwkv)
+        _timed(phase_card_vs_cpu)
+        k3_timing, k4_timing = _timed(phase_timing_k3_k4)
+        k3b_timing, k4b_timing = _timed(timing_backward)
+        k3b_err = _timed(phase_k3_bwd_vs_plain, rng)
+        k4b_err = _timed(phase_k4_bwd_vs_plain, rng)
+        olmo_train = _timed(phase_train_olmo)
+        rwkv_train = _timed(phase_train_rwkv)
+        _timed(phase_train_card_vs_cpu)
+        k3_160_err, k3b_160_err = _timed(phase_k3_hd160, rng)
+        k3_x_err, k3b_x_err = _timed(phase_k3_cross, rng)
+        k3_new = _timed(phase_timing_k3_slice11)
+        stablelm = _timed(phase_stablelm)
+        dense = _timed(phase_phi3_command_r)
+        stablelm_train = _timed(phase_train_stablelm)
+        align = _timed(phase_align_launcher)
+        qwen3 = _timed(phase_qwen3_moe)
+        whisper = _timed(phase_whisper)
+        llava = _timed(phase_llava)
+        train12 = _timed(phase_train_slice12)
+        k3w_err = _timed(phase_k3_widths, rng)
+        k3_13 = _timed(phase_timing_k3_slice13)
+        rgemma = _timed(phase_recurrentgemma)
+        deepseek = _timed(phase_deepseek)
+        train13 = _timed(phase_train_slice13)
+        mesh = _timed(phase_mesh, blocks, olmo_train)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5144,6 +5372,8 @@ def main() -> int:
         "launches_service": service["k1_launches"],
         "launches_tune": tuned["launches"],
         "launches_serve_alignments": align["k1_launches"],
+        "launches_sharded_aligner": mesh["aligner"]["k1_launches"],
+        "launches_sharded_service": mesh["service"]["k1_launches"],
         "launches_xdrop_off": {k: v["k1_launches"]
                                for k, v in xdrop.items()},
         "tune": tuned["points"], "lint": tuned["lint"],
@@ -5170,6 +5400,7 @@ def main() -> int:
         "launches": mapper["k2_launches"], "parity": "exact",
         "launches_service": service["k2_launches"],
         "launches_mapping_service": service["k2_mapping"],
+        "launches_sharded_service": mesh["service"]["k2_launches"],
         "max_abs_err": max(k2_err, mapper["k2_err"], service["k2_err"]),
         **k2_timing, "library_ms": None}, {
         "name": "flash_fill", "route": "cuda",
@@ -5177,6 +5408,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attn/kernel.py:95",
         "launches": olmo["k3_launches"],
         "launches_train": olmo_train["fwd_launches"],
+        "launches_train_sharded": mesh["train"]["fwd_launches"],
         "launches_stablelm": stablelm["k3_launches"],
         "launches_phi3": dense["phi3"]["k3_launches"],
         "launches_command_r": dense["command_r"]["k3_launches"],
@@ -5236,6 +5468,10 @@ def main() -> int:
         "source": "src/repro_torch/kernels/flash_attn/csrc/flash_attn_bwd.cu",
         "replaces": "src/repro/models/layers.py:163",
         "launches": olmo_train["bwd_launches"], "parity": K3_BWD_PARITY,
+        "launches_train_sharded": mesh["train"]["bwd_launches"],
+        "train_sharded": {k: mesh["train"][k] for k in (
+            "losses", "loss_rel", "step_s", "peak_bytes", "phase18_step_s",
+            "phase18_peak_bytes", "ckpt_s")},
         "launches_train_stablelm": stablelm_train["bwd_launches"],
         **{f"launches_train_{_slug(a)}": r["bwd_launches"]
            for a, r in train12.items()},

@@ -12,9 +12,14 @@ validates.  numpy cannot save bfloat16, so a bf16 leaf is stored as its
 uint16 bits with ``"bfloat16"`` in the manifest (the bytes, and so the
 sha, are the bf16 tensor's own).
 
-``restore(..., device=)`` places every leaf on one device; JAX's
-``shardings=`` (elastic placement on a mesh) waits for multi-GPU placement
-(ROADMAP queue 1 item 14).
+A sharded state (DTensor leaves) is saved as its full logical arrays,
+gathered leaf by leaf and written by rank 0 alone, in the same layout (JAX
+gathers at save too); every rank takes part in the gathers and returns
+once the directory is in place.  ``restore(..., device=)`` places every
+leaf on one device; ``restore(..., shardings=)`` (elastic placement) reads
+the whole arrays on every rank and places each leaf by its
+``MeshSharding`` from the rank's own block, so a checkpoint written on one
+mesh restores onto any other, or onto one device.
 """
 from __future__ import annotations
 
@@ -26,6 +31,10 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from repro_torch.sharding import place
 
 
 def _paths(tree, path=""):
@@ -69,29 +78,40 @@ def _digest(arr) -> str:
 
 
 def save(ckpt_dir: str, step: int, state, keep: int = 3) -> str:
-    """Blocking atomic save of a tree of tensors."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Blocking atomic save of a tree of tensors (or DTensors: every rank
+    calls it, rank 0 writes)."""
+    sharded = any(isinstance(t, DTensor) for _, t in _paths(state))
+    writer = not sharded or dist.get_rank() == 0
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
+    if writer:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
     manifest = {"step": int(step), "leaves": []}
     for i, (key, leaf) in enumerate(_paths(state)):
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()
+        if not writer:
+            continue
         arr, dtype = _to_numpy(leaf)
         fname = f"leaf_{i:05d}.npy"
         np.save(os.path.join(tmp, fname), arr)
         manifest["leaves"].append({
             "key": key, "file": fname, "shape": list(arr.shape),
             "dtype": dtype, "sha": _digest(arr)})
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(manifest, f)
-        f.flush()
-        os.fsync(f.fileno())
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)
-    _gc(ckpt_dir, keep)
+    if writer:
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+            f.flush()
+            os.fsync(f.fileno())
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+        _gc(ckpt_dir, keep)
+    if sharded:
+        dist.barrier()
     return final
 
 
@@ -125,10 +145,12 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, step: int, like, device=None,
-            verify: bool = False):
-    """Restore into the structure of ``like`` (a tree of tensors, or of
-    anything with ``.shape``), each leaf on ``device`` (default: the
-    ``like`` leaf's device when it is a tensor, else the CPU)."""
+            verify: bool = False, shardings=None):
+    """Restore into the structure of ``like`` (a tree of tensors, ``meta``
+    tensors or anything with ``.shape``), each leaf on ``device``
+    (default: the ``like`` leaf's device when it is a real tensor, else the
+    CPU), or with ``shardings`` (a tree of ``MeshSharding`` parallel to
+    ``like``) as DTensors placed from each rank's own block."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -145,15 +167,20 @@ def restore(ckpt_dir: str, step: int, like, device=None,
         t = torch.from_numpy(arr)
         if rec["dtype"] == "bfloat16":
             t = t.view(torch.int16).view(torch.bfloat16)
+        if shardings is not None:
+            return place(t, by_sharding[key], device)
         where = device if device is not None else (
-            leaf.device if isinstance(leaf, torch.Tensor) else "cpu")
+            leaf.device if isinstance(leaf, torch.Tensor)
+            and leaf.device.type != "meta" else "cpu")
         return t.to(where)
 
+    by_sharding = dict(_paths(shardings)) if shardings is not None else {}
     return _map_paths(like, load)
 
 
-def restore_latest(ckpt_dir: str, like, device=None):
+def restore_latest(ckpt_dir: str, like, device=None, shardings=None):
     step = latest_step(ckpt_dir)
     if step is None:
         return None, None
-    return restore(ckpt_dir, step, like, device), step
+    return restore(ckpt_dir, step, like, device,
+                   shardings=shardings), step

@@ -65,6 +65,9 @@ class ModelConfig:
     pad_heads_to: Optional[int] = None
     pad_kv_to: Optional[int] = None
     pad_vocab_to: Optional[int] = None
+    # inference under INFER_RULES_V2: keep the FSDP split of the parameters
+    # where the TP-only layout would not fit a card's memory
+    infer_fsdp: bool = False
     # numerics ----------------------------------------------------------------
     param_dtype: Any = torch.bfloat16
     compute_dtype: Any = torch.bfloat16

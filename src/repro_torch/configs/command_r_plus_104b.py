@@ -14,6 +14,7 @@ CONFIG = ModelConfig(
     d_ff=33792, vocab_size=256000,
     norm="layernorm", act="swiglu", positional="rope",
     parallel_block=True, qk_norm=True,
+    infer_fsdp=True,
     accum_steps=4,
 )
 

@@ -5,11 +5,9 @@ MLA: q_lora=1536, kv_lora=512, decoupled rope_dim=64, head_dim=128; train
 and prefill run K3 with q/k of 128 + 64 and v of 128, and decode uses the
 absorbed-projection form, so the cache stores only the 576-wide latent a
 token.  The first 3 layers use a dense FFN (d_ff=18432, as in the HF
-config; 2048 is the routed expert width).  Sigmoid router with top-8.  The
-JAX config also sets ``infer_fsdp=True`` (its 1.26 TB of experts cannot be
-held whole by one device); the port has no such field until multi-GPU
-placement (ROADMAP queue 1 item 14) adds it with the placement that reads
-it.
+config; 2048 is the routed expert width).  Sigmoid router with top-8.
+``infer_fsdp=True``, as in the JAX config: its 1.26 TB of experts cannot
+be held whole by one device.
 """
 import torch
 
@@ -25,6 +23,7 @@ CONFIG = ModelConfig(
     first_dense=3, router="sigmoid",
     q_lora=1536, kv_lora=512, rope_dim=64,
     mtp=True,
+    infer_fsdp=True,
     accum_steps=4,
 )
 

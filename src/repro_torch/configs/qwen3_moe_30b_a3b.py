@@ -3,10 +3,9 @@
 
 head_dim=128 (q projection 4096 > d_model, as in the HF config); per-head
 q/k RMSNorm; softmax router with renormalized top-8; no shared expert.
-The JAX config also sets ``infer_fsdp=True`` (keep FSDP-sharded parameters
-at inference); the port has no such field until multi-GPU placement
-(ROADMAP queue 1 item 14) adds it with the placement that reads it.  On one
-card its 30.5 B bf16 parameters (61 GB) fit whole.
+``infer_fsdp=True``, as in the JAX config: keep FSDP-sharded parameters
+at inference on a mesh.  On one card its 30.5 B bf16 parameters (61 GB)
+fit whole.
 """
 import torch
 
@@ -19,6 +18,7 @@ CONFIG = ModelConfig(
     norm="rmsnorm", act="swiglu", positional="rope", rope_theta=1e6,
     qk_norm=True,
     n_experts=128, top_k=8, d_ff_expert=768, router="softmax",
+    infer_fsdp=True,
     accum_steps=2,
 )
 

@@ -5,8 +5,11 @@
 Resume-from-latest is automatic: a fresh process picks up at the last valid
 atomic checkpoint in ``ckpt_dir``, and SIGTERM ends the run after the step
 in progress with a checkpoint.  As in JAX, a resumed run's data stream
-starts from its first batch.  ``mesh=`` (the sharded run) waits for
-multi-GPU placement (ROADMAP queue 1 item 14).
+starts from its first batch.  ``mesh=`` (a ``DeviceMesh`` with 'data'
+and 'model' axes; every rank of it runs the loop) places the state by
+``ShardCtx(mesh, TRAIN_RULES)``, splits each batch on its batch axis and
+resumes through ``restore_latest(shardings=)``; ``mesh=None`` is the
+unsharded run.
 
 ``python -m repro_torch.launch.train --arch olmo-1b --steps 20 --device
 cpu`` trains the reduced config on the CPU (drop ``--device`` on the
@@ -24,8 +27,10 @@ from repro_torch import checkpoint, configs
 from repro_torch import train as train_mod
 from repro_torch.configs.llava_next_mistral_7b import LLAVA_PATCHES
 from repro_torch.data import LMBatcher
+from repro_torch.launch.shardctx import ShardCtx
 from repro_torch.optim import AdamWConfig, cosine_with_warmup
 from repro_torch.serve.engine import resolve_device
+from repro_torch.sharding import TRAIN_RULES, logical_sharding, place
 
 
 def batches(cfg, batch: int, seq: int, seed: int = 0):
@@ -50,26 +55,39 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, lr: float = 3e-4,
     seed)``, AdamW (``opt_cfg``, default weight decay 0.01) under
     ``cosine_with_warmup(lr, max(steps // 20, 5), steps)``.
     ``on_metrics(step, metrics)`` is called at every logged step.  Returns
-    (state, last metrics)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "train_loop(mesh=...): multi-GPU placement is not ported yet "
-            "(ROADMAP queue 1 item 14)")
+    (state, last metrics).  With ``mesh`` the state holds DTensors and
+    rank 0 alone prints; the metrics are plain tensors on every rank."""
     dev = resolve_device(device)
     opt_cfg = opt_cfg or AdamWConfig(weight_decay=0.01)
     lr_fn = cosine_with_warmup(lr, max(steps // 20, 5), steps)
 
+    sc = shardings = None
+    if mesh is not None:
+        sc = ShardCtx(mesh, TRAIN_RULES)
+        shardings = sc.tree(train_mod.abstract_state(cfg, opt_cfg),
+                            train_mod.state_logical(cfg, opt_cfg))
+    loud = mesh is None or torch.distributed.get_rank() == 0
     gen = torch.Generator(device=dev).manual_seed(seed)
-    state = train_mod.make_state(cfg, opt_cfg, gen, dev)
+    state = train_mod.make_state(cfg, opt_cfg, gen, dev,
+                                 shardings=shardings)
     start = 0
     if ckpt_dir:
-        restored, at = checkpoint.restore_latest(ckpt_dir, state, dev)
+        restored, at = checkpoint.restore_latest(ckpt_dir, state, dev,
+                                                 shardings=shardings)
         if restored is not None:
             state, start = restored, at
-            print(f"resumed from step {at}", flush=True)
+            if loud:
+                print(f"resumed from step {at}", flush=True)
 
-    step_fn = train_mod.make_train_step(cfg, opt_cfg, lr_fn)
+    step_fn = train_mod.make_train_step(cfg, opt_cfg, lr_fn, sc=sc)
     data = batches(cfg, batch, seq, seed)
+
+    def put(v):
+        t = torch.as_tensor(v, device=dev)
+        if mesh is None:
+            return t
+        return place(t, logical_sharding(
+            t.shape, ("batch",) + (None,) * (t.ndim - 1), TRAIN_RULES, mesh))
 
     stop = {"now": False}
 
@@ -81,21 +99,23 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, lr: float = 3e-4,
     t0 = time.time()
     try:
         for i in range(start, steps):
-            b = {k: torch.as_tensor(v, device=dev)
-                 for k, v in next(data).items()}
+            b = {k: put(v) for k, v in next(data).items()}
             state, metrics = step_fn(state, b)
             if (i + 1) % log_every == 0 or i == start:
-                loss = float(metrics["loss"])
-                print(f"step {i + 1:5d} loss {loss:.4f} "
-                      f"lr {float(metrics['lr']):.2e} "
-                      f"gnorm {float(metrics['grad_norm']):.2f} "
-                      f"({(time.time() - t0):.1f}s)", flush=True)
+                if loud:
+                    print(f"step {i + 1:5d} "
+                          f"loss {float(metrics['loss']):.4f} "
+                          f"lr {float(metrics['lr']):.2e} "
+                          f"gnorm {float(metrics['grad_norm']):.2f} "
+                          f"({(time.time() - t0):.1f}s)", flush=True)
                 if on_metrics:
                     on_metrics(i + 1, metrics)
             if ckpt_dir and ((i + 1) % ckpt_every == 0 or stop["now"]):
                 checkpoint.save(ckpt_dir, i + 1, state)
             if stop["now"]:
-                print("preemption checkpoint written; exiting", flush=True)
+                if loud:
+                    print("preemption checkpoint written; exiting",
+                          flush=True)
                 break
     finally:
         signal.signal(signal.SIGTERM, old)

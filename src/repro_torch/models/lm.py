@@ -13,7 +13,11 @@ their backward kernels, and with ``cfg.remat`` each period runs under
 (``batch["prefix_embeds"]``, llava's patch embeddings) ahead of the tokens;
 ``forward`` returns the MoE load-balance loss summed over the layers and,
 where the config has multi-token prediction (DeepSeek-V3), the MTP head's
-logits.
+logits.  ``forward``, ``prefill`` and ``decode_step`` take the activation
+hook ``sc(x, logical_axes)`` (default: none) at JAX's places, the residual
+stream, the assembled input and the logits: on a mesh it is
+``launch.shardctx.ShardCtx``, which redistributes DTensor activations to
+their resolved placements.
 """
 from __future__ import annotations
 
@@ -24,9 +28,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import mixers, moe
-from .layers import mlp_apply, mlp_defs, norm_apply, norm_defs
-from .params import (ParamDef, leaves, stack_defs, to_dtype, tree_map,
-                     unflatten)
+from .layers import embed_lookup, mlp_apply, mlp_defs, norm_apply, \
+    norm_defs
+from .params import (ParamDef, abstract_params, leaves, logical_tree,
+                     stack_defs, to_dtype, tree_map, unflatten)
 
 P = ParamDef
 
@@ -87,7 +92,15 @@ def _layer_defs(cfg, kind, ffn_kind):
     return d
 
 
+_RESID = ("batch", None, "embed")
+
+
+def _no_sc(x, _):
+    return x
+
+
 def _layer_apply(cfg, kind, ffn_kind, p, x, ctx, cache):
+    sc = ctx["sc"]
     cache = cache or {}
     if cfg.parallel_block:
         h = norm_apply(cfg, p["norm1"], x)
@@ -95,16 +108,16 @@ def _layer_apply(cfg, kind, ffn_kind, p, x, ctx, cache):
                               cache.get("mixer"))
         yf, fc, aux = _ffn_apply(cfg, ffn_kind, p["ffn"], h, ctx,
                                  cache.get("ffn"))
-        x = x + ym + yf
+        x = sc(x + ym + yf, _RESID)
     else:
         ym, mc = _mixer_apply(cfg, kind, p["mixer"],
                               norm_apply(cfg, p["norm1"], x), ctx,
                               cache.get("mixer"))
-        x = x + ym
+        x = sc(x + ym, _RESID)
         yf, fc, aux = _ffn_apply(cfg, ffn_kind, p["ffn"],
                                  norm_apply(cfg, p["norm2"], x), ctx,
                                  cache.get("ffn"))
-        x = x + yf
+        x = sc(x + yf, _RESID)
     return x, {"mixer": mc, "ffn": fc}, aux
 
 
@@ -176,21 +189,31 @@ def _group_apply(cfg, plan_entry, p_group, x, ctx, cache_group):
 # ---------------------------------------------------------------------------
 def param_defs(cfg) -> Dict[str, Any]:
     V, D = cfg.vocab_eff, cfg.d_model
-    defs = {"embed": {"table": P((V, D))}}
+    defs = {"embed": {"table": P((V, D), ("vocab", "embed"))}}
     defs["groups"] = tuple(
         stack_defs(_period_defs(cfg, mixers_t, ffn_kind), repeat)
         for mixers_t, ffn_kind, repeat in cfg.layer_plan())
     defs["final_norm"] = norm_defs(cfg, D)
     if not cfg.tie_embeddings:
-        defs["head"] = {"w": P((D, V), init="fan_in")}
+        defs["head"] = {"w": P((D, V), ("embed", "vocab"), init="fan_in")}
     if cfg.mtp:
         defs["mtp"] = {
             "norm_h": norm_defs(cfg, D),
             "norm_e": norm_defs(cfg, D),
-            "proj": P((2 * D, D), init="fan_in"),
+            "proj": P((2 * D, D), (None, "embed"), init="fan_in"),
             "block": _layer_defs(cfg, cfg.pattern[0], _mtp_ffn(cfg)),
         }
     return defs
+
+
+def abstract(cfg):
+    """The parameter tree as ``meta`` tensors (shapes and dtypes only)."""
+    return abstract_params(param_defs(cfg), cfg.param_dtype)
+
+
+def logical(cfg):
+    """The parameter tree's logical axis names, one tuple a leaf."""
+    return logical_tree(param_defs(cfg))
 
 
 def _mtp_ffn(cfg):
@@ -202,23 +225,31 @@ def _mtp_ffn(cfg):
 # ---------------------------------------------------------------------------
 # Forward passes
 # ---------------------------------------------------------------------------
+def _as_tensor(x, device):
+    """``x`` as a tensor on ``device``; a DTensor stays as it is."""
+    from torch.distributed.tensor import DTensor
+    return x if isinstance(x, DTensor) else torch.as_tensor(x,
+                                                            device=device)
+
+
 def _embed(cfg, params, tokens):
-    return params["embed"]["table"][tokens].to(to_dtype(cfg.compute_dtype))
+    return embed_lookup(params["embed"]["table"], tokens).to(
+        to_dtype(cfg.compute_dtype))
 
 
-def _assemble_input(cfg, params, batch):
+def _assemble_input(cfg, params, batch, sc=_no_sc):
     """tokens (and an optional multimodal prefix of embeddings ahead of
     them) -> (x (B, S, D), prefix length)."""
     dev = params["embed"]["table"].device
     parts, prefix = [], 0
     if "prefix_embeds" in batch:           # llava's patch embeddings
-        pe = torch.as_tensor(batch["prefix_embeds"], device=dev)
+        pe = _as_tensor(batch["prefix_embeds"], dev)
         parts.append(pe.to(to_dtype(cfg.compute_dtype)))
         prefix = pe.shape[1]
     if batch.get("tokens") is not None:
-        parts.append(_embed(cfg, params, torch.as_tensor(
-            batch["tokens"], device=dev)))
-    return (parts[0] if len(parts) == 1 else torch.cat(parts, 1)), prefix
+        parts.append(_embed(cfg, params, _as_tensor(batch["tokens"], dev)))
+    x = parts[0] if len(parts) == 1 else torch.cat(parts, 1)
+    return sc(x, _RESID), prefix
 
 
 def _head(cfg, params, x):
@@ -233,21 +264,23 @@ def _positions(S, device):
     return torch.arange(S, dtype=torch.int32, device=device)[None, :]
 
 
-def forward(cfg, params, batch):
+def forward(cfg, params, batch, sc=None):
     """Train-mode forward: full-sequence f32 logits (prefix positions
     included), the MoE aux loss summed over layers, the prefix length, and
     with ``cfg.mtp`` and tokens the MTP head's logits (``mtp_logits``)."""
-    x, prefix = _assemble_input(cfg, params, batch)
-    ctx = {"mode": "train", "positions": _positions(x.shape[1], x.device)}
+    sc = sc or _no_sc
+    x, prefix = _assemble_input(cfg, params, batch, sc)
+    ctx = {"mode": "train", "sc": sc,
+           "positions": _positions(x.shape[1], x.device)}
     aux = 0.0
     for plan_entry, pg in zip(cfg.layer_plan(), params["groups"]):
         x, _, a = _group_apply(cfg, plan_entry, pg, x, ctx, None)
         aux = aux + a
     h = norm_apply(cfg, params["final_norm"], x)
-    out = {"logits": _head(cfg, params, h), "aux_loss": aux,
-           "prefix": prefix}
+    out = {"logits": sc(_head(cfg, params, h), ("batch", None, "vocab")),
+           "aux_loss": aux, "prefix": prefix}
     if cfg.mtp and batch.get("tokens") is not None:
-        tokens = torch.as_tensor(batch["tokens"], device=h.device)
+        tokens = _as_tensor(batch["tokens"], h.device)
         out["mtp_logits"] = _mtp_logits(cfg, params, h, tokens, ctx, prefix)
     return out
 
@@ -267,12 +300,13 @@ def _mtp_logits(cfg, params, h, tokens, ctx, prefix):
     return _head(cfg, params, z)
 
 
-def prefill(cfg, params, batch):
+def prefill(cfg, params, batch, sc=None):
     """-> (last-position logits (B, V), cache, k_len (B,)); the cache and
     k_len count the prefix positions too."""
-    x, _ = _assemble_input(cfg, params, batch)
+    sc = sc or _no_sc
+    x, _ = _assemble_input(cfg, params, batch, sc)
     B, S = x.shape[:2]
-    ctx = {"mode": "prefill", "positions": _positions(S, x.device)}
+    ctx = {"mode": "prefill", "sc": sc, "positions": _positions(S, x.device)}
     caches = []
     for plan_entry, pg in zip(cfg.layer_plan(), params["groups"]):
         x, nc, _ = _group_apply(cfg, plan_entry, pg, x, ctx, None)
@@ -283,11 +317,12 @@ def prefill(cfg, params, batch):
                                              device=x.device)
 
 
-def decode_step(cfg, params, cache, token, k_len):
+def decode_step(cfg, params, cache, token, k_len, sc=None):
     """token: (B,) int; k_len: (B,) valid cache length.
     -> (logits (B, V), cache): the cache is updated in place."""
     x = _embed(cfg, params, token[:, None])
-    ctx = {"mode": "decode", "k_len": k_len, "positions": k_len[:, None]}
+    ctx = {"mode": "decode", "sc": sc or _no_sc, "k_len": k_len,
+           "positions": k_len[:, None]}
     for plan_entry, pg, cg in zip(cfg.layer_plan(), params["groups"], cache):
         x, _, _ = _group_apply(cfg, plan_entry, pg, x, ctx, cg)
     h = norm_apply(cfg, params["final_norm"], x)
@@ -367,3 +402,39 @@ def grow_cache(cfg, cache, B, new_len):
         out[tuple(slice(0, s) for s in x.shape)] = x
         return out
     return tree_map(grow, cache, cache_spec(cfg, B, new_len))
+
+
+def abstract_cache(cfg, B, S):
+    """The cache as ``meta`` tensors (``cache_spec``'s shapes and dtypes)."""
+    return tree_map(lambda c: torch.empty(c.shape, dtype=c.dtype,
+                                          device="meta"),
+                    cache_spec(cfg, B, S))
+
+
+_MIXER_CACHE_LOGICAL = {
+    "attn": {"k": ("batch", "cache_seq", "kv_heads", "head_dim"),
+             "v": ("batch", "cache_seq", "kv_heads", "head_dim")},
+    "attn_local": {"k": ("batch", "cache_seq", "kv_heads", "head_dim"),
+                   "v": ("batch", "cache_seq", "kv_heads", "head_dim"),
+                   "slot_pos": ("batch", None)},
+    "mla": {"ckv": ("batch", "cache_seq", None),
+            "krope": ("batch", "cache_seq", None)},
+    "rglru": {"h": ("batch", "lru"), "conv": ("batch", None, "lru")},
+    "rwkv6": {"state": ("batch", "heads", None, None),
+              "shift": ("batch", None)},
+}
+
+
+def cache_logical(cfg):
+    """Logical axes of the cache's tensors, parallel to ``cache_spec``."""
+    groups = []
+    for mixers_t, ffn_kind, repeat in cfg.layer_plan():
+        period = {}
+        for t, k in enumerate(mixers_t):
+            period[f"sub{t}"] = {
+                "mixer": {n: ("layers",) + ax
+                          for n, ax in _MIXER_CACHE_LOGICAL[k].items()},
+                "ffn": ({"shift": ("layers", "batch", None)}
+                        if ffn_kind == "rwkv_cm" else None)}
+        groups.append(period)
+    return tuple(groups)

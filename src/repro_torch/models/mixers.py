@@ -19,10 +19,11 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.wkv6 import kernel as K4
 from .layers import NEG_INF, _gelu, decode_attention, flash_attention, \
-    rms_head_norm, rope_apply
+    rms_head_norm, rope_apply, split_last
 from .params import ParamDef
 
 P = ParamDef
@@ -33,20 +34,38 @@ P = ParamDef
 # ===========================================================================
 def attn_defs(cfg):
     D, H, K, hd = cfg.d_model, cfg.n_heads_eff, cfg.n_kv_eff, cfg.head_dim
-    d = {"wq": P((D, H, hd), init="fan_in"),
-         "wk": P((D, K, hd), init="fan_in"),
-         "wv": P((D, K, hd), init="fan_in"),
-         "wo": P((H, hd, D), init="fan_in")}
+    d = {"wq": P((D, H, hd), ("embed", "heads", "head_dim"), init="fan_in"),
+         "wk": P((D, K, hd), ("embed", "kv_heads", "head_dim"), init="fan_in"),
+         "wv": P((D, K, hd), ("embed", "kv_heads", "head_dim"), init="fan_in"),
+         "wo": P((H, hd, D), ("heads", "head_dim", "embed"), init="fan_in")}
     if cfg.qk_norm:
-        d["q_norm"] = P((hd,), init="ones")
-        d["k_norm"] = P((hd,), init="ones")
+        d["q_norm"] = P((hd,), (None,), init="ones")
+        d["k_norm"] = P((hd,), (None,), init="ones")
     return d
 
 
 def _proj(x, w):
     """(B, S, D) @ (D, heads, hd) -> (B, S, heads, hd)."""
+    if isinstance(x, DTensor):
+        return _proj_local(x, w)
     return (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1],
                                                    *w.shape[1:])
+
+
+def _proj_local(x, w):
+    """``_proj`` of DTensors as Megatron's column-parallel product,
+    through ``sharding.on_shards``: x's batch split as it is, the heads
+    split over the other mesh axes that split w's heads, the rest of w
+    gathered (FSDP).  (DTensor's own product may split a replicated w's
+    columns unevenly across heads, which the head view cannot take.)"""
+    from repro_torch.sharding import on_shards, shard_dims
+    bdims = shard_dims(x, 0)
+    hdims = [i for i in shard_dims(w, 1) if i not in bdims]
+    return on_shards(
+        lambda xl, wl: (xl @ wl.reshape(wl.shape[0], -1)).reshape(
+            *xl.shape[:-1], *wl.shape[1:]),
+        x.device_mesh, bdims, hdims, [(0, None), (None, 1)],
+        [(0, x.ndim - 1)])(x, w)
 
 
 def _qkv(cfg, p, x):
@@ -136,14 +155,14 @@ def mla_defs(cfg):
     D, H, hd = cfg.d_model, cfg.n_heads_eff, cfg.head_dim
     ql, kl, rd = cfg.q_lora, cfg.kv_lora, cfg.rope_dim
     return {
-        "wdq": P((D, ql), init="fan_in"),
-        "q_norm": P((ql,), init="ones"),
-        "wuq": P((ql, H, hd + rd), init="fan_in"),
-        "wdkv": P((D, kl + rd), init="fan_in"),
-        "kv_norm": P((kl,), init="ones"),
-        "wuk": P((kl, H, hd), init="fan_in"),
-        "wuv": P((kl, H, hd), init="fan_in"),
-        "wo": P((H, hd, D), init="fan_in"),
+        "wdq": P((D, ql), ("embed", "q_lora"), init="fan_in"),
+        "q_norm": P((ql,), (None,), init="ones"),
+        "wuq": P((ql, H, hd + rd), ("q_lora", "heads", None), init="fan_in"),
+        "wdkv": P((D, kl + rd), ("embed", None), init="fan_in"),
+        "kv_norm": P((kl,), (None,), init="ones"),
+        "wuk": P((kl, H, hd), (None, "heads", "head_dim"), init="fan_in"),
+        "wuv": P((kl, H, hd), (None, "heads", "head_dim"), init="fan_in"),
+        "wo": P((H, hd, D), ("heads", "head_dim", "embed"), init="fan_in"),
     }
 
 
@@ -222,16 +241,16 @@ def rglru_defs(cfg):
     NB = cfg.n_heads                      # block-diagonal gate blocks
     Wb = W // NB
     return {
-        "w_x": P((D, W), init="fan_in"),
-        "w_gate": P((D, W), init="fan_in"),
-        "conv_w": P((CW, W), init="fan_in"),
-        "conv_b": P((W,), init="zeros"),
-        "w_rg": P((NB, Wb, Wb), init="fan_in"),
-        "b_rg": P((W,), init="zeros"),
-        "w_ig": P((NB, Wb, Wb), init="fan_in"),
-        "b_ig": P((W,), init="zeros"),
-        "lam": P((W,), init="ones"),
-        "w_out": P((W, D), init="fan_in"),
+        "w_x": P((D, W), ("embed", "lru"), init="fan_in"),
+        "w_gate": P((D, W), ("embed", "lru"), init="fan_in"),
+        "conv_w": P((CW, W), (None, "lru"), init="fan_in"),
+        "conv_b": P((W,), ("lru",), init="zeros"),
+        "w_rg": P((NB, Wb, Wb), ("lru", None, None), init="fan_in"),
+        "b_rg": P((W,), ("lru",), init="zeros"),
+        "w_ig": P((NB, Wb, Wb), ("lru", None, None), init="fan_in"),
+        "b_ig": P((W,), ("lru",), init="zeros"),
+        "lam": P((W,), ("lru",), init="ones"),
+        "w_out": P((W, D), ("lru", "embed"), init="fan_in"),
     }
 
 
@@ -241,7 +260,7 @@ _LRU_C = 8.0
 def _block_diag(u, w):
     """u: (..., W) x block-diagonal w: (NB, Wb, Wb) -> (..., W)."""
     NB, Wb, _ = w.shape
-    ub = u.reshape(*u.shape[:-1], NB, Wb)
+    ub = split_last(u, (NB, Wb))
     return torch.einsum("...nw,nwv->...nv", ub, w).reshape(u.shape)
 
 
@@ -314,20 +333,20 @@ def rwkv6_defs(cfg):
     H, hd = cfg.rwkv_heads, cfg.head_dim
     M = H * hd
     return {
-        "mu_base": P((D,), init="zeros"),
-        "mu": P((5, D), init="zeros"),                     # r,k,v,w,g
-        "tm_a": P((D, 5 * _TM_LORA), init="fan_in"),
-        "tm_b": P((5, _TM_LORA, D), init="zeros"),
-        "wr": P((D, M), init="fan_in"),
-        "wk": P((D, M), init="fan_in"),
-        "wv": P((D, M), init="fan_in"),
-        "wg": P((D, M), init="fan_in"),
-        "w0": P((M,), init="zeros"),
-        "wd_a": P((D, _DECAY_LORA), init="fan_in"),
-        "wd_b": P((_DECAY_LORA, M), init="zeros"),
-        "u": P((H, hd), init="zeros"),
-        "ln_scale": P((M,), init="ones"),
-        "wo": P((M, D), init="fan_in"),
+        "mu_base": P((D,), (None,), init="zeros"),
+        "mu": P((5, D), (None, None), init="zeros"),       # r,k,v,w,g
+        "tm_a": P((D, 5 * _TM_LORA), ("embed", None), init="fan_in"),
+        "tm_b": P((5, _TM_LORA, D), (None, None, None), init="zeros"),
+        "wr": P((D, M), ("embed", "heads_flat"), init="fan_in"),
+        "wk": P((D, M), ("embed", "heads_flat"), init="fan_in"),
+        "wv": P((D, M), ("embed", "heads_flat"), init="fan_in"),
+        "wg": P((D, M), ("embed", "heads_flat"), init="fan_in"),
+        "w0": P((M,), ("heads_flat",), init="zeros"),
+        "wd_a": P((D, _DECAY_LORA), ("embed", None), init="fan_in"),
+        "wd_b": P((_DECAY_LORA, M), (None, "heads_flat"), init="zeros"),
+        "u": P((H, hd), ("heads", None), init="zeros"),
+        "ln_scale": P((M,), ("heads_flat",), init="ones"),
+        "wo": P((M, D), ("heads_flat", "embed"), init="fan_in"),
     }
 
 
@@ -335,8 +354,7 @@ def _ddlerp(p, x, x_prev):
     """RWKV6 data-dependent token-shift mixing -> (5, B, S, D)."""
     dx = x_prev - x
     xx = x + dx * p["mu_base"]
-    lora = torch.tanh(xx @ p["tm_a"])
-    lora = lora.reshape(*lora.shape[:-1], 5, _TM_LORA)
+    lora = split_last(torch.tanh(xx @ p["tm_a"]), (5, _TM_LORA))
     adj = torch.einsum("bsft,ftd->fbsd", lora, p["tm_b"])
     mix = p["mu"][:, None, None, :] + adj                 # (5, B, S, D)
     return x[None] + dx[None] * mix
@@ -345,16 +363,30 @@ def _ddlerp(p, x, x_prev):
 def rwkv6_inputs(cfg, p, x, x_prev):
     """r, k, v (x's dtype), the gate g, the log-decays lw (f32, <= 0) and
     the bonus u (f32): what the recurrence (K4 in prefill) receives."""
-    B, S, _ = x.shape
     H, hd = cfg.rwkv_heads, cfg.head_dim
     xr, xk, xv, xw, xg = _ddlerp(p, x, x_prev)
-    r = (xr @ p["wr"]).reshape(B, S, H, hd)
-    k = (xk @ p["wk"]).reshape(B, S, H, hd)
-    v = (xv @ p["wv"]).reshape(B, S, H, hd)
+    r = split_last(xr @ p["wr"], (H, hd))
+    k = split_last(xk @ p["wk"], (H, hd))
+    v = split_last(xv @ p["wv"], (H, hd))
     g = F.silu(xg @ p["wg"])
     lw = -torch.exp((p["w0"] + torch.tanh(xw @ p["wd_a"]) @ p["wd_b"])
-                    .float()).reshape(B, S, H, hd)
+                    .float())
+    lw = split_last(lw, (H, hd))
     return r, k, v, g, lw, p["u"].float()
+
+
+def _wkv6_local(r, k, v, lw, u):
+    """K4 on each rank's shards of DTensor r, k, v, lw (B, S, H, hd) and u
+    (H, hd), through ``sharding.on_shards``: the batch split as r's batch
+    is, the heads over every other mesh axis if they divide them."""
+    from repro_torch.sharding import on_shards, shard_dims, split_dims
+    mesh = r.device_mesh
+    bdims = shard_dims(r, 0)
+    x = (0, 2)
+    return on_shards(
+        lambda *a: K4.WKV6Function.apply(*(t.contiguous() for t in a)),
+        mesh, bdims, split_dims(mesh, bdims, r.shape[2]),
+        [x, x, x, x, (None, 0)], [x, (0, 1)])(r, k, v, lw, u)
 
 
 def _shifted(x):
@@ -381,7 +413,8 @@ def rwkv6_apply(cfg, p, x, ctx, cache, **_):
         y = y[:, None]                                     # (B, 1, H, hd)
         new_cache = {"state": state, "shift": x[:, -1]}
     else:   # the chunked recurrence on K4, with its backward kernel
-        y, state = K4.WKV6Function.apply(r, k, v, lw, u)
+        y, state = (_wkv6_local(r, k, v, lw, u) if isinstance(r, DTensor)
+                    else K4.WKV6Function.apply(r, k, v, lw, u))
         y = y.to(x.dtype)
         new_cache = ({"state": state, "shift": x[:, S - 1]}
                      if mode == "prefill" else None)
@@ -396,9 +429,9 @@ def rwkv6_apply(cfg, p, x, ctx, cache, **_):
 def rwkv_cm_defs(cfg):
     """RWKV channel mix (squared-ReLU FFN with token shift)."""
     D, FF = cfg.d_model, cfg.d_ff
-    return {"mu_k": P((D,), init="zeros"),
-            "w_up": P((D, FF), init="fan_in"),
-            "w_down": P((FF, D), init="fan_in")}
+    return {"mu_k": P((D,), (None,), init="zeros"),
+            "w_up": P((D, FF), ("embed", "mlp"), init="fan_in"),
+            "w_down": P((FF, D), ("mlp", "embed"), init="fan_in")}
 
 
 def rwkv_cm_apply(cfg, p, x, ctx, cache):

@@ -5,14 +5,16 @@ leaves (``param_defs(cfg)``): nested dicts with layer-stacked subtrees
 (``lm``'s ``groups`` a tuple of them, whisper's ``enc``/``dec`` ``stack``),
 the same keys and shapes as the JAX package's tree.  From that one
 declaration come real tensors (``init_params``), weights carried across
-from the JAX package (``from_jax``) and the parameter count
+from the JAX package (``from_jax``), ``meta`` tensors of the same shapes
+and dtypes (``abstract_params``), the tree of logical axis names the
+sharding layer resolves (``logical_tree``) and the parameter count
 (``count_params``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,10 +23,15 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
+    logical: Tuple[Optional[str], ...]   # logical axis name per dim
     init: str = "normal"                 # normal | zeros | ones | fan_in
     scale: float = 0.02
     dtype: Any = None                    # None -> config param_dtype
     lead: int = 0                        # leading layer-stack axes
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.logical), (self.shape,
+                                                      self.logical)
 
 
 def tree_map(fn, tree, *rest):
@@ -54,10 +61,24 @@ def unflatten(tree, flat):
     return tree_map(lambda _: next(it), tree)
 
 
-def stack_defs(defs, n: int):
-    """Prepend a layer-stack axis of size ``n`` to every leaf."""
+def stack_defs(defs, n: int, axis_name: str = "layers"):
+    """Prepend a layer-stack axis of size ``n``, named ``axis_name``, to
+    every leaf."""
     return tree_map(lambda d: dataclasses.replace(
-        d, shape=(n,) + d.shape, lead=d.lead + 1), defs)
+        d, shape=(n,) + d.shape, logical=(axis_name,) + d.logical,
+        lead=d.lead + 1), defs)
+
+
+def abstract_params(defs, dtype):
+    """A tree of ``meta`` tensors of the declared shapes and dtypes: the
+    dry-run view, no storage."""
+    return tree_map(lambda d: torch.empty(
+        d.shape, dtype=to_dtype(d.dtype or dtype), device="meta"), defs)
+
+
+def logical_tree(defs):
+    """The tree of logical-axis tuples, parallel to the parameter tree."""
+    return tree_map(lambda d: d.logical, defs)
 
 
 def to_dtype(x) -> torch.dtype:
@@ -95,13 +116,20 @@ def _defs(cfg):
     return get_model(cfg).param_defs(cfg)
 
 
-def init_params(cfg, generator: torch.Generator, device):
+def init_params(cfg, generator: torch.Generator, device, shardings=None):
     """Real tensors for ``cfg`` on ``device``, drawn from ``generator`` (a
     ``torch.Generator`` on that device).  The numbers differ from
     ``jax.random``'s for the same seed; carry weights with ``from_jax``
-    where two packages must agree."""
-    return tree_map(lambda d: _init_one(d, cfg.param_dtype, generator,
-                                        device), _defs(cfg))
+    where two packages must agree.  With ``shardings`` (a tree of
+    ``MeshSharding``) each leaf is drawn whole, the same numbers as
+    without, and placed on the mesh before the next is drawn, so a rank
+    holds at most one leaf whole."""
+    if shardings is None:
+        return tree_map(lambda d: _init_one(d, cfg.param_dtype, generator,
+                                            device), _defs(cfg))
+    from repro_torch.sharding import place
+    return tree_map(lambda d, s: place(_init_one(
+        d, cfg.param_dtype, generator, device), s), _defs(cfg), shardings)
 
 
 def _to_tensor(a, want: torch.dtype, device):

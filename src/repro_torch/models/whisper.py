@@ -14,6 +14,8 @@ states at prefill and read by ``layers.decode_attention`` after.  With
 
 There is no serving session for it, as in JAX: ``ServeSession`` refuses
 encoder-decoder configs; drive ``prefill`` / ``decode_step`` directly.
+``forward``, ``prefill`` and ``decode_step`` take the activation hook
+``sc`` at JAX's places (see ``lm``).
 """
 from __future__ import annotations
 
@@ -21,10 +23,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import mixers
-from .layers import decode_attention, flash_attention, mlp_apply, \
-    mlp_defs, norm_apply, norm_defs
-from .lm import CacheLeaf, _copy_into, _unstack
-from .params import ParamDef, stack_defs, to_dtype, tree_map
+from .layers import decode_attention, embed_lookup, flash_attention, \
+    mlp_apply, mlp_defs, norm_apply, norm_defs
+from .lm import _RESID, CacheLeaf, _as_tensor, _copy_into, _no_sc, _unstack
+from .params import (ParamDef, abstract_params, logical_tree, stack_defs,
+                     to_dtype, tree_map)
 
 P = ParamDef
 
@@ -51,15 +54,25 @@ def _dec_layer_defs(cfg):
 def param_defs(cfg):
     D, V = cfg.d_model, cfg.vocab_eff
     return {
-        "enc": {"pos": P((cfg.max_seq, D)),
+        "enc": {"pos": P((cfg.max_seq, D), (None, "embed")),
                 "stack": stack_defs(_enc_layer_defs(cfg), cfg.n_enc_layers),
                 "final_norm": norm_defs(cfg, D)},
-        "dec": {"embed": {"table": P((V, D))},
-                "pos": P((cfg.max_seq, D)),
+        "dec": {"embed": {"table": P((V, D), ("vocab", "embed"))},
+                "pos": P((cfg.max_seq, D), (None, "embed")),
                 "stack": stack_defs(_dec_layer_defs(cfg), cfg.n_layers),
                 "final_norm": norm_defs(cfg, D),
-                "head": {"w": P((D, V), init="fan_in")}},
+                "head": {"w": P((D, V), ("embed", "vocab"), init="fan_in")}},
     }
+
+
+def abstract(cfg):
+    """The parameter tree as ``meta`` tensors."""
+    return abstract_params(param_defs(cfg), cfg.param_dtype)
+
+
+def logical(cfg):
+    """The parameter tree's logical axis names."""
+    return logical_tree(param_defs(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -73,27 +86,28 @@ def _attn(p, x, x_kv, *, causal):
     return mixers._out(o, p["wo"]), (k, v)
 
 
-def _enc_layer(cfg, p, x):
+def _enc_layer(cfg, p, x, sc):
     h = norm_apply(cfg, p["norm1"], x)
-    x = x + _attn(p["attn"], h, h, causal=False)[0]
-    return x + mlp_apply(cfg, p["ffn"], norm_apply(cfg, p["norm2"], x))
+    x = sc(x + _attn(p["attn"], h, h, causal=False)[0], _RESID)
+    x = x + mlp_apply(cfg, p["ffn"], norm_apply(cfg, p["norm2"], x))
+    return sc(x, _RESID)
 
 
 def _layer_call(remat, fn, *args):
     return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
 
 
-def encode(cfg, params, frames, remat=False):
+def encode(cfg, params, frames, remat=False, sc=_no_sc):
     """frames: (B, Se, D) precomputed embeddings -> encoder states; with
     ``remat`` (a train pass) each layer runs under ``checkpoint``."""
     enc = params["enc"]
     dt = to_dtype(cfg.compute_dtype)
-    frames = torch.as_tensor(frames, device=enc["pos"].device)
+    frames = _as_tensor(frames, enc["pos"].device)
     Se = frames.shape[1]
     x = frames.to(dt) + enc["pos"][:Se].to(dt)[None]
 
     def layer(pp, xc):
-        return _enc_layer(cfg, pp, xc)
+        return _enc_layer(cfg, pp, xc, sc)
     for pp in _unstack(enc["stack"], cfg.n_enc_layers):
         x = _layer_call(remat, layer, pp, x)
     return norm_apply(cfg, enc["final_norm"], x)
@@ -128,18 +142,20 @@ def _dec_layer(cfg, p, x, enc_out, ctx, cache):
         x = x + y
         if mode == "prefill":
             nc["cross_k"], nc["cross_v"] = ck, cv
+    x = ctx["sc"](x, _RESID)
     x = x + mlp_apply(cfg, p["ffn"], norm_apply(cfg, p["norm2"], x))
-    return x, nc
+    return ctx["sc"](x, _RESID), nc
 
 
 def _dec_embed(cfg, params, tokens, positions=None):
     """Token embeddings plus the learned positions (default 0 .. S - 1)."""
     dec = params["dec"]
     dt = to_dtype(cfg.compute_dtype)
-    tokens = torch.as_tensor(tokens, device=dec["pos"].device)
+    tokens = _as_tensor(tokens, dec["pos"].device)
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
-    return dec["embed"]["table"][tokens].to(dt) + dec["pos"][positions].to(dt)
+    return (embed_lookup(dec["embed"]["table"], tokens).to(dt)
+            + embed_lookup(dec["pos"], positions).to(dt))
 
 
 def _logits(cfg, params, x):
@@ -149,27 +165,29 @@ def _logits(cfg, params, x):
     return h.float() @ dec["head"]["w"].float()
 
 
-def forward(cfg, params, batch):
+def forward(cfg, params, batch, sc=None):
     """Train: batch = {'frames': (B, Se, D), 'tokens': (B, Sd)} -> f32
     logits of every decoder position."""
-    enc_out = encode(cfg, params, batch["frames"], remat=cfg.remat)
+    sc = sc or _no_sc
+    enc_out = encode(cfg, params, batch["frames"], remat=cfg.remat, sc=sc)
     x = _dec_embed(cfg, params, batch["tokens"])
-    ctx = {"mode": "train"}
+    ctx = {"mode": "train", "sc": sc}
 
     def layer(pp, xc, e):
         return _dec_layer(cfg, pp, xc, e, ctx, None)[0]
     for pp in _unstack(params["dec"]["stack"], cfg.n_layers):
         x = _layer_call(cfg.remat, layer, pp, x, enc_out)
-    return {"logits": _logits(cfg, params, x), "aux_loss": 0.0,
-            "prefix": 0}
+    return {"logits": sc(_logits(cfg, params, x), ("batch", None, "vocab")),
+            "aux_loss": 0.0, "prefix": 0}
 
 
-def prefill(cfg, params, batch):
+def prefill(cfg, params, batch, sc=None):
     """-> (last-position logits (B, V), cache, k_len (B,) = Sd)."""
-    enc_out = encode(cfg, params, batch["frames"])
+    sc = sc or _no_sc
+    enc_out = encode(cfg, params, batch["frames"], sc=sc)
     x = _dec_embed(cfg, params, batch["tokens"])
     B, Sd = x.shape[:2]
-    ctx = {"mode": "prefill"}
+    ctx = {"mode": "prefill", "sc": sc}
     built = []
     for pp in _unstack(params["dec"]["stack"], cfg.n_layers):
         x, nc = _dec_layer(cfg, pp, x, enc_out, ctx, None)
@@ -180,12 +198,12 @@ def prefill(cfg, params, batch):
                                      device=x.device)
 
 
-def decode_step(cfg, params, cache, token, k_len):
+def decode_step(cfg, params, cache, token, k_len, sc=None):
     """token: (B,) int; k_len: (B,) valid self-cache length (its capacity
     bounds the decode length; the cross k/v are fixed).
     -> (logits (B, V), cache): the cache is updated in place."""
     x = _dec_embed(cfg, params, token[:, None], k_len[:, None].long())
-    ctx = {"mode": "decode", "k_len": k_len}
+    ctx = {"mode": "decode", "sc": sc or _no_sc, "k_len": k_len}
     for layer, pp in enumerate(_unstack(params["dec"]["stack"],
                                         cfg.n_layers)):
         cc = tree_map(lambda t: t[layer], cache)
@@ -214,3 +232,16 @@ def init_cache(cfg, B, S_dec, S_enc, device):
     return tree_map(lambda c: torch.zeros(c.shape, dtype=c.dtype,
                                           device=device),
                     cache_spec(cfg, B, S_dec, S_enc))
+
+
+def abstract_cache(cfg, B, S_dec, S_enc):
+    """The cache as ``meta`` tensors."""
+    return tree_map(lambda c: torch.empty(c.shape, dtype=c.dtype,
+                                          device="meta"),
+                    cache_spec(cfg, B, S_dec, S_enc))
+
+
+def cache_logical(cfg):
+    """Logical axes of the cache's tensors, parallel to ``cache_spec``."""
+    ax = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
+    return {"self": {"k": ax, "v": ax}, "cross_k": ax, "cross_v": ax}

@@ -12,7 +12,12 @@ JAX's ``update`` is a pure function.  Here ``update`` writes the new
 parameters and moments into the tensors it is given (and replaces the
 quantized moments' entries in their dicts): a full-width state holds
 f32 moments of billions of parameters, and a second copy of it would not
-fit the card.  Leaf by leaf, the arithmetic is JAX's, in its order.
+fit the card.  Leaf by leaf, the arithmetic is JAX's, in its order.  On
+a mesh the leaves are DTensors of one placement each (parameter, gradient
+and moments alike) and every update is in place on the rank's own shard;
+the global norm for clipping sums every shard's squares over the mesh.
+``abstract_state`` and ``state_logical`` give the moments' shapes and
+logical axes for placement.
 """
 from __future__ import annotations
 
@@ -80,7 +85,12 @@ def _dequantize_log(q, scale):
     return torch.where(v <= _V_FLOOR * 2, 0.0, v)
 
 
-def init_state(cfg: AdamWConfig, params):
+def init_state(cfg: AdamWConfig, params, shardings=None):
+    """Zero moments for ``params``.  With DTensor ``params``, ``shardings``
+    (``state_logical``'s tree resolved to ``MeshSharding``) places the
+    moments, each made on the rank's own block: every entry of a fresh
+    moment holds one constant, so a block's moments are those of the
+    parameter's block, and no moment is ever whole on a rank."""
     def one(p):
         zeros = torch.zeros(p.shape, dtype=F32, device=p.device)
         if cfg.quantized:
@@ -88,9 +98,61 @@ def init_state(cfg: AdamWConfig, params):
             qv, sv = _quantize_log(zeros)
             return {"m_q": qm, "m_s": sm, "v_q": qv, "v_s": sv}
         return {"m": zeros, "v": torch.zeros_like(zeros)}
-    device = leaves(params)[0].device
-    return {"mu": tree_map(one, params),
-            "count": torch.zeros((), dtype=torch.int32, device=device)}
+
+    def placed(p, sh):
+        from torch.distributed.tensor import DTensor
+        return {n: DTensor.from_local(t, sh[n].mesh, sh[n].placements,
+                                      run_check=False)
+                for n, t in one(p.to_local()).items()}
+
+    count = torch.zeros((), dtype=torch.int32,
+                        device=leaves(params)[0].device)
+    if shardings is None:
+        return {"mu": tree_map(one, params), "count": count}
+    from repro_torch.sharding import place
+    return {"mu": tree_map(placed, params, shardings["mu"]),
+            "count": place(count, shardings["count"])}
+
+
+def abstract_state(cfg: AdamWConfig, abstract_p):
+    """The moments as ``meta`` tensors, parallel to ``init_state``."""
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    def one(p):
+        shape = tuple(p.shape)
+        if cfg.quantized:
+            srow = shape[:-1] + (1,) if shape else ()
+            srow2 = shape[:-1] + (2,) if shape else (2,)
+            return {"m_q": meta(shape, torch.int8), "m_s": meta(srow, F32),
+                    "v_q": meta(shape, torch.int8), "v_s": meta(srow2, F32)}
+        return {"m": meta(shape, F32), "v": meta(shape, F32)}
+    return {"mu": tree_map(one, abstract_p),
+            "count": meta((), torch.int32)}
+
+
+def state_logical(cfg: AdamWConfig, logical_p):
+    """The moments' logical axes mirror the parameter's (a quantized
+    moment's per-row scale replicates its last dim)."""
+    def one(ax):
+        if cfg.quantized:
+            srow = tuple(ax[:-1]) + (None,) if len(ax) else ()
+            return {"m_q": ax, "m_s": srow, "v_q": ax, "v_s": srow}
+        return {"m": ax, "v": ax}
+    return {"mu": _map_axes(one, logical_p), "count": ()}
+
+
+def _map_axes(fn, tree):
+    """``fn`` over a logical tree's axis tuples (tuples of str / None);
+    other tuples are subtrees."""
+    if isinstance(tree, tuple) and all(e is None or isinstance(e, str)
+                                       for e in tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_axes(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_axes(fn, v) for v in tree)
+    return None if tree is None else fn(tree)
 
 
 def _global_norm(grads):

@@ -20,7 +20,12 @@ A batched plan passes ``live_bound = max(q_lens + r_lens)`` to an engine
 that declares it ``"dynamic"``.  JAX's ``donate=`` has no counterpart:
 eager torch holds no compiled executable whose input buffers it could
 reuse, so ``get_plan`` takes no such argument and the port's services do
-not pass one.
+not pass one.  ``get_plan(..., mesh=, mesh_axis=)`` gives a sharded plan:
+each rank of the axis runs its contiguous rows of the batch (K1 on the
+card) and an all-gather over the axis's group gives every rank the whole
+batch's results; the mesh joins the cache key and its placement string
+(``data@data=4xmodel=2``) the ``PlanKey``, so distinct meshes never share
+a plan.
 """
 from __future__ import annotations
 
@@ -70,12 +75,13 @@ class PlanKey:
     xdrop: Optional[int] = None      # X-drop early termination; None = off
     strip: int = 1                   # anti-diagonals per loop test
     strip_warps: Optional[int] = None  # K1 warps per pair; None = heuristic
+    placement: Optional[str] = None  # e.g. 'data@data=8' for sharded plans
 
 
 def plan_key_str(key: PlanKey) -> str:
-    """``kernel/engine/QxR/bN/tb/mode/pP[sS][wW]/semiring[/xN]/device``
-    (the compile-ledger key); ``s`` and ``w`` appear only where the plan
-    sets them away from their neutral values."""
+    """``kernel/engine/QxR/bN/tb/mode/pP[sS][wW]/semiring[/xN]
+    [/placement]/device`` (the compile-ledger key); ``s`` and ``w`` appear
+    only where the plan sets them away from their neutral values."""
     q, r = key.bucket_shape
     sched = f"p{key.tb_pack}"
     if key.strip != _NEUTRAL_OPTS["strip"]:
@@ -88,6 +94,8 @@ def plan_key_str(key: PlanKey) -> str:
              key.semiring]
     if key.xdrop is not None:
         parts.append(f"x{key.xdrop}")
+    if key.placement:
+        parts.append(key.placement)
     parts.append(key.device)
     return "/".join(parts)
 
@@ -107,11 +115,18 @@ class CompiledPlan:
     device.  ``calls`` counts dispatches, ``hits`` cache hits and
     ``compile_s`` is the wall time of the first dispatch (None before it).
     Plans are shared across threads: the first dispatch is timed once,
-    under the plan's own lock, and ``calls`` counts under another.
+    under the plan's own lock, and ``calls`` counts under another.  With
+    ``mesh`` (a batched plan only) every rank of ``mesh_axis`` passes the
+    whole batch, runs its own contiguous rows and receives every row's
+    results.
     """
 
-    def __init__(self, key: PlanKey, spec: T.DPKernelSpec, engine_name: str):
+    def __init__(self, key: PlanKey, spec: T.DPKernelSpec, engine_name: str,
+                 mesh=None, mesh_axis: str = "data"):
+        if mesh is not None and key.batch_size is None:
+            raise ValueError("sharded plans require batch_size")
         self.key = key
+        self.mesh, self.mesh_axis = mesh, mesh_axis
         self.spec = spec
         self.calls = 0
         self.hits = 0
@@ -176,6 +191,10 @@ class CompiledPlan:
         (q, *_), (r, *_) = self.key.bucket_shape
         with self._count:
             self.calls += 1
+        if self.mesh is not None:
+            return self._run_sharded(params, query, ref,
+                                     q if q_len is None else q_len,
+                                     r if r_len is None else r_len)
         if self.key.batch_size is not None:
             return self._run(params, query, ref,
                              q if q_len is None else q_len,
@@ -185,8 +204,46 @@ class CompiledPlan:
                         r if r_len is None else r_len)
         return _unbatch(out)
 
+    def _run_sharded(self, params, queries, refs, q_lens, r_lens):
+        """This rank's rows of the batch, then an all-gather over the
+        axis of every per-row field of the result."""
+        import torch.distributed as dist
+        n = queries.shape[0]
+        group = self.mesh.get_group(self.mesh_axis)
+        size = dist.get_world_size(group)
+        if n % size:
+            raise ValueError(f"batch {n} does not divide the "
+                             f"{self.mesh_axis!r} axis of size {size}")
+        rows = slice(dist.get_rank(group) * (n // size),
+                     (dist.get_rank(group) + 1) * (n // size))
+        out = self._run(params, queries[rows].contiguous(),
+                        refs[rows].contiguous(),
+                        _host_lens(q_lens, n)[rows],
+                        _host_lens(r_lens, n)[rows])
+        return _gather_rows(out, n // size, group, size)
+
     def __repr__(self):
         return f"CompiledPlan({self.key}, calls={self.calls})"
+
+
+def _gather_rows(out, n_local: int, group, size: int):
+    """``out`` (an Alignment or DPResult of ``n_local`` rows) with each
+    per-row tensor field all-gathered over ``group`` in rank order."""
+    import torch.distributed as dist
+
+    def gather(v):
+        if not isinstance(v, torch.Tensor) or v.dim() == 0 \
+                or v.shape[0] != n_local:
+            return v
+        t = v.contiguous()
+        wire = t.view(torch.uint8) if t.dtype == torch.bool else t
+        parts = [torch.empty_like(wire) for _ in range(size)]
+        dist.all_gather(parts, wire, group=group)
+        full = torch.cat(parts)
+        return full.view(torch.bool) if t.dtype == torch.bool else full
+    kw = {f.name: gather(getattr(out, f.name))
+          for f in dataclasses.fields(out)}
+    return type(out)(**kw)
 
 
 def _unbatch(out):
@@ -347,7 +404,8 @@ def get_plan(spec: T.DPKernelSpec, engine_name: str,
              with_traceback: bool = True, mode: str = "align",
              device="cuda", strip: Optional[int] = None,
              tb_pack: Optional[int] = None, xdrop: Optional[int] = None,
-             strip_warps: Optional[int] = None) -> CompiledPlan:
+             strip_warps: Optional[int] = None, mesh=None,
+             mesh_axis: str = "data") -> CompiledPlan:
     """Fetch (or build) the shared plan for one bucketed input shape.
 
     ``q_shape``/``r_shape`` are per-pair shapes including char dims;
@@ -358,8 +416,13 @@ def get_plan(spec: T.DPKernelSpec, engine_name: str,
     engine raises.  With no option passed, the port's tuning table
     (``repro_torch.tune.table``, env ``REPRO_TORCH_TUNE_TABLE``) is
     consulted first; explicit options win, and
-    ``REPRO_TORCH_TUNE_TABLE=off`` restores the hand-picked defaults."""
+    ``REPRO_TORCH_TUNE_TABLE=off`` restores the hand-picked defaults.
+    With ``mesh`` (a ``DeviceMesh``) the plan shards the batch over
+    ``mesh_axis``; the mesh joins the cache key, so distinct meshes never
+    share a plan."""
     dev = resolve_device(device)
+    if mesh is None:
+        mesh_axis = "data"   # meaningless unsharded; do not split on it
     reason = registry.engine_supports(engine_name, spec)
     if reason is not None:
         raise ValueError(f"engine {engine_name!r} cannot run kernel "
@@ -377,7 +440,7 @@ def get_plan(spec: T.DPKernelSpec, engine_name: str,
             requested.update(tuned)
     opts = resolve_engine_options(spec, engine_name, requested, dev)
     cache_key = (spec, engine_name, tuple(q_shape), tuple(r_shape),
-                 batch_size, wtb, mode, str(dev),
+                 batch_size, wtb, mode, str(dev), mesh, mesh_axis,
                  *(opts[k] for k in sorted(_NEUTRAL_OPTS)))
     with _LOCK:
         plan = _CACHE.get(cache_key)
@@ -391,10 +454,22 @@ def get_plan(spec: T.DPKernelSpec, engine_name: str,
         key = PlanKey(kernel=spec.name, engine=engine_name,
                       bucket_shape=(tuple(q_shape), tuple(r_shape)),
                       batch_size=batch_size, with_traceback=wtb, mode=mode,
-                      device=str(dev), semiring=spec.semiring.name, **opts)
-        plan = CompiledPlan(key, spec, engine_name)
+                      device=str(dev), semiring=spec.semiring.name,
+                      placement=_placement(mesh, mesh_axis), **opts)
+        plan = CompiledPlan(key, spec, engine_name, mesh=mesh,
+                            mesh_axis=mesh_axis)
         _CACHE[cache_key] = plan
         return plan
+
+
+def _placement(mesh, mesh_axis: str) -> Optional[str]:
+    """``axis@name=size[xname=size...]`` of a sharded plan, JAX's string;
+    None unsharded."""
+    if mesh is None:
+        return None
+    dims = "x".join(f"{n}={s}" for n, s in
+                    zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return f"{mesh_axis}@{dims}"
 
 
 # the history of plans retired by clear_plan_cache(keep_stats=True), so a

@@ -15,9 +15,11 @@ The queue/admission/dispatch machinery lives in
 what is alignment-specific — the per-kernel channel (bucketing, padding,
 the ``myers`` prefilter rung, plan resolution, result landing) and the
 service facade.  Each batch is padded once on the host, in pinned memory
-when the device is a GPU, and copied to the device once.  Multi-GPU
-placement (JAX's ``mesh=``) is ROADMAP queue 1 item 14; the service refuses
-``mesh`` until it is ported.
+when the device is a GPU, and copied to the device once.  With ``mesh=``
+each kernel's channel launches through a sharded plan (``get_plan(mesh=)``,
+as ``core.batch.make_sharded_aligner``: the batch split over the mesh's
+'data' axis, N_K channels, one a rank), in the same shared cache under its
+placement.
 """
 from __future__ import annotations
 
@@ -135,7 +137,7 @@ class _AlignChannel(gateway_mod.Channel):
             spec, svc.engine_name, tuple(qs.shape[1:]), tuple(rs.shape[1:]),
             batch_size=block,
             with_traceback=svc.with_traceback and spec.traceback is not None,
-            device=svc.device)
+            device=svc.device, mesh=svc.mesh)
         out = plan(params, *svc._to_device(qs, rs), ql, rl)
         return reqs, out
 
@@ -204,8 +206,12 @@ class AlignmentService(Gateway):
 
     ``device`` is where the plans run: the card unless the caller passes
     ``device="cpu"`` (the kernels' plain versions); without a CUDA device
-    the service raises rather than falling back.  ``mesh`` (JAX's sharded
-    channels) is refused until multi-GPU placement is ported.  ``max_len``
+    the service raises rather than falling back.  ``mesh`` (a
+    ``DeviceMesh`` with a 'data' axis, on ``device``'s type) shards each
+    channel's batches over 'data': every rank of the mesh submits the same
+    requests and drives them through ``drain()`` in step (each launch is a
+    collective), and each block is rounded to a multiple of the axis size.
+    ``max_len``
     caps request lengths (the largest bucket is ``max_len`` snapped up to
     the bucket grid); ``min_bucket`` floors the smallest.
     ``pipeline_depth`` is how many batches may be in flight on the device
@@ -250,11 +256,6 @@ class AlignmentService(Gateway):
                  degrade: Optional[str] = None,
                  degrade_watermark: Optional[int] = None,
                  device="cuda"):
-        if mesh is not None:
-            raise ValueError(
-                "mesh= (sharded channels) is not ported: multi-GPU "
-                "placement is ROADMAP queue 1 item 14; the service runs on "
-                "one device (device=)")
         Gateway.__init__(
             self, pipeline_depth=pipeline_depth, max_pending=max_pending,
             backpressure=backpressure, redispatch_after=redispatch_after,
@@ -263,6 +264,7 @@ class AlignmentService(Gateway):
             harvest_timeout_s=harvest_timeout_s,
             degrade_watermark=degrade_watermark)
         self.device = plan_mod.resolve_device(device)
+        self.mesh = mesh
         self.max_len, self.block = max_len, block
         self.tb_budget_bytes = tb_budget_bytes
         self.max_block = max_block
@@ -333,7 +335,8 @@ class AlignmentService(Gateway):
                 spec, params, self.engine_name, q_shape, r_shape,
                 batch_size=block,
                 with_traceback=self.with_traceback and
-                spec.traceback is not None, device=self.device)
+                spec.traceback is not None, device=self.device,
+                mesh=self.mesh)
             n += 1
         return n
 
@@ -351,14 +354,25 @@ class AlignmentService(Gateway):
         a 4x-packed kernel gets 4x the in-flight alignments per bucket.
         """
         if self.tb_budget_bytes is None:
-            return self.block
+            return self._mesh_rounded(self.block)
         spec, _ = self._channel(kernel)
         per = plan_mod.traceback_bytes(spec, bucket[0], bucket[1],
                                        engine_name=self.engine_name)
         if per == 0:                      # score-only kernel: no tb store
-            return self.max_block
-        return max(self.block, min(self.max_block,
-                                   self.tb_budget_bytes // per))
+            return self._mesh_rounded(self.max_block)
+        return self._mesh_rounded(
+            max(self.block, min(self.max_block,
+                                self.tb_budget_bytes // per)))
+
+    def _mesh_rounded(self, block: int) -> int:
+        """Sharded plans split the batch over the mesh's 'data' axis:
+        round the block down to a multiple of its size (never below one
+        row a rank)."""
+        if self.mesh is None:
+            return block
+        n = int(dict(zip(self.mesh.mesh_dim_names,
+                         self.mesh.mesh.shape)).get("data", 1))
+        return max(n, block // n * n)
 
     def _channel(self, kernel: str):
         """Per-kernel spec and params (the params on the service's

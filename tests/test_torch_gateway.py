@@ -628,10 +628,51 @@ def test_pipelined_drain_after_redispatch_matches_sync():
     assert [r.result for r in reqs] == sync
 
 
-# -- what the port refuses ---------------------------------------------------
-def test_mesh_is_refused_by_name():
-    with pytest.raises(ValueError, match="item 14"):
-        AlignmentService(mesh=object(), device="cpu")
+# -- the sharded service (multi-rank runs: test_torch_multiproc.py) --------
+class _DataMesh:
+    """A stand-in for a ``DeviceMesh`` with a 'data' axis of ``n`` ranks
+    (the service reads only its axis names and sizes before a launch)."""
+
+    def __init__(self, n):
+        self.mesh_dim_names = ("data", "model")
+        self.mesh = np.zeros((n, 1))
+
+
+def test_mesh_rounds_blocks_to_the_data_axis(monkeypatch):
+    """On a mesh every block is a multiple of the 'data' axis (never below
+    one row a rank), fixed and budget-sized alike, as JAX's
+    ``_mesh_rounded``; each channel launches through a plan sharded over
+    'data' (its placement in the key), without a mesh an unsharded one."""
+    svc = AlignmentService(block=10, mesh=_DataMesh(4), device="cpu")
+    assert svc.block_for("global_linear", (64, 64)) == 8
+    assert AlignmentService(block=3, mesh=_DataMesh(4),
+                            device="cpu").block_for("global_linear",
+                                                    (64, 64)) == 4
+    budget = AlignmentService(block=4, mesh=_DataMesh(8), device="cpu",
+                              tb_budget_bytes=10 ** 9, max_block=100)
+    assert budget.block_for("global_linear", (64, 64)) == 96
+
+    placements = []
+    real = plan_mod.get_plan
+
+    class _Launched(Exception):
+        pass
+
+    def recorded(*a, **kw):      # the plan is built, not run: the stand-in
+        placements.append(real(*a, **kw).key.placement)   # has no group
+
+        def launch(*_):
+            raise _Launched
+        return launch
+
+    monkeypatch.setattr(plan_mod, "get_plan", recorded)
+    rng = np.random.default_rng(0)
+    for s, want in ((svc, "data@data=4xmodel=1"),
+                    (AlignmentService(block=8, device="cpu"), None)):
+        with pytest.raises(_Launched):
+            s._resolve_channel("global_linear").launch(
+                (64, 64), [_req(0, rng, kernel="global_linear")], 8)
+        assert placements.pop() == want
 
 
 @pytest.mark.skipif(__import__("torch").cuda.is_available(),

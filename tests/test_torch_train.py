@@ -15,6 +15,7 @@ changes, and Adam's first steps carry that into the parameters)."""
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import signal
 import threading
@@ -25,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_mp_worker
 from repro import checkpoint as jckpt
 from repro import configs as jconfigs
 from repro import train as jtrain
@@ -234,9 +236,14 @@ def test_ef_compress_error_feedback(rng):
     assert total_err < 5 * float(g.abs().max()) / 127 + 0.02
 
 
-def test_int8_psum_is_refused():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        C.int8_psum(torch.zeros(3), None, "pod")
+def test_int8_psum_on_a_one_rank_axis(rng, tmp_path):
+    """``int8_psum`` over a one-rank 'pod' axis (a gloo process of its
+    own) is the rank's own int8 round trip, ``_dq(_q(x))``, bit for bit;
+    over 2 ranks: test_torch_multiproc.py."""
+    np.save(tmp_path / "x.npy", rng.normal(size=(16, 64)).astype(np.float32))
+    torch_mp_worker.run("int8_psum_one", 1, tmp_path, timeout=120)
+    r = json.loads((tmp_path / "result.json").read_text())
+    assert r["equal"] and r["rel"] < 0.01
 
 
 def test_schedules_match_jax():
@@ -530,10 +537,17 @@ def test_preemption_checkpoint(tmp_path):
     assert np.isfinite(float(metrics["loss"]))
 
 
-def test_train_loop_refuses_a_mesh():
-    _, cfg = _cfgs("olmo-1b")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        train_loop(cfg, steps=1, batch=2, seq=8, device="cpu", mesh=object())
+def test_train_loop_on_a_one_rank_mesh(tmp_path):
+    """``train_loop(mesh=make_host_mesh("cpu"))`` in a gloo process of its
+    own: its state is DTensors, its three losses equal the unsharded
+    loop's within 2e-6 relative, and its checkpoint (written from the
+    mesh) restores with no mesh bit-equal to the sharded state."""
+    torch_mp_worker.run("train_loop_one", 1, tmp_path, timeout=180)
+    r = json.loads((tmp_path / "result.json").read_text())
+    assert r["dtensor"] == "DTensor" and r["at"] == 3
+    assert len(r["mesh"]) == 3
+    np.testing.assert_allclose(r["mesh"], r["plain"], rtol=2e-6)
+    assert r["restored_plain"]
 
 
 @pytest.mark.parametrize("arch", ["whisper-medium",
