@@ -304,21 +304,10 @@ SEED = 0
 DEVICE = "cuda"
 # The card's bound model (HBM bytes/s, INT32 lanes per SM, K1's PE
 # operations and byte count) lives in src/repro_torch/tune/cost.py, one copy
-# shared with the autotuner; the phases import it once the checkout's src is
-# on the path.
-# int32 lane operations K2's work needs, counted from the word step in
-# src/repro_torch/kernels/myers/csrc/myers.cu at the fewest Hopper
-# instructions: LOP3 does any three-input logic per 32-bit half, IADD3 and
-# IADD3.X the 64-bit add, LEA (low half, with the carry-in bit) and
-# SHF.L.U64.HI (high half) a shift by one.  Per live word-column: xv,
-# eq & vp, the add, xh, ph, mh, ph << 1, mh << 1, vp and vn at 2 each, and
-# hin's -1 into eq's low half at 1.  Per word that hands hout to the word
-# above: the top bits of ph and mh, 1 each.  Per column of the search the
-# screen runs: the score's two bit extracts (a shift and a mask each), one
-# IADD3, and the argmin (a compare and two selects).
-K2_OPS_PER_WORD_COLUMN = 21
-K2_OPS_PER_HANDOFF = 2
-K2_OPS_PER_COLUMN = 8
+# shared with the autotuner, and each kernel's work formula (K2's operations
+# a word-column, K3's live pairs, K4's operations a step and a chunk) in its
+# kernel module, one copy shared with launch/hlo_cost.py; the phases import
+# them once the checkout's src is on the path.
 PORTED = [1, 2, 3, 4, 5, 6, 7, 11, 12, 13, 15]
 # phase 3b: K1's other families (csrc/wavefront_ext.cu): the zoo's float and
 # min-plus kernels and the pair-HMM at both semirings
@@ -1885,9 +1874,9 @@ def phase_k2_timing(screen, card):
     words = (ql.astype("int64") - 1).clip(min=0) // 64 + 1
     word_cols = int((cols * words).sum())
     n_cols = int(cols.sum())
-    ops = (K2_OPS_PER_WORD_COLUMN * word_cols
-           + K2_OPS_PER_HANDOFF * (word_cols - n_cols)
-           + K2_OPS_PER_COLUMN * n_cols)
+    ops = (K2.OPS_PER_WORD_COLUMN * word_cols
+           + K2.OPS_PER_HANDOFF * (word_cols - n_cols)
+           + K2.OPS_PER_COLUMN * n_cols)
     nbytes = B * bq + B * br + B * 8 + 3 * B * 4
     ops_ms = ops / card["int32_ops_per_s"] * 1e3
     bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
@@ -2976,30 +2965,6 @@ def phase_card_vs_cpu():
           + f" in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
-def k3_pairs(S, causal, window, k_len, Sk=None, q_start=0):
-    """Unmasked (query, key) pairs of one head of K3's function, each 4 hd
-    operations of work (q . k and p v, an fma counting 2); S queries at
-    positions q_start .. q_start + S - 1 over Sk keys (default S)."""
-    import numpy as np
-    Sk = S if Sk is None else Sk
-    q = np.arange(S) + q_start
-    hi = np.full(S, Sk if k_len is None else min(int(k_len), Sk))
-    if causal:
-        hi = np.minimum(hi, q + 1)
-    lo = np.zeros(S, np.int64) if window is None else np.maximum(
-        q - int(window) + 1, 0)
-    return int(np.maximum(hi - lo, 0).sum())
-
-
-def k4_ops_per_step(hd):
-    """f32 operations of one step of one head of the WKV6 recurrence as the
-    function defines it, one step at a time (an fma counts 2, an exp 1):
-    y = r . state, hd^2 fmas; the u bonus (r * u) . k, a mul and an fma per
-    d, and y += bonus * v, an fma per d; the decay exp(lw), 1 per d; the
-    state w * state + k v^T, a mul and an fma per entry."""
-    return 5 * hd * hd + 6 * hd
-
-
 def _in_turns(a, b=None, rounds=ROUNDS, launches=ROUND_LAUNCHES):
     """Per-launch ms of ``a`` and ``b`` over ``rounds`` rounds of
     ``launches`` launches each (CUDA events), in turns a, b, b, a, after
@@ -3045,7 +3010,7 @@ def phase_timing_k3_k4():
     ms4 = statistics.median(t4)
     K4.wkv6_plain(*args)
     plain4 = cuda_time_ms(lambda: K4.wkv6_plain(*args), 3)
-    ops = k4_ops_per_step(hd) * S * B * H
+    ops = K4.k4_ops_per_step(hd) * S * B * H
     nbytes4 = (3 * B * S * H * hd * 2 + 2 * B * S * H * hd * 4 + H * hd * 4
                + B * H * hd * hd * 4)
     ops_ms4 = ops / F32_FLOPS * 1e3
@@ -3058,7 +3023,7 @@ def phase_timing_k3_k4():
           f"{plain4:.2f} ms; no single-call "
           f"library equivalent; bound {k4['bound_ms']:.4f} ms by "
           f"{k4['bound_by']} ({S} steps x {B * H} heads x "
-          f"{k4_ops_per_step(hd)} f32 operations = "
+          f"{K4.k4_ops_per_step(hd)} f32 operations = "
           f"{ops / 1e9:.3f} G at 67 TFLOP/s = {ops_ms4:.4f} ms; {nbytes4} B "
           f"of r/k/v/lw/u in, y/state out = {bytes_ms4:.4f} ms); "
           f"{B * H * -(-S // K4.CHUNK)} thread blocks in its increment and "
@@ -3271,7 +3236,7 @@ def _lm_batch_s(cfg):
 
 
 def _train_full(arch, mod, bwd_name, n_fwd, n_bwd, phase, cfg=None,
-                keep_first=False):
+                keep_first=False, count=False):
     """``train_loop(device="cuda")`` on ``arch`` at full width (``cfg``: a
     depth cut of it): TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens
     from LMBatcher(seed=SEED), AdamWConfig(weight_decay=0.01) under
@@ -3279,7 +3244,9 @@ def _train_full(arch, mod, bwd_name, n_fwd, n_bwd, phase, cfg=None,
     every launch count at 0 just before.  Checks finite losses and grad
     norms, a falling loss and the launches of ``mod`` per step; returns the
     run's numbers and the last backward call's arguments (layer 0 of the
-    last step), and with ``keep_first`` the first step's (layer 0)."""
+    last step), and with ``keep_first`` the first step's (layer 0); with
+    ``count`` also hlo_cost's count of one more step (phase D), taken
+    after the timed steps and the profile."""
     import numpy as np
     import torch
     from repro_torch import configs
@@ -3339,6 +3306,7 @@ def _train_full(arch, mod, bwd_name, n_fwd, n_bwd, phase, cfg=None,
     steps = [b - a for a, b in zip(stamps, stamps[1:])]
     step_s = statistics.median(steps[1:])
     prof = _profile_train_step(cfg, state)
+    cost = _count_train_step(cfg, state) if count else None
     del state
     torch.cuda.empty_cache()
     print(f"    losses {', '.join(f'{x:.4f}' for x in losses)}; grad norms "
@@ -3357,13 +3325,13 @@ def _train_full(arch, mod, bwd_name, n_fwd, n_bwd, phase, cfg=None,
            "steps_s": steps, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ
            / step_s, "peak_bytes": peak, "batch_s": batch_s,
            "fwd_launches": counts[-1][0], "bwd_launches": counts[-1][1],
-           "moe_aux": auxs, "last": slot}
+           "moe_aux": auxs, "last": slot, "cost": cost}
     return dict(run, first=first) if keep_first else run
 
 
-def _profile_train_step(cfg, state):
-    """torch.profiler over one more step of the trained state (after the
-    run's counts are read): device busy share and the top kernels."""
+def _extra_step(cfg):
+    """A train step of train_loop's AdamW and one batch of its traffic,
+    for steps taken after a run's timed ones."""
     import torch
     from repro_torch.launch.train import batches
     from repro_torch.optim import AdamWConfig, constant
@@ -3372,8 +3340,23 @@ def _profile_train_step(cfg, state):
                            constant(1e-4))
     batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in
              next(batches(cfg, TRAIN_BATCH, TRAIN_SEQ, SEED)).items()}
+    return step, batch
+
+
+def _profile_train_step(cfg, state):
+    """torch.profiler over one more step of the trained state (after the
+    run's counts are read): device busy share and the top kernels."""
+    step, batch = _extra_step(cfg)
     return _device_profile(lambda: step(state, batch),
                            f"one {cfg.name} training step")
+
+
+def _count_train_step(cfg, state):
+    """launch/hlo_cost.py's count of one more step of the trained state,
+    on the card (after the run's timed steps and its profile)."""
+    from repro_torch.launch import hlo_cost
+    step, batch = _extra_step(cfg)
+    return hlo_cost.count(step, state, batch)
 
 
 def phase_train_olmo():
@@ -3382,7 +3365,8 @@ def phase_train_olmo():
     and backward share of a step."""
     import torch
     from repro_torch.kernels.flash_attn import kernel as K3
-    run = _train_full("olmo-1b", K3, "flash_backward", 2 * 16, 16, 18)
+    run = _train_full("olmo-1b", K3, "flash_backward", 2 * 16, 16, 18,
+                      count=True)
     args, kw = _detached(run.pop("last"))
     before = (K3.launches, K3.bwd_launches)
     err = _hold_k3_bwd(args, kw, "olmo-1b layer 0, last step")
@@ -3409,7 +3393,8 @@ def phase_train_rwkv():
     forward and backward share of a step."""
     import torch
     from repro_torch.kernels.wkv6 import kernel as K4
-    run = _train_full("rwkv6-3b", K4, "wkv6_backward", 2 * 32, 32, 19)
+    run = _train_full("rwkv6-3b", K4, "wkv6_backward", 2 * 32, 32, 19,
+                      count=True)
     args, kw = _detached(run.pop("last"))
     before = (K4.launches, K4.bwd_launches)
     err = _hold_k4_bwd(args[:6], kw, "rwkv6-3b layer 0, last step")
@@ -3524,26 +3509,6 @@ def phase_train_card_vs_cpu(archs=("olmo-1b", "rwkv6-3b"), phase=20):
           + f" in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
-def k4_bwd_ops_per_chunk(hd, C=32):
-    """f32 operations K4's backward needs per (chunk, head), counted from
-    the work of csrc/wkv6_bwd.cu and not from what one design recomputes
-    (an fma counts 2, an exp, a min or a compare 1).  Increments: the
-    cumulative sum, r exp(Lq), exp(Lc), R~^T dy.  Scan: one fma per state
-    entry.  Gradients: the cumulative sums, R~ and K~, dA over j <= i; per
-    pair j < i and column: W once (difference, min, exp), A's two
-    multiplies and add, and dr's and dk's multiply and two fmas each (16);
-    A on the diagonal; per (i, d): dR~, dK~ and K~ G (an fma per n each),
-    A^T dy over i' >= i and the combination (24); per column: G . S, dLc,
-    du's partial and the reverse sum."""
-    inc = 3 * C * hd + hd + 2 * C * hd * hd
-    scan = 2 * hd * hd
-    grad = (2 * C * hd + 2 * C * hd + 3 * C * hd + C * (C + 1) * hd
-            + 8 * C * (C - 1) * hd + 3 * C * hd
-            + C * hd * 6 * hd + hd * C * (C + 1)
-            + 24 * C * hd + hd * (2 * hd + 4 * C + 2))
-    return inc + scan + grad
-
-
 def entry_ptxas():
     """{kernel line name: [{entry, registers, spill_bytes, stack_bytes}]}
     for every entry function of K3's forward and of the two backward
@@ -3575,6 +3540,7 @@ def _k3_bwd_bound(B, Sq, Sk, H, Kh, hd, causal, card_flops, hd_v=None,
     (query, key) pair (s, dk, dq over hd; dp, dv over hd_v; 10 hd at equal
     widths) at ``card_flops``, or q, k, v, O, dO and lse read once and dq,
     dk, dv written once at the card's memory rate."""
+    from repro_torch.kernels.flash_attn.kernel import k3_pairs
     from repro_torch.tune.cost import MEM_BYTES_PER_S
     hd_v = hd_v or hd
     pairs = k3_pairs(Sq, causal, window, None, Sk, Sk - Sq if causal else 0)
@@ -3638,7 +3604,7 @@ def timing_backward():
     K4.wkv6_backward_plain(*args, dy)
     plain4 = cuda_time_ms(lambda: K4.wkv6_backward_plain(*args, dy), 1)
     nc = -(-S // K4.CHUNK)
-    ops = k4_bwd_ops_per_chunk(hd) * nc * B * H
+    ops = K4.k4_bwd_ops_per_chunk(hd) * nc * B * H
     nbytes4 = (3 * 2 + 2 * 4 + 3 * 2 + 4) * B * S * H * hd + 2 * H * hd * 4
     ops_ms, bytes_ms = ops / F32_FLOPS * 1e3, nbytes4 / MEM_BYTES_PER_S * 1e3
     ms4 = statistics.median(t4)
@@ -3649,7 +3615,8 @@ def timing_backward():
           f"{_spread(t4)}; "
           f"plain (autograd through wkv6_plain) {plain4:.2f} ms; no "
           f"single-call library equivalent; bound {k4b['bound_ms']:.4f} ms "
-          f"by {k4b['bound_by']} ({k4_bwd_ops_per_chunk(hd)} f32 operations "
+          f"by {k4b['bound_by']} ({K4.k4_bwd_ops_per_chunk(hd)} f32 "
+          f"operations "
           f"a (chunk, head), counted from csrc/wkv6_bwd.cu, x {nc * B * H} = "
           f"{ops / 1e9:.3f} G at 67 TFLOP/s = {ops_ms:.4f} ms; {nbytes4} B "
           f"of r/k/v/lw/dy/u in, dr/dk/dv/dlw/du out = {bytes_ms:.4f} ms); "
@@ -3881,7 +3848,7 @@ def _k3_fwd_timing(B, Sq, Sk, H, Kh, hd, causal, label, rounds=ROUNDS,
     K3.flash_attention_plain(q, k, v, p_dtype=torch.bfloat16, **kw)
     plain_ms = cuda_time_ms(lambda: K3.flash_attention_plain(
         q, k, v, p_dtype=torch.bfloat16, **kw), 2)
-    pairs = k3_pairs(Sq, causal, window, None, Sk, qs)
+    pairs = K3.k3_pairs(Sq, causal, window, None, Sk, qs)
     flops = pairs * 2 * (hd + hd_v) * B * H
     nbytes = 2 * (B * Sq * H * (hd + hd_v) + B * Sk * Kh * (hd + hd_v))
     ops_ms, bytes_ms = flops / BF16_FLOPS * 1e3, nbytes / MEM_BYTES_PER_S * 1e3
@@ -5263,6 +5230,189 @@ def phase_mesh(blocks, olmo_train):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase D: the dry run and the roofline (ROADMAP item 15g)
+# ---------------------------------------------------------------------------
+# the one-rank dry run of a training cell of phases 18-19, printed as JSON
+DRY_ONE_RANK = r"""
+import dataclasses, json, sys
+from repro_torch import configs
+from repro_torch.launch import dryrun
+from repro_torch.optim import AdamWConfig
+arch, batch, seq = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+dryrun.init_fake_group(1)
+shape = dataclasses.replace(configs.SHAPES["train_4k"], seq_len=seq,
+                            global_batch=batch)
+rec = dryrun.run_cell(arch, "train_4k", False, mesh=dryrun.small_mesh(1),
+                      shape=shape, opt_cfg=AdamWConfig(weight_decay=0.01),
+                      verbose=False)
+print(json.dumps(rec))
+"""
+# production cells phase D runs through the dry run's command line
+DRY_CELLS = (("olmo-1b", "train_4k"), ("deepseek-v3-671b", "decode_32k"))
+DRY_PEAK_TOL = 0.10
+DRY_TIMEOUT = 420
+
+
+def _dry_processes():
+    """Start every dry run of phase D at once, each a process of its own
+    (a fake process group is global to its process): the one-rank cells
+    of phases 18 and 19 and the production cells of DRY_CELLS (records
+    under build/dryrun/).  Returns {key: (Popen, output path or None)}."""
+    import os
+    import subprocess
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out_dir = ROOT / "build" / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for arch in ("olmo-1b", "rwkv6-3b"):
+        procs[arch] = (subprocess.Popen(
+            [sys.executable, "-c", DRY_ONE_RANK, arch, str(TRAIN_BATCH),
+             str(TRAIN_SEQ)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True), None)
+    for arch, shape in DRY_CELLS:
+        path = out_dir / f"dryrun_{_slug(arch)}_{shape}.jsonl"
+        path.unlink(missing_ok=True)
+        procs[(arch, shape)] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--out", str(path)], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), path)
+    return procs
+
+
+def _dry_wait(procs, t_end):
+    """Each process's (returncode, last stdout line, stderr tail, record
+    of its output file); a process past ``t_end`` is killed."""
+    import json
+    import subprocess
+    got = {}
+    for key, (proc, path) in procs.items():
+        try:
+            out, err = proc.communicate(
+                timeout=max(1.0, t_end - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        rec = None
+        if path is not None and path.exists() and path.read_text().strip():
+            rec = json.loads(path.read_text().splitlines()[-1])
+        elif proc.returncode == 0 and out.strip():
+            rec = json.loads(out.strip().splitlines()[-1])
+        got[key] = (proc.returncode, rec, err[-1500:])
+    return got
+
+
+def _card_vs_dry(arch, run, dry, kernel, calls, card):
+    """Phase D (a)/(b): the card's count of one more step of phase 18/19
+    against the one-rank dry run of the same cell; the roofline of that
+    count (a prediction) beside the run's measured step time and peak."""
+    from repro_torch import configs
+    from repro_torch.launch import roofline
+    cost = run["cost"]
+    tag = "a" if kernel == "flash" else "b"
+    rc, rec, err = dry
+    check(rc == 0 and rec is not None and rec["status"] == "ok",
+          f"[D{tag}] the dry run of {arch} failed (rc {rc}): "
+          f"{(rec or {}).get('error')} {err}")
+    hc = rec["hlo_cost"]
+    card_fl = {k: float(v) for k, v in cost.flops_by_dtype.items()}
+    names = (f"{kernel}_fill", f"{kernel}_backward")
+    card_calls = tuple(cost.kernel_calls(n) for n in names)
+    dry_calls = tuple(hc["kernels"].get(n, {}).get("calls", 0)
+                      for n in names)
+    check(card_fl == {k: float(v) for k, v in hc["flops_by_dtype"].items()},
+          f"[D{tag}] {arch}: FLOPs by dtype on the card {card_fl}, in the "
+          f"dry run {hc['flops_by_dtype']}")
+    check(card_calls == dry_calls == calls,
+          f"[D{tag}] {arch}: kernel calls on the card {card_calls}, in the "
+          f"dry run {dry_calls}, phase {18 if tag == 'a' else 19} {calls}")
+    cfg = configs.get(arch)
+    shape = configs.ShapeSpec("train_2k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    rl = roofline.from_record({"mesh": "1x1", "n_devices": 1,
+                               "hlo_cost": cost.as_dict()}, cfg, shape)
+    useful = rl.model_flops
+    step_s, measured = run["step_s"], run["peak_bytes"]
+    predicted = rec["memory"]["peak_per_device"]
+    off = predicted / measured - 1
+    print(f"[D{tag}] {arch}, phase {18 if tag == 'a' else 19}'s training "
+          f"cell ({TRAIN_BATCH} x {TRAIN_SEQ}, bf16, remat) counted by "
+          f"launch/hlo_cost.py on the card (one more step after the timed "
+          f"ones) and by the one-rank dry run (fake tensors, trace "
+          f"{rec['trace_s']} s): FLOPs by dtype "
+          + ", ".join(f"{k} {v:.4e}" for k, v in sorted(card_fl.items()))
+          + f" (equal); elementwise {cost.ewise_flops:.4e}; bytes "
+          f"{cost.bytes:.4e} (dry run {hc['bytes_per_device']:.4e}); "
+          f"collectives {len(cost.collectives)}; {names[0]} / {names[1]} "
+          f"calls {card_calls} (equal, phase "
+          f"{18 if tag == 'a' else 19}: {calls})", flush=True)
+    print(f"    model_flops + attn_flops {useful:.4e}; roofline terms "
+          f"(predictions from counts and H100 SXM data-sheet peaks): "
+          f"compute {rl.compute_s:.4f} s, memory {rl.memory_s:.4f} s, "
+          f"collective {rl.collective_s:.4f} s; bound {rl.bound_s:.4f} s "
+          f"by {rl.dominant}; measured step {step_s:.4f} s: roofline share "
+          f"(bound / step) {rl.bound_s / step_s:.3f}, MFU "
+          f"((model_flops + attn_flops) / (step x 989e12)) "
+          f"{useful / (step_s * roofline.PEAK_BF16):.4f}", flush=True)
+    print(f"    peak: predicted by the dry run {predicted / 2**30:.2f} GiB, "
+          f"measured (max_memory_allocated, phase "
+          f"{18 if tag == 'a' else 19}) {measured / 2**30:.2f} GiB: "
+          f"{100 * off:+.1f} % ({card['smi']})", flush=True)
+    check(abs(off) <= DRY_PEAK_TOL,
+          f"[D{tag}] {arch}: the dry run's peak {predicted} is "
+          f"{100 * off:+.1f} % off the measured {measured}")
+    return {"flops_by_dtype": card_fl, "bytes": cost.bytes,
+            "calls": list(card_calls), "model_flops": useful,
+            "compute_s": rl.compute_s, "memory_s": rl.memory_s,
+            "collective_s": rl.collective_s, "bound_s": rl.bound_s,
+            "dominant": rl.dominant, "step_s": step_s,
+            "roofline_share": rl.bound_s / step_s,
+            "mfu": useful / (step_s * roofline.PEAK_BF16),
+            "peak_predicted": predicted, "peak_measured": measured}
+
+
+def phase_dryrun(procs, t_start, olmo_train, rwkv_train, card):
+    """Phase D: the dry run and the roofline.  (a) olmo-1b's and (b)
+    rwkv6-3b's training cells of phases 18-19: the card's count of one
+    more step equals the one-rank dry run's in FLOPs by dtype and kernel
+    calls, and the dry run's peak is within DRY_PEAK_TOL of the measured
+    one; the roofline's terms, the step's roofline share and its MFU.
+    (c) DRY_CELLS on the production mesh (256 fake ranks) through
+    ``python -m repro_torch.launch.dryrun``.  Every dry run is a process of
+    its own (``procs``, from ``_dry_processes``), all started together at
+    ``t_start``, before phase M, which they need nothing of."""
+    t0 = time.perf_counter()
+    got = _dry_wait(procs, t_start + DRY_TIMEOUT)
+    out = {"olmo": _card_vs_dry("olmo-1b", olmo_train, got["olmo-1b"],
+                                "flash", (2 * 16, 16), card),
+           "rwkv": _card_vs_dry("rwkv6-3b", rwkv_train, got["rwkv6-3b"],
+                                "wkv6", (2 * 32, 32), card),
+           "cells": {}}
+    for arch, shape in DRY_CELLS:
+        rc, rec, err = got[(arch, shape)]
+        check(rc == 0 and rec is not None and rec["status"] == "ok",
+              f"[Dc] the dry run of {arch} {shape} failed (rc {rc}): "
+              f"{(rec or {}).get('error')} {err}")
+        rl = rec["roofline"]
+        print(f"[Dc] dry run {arch} {shape} on {rec['mesh']} "
+              f"({rec['n_devices']} fake ranks): {rec['status']}, trace "
+              f"{rec['trace_s']} s; peak per card "
+              f"{rec['memory']['peak_per_device'] / 2**30:.2f} GiB, fits "
+              f"{rec['fits']}; FLOPs per card "
+              f"{rec['hlo_cost']['flops_per_device']:.4e}; dominant term "
+              f"{rl['dominant']} (compute {rl['compute_s']:.4g} s, memory "
+              f"{rl['memory_s']:.4g} s, collective {rl['collective_s']:.4g}"
+              f" s; predictions)", flush=True)
+        out["cells"][f"{arch}:{shape}"] = {
+            "peak_per_device": rec["memory"]["peak_per_device"],
+            "fits": rec["fits"], "dominant": rl["dominant"],
+            "bound_s": rl["bound_s"], "trace_s": rec["trace_s"]}
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[D] phase D took {out['phase_s']:.1f} s after phase M (its dry "
+          f"runs {time.perf_counter() - t_start:.1f} s from their start)",
+          flush=True)
+    return out
+
+
 def _slug(arch):
     return arch.split("-")[0]
 
@@ -5312,6 +5462,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
+    dry_procs = {}
     try:
         card = _timed(phase_identity)
         _timed(phase_build)
@@ -5360,10 +5511,18 @@ def main() -> int:
         rgemma = _timed(phase_recurrentgemma)
         deepseek = _timed(phase_deepseek)
         train13 = _timed(phase_train_slice13)
+        dry_procs, dry_start = _dry_processes(), time.perf_counter()
         mesh = _timed(phase_mesh, blocks, olmo_train)
+        dry = _timed(phase_dryrun, dry_procs, dry_start, olmo_train,
+                     rwkv_train, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:                 # no dry run outlives the script
+        for proc, _ in dry_procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     kernels = [{
         "name": "wavefront_fill", "route": "cuda",
         "source": "src/repro_torch/kernels/wavefront/csrc/wavefront.cu",
@@ -5408,6 +5567,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attn/kernel.py:95",
         "launches": olmo["k3_launches"],
         "launches_train": olmo_train["fwd_launches"],
+        "calls_counted_phase_d": dry["olmo"]["calls"][0],
         "launches_train_sharded": mesh["train"]["fwd_launches"],
         "launches_stablelm": stablelm["k3_launches"],
         "launches_phi3": dense["phi3"]["k3_launches"],
@@ -5463,11 +5623,14 @@ def main() -> int:
         "replaces": "src/repro/kernels/wkv6/kernel.py:80",
         "launches": rwkv["k4_launches"],
         "launches_train": rwkv_train["fwd_launches"], "parity": "5e-4",
+        "calls_counted_phase_d": dry["rwkv"]["calls"][0],
         "max_abs_err": max(k4_err, rwkv["k4_err"]), **k4_timing}, {
         "name": "flash_backward", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attn/csrc/flash_attn_bwd.cu",
         "replaces": "src/repro/models/layers.py:163",
         "launches": olmo_train["bwd_launches"], "parity": K3_BWD_PARITY,
+        "calls_counted_phase_d": dry["olmo"]["calls"][1],
+        "dry_run": {k: v for k, v in dry["olmo"].items() if k != "calls"},
         "launches_train_sharded": mesh["train"]["bwd_launches"],
         "train_sharded": {k: mesh["train"][k] for k in (
             "losses", "loss_rel", "step_s", "peak_bytes", "phase18_step_s",
@@ -5502,6 +5665,9 @@ def main() -> int:
         "source": "src/repro_torch/kernels/wkv6/csrc/wkv6_bwd.cu",
         "replaces": "src/repro/models/mixers.py:411",
         "launches": rwkv_train["bwd_launches"], "parity": K4_BWD_PARITY,
+        "calls_counted_phase_d": dry["rwkv"]["calls"][1],
+        "dry_run": {k: v for k, v in dry["rwkv"].items() if k != "calls"},
+        "dry_run_cells": dry["cells"],
         "max_abs_err": max(k4b_err, rwkv_train["k4_err"]),
         "train": _train_summary(rwkv_train, "k4"),
         "ptxas": ptxas["wkv6_backward"], **k4b_timing}]

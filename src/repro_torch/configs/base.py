@@ -4,6 +4,8 @@ Every architecture is a frozen ``ModelConfig``; ``layer_plan`` splits the
 layer stack into groups of identical periods, each stored as one
 layer-stacked parameter tree.  The fields are the JAX package's, so a
 configuration carries across field for field; only the dtypes are torch's.
+``SHAPES`` are the dry run's cells (``launch/dryrun.py``) and
+``cell_supported`` says which of them an architecture runs.
 """
 from __future__ import annotations
 
@@ -123,6 +125,31 @@ class ModelConfig:
         if rem:
             plan.append((self.pattern[:rem], ffn, 1))
         return plan
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k":    ShapeSpec("train_4k",    4_096,   256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  ShapeSpec("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   ShapeSpec("long_500k",   524_288, 1,   "decode"),
+}
+
+
+def cell_supported(cfg: ModelConfig, shape: ShapeSpec):
+    """(supported, reason): a 524k-token decode is skipped for every
+    architecture with full-context attention, as in the JAX package."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, ("full-attention arch: 524k-token full-attention KV "
+                       "decode is the quadratic case the assignment skips")
+    return True, ""
 
 
 # Populated by configs/__init__.py importing each architecture module.

@@ -33,16 +33,25 @@ from.  A row whose visited tiles hold padded or masked keys counts them in
 its forward sum (see ``flash_attention_plain``); the backward follows
 ``_flash_core_bwd`` and gives every masked key p = exp(-1e30 - lse), which
 is 0 wherever the row has a live key (always, under a causal mask).
+
+Both directions dispatch an operator of the ``repro_torch`` library
+(``repro_torch::flash_fill``, ``repro_torch::flash_backward``; see
+``kernels/__init__.py``), counted by ``fill_work`` and ``backward_work``
+from shapes alone: 2 (hd + hd_v) FLOPs a live (query, key) pair forward
+and 6 hd + 4 hd_v backward, the pairs by ``k3_pairs``.
 """
 from __future__ import annotations
 
 import ctypes
 import math
 from pathlib import Path
+from typing import Optional
 
+import numpy as np
 import torch
 
-from repro_torch.kernels import aligned16
+from repro_torch.kernels import Work, aligned16, call, float_key, nbytes, \
+    register_work
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attn.cu"
 SOURCE_BWD = Path(__file__).resolve().parent / "csrc" / "flash_attn_bwd.cu"
@@ -103,19 +112,102 @@ def flash_fill(q, k, v, *, causal: bool, window=None, k_len=None,
     _check_inputs(q, k, v, window, k_len)
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(
         q.shape[-1])
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     k_len=k_len, scale=scale,
-                                     p_dtype=p_dtype, return_lse=return_lse,
-                                     q_start=q_start)
-    if q.device.type != "cuda":
+    if q.device.type == "cuda":
+        if (p_dtype or torch.float32) != q.dtype:
+            raise ValueError(f"K3's {q.dtype} kernel rounds p to {q.dtype}; "
+                             f"it does not compute p_dtype={p_dtype}")
+    elif q.device.type != "cpu":
         raise ValueError(f"K3 runs on CUDA or CPU tensors, not {q.device}")
-    if (p_dtype or torch.float32) != q.dtype:
-        raise ValueError(f"K3's {q.dtype} kernel rounds p to {q.dtype}; it "
-                         f"does not compute p_dtype={p_dtype}")
-    out, lse = _launch(*map(aligned16, (q, k, v)), bool(causal), window,
-                       k_len, scale, return_lse, int(q_start))
+    out, lse = call(
+        torch.ops.repro_torch.flash_fill, _FILL, (q, k, v), q, k, v,
+        bool(causal), None if window is None else int(window),
+        None if k_len is None else int(k_len), scale, p_dtype,
+        bool(return_lse), int(q_start))
     return (out, lse) if return_lse else out
+
+
+@torch.library.custom_op("repro_torch::flash_fill", mutates_args=())
+def _fill_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool, window: Optional[int], k_len: Optional[int],
+             scale: float, p_dtype: Optional[torch.dtype], return_lse: bool,
+             q_start: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``flash_fill``'s operator: (out, lse), lse empty unless asked for."""
+    raise ValueError(f"K3 runs on CUDA or CPU tensors, not {q.device}")
+
+
+def _fill_cpu(q, k, v, causal, window, k_len, scale, p_dtype, return_lse,
+              q_start):
+    out, lse = flash_attention_plain(
+        q, k, v, causal=causal, window=window, k_len=k_len, scale=scale,
+        p_dtype=p_dtype, return_lse=True, q_start=q_start)
+    return out, lse if return_lse else None
+
+
+def _fill_cuda(q, k, v, causal, window, k_len, scale, p_dtype, return_lse,
+               q_start):
+    return _launch(*map(aligned16, (q, k, v)), causal, window, k_len,
+                   scale, return_lse, q_start)
+
+
+def _lse_or_empty(fn):
+    """``fn`` (lse None unless asked for) as the operator's kernel, whose
+    schema returns a tensor: an empty one for a missing lse."""
+    def kernel(q, *args):
+        out, lse = fn(q, *args)
+        return out, lse if lse is not None else _no_lse(q)
+    return kernel
+
+
+_FILL = {"cpu": _fill_cpu, "cuda": _fill_cuda}
+for _dev, _fn in _FILL.items():
+    _fill_op.register_kernel(_dev, _lse_or_empty(_fn))
+
+
+@_fill_op.register_fake
+def _fill_fake(q, k, v, causal, window, k_len, scale, p_dtype, return_lse,
+               q_start):
+    B, Sq, H, _ = q.shape
+    out = q.new_empty((B, Sq, H, v.shape[-1]))
+    lse = (q.new_empty((B, Sq, H), dtype=torch.float32) if return_lse
+           else _no_lse(q))
+    return out, lse
+
+
+def _no_lse(q):
+    return q.new_empty((0,), dtype=torch.float32)
+
+
+def k3_pairs(S, causal, window, k_len, Sk=None, q_start=0):
+    """Unmasked (query, key) pairs of one head of K3's function, each 4 hd
+    operations of work (q . k and p v, an fma counting 2); S queries at
+    positions q_start .. q_start + S - 1 over Sk keys (default S)."""
+    Sk = S if Sk is None else Sk
+    q = np.arange(S) + q_start
+    hi = np.full(S, Sk if k_len is None else min(int(k_len), Sk))
+    if causal:
+        hi = np.minimum(hi, q + 1)
+    lo = np.zeros(S, np.int64) if window is None else np.maximum(
+        q - int(window) + 1, 0)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def fill_work(q, k, v, causal, window, k_len, scale, p_dtype, return_lse,
+              q_start) -> Work:
+    """K3 forward: 2 (hd + hd_v) FLOPs a live (query, key) pair of each
+    head, at q's peak class; q, k, v read and the output (and lse) written
+    once.  ``k_len`` is a static key count here (the model path passes
+    none), so the count is exact; a caller masking keys by a tensor would
+    pass its bound, and the count would be an upper bound."""
+    B, Sq, H, hd = q.shape
+    Sk, hd_v = k.shape[1], v.shape[-1]
+    pairs = k3_pairs(Sq, causal, window, k_len, Sk, q_start)
+    out = B * Sq * H * hd_v * q.element_size()
+    lse = 4 * B * Sq * H if return_lse else 0
+    return Work({float_key(q.dtype): 2 * (hd + hd_v) * pairs * B * H},
+                nbytes(q, k, v) + out + lse)
+
+
+register_work(_fill_op, fill_work)
 
 
 _LIB = None
@@ -279,15 +371,61 @@ def flash_backward(q, k, v, o, lse, do, *, causal: bool, window=None,
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(hd)
-    if q.device.type == "cpu":
-        return flash_backward_plain(q, k, v, o, lse, do, causal=causal,
-                                    window=window, k_len=k_len, scale=scale,
-                                    q_start=q_start)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"K3 runs on CUDA or CPU tensors, not {q.device}")
+    return call(torch.ops.repro_torch.flash_backward, _BWD,
+                (q, k, v, o, lse, do), q, k, v, o, lse, do, bool(causal),
+                None if window is None else int(window),
+                None if k_len is None else int(k_len), scale, int(q_start))
+
+
+@torch.library.custom_op("repro_torch::flash_backward", mutates_args=())
+def _bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+            causal: bool, window: Optional[int], k_len: Optional[int],
+            scale: float, q_start: int
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``flash_backward``'s operator: (dq, dk, dv)."""
+    raise ValueError(f"K3 runs on CUDA or CPU tensors, not {q.device}")
+
+
+@_bwd_op.register_kernel("cpu")
+def _bwd_cpu(q, k, v, o, lse, do, causal, window, k_len, scale, q_start):
+    return flash_backward_plain(q, k, v, o, lse, do, causal=causal,
+                                window=window, k_len=k_len, scale=scale,
+                                q_start=q_start)
+
+
+@_bwd_op.register_kernel("cuda")
+def _bwd_cuda(q, k, v, o, lse, do, causal, window, k_len, scale, q_start):
     return _launch_bwd(*map(aligned16, (q, k, v, o.to(q.dtype),
                                         lse.float(), do.to(q.dtype))),
-                       bool(causal), window, k_len, scale, int(q_start))
+                       causal, window, k_len, scale, q_start)
+
+
+@_bwd_op.register_fake
+def _bwd_fake(q, k, v, o, lse, do, causal, window, k_len, scale, q_start):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+_BWD = {"cpu": _bwd_cpu, "cuda": _bwd_cuda}
+
+
+def backward_work(q, k, v, o, lse, do, causal, window, k_len, scale,
+                  q_start) -> Work:
+    """K3 backward: 6 hd + 4 hd_v FLOPs a live pair of each head (s, dk, dq
+    over hd; dp, dv over hd_v), at q's peak class; q, k, v, o, do and lse
+    read and dq, dk, dv written once."""
+    B, Sq, H, hd = q.shape
+    Sk, Kh, hd_v = k.shape[1], k.shape[2], v.shape[-1]
+    pairs = k3_pairs(Sq, causal, window, k_len, Sk, q_start)
+    e = q.element_size()
+    return Work({float_key(q.dtype): (6 * hd + 4 * hd_v) * pairs * B * H},
+                e * (2 * B * Sq * H * (hd + hd_v)
+                     + 2 * B * Sk * Kh * (hd + hd_v)) + 4 * B * Sq * H)
+
+
+register_work(_bwd_op, backward_work)
 
 
 _LIB_BWD = None

@@ -6,6 +6,9 @@ corner score, the last-row minimum and its first column, after the column
 sweep of ``repro_torch.core.myers`` with the provable-k exit.  A CUDA tensor
 goes to the CUDA kernel in ``csrc/myers.cu``; a CPU tensor goes to
 ``myers_fill_plain``.  Nothing falls back from one to the other.
+
+The sweep dispatches the operator ``repro_torch::myers_fill`` (see
+``kernels/__init__.py``), counted by ``fill_work`` from shapes alone.
 """
 from __future__ import annotations
 
@@ -16,11 +19,25 @@ from pathlib import Path
 import torch
 
 from repro_torch.core import myers as M
+from repro_torch.kernels import Work, call, nbytes, register_work
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "myers.cu"
 # 64-bit words per column the CUDA kernel is instantiated for
 WORDS = (1, 2, 4, 8, 16)
 MAX_QUERY = 64 * WORDS[-1]
+# int32 lane operations K2's work needs, counted from the word step in
+# csrc/myers.cu at the fewest Hopper instructions: LOP3 does any
+# three-input logic per 32-bit half, IADD3 and IADD3.X the 64-bit add, LEA
+# (low half, with the carry-in bit) and SHF.L.U64.HI (high half) a shift by
+# one.  Per live word-column: xv, eq & vp, the add, xh, ph, mh, ph << 1,
+# mh << 1, vp and vn at 2 each, and hin's -1 into eq's low half at 1.  Per
+# word that hands hout to the word above: the top bits of ph and mh, 1
+# each.  Per column of the search the screen runs: the score's two bit
+# extracts (a shift and a mask each), one IADD3, and the argmin (a compare
+# and two selects).
+OPS_PER_WORD_COLUMN = 21
+OPS_PER_HANDOFF = 2
+OPS_PER_COLUMN = 8
 # Steps between the kernel's tests of the provable-k exit (it also tests the
 # last column), a copy of csrc/myers.cu's CHECK_EVERY: min(best, score -
 # columns left) never falls again once it exceeds k, so a late test gives
@@ -75,13 +92,55 @@ def myers_fill(query, ref, lens, *, glob: bool, k: int):
     ``(1 << 30, 1 << 30, 0)``.
     """
     _check_inputs(query, ref, lens)
-    if query.device.type == "cpu":
-        return myers_fill_plain(query, ref, lens, glob=glob, k=k)
-    if query.device.type != "cuda":
+    if query.device.type not in ("cpu", "cuda"):
         raise ValueError(f"K2 runs on CUDA or CPU tensors, not "
                          f"{query.device}")
+    return call(torch.ops.repro_torch.myers_fill, _FILL, (query, ref, lens),
+                query, ref, lens, bool(glob), int(k))
+
+
+@torch.library.custom_op("repro_torch::myers_fill", mutates_args=())
+def _fill_op(query: torch.Tensor, ref: torch.Tensor, lens: torch.Tensor,
+             glob: bool, k: int
+             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``myers_fill``'s operator: (score, best, best_j)."""
+    raise ValueError(f"K2 runs on CUDA or CPU tensors, not {query.device}")
+
+
+@_fill_op.register_kernel("cpu")
+def _fill_cpu(query, ref, lens, glob, k):
+    return myers_fill_plain(query, ref, lens, glob=glob, k=k)
+
+
+@_fill_op.register_kernel("cuda")
+def _fill_cuda(query, ref, lens, glob, k):
     return _launch(query.contiguous(), ref.contiguous(), lens.contiguous(),
-                   bool(glob), int(k))
+                   glob, k)
+
+
+_FILL = {"cpu": _fill_cpu, "cuda": _fill_cuda}
+
+
+@_fill_op.register_fake
+def _fill_fake(query, ref, lens, glob, k):
+    return tuple(query.new_empty((query.shape[0],), dtype=torch.int32)
+                 for _ in range(3))
+
+
+def fill_work(query, ref, lens, glob, k) -> Work:
+    """K2: ``OPS_PER_WORD_COLUMN`` int32 operations for each of the
+    instantiation's words (``n_words`` of the query bucket) in every
+    reference column of every pair, the query, reference and lengths read
+    and three int32 outputs written once.  A pair that stops early (the
+    provable-k exit) or is shorter than its bucket does less, so the count
+    is an upper bound."""
+    B, Q = query.shape
+    R = ref.shape[1]
+    return Work({"int32": OPS_PER_WORD_COLUMN * n_words(Q) * R * B},
+                nbytes(query, ref, lens) + 3 * B * 4)
+
+
+register_work(_fill_op, fill_work)
 
 
 _LIB = None

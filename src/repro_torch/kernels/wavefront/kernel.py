@@ -11,6 +11,13 @@ kernel (``csrc/wavefront_kernel.cuh``, instantiated on the gap-model
 families by ``csrc/wavefront.cu`` and on the others by
 ``csrc/wavefront_ext.cu``); a CPU tensor goes to ``wavefront_fill_plain``.
 Nothing falls back from one to the other.
+
+The fill dispatches the operator ``repro_torch::wavefront_fill`` (see
+``kernels/__init__.py``), counted by ``fill_work`` from shapes alone: the
+PE operations of every padded cell (``tune/cost.py::pe_ops``) and
+``k1_bytes``.  A ``DPKernelSpec`` is no type an operator's schema holds,
+so the call's spec and parameters ride beside the operator in a
+thread-local slot that the wrapper fills just before dispatching.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import math
 import numbers
 import threading
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -26,6 +34,7 @@ from repro_torch.core import reference
 from repro_torch.core import types as T
 from repro_torch.core.spec_utils import region_mask
 from repro_torch.core.traceback import pack_lanes
+from repro_torch.kernels import Work, call, register_work
 
 N_PE = 32               # lanes per strip: one warp, one lane per PE
 STRIP_WARPS = 8         # most warps per pair: strips in flight at once
@@ -270,15 +279,90 @@ def wavefront_fill(spec: T.DPKernelSpec, params, query, ref, init_row,
     _check_inputs(spec, query, ref, init_row, init_col, lens, tb_pack)
     if warps is not None:
         check_warps(warps, query.shape[1])
-    if query.device.type == "cpu":
-        return wavefront_fill_plain(spec, params, query, ref, init_row,
-                                    init_col, lens, tb_pack, with_tb)
-    if query.device.type != "cuda":
+    if query.device.type not in ("cpu", "cuda"):
         raise ValueError(f"K1 runs on CUDA or CPU tensors, not "
                          f"{query.device}")
-    return _launch(spec, params, query.contiguous(), ref.contiguous(),
-                   init_row.contiguous(), init_col.contiguous(),
-                   lens.contiguous(), tb_pack, with_tb, warps)
+    _CALL.spec, _CALL.params = spec, params
+    try:
+        tensors = (query, ref, init_row, init_col, lens)
+        tb, best, best_j = call(
+            torch.ops.repro_torch.wavefront_fill, _FILL, tensors, *tensors,
+            int(tb_pack), bool(with_tb), None if warps is None else int(warps))
+    finally:
+        _CALL.spec = _CALL.params = None
+    return (tb if with_tb else None), best, best_j
+
+
+# the spec and parameters of the fill in flight on this thread
+_CALL = threading.local()
+
+
+@torch.library.custom_op("repro_torch::wavefront_fill", mutates_args=())
+def _fill_op(query: torch.Tensor, ref: torch.Tensor, init_row: torch.Tensor,
+             init_col: torch.Tensor, lens: torch.Tensor, tb_pack: int,
+             with_tb: bool, warps: Optional[int]
+             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``wavefront_fill``'s operator: (tb, best, best_j), tb empty without
+    ``with_tb``; the spec and parameters in ``_CALL``."""
+    raise ValueError(f"K1 runs on CUDA or CPU tensors, not {query.device}")
+
+
+def _fill_cpu(query, ref, init_row, init_col, lens, tb_pack, with_tb, warps):
+    return wavefront_fill_plain(
+        _CALL.spec, _CALL.params, query, ref, init_row, init_col, lens,
+        tb_pack, with_tb)
+
+
+def _fill_cuda(query, ref, init_row, init_col, lens, tb_pack, with_tb,
+               warps):
+    return _launch(
+        _CALL.spec, _CALL.params, query.contiguous(), ref.contiguous(),
+        init_row.contiguous(), init_col.contiguous(), lens.contiguous(),
+        tb_pack, with_tb, warps)
+
+
+def _tb_or_empty(fn):
+    """``fn`` (tb None without ``with_tb``) as the operator's kernel, whose
+    schema returns a tensor: an empty one for a missing store."""
+    def kernel(query, *args):
+        tb, best, best_j = fn(query, *args)
+        return (tb if tb is not None else query.new_empty((0,), dtype=_U8),
+                best, best_j)
+    return kernel
+
+
+_FILL = {"cpu": _fill_cpu, "cuda": _fill_cuda}
+for _dev, _fn in _FILL.items():
+    _fill_op.register_kernel(_dev, _tb_or_empty(_fn))
+
+
+@_fill_op.register_fake
+def _fill_fake(query, ref, init_row, init_col, lens, tb_pack, with_tb,
+               warps):
+    B, Q = query.shape[:2]
+    R, C = ref.shape[1], Q // N_PE
+    tb = (query.new_empty((B, C, N_PE // tb_pack, N_PE + R - 1), dtype=_U8)
+          if with_tb else query.new_empty((0,), dtype=_U8))
+    return (tb, query.new_empty((B, C, N_PE), dtype=_CALL.spec.score_dtype),
+            query.new_empty((B, C, N_PE), dtype=_I32))
+
+
+def fill_work(query, ref, init_row, init_col, lens, tb_pack, with_tb,
+              warps) -> Work:
+    """K1: the spec's PE operations (``tune/cost.py::pe_ops``) for every
+    padded cell of the batch, int32 lanes for integer scores and the CUDA
+    cores' f32 otherwise, and the bytes of ``tune/cost.py::k1_bytes``.
+    Cells past a pair's lengths or outside its band count too, so for a
+    ragged or banded batch the count is an upper bound."""
+    from repro_torch.tune.cost import k1_bytes, pe_ops
+    spec = _CALL.spec
+    B, Q, R = query.shape[0], query.shape[1], ref.shape[1]
+    key = "int32" if spec.score_dtype == _I32 else "f32"
+    return Work({key: pe_ops(spec) * B * Q * R},
+                k1_bytes(spec, B, Q, R, tb_pack, with_tb))
+
+
+register_work(_fill_op, fill_work)
 
 
 _LIBS: dict = {}

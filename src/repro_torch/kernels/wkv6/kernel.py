@@ -16,15 +16,23 @@ Its gradient is ``wkv6_backward``: the CUDA kernels of ``csrc/wkv6_bwd.cu``
 chunk's incoming state from the forward's scratch, or on a CPU tensor
 ``wkv6_backward_plain``, ``torch.autograd.grad`` through ``wkv6_plain``.
 ``WKV6Function`` joins the two for autograd.
+
+Both directions dispatch an operator of the ``repro_torch`` library
+(``repro_torch::wkv6_fill``, ``repro_torch::wkv6_backward``; see
+``kernels/__init__.py``), counted by ``fill_work`` and ``backward_work``
+from shapes alone: ``k4_ops_per_step`` f32 operations a step and head
+forward, ``k4_bwd_ops_per_chunk`` a chunk and head backward.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import Optional
 
 import torch
 
-from repro_torch.kernels import aligned16
+from repro_torch.kernels import Work, aligned16, call, nbytes, \
+    register_work
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "wkv6.cu"
 SOURCE_BWD = Path(__file__).resolve().parent / "csrc" / "wkv6_bwd.cu"
@@ -59,21 +67,81 @@ def _check_inputs(r, k, v, lw, u):
 def wkv6_fill(r, k, v, lw, u, *, chunk: int = CHUNK,
               return_states: bool = False):
     """The WKV6 recurrence over the whole sequence: returns (y, state), and
-    with ``return_states`` also each chunk's incoming state, which
-    ``wkv6_backward`` takes on the card (None on a CPU tensor).  The CUDA
+    with ``return_states`` also each chunk's incoming state (B, H, chunks,
+    hd, hd) f32, which ``wkv6_backward`` takes on the card.  The CUDA
     kernel works in chunks of ``CHUNK`` steps only, and raises for any
     other ``chunk``."""
     _check_inputs(r, k, v, lw, u)
-    if r.device.type == "cpu":
-        out = wkv6_plain(r, k, v, lw, u, chunk=chunk)
-        return (*out, None) if return_states else out
-    if r.device.type != "cuda":
+    if r.device.type == "cuda":
+        if chunk != CHUNK:
+            raise ValueError(f"K4's CUDA kernel works in chunks of {CHUNK}, "
+                             f"not {chunk}")
+    elif r.device.type != "cpu":
         raise ValueError(f"K4 runs on CUDA or CPU tensors, not {r.device}")
-    if chunk != CHUNK:
-        raise ValueError(f"K4's CUDA kernel works in chunks of {CHUNK}, "
-                         f"not {chunk}")
-    out = _launch(*map(aligned16, (r, k, v, lw.float(), u.float())))
+    out = call(torch.ops.repro_torch.wkv6_fill, _FILL, (r, k, v, lw, u),
+               r, k, v, lw, u, int(chunk))
     return out if return_states else out[:2]
+
+
+@torch.library.custom_op("repro_torch::wkv6_fill", mutates_args=())
+def _fill_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             lw: torch.Tensor, u: torch.Tensor, chunk: int
+             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``wkv6_fill``'s operator: (y, state, each chunk's incoming state)."""
+    raise ValueError(f"K4 runs on CUDA or CPU tensors, not {r.device}")
+
+
+@_fill_op.register_kernel("cpu")
+def _fill_cpu(r, k, v, lw, u, chunk):
+    return wkv6_plain(r, k, v, lw, u, chunk=chunk, return_states=True)
+
+
+@_fill_op.register_kernel("cuda")
+def _fill_cuda(r, k, v, lw, u, chunk):
+    return _launch(*map(aligned16, (r, k, v, lw.float(), u.float())))
+
+
+@_fill_op.register_fake
+def _fill_fake(r, k, v, lw, u, chunk):
+    B, S, H, hd = r.shape
+    f32 = dict(dtype=torch.float32)
+    return (r.new_empty((B, S, H, hd), **f32),
+            r.new_empty((B, H, hd, hd), **f32),
+            r.new_empty((B, H, -(-S // chunk), hd, hd), **f32))
+
+
+_FILL = {"cpu": _fill_cpu, "cuda": _fill_cuda}
+
+
+def k4_ops_per_step(hd):
+    """f32 operations of one step of one head of the WKV6 recurrence as the
+    function defines it, one step at a time (an fma counts 2, an exp 1):
+    y = r . state, hd^2 fmas; the u bonus (r * u) . k, a mul and an fma per
+    d, and y += bonus * v, an fma per d; the decay exp(lw), 1 per d; the
+    state w * state + k v^T, a mul and an fma per entry."""
+    return 5 * hd * hd + 6 * hd
+
+
+def fill_work(r, k, v, lw, u, chunk) -> Work:
+    """K4 forward: ``k4_ops_per_step`` f32 operations a step and head; r,
+    k, v, lw (f32) and u read, y and the final state written once (the
+    chunk-state scratch the backward keeps is not counted)."""
+    B, S, H, hd = r.shape
+    return Work({"f32": k4_ops_per_step(hd) * S * B * H},
+                nbytes(r, k, v) + 4 * (2 * B * S * H * hd + H * hd
+                                       + B * H * hd * hd))
+
+
+register_work(_fill_op, fill_work)
+
+
+def _check_kernel_args(r):
+    if r.dtype not in DTYPES:
+        raise ValueError(f"K4 takes {sorted(map(str, DTYPES))}, not "
+                         f"{r.dtype}")
+    if r.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"K4 is instantiated for head widths {HEAD_DIMS}, "
+                         f"not {r.shape[-1]}")
 
 
 _LIB = None
@@ -94,12 +162,7 @@ def _lib():
 def _launch(r, k, v, lw, u):
     global launches
     B, S, H, hd = r.shape
-    if r.dtype not in DTYPES:
-        raise ValueError(f"K4 takes {sorted(map(str, DTYPES))}, not "
-                         f"{r.dtype}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"K4 is instantiated for head widths {HEAD_DIMS}, "
-                         f"not {hd}")
+    _check_kernel_args(r)
     lib = _lib()
     f32 = dict(dtype=torch.float32, device=r.device)
     nc = -(-S // CHUNK)
@@ -122,10 +185,13 @@ def _launch(r, k, v, lw, u):
     return y, state, states
 
 
-def wkv6_plain(r, k, v, lw, u, *, chunk: int = CHUNK):
+def wkv6_plain(r, k, v, lw, u, *, chunk: int = CHUNK,
+               return_states: bool = False):
     """Plain PyTorch version of ``wkv6_fill``: the chunk loop of the JAX
     model path (``mixers._wkv_chunk``, over all (b, h) at once), with the
-    sequence zero-padded to whole chunks (k = 0, lw = 0: state-neutral)."""
+    sequence zero-padded to whole chunks (k = 0, lw = 0: state-neutral).
+    ``return_states``: also each chunk's incoming state, (B, H, chunks,
+    hd, hd), as the CUDA kernel's scratch holds them."""
     _check_inputs(r, k, v, lw, u)
     B, S, H, hd = r.shape
     dev = r.device
@@ -140,8 +206,9 @@ def wkv6_plain(r, k, v, lw, u, *, chunk: int = CHUNK):
     tri = (torch.arange(chunk, device=dev)[:, None]
            > torch.arange(chunk, device=dev)[None, :])[..., None]
     state = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=dev)
-    ys = []
+    ys, incoming = [], []
     for rr, kk, vv, ll in zip(rc, kc, vc, lwc):
+        incoming.append(state)
         L = torch.cumsum(ll, dim=-2)                      # inclusive
         Lq = L - ll                                       # exclusive
         D = Lq[..., :, None, :] - L[..., None, :, :]      # (B, H, c, c, hd)
@@ -155,7 +222,11 @@ def wkv6_plain(r, k, v, lw, u, *, chunk: int = CHUNK):
         state = decay[..., None] * state + k_scaled.transpose(-1, -2) @ vv
         ys.append(y)
     y = torch.stack(ys, 0).permute(1, 0, 3, 2, 4).reshape(B, -1, H, hd)
-    return y[:, :S].contiguous(), state
+    if not return_states:
+        return y[:, :S].contiguous(), state
+    states = (torch.stack(incoming, 2) if incoming else
+              state.new_zeros((B, H, 0, hd, hd)))
+    return y[:, :S].contiguous(), state, states
 
 
 # ---------------------------------------------------------------------------
@@ -171,17 +242,93 @@ def wkv6_backward(r, k, v, lw, u, dy, dstate=None, *, states=None):
     _check_inputs(r, k, v, lw, u)
     if tuple(dy.shape) != tuple(r.shape):
         raise ValueError(f"dy is {tuple(dy.shape)}, r is {tuple(r.shape)}")
-    if r.device.type == "cpu":
-        return wkv6_backward_plain(r, k, v, lw, u, dy, dstate)
-    if r.device.type != "cuda":
+    if r.device.type == "cuda":
+        if states is None:
+            raise ValueError("K4's backward on the card takes the forward's "
+                             "chunk states (states=)")
+    elif r.device.type != "cpu":
         raise ValueError(f"K4 runs on CUDA or CPU tensors, not {r.device}")
-    if states is None:
-        raise ValueError("K4's backward on the card takes the forward's "
-                         "chunk states (states=)")
+    return call(torch.ops.repro_torch.wkv6_backward, _BWD,
+                [t for t in (r, k, v, lw, u, dy, dstate, states)
+                 if t is not None], r, k, v, lw, u, dy, dstate, states)
+
+
+@torch.library.custom_op("repro_torch::wkv6_backward", mutates_args=())
+def _bwd_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            lw: torch.Tensor, u: torch.Tensor, dy: torch.Tensor,
+            dstate: Optional[torch.Tensor], states: Optional[torch.Tensor]
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                       torch.Tensor, torch.Tensor]:
+    """``wkv6_backward``'s operator: (dr, dk, dv, dlw, du)."""
+    raise ValueError(f"K4 runs on CUDA or CPU tensors, not {r.device}")
+
+
+_PLAIN_THREAD = None
+
+
+@_bwd_op.register_kernel("cpu")
+def _bwd_cpu(r, k, v, lw, u, dy, dstate, states):
+    # The operator's autograd layer runs its kernels with autograd's
+    # dispatch keys excluded on the calling thread, and the plain backward
+    # differentiates through wkv6_plain: it runs on a thread of its own,
+    # whose dispatch state is fresh.
+    global _PLAIN_THREAD
+    if _PLAIN_THREAD is None:
+        from concurrent.futures import ThreadPoolExecutor
+        _PLAIN_THREAD = ThreadPoolExecutor(1, "wkv6-plain-backward")
+    return _PLAIN_THREAD.submit(wkv6_backward_plain, r, k, v, lw, u, dy,
+                                dstate).result()
+
+
+@_bwd_op.register_kernel("cuda")
+def _bwd_cuda(r, k, v, lw, u, dy, dstate, states):
     return _launch_bwd(*map(aligned16, (r, k, v, lw.float(), u.float(),
                                         dy.float())),
                        None if dstate is None else aligned16(dstate.float()),
                        states)
+
+
+@_bwd_op.register_fake
+def _bwd_fake(r, k, v, lw, u, dy, dstate, states):
+    f32 = dict(dtype=torch.float32)
+    return (r.new_empty(r.shape), k.new_empty(k.shape), v.new_empty(v.shape),
+            r.new_empty(r.shape, **f32), u.new_empty(u.shape, **f32))
+
+
+_BWD = {"cpu": _bwd_cpu, "cuda": _bwd_cuda}
+
+
+def k4_bwd_ops_per_chunk(hd, C=32):
+    """f32 operations K4's backward needs per (chunk, head), counted from
+    the work of csrc/wkv6_bwd.cu and not from what one design recomputes
+    (an fma counts 2, an exp, a min or a compare 1).  Increments: the
+    cumulative sum, r exp(Lq), exp(Lc), R~^T dy.  Scan: one fma per state
+    entry.  Gradients: the cumulative sums, R~ and K~, dA over j <= i; per
+    pair j < i and column: W once (difference, min, exp), A's two
+    multiplies and add, and dr's and dk's multiply and two fmas each (16);
+    A on the diagonal; per (i, d): dR~, dK~ and K~ G (an fma per n each),
+    A^T dy over i' >= i and the combination (24); per column: G . S, dLc,
+    du's partial and the reverse sum."""
+    inc = 3 * C * hd + hd + 2 * C * hd * hd
+    scan = 2 * hd * hd
+    grad = (2 * C * hd + 2 * C * hd + 3 * C * hd + C * (C + 1) * hd
+            + 8 * C * (C - 1) * hd + 3 * C * hd
+            + C * hd * 6 * hd + hd * C * (C + 1)
+            + 24 * C * hd + hd * (2 * hd + 4 * C + 2))
+    return inc + scan + grad
+
+
+def backward_work(r, k, v, lw, u, dy, dstate, states) -> Work:
+    """K4 backward: ``k4_bwd_ops_per_chunk`` f32 operations a chunk of
+    ``CHUNK`` steps and head; r, k, v, lw, dy (f32) and u read, dr, dk, dv,
+    dlw (f32) and du written once."""
+    B, S, H, hd = r.shape
+    e = r.element_size()
+    return Work({"f32": k4_bwd_ops_per_chunk(hd) * -(-S // CHUNK) * B * H},
+                (6 * e + 12) * B * S * H * hd + 8 * H * hd)
+
+
+register_work(_bwd_op, backward_work)
 
 
 _LIB_BWD = None
@@ -202,12 +349,7 @@ def _lib_bwd():
 def _launch_bwd(r, k, v, lw, u, dy, dstate, states):
     global bwd_launches
     B, S, H, hd = r.shape
-    if r.dtype not in DTYPES:
-        raise ValueError(f"K4 takes {sorted(map(str, DTYPES))}, not "
-                         f"{r.dtype}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"K4 is instantiated for head widths {HEAD_DIMS}, "
-                         f"not {hd}")
+    _check_kernel_args(r)
     nc = -(-S // CHUNK)
     if tuple(states.shape) != (B, H, nc, hd, hd):
         raise ValueError(f"states is {tuple(states.shape)}, want "

@@ -201,8 +201,21 @@ def decode_attention(q, k_cache, v_cache, *, k_len, window=None,
     valid; ``slot_pos``: (B, S) absolute position per ring slot (window
     caches); returns (B, 1, H, hd).  Scores and the softmax are f32, ``p``
     is cast to the cache's dtype before ``p @ v`` (as in JAX), and products
-    accumulate in f32.
+    accumulate in f32.  A DTensor cache runs on each rank's own blocks
+    (``_decode_sharded``).
     """
+    if isinstance(k_cache, DTensor):
+        return _decode_sharded(q, k_cache, v_cache, k_len=k_len,
+                               window=window, slot_pos=slot_pos, scale=scale)
+    s, v = _decode_scores(q, k_cache, v_cache, k_len, window, slot_pos,
+                          scale, 0)
+    return _decode_out(q, torch.softmax(s, dim=-1), v)
+
+
+def _decode_scores(q, k_cache, v_cache, k_len, window, slot_pos, scale,
+                   s0):
+    """Masked f32 scores (B, K, G, S) of q over the cache's S slots, which
+    sit at positions s0 .. s0 + S - 1 of the whole cache."""
     B, _, H, hd = q.shape
     S, K = k_cache.shape[1], k_cache.shape[2]
     G = H // K
@@ -215,12 +228,80 @@ def decode_attention(q, k_cache, v_cache, *, k_len, window=None,
         if window is not None:     # the query's position is k_len - 1
             valid = valid & (slot_pos > (k_len[:, None] - 1 - window))
     else:
-        valid = torch.arange(S, device=q.device)[None, :] < k_len[:, None]
-    s = torch.where(valid[:, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+        valid = (torch.arange(S, device=q.device)[None, :] + s0
+                 < k_len[:, None])
+    return torch.where(valid[:, None, None, :], s, NEG_INF), v_cache
+
+
+def _decode_out(q, p, v_cache):
+    B, _, H, hd = q.shape
     out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(),
                        v_cache.float())
-    return out.reshape(B, 1, H, hd).to(q.dtype)
+    return out.reshape(B, 1, H, v_cache.shape[-1]).to(q.dtype)
+
+
+def _decode_sharded(q, k_cache, v_cache, *, k_len, window, slot_pos,
+                    scale):
+    """``decode_attention`` on each rank's blocks of a DTensor cache, as it
+    is placed: its batch split, its key/value heads split (q's heads come
+    to the same split) and its slots split, where DTensor has no strategy
+    for the products.  Over a split of the slots each rank scores its own
+    block, the row max and sum come from an all-reduce over those ranks,
+    and so does the sum of p v: the softmax of the whole row, as on one
+    card, up to the order of the sum."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.sharding import flat_rank, shard_dims
+    mesh = k_cache.device_mesh
+    bdims, sdims = shard_dims(k_cache, 0), shard_dims(k_cache, 1)
+    kdims = shard_dims(k_cache, 2)
+
+    def pl(*dims):                 # Shard(d) on the mesh dims of each d
+        out = [Replicate()] * mesh.ndim
+        for d, mdims in dims:
+            for i in mdims:
+                out[i] = Shard(d)
+        return tuple(out)
+
+    def whole(t):
+        return t if isinstance(t, DTensor) else DTensor.from_local(
+            t, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+
+    def local(ql, kl, vl, lens, sp):
+        S = kl.shape[1]
+        s0 = flat_rank(mesh, sdims) * S
+        if sp is not None:
+            sp = sp[:, s0:s0 + S]
+        s, v = _decode_scores(ql, kl, vl, lens, window, sp, scale, s0)
+        m = s.amax(-1, keepdim=True)
+        for i in sdims:
+            m = funcol.all_reduce(m, "max", (mesh, i))
+        p = torch.exp(s - m)
+        den = p.sum(-1, keepdim=True)
+        for i in sdims:
+            den = funcol.all_reduce(den, "sum", (mesh, i))
+        o = torch.einsum("bkgs,bskd->bkgd", (p / den).to(vl.dtype).float(),
+                         vl.float())
+        for i in sdims:
+            o = funcol.all_reduce(o, "sum", (mesh, i))
+        B, _, H, hd = ql.shape
+        return o.reshape(B, 1, H, vl.shape[-1]).to(ql.dtype)
+
+    cache_pl = tuple(k_cache.placements)
+    head_pl = pl((0, bdims), (2, kdims))
+    rows_pl = pl((0, bdims))
+    args = [whole(q), k_cache, v_cache, whole(k_len)]
+    in_pl = [head_pl, cache_pl, tuple(v_cache.placements), rows_pl]
+    if slot_pos is not None:
+        args.append(whole(slot_pos))
+        in_pl.append(rows_pl)
+    else:
+        args.append(None)
+        in_pl.append(None)
+    return local_map(local, out_placements=(head_pl,),
+                     in_placements=tuple(in_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,8 @@ from typing import Any, Dict, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.sharding import replicate_plain
+
 from . import mixers, moe
 from .layers import embed_lookup, mlp_apply, mlp_defs, norm_apply, \
     norm_defs
@@ -301,6 +303,13 @@ def _mtp_logits(cfg, params, h, tokens, ctx, prefix):
 
 
 def prefill(cfg, params, batch, sc=None):
+    """``_prefill``; plain tensors meet a sharded tree's DTensors as
+    replicated values."""
+    with replicate_plain(params):
+        return _prefill(cfg, params, batch, sc)
+
+
+def _prefill(cfg, params, batch, sc=None):
     """-> (last-position logits (B, V), cache, k_len (B,)); the cache and
     k_len count the prefix positions too."""
     sc = sc or _no_sc
@@ -318,6 +327,13 @@ def prefill(cfg, params, batch, sc=None):
 
 
 def decode_step(cfg, params, cache, token, k_len, sc=None):
+    """``_decode_step``; plain tensors meet a sharded tree's DTensors as
+    replicated values."""
+    with replicate_plain(params):
+        return _decode_step(cfg, params, cache, token, k_len, sc)
+
+
+def _decode_step(cfg, params, cache, token, k_len, sc=None):
     """token: (B,) int; k_len: (B,) valid cache length.
     -> (logits (B, V), cache): the cache is updated in place."""
     x = _embed(cfg, params, token[:, None])

@@ -81,6 +81,26 @@ def _out(o, wo):
     return o.reshape(*o.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
 
 
+def _out_local(o, wo):
+    """``_out`` of DTensors as Megatron's row-parallel product, through
+    ``sharding.on_shards``: o's batch split as it is, the heads over the
+    other mesh axes that split o's heads, wo's heads alike and the rest of
+    wo gathered (FSDP); the output a partial sum over the head axes.
+    Whisper's attention takes it on DTensors: there DTensor's own product
+    of the flattened heads meets a strided split in the backward it has no
+    strategy for.  (The decoder-only models keep ``_out``: its sums come
+    out in another order, which one AdamW step turns into 3e-3 of relative
+    difference from the unsharded step on stablelm-12b.)"""
+    from repro_torch.sharding import SUM, on_shards, shard_dims
+    bdims = shard_dims(o, 0)
+    hdims = [i for i in shard_dims(o, 2) if i not in bdims]
+    return on_shards(
+        lambda ol, wl: ol.reshape(*ol.shape[:2], -1)
+        @ wl.reshape(-1, wl.shape[-1]),
+        o.device_mesh, bdims, hdims, [(0, 2), (None, 0)],
+        [(0, SUM)])(o, wo)
+
+
 def attn_qkv(cfg, p, x, positions):
     """The projections and rotary embedding of a train/prefill pass: the
     q, k, v that K3 receives."""
@@ -118,8 +138,40 @@ def attn_apply(cfg, p, x, ctx, cache, *, window=None, causal=True):
 def _write_slot(cache, new, idx):
     """cache: (B, S, ...); new: (B, 1, ...); idx: (B,) time slot per row.
     Writes in place and returns ``cache``."""
+    if isinstance(cache, DTensor):
+        return _write_slot_sharded(cache, new, idx)
     rows = torch.arange(cache.shape[0], device=cache.device)
     cache[rows, idx.long()] = new[:, 0].to(cache.dtype)
+    return cache
+
+
+def _write_slot_sharded(cache, new, idx):
+    """``_write_slot`` on a DTensor cache, in place on each rank's own
+    block (DTensor has no in-place ``index_put_`` that keeps a split
+    sequence): ``new`` and ``idx`` come to the cache's batch split, whole
+    elsewhere, and a rank writes the rows whose slot lies in its block of
+    the sequence."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.sharding import flat_rank, shard_dims
+    mesh, pl = cache.device_mesh, cache.placements
+    whole = (Replicate(),) * mesh.ndim
+
+    def placed(t, want):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, whole, run_check=False)
+        return t.redistribute(mesh, want).to_local()
+    nl = placed(new.to(cache.dtype), tuple(
+        Replicate() if p == Shard(1) else p for p in pl))
+    il = placed(idx, tuple(p if p == Shard(0) else Replicate()
+                           for p in pl)).long()
+    loc = cache.to_local()
+    S = loc.shape[1]
+    rel = il - flat_rank(mesh, shard_dims(cache, 1)) * S
+    inside = (rel >= 0) & (rel < S)
+    rows = torch.arange(loc.shape[0], device=loc.device)
+    slot = rel.clamp(0, S - 1)
+    keep = inside.reshape((-1,) + (1,) * (loc.dim() - 2))
+    loc[rows, slot] = torch.where(keep, nl[:, 0], loc[rows, slot])
     return cache
 
 
@@ -166,16 +218,31 @@ def mla_defs(cfg):
     }
 
 
+def _down(x, w):
+    """x @ w, MLA's projection to a latent (q_lora, kv_lora + rope_dim);
+    on DTensors through ``sharding.on_shards``: x's batch split as it is,
+    w gathered whole (FSDP) and its gradient a partial sum over the batch
+    ranks.  (DTensor's own product splits the sequence of the gradient
+    arriving from the heads' column-parallel product, and has no strategy
+    for the weight's gradient on the strided split that leaves.)"""
+    if not isinstance(x, DTensor):
+        return x @ w
+    from repro_torch.sharding import on_shards, shard_dims
+    return on_shards(lambda xl, wl: xl @ wl, x.device_mesh,
+                     shard_dims(x, 0), [], [(0, None), (None, None)],
+                     [(0, None)])(x, w)
+
+
 def _mla_qc(cfg, p, x, pos):
     """The query path and the compressed kv latent, shared by every mode:
     q without and with rotary (B, S, H, hd) and (B, S, H, rope_dim), the
     normed latent ckv (B, S, kv_lora) and the shared rotary key (B, S,
     rope_dim).  JAX's ``_rms`` is ``rms_head_norm``'s arithmetic."""
     hd, rd = cfg.head_dim, cfg.rope_dim
-    q = _proj(rms_head_norm(p["q_norm"], x @ p["wdq"]), p["wuq"])
+    q = _proj(rms_head_norm(p["q_norm"], _down(x, p["wdq"])), p["wuq"])
     q_nope, q_rope = q[..., :hd], rope_apply(q[..., hd:], pos,
                                              cfg.rope_theta)
-    ckv_full = x @ p["wdkv"]
+    ckv_full = _down(x, p["wdkv"])
     ckv = rms_head_norm(p["kv_norm"], ckv_full[..., :cfg.kv_lora])
     k_rope = rope_apply(ckv_full[..., None, cfg.kv_lora:], pos,
                         cfg.rope_theta)[..., 0, :]
@@ -389,6 +456,33 @@ def _wkv6_local(r, k, v, lw, u):
         [x, x, x, x, (None, 0)], [x, (0, 1)])(r, k, v, lw, u)
 
 
+def _rwkv6_step(r1, k1, v1, lw1, u, state0):
+    """One decode step of the recurrence: r, k, v, lw (B, H, hd), u (H, hd)
+    and the state (B, H, hd, hd) -> (y (B, H, hd) f32, state')."""
+    rt, kt, vt = r1.float(), k1.float(), v1.float()
+    # y = r (state + (u * k) v^T);  state' = diag(w) state + k v^T, with
+    # k v^T in the activations' dtype, as JAX's einsum of two of them
+    y = torch.einsum("bhd,bhdv->bhv", rt, state0) + \
+        (rt * u * kt).sum(-1, keepdim=True) * vt
+    state = torch.exp(lw1)[..., None] * state0 + \
+        (k1[..., :, None] * v1[..., None, :]).float()
+    return y, state
+
+
+def _rwkv6_step_local(r1, k1, v1, lw1, u, state0):
+    """``_rwkv6_step`` on each rank's shards of DTensors, as ``_wkv6_local``
+    places K4: the batch split as the state's batch is, the heads over
+    every other mesh axis if they divide them."""
+    from repro_torch.sharding import on_shards, shard_dims, split_dims
+    mesh = state0.device_mesh
+    bdims = shard_dims(state0, 0)
+    x = (0, 1)
+    return on_shards(_rwkv6_step, mesh, bdims,
+                     split_dims(mesh, bdims, state0.shape[1]),
+                     [x, x, x, x, (None, 0), x], [x, x])(
+                         r1, k1, v1, lw1, u, state0)
+
+
 def _shifted(x):
     return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], 1)
 
@@ -401,15 +495,9 @@ def rwkv6_apply(cfg, p, x, ctx, cache, **_):
     r, k, v, g, lw, u = rwkv6_inputs(cfg, p, x, x_prev)
 
     if mode == "decode":   # single-step recurrence, plain torch
-        state0 = cache["state"]
-        r1, k1, v1 = r[:, 0], k[:, 0], v[:, 0]
-        rt, kt, vt = r1.float(), k1.float(), v1.float()
-        # y = r (state + (u * k) v^T);  state' = diag(w) state + k v^T, with
-        # k v^T in the activations' dtype, as JAX's einsum of two of them
-        y = torch.einsum("bhd,bhdv->bhv", rt, state0) + \
-            (rt * u * kt).sum(-1, keepdim=True) * vt
-        state = torch.exp(lw[:, 0])[..., None] * state0 + \
-            (k1[..., :, None] * v1[..., None, :]).float()
+        args = (r[:, 0], k[:, 0], v[:, 0], lw[:, 0], u, cache["state"])
+        y, state = (_rwkv6_step_local(*args) if isinstance(r, DTensor)
+                    else _rwkv6_step(*args))
         y = y[:, None]                                     # (B, 1, H, hd)
         new_cache = {"state": state, "shift": x[:, -1]}
     else:   # the chunked recurrence on K4, with its backward kernel

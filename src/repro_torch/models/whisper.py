@@ -20,7 +20,10 @@ encoder-decoder configs; drive ``prefill`` / ``decode_step`` directly.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.sharding import replicate_plain
 
 from . import mixers
 from .layers import decode_attention, embed_lookup, flash_attention, \
@@ -83,7 +86,8 @@ def _attn(p, x, x_kv, *, causal):
     q = mixers._proj(x, p["wq"])
     k, v = mixers._proj(x_kv, p["wk"]), mixers._proj(x_kv, p["wv"])
     o = flash_attention(q, k, v, causal=causal, window=None)
-    return mixers._out(o, p["wo"]), (k, v)
+    out = mixers._out_local if isinstance(o, DTensor) else mixers._out
+    return out(o, p["wo"]), (k, v)
 
 
 def _enc_layer(cfg, p, x, sc):
@@ -182,6 +186,13 @@ def forward(cfg, params, batch, sc=None):
 
 
 def prefill(cfg, params, batch, sc=None):
+    """``_prefill``; plain tensors meet a sharded tree's DTensors as
+    replicated values."""
+    with replicate_plain(params):
+        return _prefill(cfg, params, batch, sc)
+
+
+def _prefill(cfg, params, batch, sc=None):
     """-> (last-position logits (B, V), cache, k_len (B,) = Sd)."""
     sc = sc or _no_sc
     enc_out = encode(cfg, params, batch["frames"], sc=sc)
@@ -199,6 +210,13 @@ def prefill(cfg, params, batch, sc=None):
 
 
 def decode_step(cfg, params, cache, token, k_len, sc=None):
+    """``_decode_step``; plain tensors meet a sharded tree's DTensors as
+    replicated values."""
+    with replicate_plain(params):
+        return _decode_step(cfg, params, cache, token, k_len, sc)
+
+
+def _decode_step(cfg, params, cache, token, k_len, sc=None):
     """token: (B,) int; k_len: (B,) valid self-cache length (its capacity
     bounds the decode length; the cross k/v are fixed).
     -> (logits (B, V), cache): the cache is updated in place."""

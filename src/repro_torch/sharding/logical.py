@@ -267,6 +267,26 @@ def place(x, sharding, device=None):
     return DTensor.from_local(local, mesh, pl, run_check=False)
 
 
+def replicate_plain(tree):
+    """A context in which plain tensors (positions, masks, scalars) meet
+    DTensors as replicated values, when ``tree`` (a parameter tree) holds
+    a DTensor; otherwise no context at all."""
+    import contextlib
+    from torch.distributed.tensor import DTensor
+    if not any(isinstance(t, DTensor) for t in _leaves(tree)):
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in _leaves(v)]
+    return [] if tree is None else [tree]
+
+
 def constrain(x, logical_axes, rules, mesh=None):
     """Redistribute a DTensor to the placements its logical axes resolve
     to; a no-op off a mesh, on a mesh of one device, and for a plain

@@ -20,7 +20,6 @@ JAX's ``out_shardings=state_sh`` keeps it.
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Callable
 
 import numpy as np
@@ -31,7 +30,7 @@ from repro_torch.models import get_model
 from repro_torch.models.params import (_to_tensor, from_jax, init_params,
                                        leaves, tree_map, unflatten)
 from repro_torch.optim import adamw
-from repro_torch.sharding import local_slice, place
+from repro_torch.sharding import local_slice, place, replicate_plain
 from . import compress as C
 from .loss import lm_loss
 
@@ -142,10 +141,6 @@ def _microbatch(batch, accum):
     return [{k: v[i] for k, v in parts.items()} for i in range(accum)]
 
 
-def _sharded(tree) -> bool:
-    return any(isinstance(t, DTensor) for t in leaves(tree))
-
-
 def _local(x):
     """A replicated DTensor's value as a plain tensor."""
     return x.full_tensor() if isinstance(x, DTensor) else x
@@ -156,7 +151,7 @@ def loss_and_grads(cfg, params, batch, sc=None):
     plain tensors, each gradient in its parameter's placements (a
     DTensor's partial sums reduced)."""
     live = [t.detach().requires_grad_() for t in leaves(params)]
-    with _replicate_plain(_sharded(params)):
+    with replicate_plain(params):
         loss, metrics = lm_loss(cfg, get_model(cfg).forward(
             cfg, unflatten(params, live), batch, sc=sc), batch)
         grads = torch.autograd.grad(loss, live)
@@ -177,7 +172,7 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, lr_fn: Callable,
 
     def step_fn(state, batch):
         params = state["params"]
-        with _replicate_plain(_sharded(params)):
+        with replicate_plain(params):
             return _step(state, params, batch)
 
     def _step(state, params, batch):
@@ -203,12 +198,3 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, lr_fn: Callable,
         return state, dict(metrics, loss=loss, grad_norm=_local(gn), lr=lr)
 
     return step_fn
-
-
-def _replicate_plain(on: bool):
-    """Plain tensors (positions, masks, scalars) meet DTensors as
-    replicated values in a sharded step."""
-    if not on:
-        return contextlib.nullcontext()
-    from torch.distributed.tensor.experimental import implicit_replication
-    return implicit_replication()

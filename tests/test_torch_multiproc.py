@@ -232,3 +232,28 @@ def test_sharded_alignment_service(tmp_path):
         assert g["score"] == pytest.approx(w["score"], abs=0)
         assert tuple(g["end"]) == tuple(w["end"])
         assert g["cigar"] == w["cigar"]
+
+
+DECODE = ["olmo-1b@2x2", "stablelm-12b@1x4", "rwkv6-3b@2x2",
+          "recurrentgemma-9b@2x2"]
+
+
+@pytest.fixture(scope="module")
+def decode_runs(tmp_path_factory):
+    wd = tmp_path_factory.mktemp("decode")
+    (wd / "archs.json").write_text(json.dumps(DECODE))
+    mp.run("decode", 4, wd, timeout=300)
+    return json.loads((wd / "result.json").read_text())
+
+
+@pytest.mark.parametrize("entry", DECODE)
+def test_sharded_decode_matches_unsharded(entry, decode_runs):
+    """Two decode steps on a cache placed as the dry run's decode cells
+    place it (INFER_RULES) equal the unsharded steps within 1e-4 of the
+    logits' scale, and the cache keeps its placements: the cache write on
+    each rank's blocks and the decode attention over a cache whose slots
+    are split (stablelm-12b's 2 key/value heads over 4 'model' ranks) or
+    whose heads are, the RWKV state step and the ring cache of local
+    attention with the RG-LRU."""
+    r = decode_runs[entry]
+    assert r["rel"] < 1e-4 and r["kept"], r

@@ -324,6 +324,58 @@ def job_train_loop_one(rank, world, wd):
         "dtensor": type(leaves(runs["mesh"][1])[0]).__name__}))
 
 
+def job_decode(rank, world, wd):
+    """Sharded prefill and decode steps under INFER_RULES against the
+    unsharded ones, for every ``<arch>@<d>x<m>`` entry of ``archs.json``:
+    the plain prefill's cache, grown to 2 x the prompt, placed as
+    ``ShardCtx.tree(abstract_cache, cache_logical)`` resolves it (a mesh
+    whose 'model' ranks do not divide the key/value heads splits the
+    cache's slots), then two decode steps of each; the largest relative
+    difference of the logits, and whether the sharded cache kept its
+    placements."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch.shardctx import ShardCtx
+    from repro_torch.models import get_model
+    from repro_torch.models.params import init_params, leaves, tree_map
+    from repro_torch.sharding import INFER_RULES, place
+    out = {}
+    for entry in json.loads((wd / "archs.json").read_text()):
+        name, _, shape = entry.partition("@")
+        mesh = _mesh(tuple(int(d) for d in shape.split("x")),
+                     ("data", "model"))
+        sc = ShardCtx(mesh, INFER_RULES)
+        cfg = configs.get(name, reduced=True)
+        model = get_model(cfg)
+        params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        sparams = tree_map(place, params,
+                           sc.tree(model.abstract(cfg), model.logical(cfg)))
+        B, S = 4, 8
+        g = torch.Generator().manual_seed(1)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                         generator=g)}
+        _, cache, k_len = model.prefill(cfg, params, batch)
+        cache = model.grow_cache(cfg, cache, B, 2 * S)
+        shardings = sc.tree(model.abstract_cache(cfg, B, 2 * S),
+                            model.cache_logical(cfg))
+        scache = tree_map(place, cache, shardings)
+        tok_sh = sc.leaf(k_len, ("batch",))
+        rel = 0.0
+        for _ in range(2):
+            tok = torch.randint(0, cfg.vocab_size, (B,), generator=g)
+            want, cache = model.decode_step(cfg, params, cache, tok, k_len)
+            got, scache = model.decode_step(cfg, sparams, scache,
+                                            place(tok, tok_sh),
+                                            place(k_len, tok_sh), sc=sc)
+            rel = max(rel, _rel(_full(got), want))
+            k_len = k_len + 1
+        kept = all(tuple(t.placements) == sh.placements
+                   for t, sh in zip(leaves(scache), leaves(shardings)))
+        out[entry] = {"rel": rel, "kept": kept}
+    if rank == 0:
+        (wd / "result.json").write_text(json.dumps(out))
+
+
 JOBS = {name[4:]: fn for name, fn in globals().items()
         if name.startswith("job_")}
 
