@@ -68,7 +68,10 @@ Phases:
      speedup over the default; then ``get_plan`` with the table installed
      takes its options, explicit options win, and REPRO_TORCH_TUNE_TABLE=off
      restores the heuristic; and ``lint_all`` over the port's registry, with
-     R401 reading the built libraries' ptxas reports, has no error;
+     R401 reading the built libraries' ptxas reports, has no error; its
+     R3xx counts are printed, and every linted point's plan runs once on
+     the card under ``hlo_cost.HostReads`` (K1 and K2 launched) and reads
+     the device on the host at exactly the sites R303 found on the CPU;
   X. X-drop on the card: #4 and #2, 256 pairs of 200-400 bases each, at
      two xdrop values and strip 8, through ``run_pairs(engine_name=
      "wavefront", xdrop=...)``: the first 32 equal to the CPU path (score,
@@ -247,8 +250,9 @@ Phases:
      their plain versions (K3_WIDTH_CASES: G 1 and 8 at 256, G 1 at
      192/128; causal / window 64 / non-causal / k_len S/2 + 1 x
      K3_WIDTH_SWEEP_S; forward f32 and bf16 exact and normal, backward f32 and
-     bf16 on 0xFF blocks, a second call bit-equal), pairs not built
-     raising; then the bf16 kernels timed alone in turns with SDPA
+     bf16 on 0xFF blocks, a second call bit-equal), the backward on rows
+     with one live key (S 1, k_len 1, hd 256, K3_ONE_KEY_DRAWS draws of
+     each type), pairs not built raising; then the bf16 kernels timed alone in turns with SDPA
      (PyTorch's default dispatch, named by the backend it picks, else the
      first fused backend that takes the shape, or "none" with their
      refusals) at recurrentgemma-9b's local attention (1, 4096, 16 / 1,
@@ -373,6 +377,9 @@ K3_MLA_TIMED = (1, 1536, 128, 128, 192, 128, None)
 K3_MLA_TRAIN = (1, 2048, 128, 128, 192, 128, None)
 K3_WIDTH_CASES = ((256, 256, 1), (256, 256, 8), (192, 128, 1))
 K3_WIDTH_SWEEP_S = (77, 1000)
+# phase 32's rows with one live key (S 1, k_len 1, hd 256): the draws of
+# tests/test_torch_flash.py::test_cuda_backward_one_live_key_hd256
+K3_ONE_KEY_DRAWS, K3_ONE_KEY_SEED = 256, 11
 # phase 33: recurrentgemma-9b's traffic, prompts past its window of 2048 so
 # that every ring is full when decode starts (a ring grown past a shorter
 # prompt counts its empty slots as keys: ROADMAP queue 3), on SERVE_SLOTS
@@ -416,8 +423,9 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 2048
 TRAIN_CPU_STEPS, TRAIN_CPU_TOL = 3, (1e-4, 1e-3)
 # the backward kernels against their plain versions (see _grad_err)
 K3_BWD_TOL, K4_BWD_TOL = 1e-4, 1e-3
-K3_BWD_PARITY = (f"dq, dk, dv within {K3_BWD_TOL} of the larger of the "
-                 "tensor's largest |entry| and 1e-2 of its products' size, "
+K3_BWD_PARITY = (f"dq, dk, dv within the larger of {K3_BWD_TOL} of the "
+                 "tensor's largest |entry| and the rounding floor of two f32 "
+                 "sums (flash_backward_floor), "
                  f"plus {K3_BWD_TOL} relative, bf16 plus one bf16 ulp; lse "
                  "within 2e-5")
 K4_BWD_PARITY = (f"dr, dk, dv, dlw, du within {K4_BWD_TOL} of the tensor's "
@@ -1513,19 +1521,76 @@ def phase_tune(card):
           f"explicit options win, {tune.ENV_VAR}=off restores the "
           f"heuristic; table: {json.dumps(table.entries, sort_keys=True)}",
           flush=True)
-    report = analyze.lint_all()
+    lint_points, _ = analyze.enumerate_points()
+    report = analyze.lint_all(points=lint_points)
     ptxas = sorted({f.message for f in report.findings
                     if f.rule == "R401" and "registers" in f.message})
+    r3 = {r: sum(f.rule == r for f in report.findings)
+          for r in ("R301", "R302", "R303")}
     print(f"    lint_all on the card: {report.points} plan points, "
           f"{len(report.errors)} errors, "
-          f"{len(report.by_severity(analyze.WARNING))} warnings; "
-          f"{'; '.join(ptxas)}", flush=True)
+          f"{len(report.by_severity(analyze.WARNING))} warnings; R3xx "
+          f"findings {r3}; {'; '.join(ptxas)}", flush=True)
     check(report.ok, "phase T: lint_all found errors:\n"
           + report.format_text())
+    sites = _host_read_sites(lint_points, report)
     print(f"    phase T: {time.perf_counter() - t0:.1f} s", flush=True)
     return {"points": out, "launches": launches,
             "lint": {"points": report.points,
-                     "warnings": len(report.by_severity(analyze.WARNING))}}
+                     "warnings": len(report.by_severity(analyze.WARNING)),
+                     "r3": r3, "host_read_sites": sites}}
+
+
+def _host_read_sites(points, report):
+    """R303's host reads on the card: each linted point's plan run once
+    on the card under ``hlo_cost.HostReads`` (K1 and K2 launched), its
+    sites against the ones R303 found on the CPU (``report``).  A site
+    seen on one side only fails the phase; returns the sites."""
+    from repro_torch.analyze import PointContext
+    from repro_torch.kernels.myers import kernel as K2
+    from repro_torch.kernels.wavefront import kernel as K1
+    from repro_torch.launch import hlo_cost
+    from repro_torch.runtime import registry
+    t0 = time.perf_counter()
+    cpu = {}
+    for f in report.findings:
+        if f.rule == "R303" and "host read at " in f.message:
+            site = f.message.split("host read at ", 1)[1].split(": ", 1)[0]
+            cpu.setdefault(f.where, set()).add(site)
+    before = (K1.launches, K2.launches)
+    K1.launches = K2.launches = 0
+    card, reads = {}, 0
+    for p in points:
+        ctx = PointContext(p, DEVICE)
+        declared = registry.engine_options(p.engine)
+        opts = {k: v for k, v in ctx.options.items()
+                if k in declared and declared[k] != "dynamic"}
+        got = hlo_cost.host_reads(p.spec, p.params, p.engine, p.q_shape,
+                                  p.r_shape, batch_size=p.batch_size,
+                                  with_traceback=p.with_traceback,
+                                  device=DEVICE, **opts)
+        reads += len(got)
+        if got:
+            card[p.label] = {r.site for r in got}
+    launched = (K1.launches, K2.launches)
+    K1.launches, K2.launches = before
+    differ = {label: (sorted(cpu.get(label, ())), sorted(card.get(label, ())))
+              for label in set(cpu) | set(card)
+              if cpu.get(label) != card.get(label)}
+    every = sorted(set().union(*card.values())) if card else []
+    print(f"    host reads on the card: {len(points)} plans run under "
+          f"HostReads ({launched[0]} K1 and {launched[1]} K2 launches), "
+          f"{reads} reads at {len(every)} sites {every}; on "
+          f"{len(card)} points, each point's sites "
+          f"{'equal to' if not differ else 'NOT equal to'} R303's on the "
+          f"CPU; {time.perf_counter() - t0:.1f} s", flush=True)
+    for label, (c, g) in sorted(differ.items()):
+        print(f"    sites differ at {label}: CPU {c}, card {g}", flush=True)
+    check(not differ, f"phase T: host-read sites on the card differ from "
+          f"R303's on the CPU at {len(differ)} points")
+    check(launched[0] > 0 and launched[1] > 0,
+          "phase T: the card's host-read run launched no K1 or no K2")
+    return every
 
 
 def phase_xdrop(genome):
@@ -3038,20 +3103,23 @@ def phase_timing_k3_k4():
 # ---------------------------------------------------------------------------
 # Training: K3's and K4's backward kernels, full-width AdamW steps
 # ---------------------------------------------------------------------------
-def _grad_err(got, want, tol, terms=0.0):
-    """(max |got - want|, whether every entry lies within ``tol`` of the
-    larger of the tensor's largest |entry| and 1e-2 ``terms`` (the size of
-    the products the gradient sums: one that cancels to 0, as dq and dk of
-    a row with a single live key do, is rounding noise of that size), plus
-    ``tol`` relative, and in bf16 plus one bf16 ulp of the output)."""
+def _grad_err(got, want, tol, floor=None):
+    """(max |got - want|, whether every entry lies within the larger of
+    ``tol`` of the tensor's largest |entry| and ``floor`` at that entry
+    (``K3.flash_backward_floor``: the rounding noise two f32
+    implementations of K3's backward may differ by, all that a gradient
+    which cancels to 0 holds, as dq and dk of a row with a single live key
+    do), plus ``tol`` relative, and in bf16 plus one bf16 ulp of the
+    output)."""
     import torch
     bf16 = got.dtype == torch.bfloat16
     got, want = got.float(), want.float()
     diff = (got - want).abs()
     if not diff.numel():
         return 0.0, True
-    scale = max(float(want.abs().max()), 1e-2 * terms)
-    bound = tol * scale + tol * want.abs()
+    bound = tol * float(want.abs().max()) + tol * want.abs()
+    if floor is not None:
+        bound = torch.maximum(bound, floor + tol * want.abs())
     if bf16:
         bound = bound + _bf16_ulp(torch.maximum(got.abs(), want.abs()))
     return float(diff.max()), bool((diff <= bound).all())
@@ -3064,13 +3132,11 @@ def _hold_k3_bwd(args, kw, what):
     from repro_torch.kernels.flash_attn import kernel as K3
     got = K3.flash_backward(*args, **kw)
     want = K3.flash_backward_plain(*args, **kw)
+    floors = K3.flash_backward_floor(*args, **kw)
     torch.cuda.synchronize()
-    q, k, v, _, _, do = (float(t.abs().max()) for t in args)
-    scale = kw.get("scale") or 1.0 / args[0].shape[-1] ** 0.5
-    terms = (do * v * k * scale, do * v * q * scale, do)
     err = 0.0
-    for name, g, w, t in zip(("dq", "dk", "dv"), got, want, terms):
-        e, ok = _grad_err(g, w, K3_BWD_TOL, t)
+    for name, g, w, f in zip(("dq", "dk", "dv"), got, want, floors):
+        e, ok = _grad_err(g, w, K3_BWD_TOL, f)
         check(ok, f"K3 backward != plain: {name}, {what} (max |diff| {e})")
         err = max(err, e)
     return err
@@ -4827,6 +4893,7 @@ def phase_k3_widths(rng):
     forward f32, bf16 on exact and on normal scores (K3_PARITY), backward
     f32 and bf16
     (K3_BWD_PARITY, lse within 2e-5, 0xFF blocks, a second call bit-equal);
+    the backward on rows with one live key at hd 256 (_k3_one_live_key);
     then pairs K3 is not built for raise and launch nothing."""
     import torch
     from repro_torch.kernels.flash_attn import kernel as K3
@@ -4859,6 +4926,7 @@ def phase_k3_widths(rng):
                                    f"{hd_v}, {mask}, G {G}, S {S}, {dtype}")
             e["bwd"], e["lse"] = max(e["bwd"], err), max(e["lse"], le)
             nb += 1
+    one_key = _k3_one_live_key()
     counts = (K3.launches, K3.bwd_launches)
     for hd, hd_v in ((32, 16), (256, 128), (128, 192)):
         q = torch.zeros((1, 64, 2, hd), device=DEVICE)
@@ -4885,10 +4953,43 @@ def phase_k3_widths(rng):
           f"({K3_PARITY}), backward and lse on {nb} cases ({K3_BWD_PARITY}; "
           f"0xFF blocks, a second call bit-equal); (hd, hd_v, G) in "
           f"{K3_WIDTH_CASES} x causal / window 64 / non-causal / k_len "
-          f"S/2 + 1 x S {K3_WIDTH_SWEEP_S}: {text}; (32, 16), (256, 128) and "
+          f"S/2 + 1 x S {K3_WIDTH_SWEEP_S}: {text}; one live key (S 1, "
+          f"k_len 1, hd 256, {K3_ONE_KEY_DRAWS} draws a type): backward max "
+          f"|diff| f32 {one_key[torch.float32]:.3g}, bf16 "
+          f"{one_key[torch.bfloat16]:.3g}; (32, 16), (256, 128) and "
           f"(128, 192) raise naming the pairs K3 is built for, nothing "
           f"launched; {time.perf_counter() - t0:.1f} s", flush=True)
     return errs
+
+
+def _k3_one_live_key():
+    """K3's backward against the plain version on rows with one live key:
+    (B 2, S 1, G 1, hd = hd_v = 256), non-causal, k_len 1, over
+    K3_ONE_KEY_DRAWS draws of q, k, v and dO a type, the draws of the gpu
+    test of that name (p = 1 and O = v, so dq and dk are the rounding noise
+    of ds = p (dO v - rowsum(dO O)) scale; K3_BWD_PARITY).  Returns the
+    largest |difference| by type."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attn import kernel as K3
+    kw = dict(causal=False, window=None, k_len=1)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        rng = np.random.default_rng(K3_ONE_KEY_SEED)
+        gen = torch.Generator(device=DEVICE).manual_seed(K3_ONE_KEY_SEED)
+        worst[dtype] = 0.0
+        for draw in range(K3_ONE_KEY_DRAWS):
+            q, k, v = (torch.as_tensor(rng.normal(size=(2, 1, 4, 256))
+                                       .astype(np.float32), device=DEVICE)
+                       .to(dtype) for _ in range(3))
+            out, lse = K3.flash_fill(q, k, v, p_dtype=dtype, return_lse=True,
+                                     **kw)
+            do = torch.randn(out.shape, generator=gen, device=DEVICE,
+                             dtype=dtype)
+            err = _hold_k3_bwd((q, k, v, out, lse, do), kw,
+                               f"one live key, hd 256, {dtype}, draw {draw}")
+            worst[dtype] = max(worst[dtype], err)
+    return worst
 
 
 def phase_timing_k3_slice13():

@@ -12,14 +12,15 @@ stable rule IDs:
     unit cost);
   * R2xx cache-key and dtype hazards (hashable deterministic keys, the
     plain fill's dtypes, 64-bit parameters K1 would narrow);
+  * R3xx transfers (host reads in the PE and its initializers, tensors
+    they capture, and every host read of the point's program, fill and
+    walk, run once on the CPU under ``launch.hlo_cost.HostReads``: the
+    counterparts of JAX's callbacks in the jaxpr, constants captured by
+    the trace and host transfers in the lowered HLO);
   * R4xx budgets (K1's shared memory at the point's warps per pair and the
     kept ptxas reports of K1 and K2, K1's grid legality, the traceback
     store);
   * R5xx registry hygiene (semiring laws, tunable grids, option schema).
-
-JAX's R301 (host callbacks in the jaxpr), R302 (constants captured by the
-trace) and R303 (host transfers in the lowered HLO) read a traced program;
-eager torch builds none, so the port has no counterpart and leaves them out.
 
 Entry points: :func:`lint_all`, :func:`lint_point` (one point, e.g. from
 :func:`point_for`), and ``python -m repro_torch.analyze`` (the counterpart

@@ -8,6 +8,7 @@ iff an error-severity finding survives (2 on a bad selector or kernel).
     PYTHONPATH=src python -m repro_torch.analyze            # full sweep
     PYTHONPATH=src python -m repro_torch.analyze --json
     PYTHONPATH=src python -m repro_torch.analyze --rules R4 R101
+    PYTHONPATH=src python -m repro_torch.analyze --no-hlo   # skip R303
     PYTHONPATH=src python -m repro_torch.analyze --kernels 11 12 \\
         --engines banded --bucket 48x64 --batch 8
     PYTHONPATH=src python -m repro_torch.analyze --list-rules
@@ -46,6 +47,9 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="device the options resolve for (default: cuda "
                          "when present, else cpu)")
+    ap.add_argument("--no-hlo", action="store_true",
+                    help="skip R303, which runs each point's program "
+                         "once on the CPU")
     ap.add_argument("--json", action="store_true",
                     help="emit the report as JSON")
     ap.add_argument("--verbose", "-v", action="store_true",
@@ -70,7 +74,8 @@ def main(argv=None) -> int:
             kernels=kernels, engines=args.engines, bucket=args.bucket,
             batch_size=args.batch or None, rules=args.rules,
             ignore=args.ignore,
-            config=analyze.LintConfig(device=args.device))
+            config=analyze.LintConfig(device=args.device,
+                                      hlo_rules=not args.no_hlo))
     except (ValueError, KeyError) as e:         # bad selector / kernel
         print(f"repro_torch.analyze: {e}", file=sys.stderr)
         return 2

@@ -4,10 +4,12 @@
 JAX's context traces a point abstractly (``eval_shape``, ``make_jaxpr``,
 un-compiled HLO).  Eager torch has no trace to inspect, so the port's
 context holds what a rule can learn without a card: the resolved options,
-the ``PlanKey`` the cache would build, and the output of the point's engine
+the ``PlanKey`` the cache would build, the output of the point's engine
 run once on CPU tensors at the bucket shape (K1 and K2 through their plain
-versions), never through the plan cache.  One context memoizes each, so the
-rules inspecting a point pay one fill.
+versions), never through the plan cache, and the host reads of the point's
+whole program (fill and walk) run once on the CPU under
+``launch.hlo_cost.HostReads``.  One context memoizes each, so the rules
+inspecting a point pay one fill and one program run.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import functools
 
 import torch
 
+from repro_torch.launch import hlo_cost
 from repro_torch.runtime import plan as plan_mod
 from repro_torch.runtime import registry
 
@@ -66,3 +69,15 @@ class PointContext:
             kw["live_bound"] = sum(p.bucket)
         return registry.get_engine(p.engine)(
             spec, self.params, q, r, ql, rl, with_tb=p.with_traceback, **kw)
+
+    @functools.cached_property
+    def host_reads(self):
+        """The host reads of the point's program (``hlo_cost.host_reads``
+        on the CPU with the point's options)."""
+        p = self.point
+        declared = registry.engine_options(p.engine)
+        opts = {k: v for k, v in self.options.items()
+                if k in declared and declared[k] != "dynamic"}
+        return hlo_cost.host_reads(
+            self.spec, self.params, p.engine, p.q_shape, p.r_shape,
+            batch_size=p.batch_size, with_traceback=p.with_traceback, **opts)

@@ -5,10 +5,12 @@
 representative bucket and batch, builds one :class:`PointContext` per
 point, and runs the selected rules — point-scope rules on every point,
 kernel-scope rules once per kernel, global rules once per sweep.  Nothing
-runs on a card: a point costs at most one plain fill on the CPU.
+runs on a card: a point costs at most one plain fill on the CPU, and with
+the R303 rule one run of its program (fill and walk) under the host-read
+detector.
 
-Rule selection takes exact IDs or prefixes (``"R4"`` the budget family,
-``"R202"`` one rule).  A rule that crashes, as opposed to firing, is
+Rule selection takes exact IDs or prefixes (``"R3"`` the transfer family,
+``"R4"`` the budget family, ``"R202"`` one rule).  A rule that crashes, as opposed to firing, is
 reported as an error under its own ID.
 """
 from __future__ import annotations
@@ -29,12 +31,15 @@ RULES_BY_ID = {r.id: r for r in ALL_RULES}
 
 @dataclasses.dataclass
 class LintConfig:
-    """Budgets the R4xx rules judge against, and the device the options
-    resolve for (None: the CUDA device when one is present, else the CPU;
-    nothing is launched either way)."""
+    """Budgets and thresholds the R3xx/R4xx rules judge against, and the
+    device the options resolve for (None: the CUDA device when one is
+    present, else the CPU; nothing is launched either way)."""
     tb_budget_bytes: int = 256 << 20      # per-block traceback store
     smem_budget_bytes: Optional[int] = None   # None: the card's, or H100's
     device: Optional[str] = None
+    const_warn_bytes: int = 128 << 10     # captured-tensor thresholds
+    const_error_bytes: int = 16 << 20
+    hlo_rules: bool = True                # run the point's program (R303)
 
     def resolved_device(self) -> str:
         if self.device is not None:

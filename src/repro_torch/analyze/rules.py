@@ -8,10 +8,12 @@ Rule IDs keep JAX's families:
     recurrence the engines schedule (the PE called on CPU tensors);
   * R2xx cache-key and dtype hazards — one logical point maps to one cache
     entry, and the fill keeps the declared dtypes;
+  * R3xx transfers — where the program waits for the device: host reads in
+    the PE, tensors the PE captures, host reads in the point's program
+    (``launch.hlo_cost.HostReads`` in place of JAX's jaxpr and HLO);
   * R4xx budgets — K1's shared memory and grid, and the traceback store.
 
-JAX's R3xx rules read jaxprs and HLO, which eager torch does not have; the
-port leaves them out (``analyze/__init__.py``).  Each rule is
+Each rule is
 ``fn(ctx, cfg) -> iterable[Finding]`` over a
 :class:`~repro_torch.analyze.context.PointContext`; ``scope='kernel'``
 rules are engine-independent and run once per kernel.
@@ -19,12 +21,16 @@ rules are engine-independent and run once per kernel.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import inspect
+import types
 from typing import Callable, Iterator, List
 
 import numpy as np
 import torch
 
 from repro_torch.core import types as T
+from repro_torch.launch import hlo_cost
 from repro_torch.runtime import plan as plan_mod
 from repro_torch.runtime import registry
 
@@ -47,15 +53,15 @@ _N_CELLS = 4
 # ---------------------------------------------------------------------------
 # R1xx — recurrence legality
 # ---------------------------------------------------------------------------
-def _pe_probe(spec, params):
-    """The PE on ``_N_CELLS`` cells of zero-coded characters and zero
-    neighbours, CPU tensors of the declared shapes and dtypes."""
+def _pe_args(spec, params):
+    """The PE's arguments on ``_N_CELLS`` cells of zero-coded characters
+    and zero neighbours, CPU tensors of the declared shapes and dtypes."""
     n, L = _N_CELLS, spec.n_layers
     char = tuple(spec.char_shape)
     q = torch.zeros((n,) + char, dtype=spec.char_dtype)
     zeros = torch.zeros((n, L), dtype=spec.score_dtype)
     idx = torch.ones((n,), dtype=torch.int32)
-    return spec.pe(params, q, q.clone(), zeros, zeros, zeros, idx, idx)
+    return params, q, q.clone(), zeros, zeros, zeros, idx, idx
 
 
 def rule_pe_contract(ctx, cfg) -> Iterator[Finding]:
@@ -69,7 +75,7 @@ def rule_pe_contract(ctx, cfg) -> Iterator[Finding]:
     spec = ctx.spec
     where = spec.name
     try:
-        scores, ptr = _pe_probe(spec, ctx.params)
+        scores, ptr = spec.pe(*_pe_args(spec, ctx.params))
     except Exception as e:
         yield Finding("R101", ERROR,
                       f"PE failed on CPU tensors of the cell contract "
@@ -293,6 +299,176 @@ def rule_wide_params(ctx, cfg) -> Iterator[Finding]:
 
 
 # ---------------------------------------------------------------------------
+# R3xx — transfers: where the program waits for the device
+# ---------------------------------------------------------------------------
+def rule_host_callback(ctx, cfg) -> Iterator[Finding]:
+    """R301: no host read inside the PE or the boundary initializers.  The
+    PE and the initializers run on the CPU cells of R101's probe, their
+    tensors and the params marked as the device's, under
+    ``launch.hlo_cost.HostReads``: any ``.item()``, ``int``/``bool``/
+    ``float`` of a tensor, ``.tolist()``, ``.numpy()``, ``print`` or
+    data-dependent shape there is an error.  The eager engines
+    (``reference``, ``banded``, X-drop) call the PE once a diagonal, so on
+    the card each such read stalls the device every step, the hazard JAX's
+    R301 finds as a callback in the traced fill.  Engine-independent: once
+    per kernel."""
+    spec = ctx.spec
+    where = spec.name
+    det = hlo_cost.HostReads()
+    try:
+        args = det.marked(_pe_args(spec, ctx.params))
+        idx = det.marked(torch.arange(8, dtype=torch.int32))
+        with det:
+            spec.pe(*args)
+            spec.init_row(args[0], idx)
+            spec.init_col(args[0], idx)
+    except Exception as e:
+        yield Finding("R301", ERROR,
+                      f"PE or initializer failed under the host-read "
+                      f"detector: {type(e).__name__}: {e}", where)
+        return
+    for site, reads in _by_site(det.reads):
+        yield Finding("R301", ERROR,
+                      f"host read in the PE or its initializers at {site}: "
+                      f"{_describe(reads)} — on the eager engines every PE "
+                      f"call waits for the device", where)
+
+
+def _by_site(reads):
+    sites = {}
+    for r in reads:
+        sites.setdefault(r.site, []).append(r)
+    return sorted(sites.items())
+
+
+def _describe(reads) -> str:
+    ops = sorted({r.op for r in reads})
+    shapes = sorted({r.shape for r in reads})
+    return (f"{'/'.join(ops)} of a {'/'.join(str(list(s)) for s in shapes)} "
+            f"tensor, {len(reads)} time{'s' if len(reads) > 1 else ''}")
+
+
+def _captured(fn, depth=0, seen=None):
+    """(name, value) of what ``fn`` closes over: closure cells, the globals
+    it names, its defaults, a ``functools.partial``'s bound arguments, and
+    the same of the plain functions among them (three levels deep)."""
+    seen = set() if seen is None else seen
+    if id(fn) in seen or depth > 3:
+        return
+    seen.add(id(fn))
+    if isinstance(fn, functools.partial):
+        for i, a in enumerate(fn.args):
+            yield f"partial argument {i}", a
+        for k, a in (fn.keywords or {}).items():
+            yield f"partial argument {k}", a
+        yield from _captured(fn.func, depth + 1, seen)
+        return
+    fn = getattr(fn, "__func__", fn)
+    if not isinstance(fn, types.FunctionType):
+        return
+    cv = inspect.getclosurevars(fn)
+    named = list(cv.nonlocals.items()) + list(cv.globals.items())
+    named += [(f"default {i}", d) for i, d in
+              enumerate(fn.__defaults__ or ())]
+    named += [(f"default {k}", d) for k, d in
+              (fn.__kwdefaults__ or {}).items()]
+    for name, value in named:
+        yield name, value
+        if isinstance(value, (types.FunctionType, functools.partial)) and \
+                not getattr(value, "__module__", "").startswith(
+                    ("torch", "numpy")):
+            yield from _captured(value, depth + 1, seen)
+
+
+def _arrays(name, value):
+    """The tensors and arrays in a captured value (itself, or one level
+    into a list, tuple or dict)."""
+    if isinstance(value, (torch.Tensor, np.ndarray)):
+        yield name, value
+    elif isinstance(value, (list, tuple)):
+        for i, v in enumerate(value):
+            if isinstance(v, (torch.Tensor, np.ndarray)):
+                yield f"{name}[{i}]", v
+    elif isinstance(value, dict):
+        for k, v in value.items():
+            if isinstance(v, (torch.Tensor, np.ndarray)):
+                yield f"{name}[{k!r}]", v
+
+
+def rule_const_capture(ctx, cfg) -> Iterator[Finding]:
+    """R302: no large tensor or array captured by the PE or the boundary
+    initializers.  On the eager engines a captured CPU tensor is copied to
+    the card at every PE call (once a diagonal), and the plan key, which
+    sees the spec and params only, does not see it: change it and a cached
+    plan keeps the old one's traffic.  The captures are read from each
+    function's closure cells, the globals it names, its defaults and a
+    ``functools.partial``'s arguments (``_captured``); the params are
+    arguments, not captures, and a captured params leaf is not counted.
+    What the closure cannot show: attributes of a captured object (a
+    module, a class instance or a callable object), and tensors a function
+    reaches through a container more than one level deep.
+    Engine-independent: once per kernel."""
+    spec = ctx.spec
+    where = spec.name
+    own = {id(v) for v in dict(ctx.params).values()} \
+        if isinstance(ctx.params, dict) else set()
+    found = {}
+    for fname, fn in (("pe", spec.pe), ("init_row", spec.init_row),
+                      ("init_col", spec.init_col)):
+        for name, value in _captured(fn):
+            for label, arr in _arrays(name, value):
+                if id(arr) not in own and id(arr) not in found:
+                    found[id(arr)] = (fname, label, arr)
+    for fname, label, arr in found.values():
+        if isinstance(arr, torch.Tensor):
+            nbytes = arr.numel() * arr.element_size()
+            kind, dt = "tensor", str(arr.dtype).replace("torch.", "")
+        else:
+            nbytes, kind, dt = arr.nbytes, "array", str(arr.dtype)
+        what = f"{fname} captures {label}, a {dt}{list(arr.shape)} {kind}"
+        if nbytes >= cfg.const_error_bytes:
+            yield Finding("R302", ERROR,
+                          f"{what} of {nbytes >> 20} MiB — copied to the "
+                          f"card at every PE call of the eager engines and "
+                          f"invisible to the plan key", where)
+        elif nbytes >= cfg.const_warn_bytes:
+            yield Finding("R302", WARNING,
+                          f"{what} of {nbytes >> 10} KiB; prefer passing it "
+                          f"as a param so the plan key sees it and it moves "
+                          f"to the card once", where)
+
+
+def rule_hlo_transfer(ctx, cfg) -> Iterator[Finding]:
+    """R303: the point's whole program (fill plus traceback walk, as
+    ``launch.hlo_cost.analyze_plan`` builds it) reads no device tensor on
+    the host.  It runs once on the CPU under ``HostReads``, the engine
+    handed marked copies of what the plan puts on the device, so each read
+    the card would wait for is found at its frame; one finding per site,
+    with the op, the shape and ``file:line:function``.  JAX runs fill and
+    walk inside one jitted loop, which has none; the port's eager syncs
+    (the walk's early exit every ``DONE_CHECK_EVERY`` steps, the eager
+    engines' fill bound) are its own, not faults of its results.  Kernel
+    launches are not looked inside (on the CPU their plain versions run).
+    Off with ``LintConfig(hlo_rules=False)``; an INFO where the program
+    cannot run on the CPU."""
+    if not cfg.hlo_rules:
+        return
+    where = ctx.point.label
+    try:
+        reads = ctx.host_reads
+    except Exception as e:
+        yield Finding("R303", INFO,
+                      f"program does not run on the CPU "
+                      f"({type(e).__name__}: {e}); host-read scan skipped",
+                      where)
+        return
+    for site, rs in _by_site(reads):
+        yield Finding("R303", WARNING,
+                      f"host read at {site}: {_describe(rs)} — the host "
+                      f"waits for the device there", where)
+
+
+# ---------------------------------------------------------------------------
 # R4xx — K1's launch budgets and the traceback store
 # ---------------------------------------------------------------------------
 def _k1_geometry(ctx, cfg):
@@ -431,6 +607,12 @@ POINT_RULES: List[Rule] = [
          "the plain fill returns the declared score dtype"),
     Rule("R203", "wide-params", WARNING, "kernel", rule_wide_params,
          "no float64/int64 parameter leaves K1 would narrow"),
+    Rule("R301", "host-callback", ERROR, "kernel", rule_host_callback,
+         "no host read in the PE or its initializers"),
+    Rule("R302", "const-capture", WARNING, "kernel", rule_const_capture,
+         "no large tensor captured by the PE or its initializers"),
+    Rule("R303", "hlo-transfer", WARNING, "point", rule_hlo_transfer,
+         "where the point's program reads a device tensor on the host"),
     Rule("R401", "k1-smem", ERROR, "point", rule_k1_smem,
          "K1 shared memory within the card's limit; ptxas spills"),
     Rule("R402", "k1-grid", ERROR, "point", rule_k1_grid,

@@ -471,21 +471,18 @@ def _launch_bwd(q, k, v, o, lse, do, causal, window, k_len, scale, q_start):
     return dq, dk, dv
 
 
-def flash_backward_plain(q, k, v, o, lse, do, *, causal: bool, window=None,
-                         k_len=None, scale=None, blk: int = BLOCK,
-                         q_start: int = 0):
-    """Plain PyTorch version of ``flash_backward``: JAX's
-    ``_flash_core_bwd`` over ``blk``-row tiles, visiting the (q-tile,
-    k-tile) pairs the forward visits, all in f32: delta = rowsum(do * o),
-    p = exp(s - lse) with masked scores -1e30, dv += p^T do,
-    dp = do v^T, ds = p (dp - delta) * scale, dq += ds k, dk += ds^T q.
-    Rows and keys are zero-padded to whole tiles, as the kernels load
-    them."""
+def _backward_tiles(q, k, v, o, lse, do, causal, window, k_len, scale, blk,
+                    q_start):
+    """The tiling ``flash_backward_plain`` walks: q, o and dO in f32 as
+    (B, Sq', Kh, G, width), k and v as (B, Sk', Kh, width), rows and keys
+    zero-padded to whole tiles as the kernels load them, lse as (B, Sq',
+    Kh, G), and the live (q-tile, k-tile) pairs the forward visits, each
+    as (q0, q1, k0, k1, p) with p = exp(s - lse) of its f32 scores (masked
+    scores -1e30)."""
     _check_inputs(q, k, v, window, k_len)
     B, Sq, H, hd = q.shape
     Sk, Kh, hd_v = k.shape[1], k.shape[2], v.shape[3]
     G = H // Kh
-    scale = float(scale) if scale is not None else 1.0 / math.sqrt(hd)
     kl = _key_len(k, k_len)
     dev = q.device
 
@@ -497,30 +494,109 @@ def flash_backward_plain(q, k, v, o, lse, do, *, causal: bool, window=None,
     of, dof = (padded(t, Sq).reshape(B, -1, Kh, G, hd_v) for t in (o, do))
     kf, vf = padded(k, Sk), padded(v, Sk)
     lsef = padded(lse, Sq).reshape(B, -1, Kh, G)
+
+    def pairs():
+        for q0 in range(0, qf.shape[1], blk):
+            q1 = q0 + blk
+            for k0 in range(0, kf.shape[1], blk):
+                if not live_block(q_start + q0, k0, blk, causal, window, kl):
+                    continue
+                k1 = k0 + blk
+                s = torch.einsum("bqkgd,bskd->bqkgs", qf[:, q0:q1],
+                                 kf[:, k0:k1]) * scale
+                mask = _mask(q_start + q0, q_start + q1, k0, blk, causal,
+                             window, kl, dev)
+                s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+                yield q0, q1, k0, k1, torch.exp(s - lsef[:, q0:q1, ..., None])
+
+    return (qf, kf, vf, of, dof), pairs()
+
+
+def _scale(q, scale):
+    return float(scale) if scale is not None else 1.0 / math.sqrt(q.shape[3])
+
+
+def flash_backward_plain(q, k, v, o, lse, do, *, causal: bool, window=None,
+                         k_len=None, scale=None, blk: int = BLOCK,
+                         q_start: int = 0):
+    """Plain PyTorch version of ``flash_backward``: JAX's
+    ``_flash_core_bwd`` over ``blk``-row tiles, visiting the (q-tile,
+    k-tile) pairs the forward visits, all in f32: delta = rowsum(do * o),
+    p = exp(s - lse) with masked scores -1e30, dv += p^T do,
+    dp = do v^T, ds = p (dp - delta) * scale, dq += ds k, dk += ds^T q.
+    Rows and keys are zero-padded to whole tiles, as the kernels load
+    them."""
+    scale = _scale(q, scale)
+    (qf, kf, vf, of, dof), pairs = _backward_tiles(
+        q, k, v, o, lse, do, causal, window, k_len, scale, blk, q_start)
     delta = (dof * of).sum(-1)
     dq = torch.zeros_like(qf)
     dk = torch.zeros_like(kf)
     dv = torch.zeros_like(vf)
-    for q0 in range(0, qf.shape[1], blk):
-        q1 = q0 + blk
+    for q0, q1, k0, k1, p in pairs:
         qb, dob = qf[:, q0:q1], dof[:, q0:q1]
-        for k0 in range(0, kf.shape[1], blk):
-            if not live_block(q_start + q0, k0, blk, causal, window, kl):
-                continue
-            k1 = k0 + blk
-            kb, vb = kf[:, k0:k1], vf[:, k0:k1]
-            s = torch.einsum("bqkgd,bskd->bqkgs", qb, kb) * scale
-            mask = _mask(q_start + q0, q_start + q1, k0, blk, causal,
-                         window, kl, dev)
-            s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
-            p = torch.exp(s - lsef[:, q0:q1, ..., None])
-            dv[:, k0:k1] += torch.einsum("bqkgs,bqkgd->bskd", p, dob)
-            dp = torch.einsum("bqkgd,bskd->bqkgs", dob, vb)
-            ds = p * (dp - delta[:, q0:q1, ..., None]) * scale
-            dq[:, q0:q1] += torch.einsum("bqkgs,bskd->bqkgd", ds, kb)
-            dk[:, k0:k1] += torch.einsum("bqkgs,bqkgd->bskd", ds, qb)
+        kb, vb = kf[:, k0:k1], vf[:, k0:k1]
+        dv[:, k0:k1] += torch.einsum("bqkgs,bqkgd->bskd", p, dob)
+        dp = torch.einsum("bqkgd,bskd->bqkgs", dob, vb)
+        ds = p * (dp - delta[:, q0:q1, ..., None]) * scale
+        dq[:, q0:q1] += torch.einsum("bqkgs,bskd->bqkgd", ds, kb)
+        dk[:, k0:k1] += torch.einsum("bqkgs,bqkgd->bskd", ds, qb)
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
     return (dq[:, :Sq].reshape(B, Sq, H, hd).to(q.dtype),
             dk[:, :Sk].to(k.dtype), dv[:, :Sk].to(v.dtype))
+
+
+F32_UNIT = 2.0 ** -24        # unit roundoff of f32
+
+
+def flash_backward_floor(q, k, v, o, lse, do, *, causal: bool, window=None,
+                         k_len=None, scale=None, blk: int = BLOCK,
+                         q_start: int = 0):
+    """The rounding noise two f32 implementations of the backward may
+    differ by, entry by entry, as f32 tensors of dq's, dk's and dv's
+    shapes: the floor a check of the kernel against
+    ``flash_backward_plain`` adds to its relative tolerance.
+
+    ds = p (dp - delta) scale subtracts two f32 sums of hd_v products,
+    dp = sum_d dO_d v_d and delta = sum_d dO_d O_d, which are equal where a
+    row has one live key (p = 1, O = v): ds is then rounding noise however
+    small dq comes out.  A sum of n terms in some order carries a
+    first-order error sum_k e_k S_k over its partial sums S_k, |e_k| <= u
+    (u = 2^-24); with independent errors of either sign its spread is
+    about u sqrt(n / 3) max |S_k| <= u sqrt(n) sum |x|.  Both sums of a row
+    and both implementations (the kernel's, in its mma order, and the plain
+    version's) each contribute, so
+
+        floor(dq_i) = 2 u sqrt(hd_v) scale sum_j p_ij (A_ij + a_i) |k_j|,
+        A_ij = sum_d |dO_id| |v_jd|,   a_i = sum_d |dO_id| |O_id|,
+
+    dk the same with |q_i| over the queries, and dv, whose sum over the
+    n_q = Sq G query rows of a key does not subtract two sums,
+    floor(dv_j) = 2 u sqrt(n_q) sum_i p_ij |dO_i|.  The floor grows with
+    the width of the sums and with the products' sizes, where a constant
+    floor does not; rounding of p, of the split halves of p and ds and of
+    the outer sums is relative to the gradients' own size and left to the
+    check's relative term.  A check helper: nothing on the path calls
+    it."""
+    scale = _scale(q, scale)
+    (qf, kf, vf, of, dof), pairs = _backward_tiles(
+        q, k, v, o, lse, do, causal, window, k_len, scale, blk, q_start)
+    qa, ka, va, doa = qf.abs(), kf.abs(), vf.abs(), dof.abs()
+    a = (doa * of.abs()).sum(-1)
+    fq, fk, fv = (torch.zeros_like(t) for t in (qf, kf, vf))
+    for q0, q1, k0, k1, p in pairs:
+        A = torch.einsum("bqkgd,bskd->bqkgs", doa[:, q0:q1], va[:, k0:k1])
+        w = p * (A + a[:, q0:q1, ..., None]) * scale
+        fq[:, q0:q1] += torch.einsum("bqkgs,bskd->bqkgd", w, ka[:, k0:k1])
+        fk[:, k0:k1] += torch.einsum("bqkgs,bqkgd->bskd", w, qa[:, q0:q1])
+        fv[:, k0:k1] += torch.einsum("bqkgs,bqkgd->bskd", p, doa[:, q0:q1])
+    B, Sq, H, hd = q.shape
+    Sk, hd_v = k.shape[1], v.shape[3]
+    cancel = 2 * F32_UNIT * math.sqrt(hd_v)
+    return (cancel * fq[:, :Sq].reshape(B, Sq, H, hd),
+            cancel * fk[:, :Sk],
+            2 * F32_UNIT * math.sqrt(Sq * (H // k.shape[2])) * fv[:, :Sk])
 
 
 class FlashAttnFunction(torch.autograd.Function):

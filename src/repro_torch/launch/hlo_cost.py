@@ -49,9 +49,9 @@ from collections import defaultdict
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
-from torch.utils._pytree import tree_flatten
 
 import repro_torch.kernels as _kernels
 # every kernel's operator and work formula is registered on import
@@ -132,8 +132,19 @@ class Cost:
                 "host_transfers": len(self.host_transfers)}
 
 
-def _tensors(tree):
-    return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
+def _tensors(tree, out=None):
+    """The tensors of an op's arguments or outputs (lists, tuples and dicts
+    of them), without a pytree flatten on every op."""
+    out = [] if out is None else out
+    if isinstance(tree, torch.Tensor):
+        out.append(tree)
+    elif isinstance(tree, (list, tuple)):
+        for x in tree:
+            _tensors(x, out)
+    elif isinstance(tree, dict):
+        for x in tree.values():
+            _tensors(x, out)
+    return out
 
 
 def _nbytes(ts) -> int:
@@ -272,6 +283,35 @@ def breakdown(fn, *args, top: int = 12, warm: bool = False, **kwargs):
     return rows[:top]
 
 
+def _plan_program(spec, params, engine_name, q_shape, r_shape, batch_size,
+                  with_traceback, mode, device, options):
+    """A plan for these arguments and the arguments of one dispatch: a zero
+    batch of those shapes on ``device``, every pair at its full bucket
+    length, the lengths on the host as the services pass them."""
+    from repro_torch.runtime import plan as plan_mod
+    opts = plan_mod.resolve_engine_options(spec, engine_name, options,
+                                           device)
+    wtb = bool(with_traceback and spec.traceback is not None)
+    key = plan_mod.PlanKey(
+        kernel=spec.name, engine=engine_name,
+        bucket_shape=(tuple(q_shape), tuple(r_shape)),
+        batch_size=batch_size, with_traceback=wtb, mode=mode,
+        device=str(device), semiring=spec.semiring.name, **opts)
+    plan = plan_mod.CompiledPlan(key, spec, engine_name)
+    n = batch_size or 1
+    q = torch.zeros((n,) + tuple(q_shape), dtype=spec.char_dtype,
+                    device=device)
+    r = torch.zeros((n,) + tuple(r_shape), dtype=spec.char_dtype,
+                    device=device)
+    ql, rl = int(q_shape[0]), int(r_shape[0])
+    if batch_size is None:
+        q, r = q[0], r[0]
+    else:
+        ql = torch.full((n,), ql, dtype=torch.int32)
+        rl = torch.full((n,), rl, dtype=torch.int32)
+    return plan, (params, q, r, ql, rl)
+
+
 def analyze_plan(spec, params, engine_name: str,
                  q_shape: tuple, r_shape: tuple, *,
                  batch_size: Optional[int] = None,
@@ -283,24 +323,209 @@ def analyze_plan(spec, params, engine_name: str,
     K1 and K2 count by their formulas, as on the card.  ``options`` are
     engine schedule knobs (``strip=``, ``tb_pack=``, ...); ``n_devices``
     is JAX's argument (a plan runs on one device)."""
-    from repro_torch.runtime import plan as plan_mod
-    opts = plan_mod.resolve_engine_options(spec, engine_name, options, "cpu")
-    wtb = bool(with_traceback and spec.traceback is not None)
-    key = plan_mod.PlanKey(
-        kernel=spec.name, engine=engine_name,
-        bucket_shape=(tuple(q_shape), tuple(r_shape)),
-        batch_size=batch_size, with_traceback=wtb, mode=mode, device="cpu",
-        semiring=spec.semiring.name, **opts)
-    plan = plan_mod.CompiledPlan(key, spec, engine_name)
-    n = batch_size or 1
-    q = torch.zeros((n,) + tuple(q_shape), dtype=spec.char_dtype)
-    r = torch.zeros((n,) + tuple(r_shape), dtype=spec.char_dtype)
-    ql, rl = int(q_shape[0]), int(r_shape[0])
-    if batch_size is None:
-        q, r = q[0], r[0]
-    else:
-        ql = torch.full((n,), ql, dtype=torch.int32)
-        rl = torch.full((n,), rl, dtype=torch.int32)
+    plan, args = _plan_program(spec, params, engine_name, q_shape, r_shape,
+                               batch_size, with_traceback, mode, "cpu",
+                               options)
     with Counter() as c:
-        plan._dispatch(params, q, r, ql, rl)
+        plan._dispatch(*args)
     return c.cost
+
+
+# ---------------------------------------------------------------------------
+# Host reads: where the program waits for the device
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class HostRead:
+    """One read of a device tensor's value by the host: ``op`` (``int``,
+    ``bool``, ``item``, ``_local_scalar_dense``, ``nonzero``, ...), the
+    tensor's shape and the innermost frame of the program that asked for
+    it, ``'core/traceback.py:180:run_batched'``."""
+    op: str
+    shape: Tuple[int, ...]
+    site: str
+
+
+# Python-level reads (a TorchFunctionMode sees these; tolist, numpy, repr
+# and __array__ never reach the dispatcher)
+_READ_FNS = {
+    torch.Tensor.item: "item", torch.Tensor.tolist: "tolist",
+    torch.Tensor.numpy: "numpy", torch.Tensor.__array__: "numpy",
+    torch.Tensor.__bool__: "bool", torch.Tensor.__int__: "int",
+    torch.Tensor.__float__: "float", torch.Tensor.__index__: "index",
+    torch.Tensor.__complex__: "complex", torch.Tensor.__repr__: "repr",
+    torch.Tensor.__format__: "format", torch.Tensor.cpu: "cpu",
+}
+# ops whose result the host must read: a Python scalar, or an output whose
+# shape depends on the data
+_READ_OPS = {"_local_scalar_dense", "equal", "is_nonzero", "allclose",
+             "nonzero", "nonzero_static", "masked_select", "_unique",
+             "_unique2", "unique_dim", "unique_consecutive",
+             "unique_dim_consecutive", "repeat_interleave"}
+_SKIP_DIRS = (os.sep + "torch" + os.sep, os.sep + "numpy" + os.sep,
+              os.path.dirname(os.__file__) + os.sep)
+
+
+def _site() -> str:
+    """'file:line:function' of the innermost frame outside torch, numpy,
+    the standard library and this module; a path inside the port is given
+    from ``repro_torch/``."""
+    f = sys._getframe(2)
+    while f is not None:
+        path = f.f_code.co_filename
+        if not (os.path.abspath(path) == _SELF or path.startswith("<")
+                or any(d in path for d in _SKIP_DIRS)
+                or path.endswith(os.sep + "kernels" + os.sep
+                                 + "__init__.py")):
+            name = (path.split(_PKG, 1)[1].replace(os.sep, "/")
+                    if _PKG in path else os.path.basename(path))
+            return f"{name}:{f.f_lineno}:{f.f_code.co_name}"
+        f = f.f_back
+    return "(unknown)"
+
+
+class HostReads:
+    """Records every read of a device tensor's value by the host while it
+    is entered, into ``self.reads``: the Python-level reads (``.item()``,
+    ``int``/``float``/``bool``/``__index__`` of a tensor, ``.tolist()``,
+    ``.numpy()``, ``repr``/``print``, ``.cpu()``) through a
+    ``TorchFunctionMode``, and below them, through a ``TorchDispatchMode``,
+    ``_local_scalar_dense``, ops whose output shape depends on the data
+    (``nonzero``, boolean-mask indexing, ``unique``, ...) and copies from
+    the device to the host.  A read that reaches both layers is recorded
+    once.
+
+    A device tensor is one on a device other than the CPU, or one this
+    detector has marked: ``marked(tree)`` gives CPU copies of a tree's
+    tensors that count as the device's, and every output of an op with a
+    marked input is marked too.  So on the CPU the program's device side is
+    followed from its inputs, and reads of host tensors (lengths the
+    caller keeps on the host) are not counted.  On the CPU a ``.to(dev)``
+    of a marked tensor cannot be told from a move between two places on
+    the device, and is not counted; on the card the copy itself is.
+
+    Inside a kernel's operator (``repro_torch.kernels.WORK``) nothing is
+    recorded: on the card that is the CUDA launch, on the CPU its plain
+    version, whose reads are not the program's."""
+
+    def __init__(self):
+        from torch.utils.weak import WeakTensorKeyDictionary
+        self.reads: List[HostRead] = []
+        self._marks = WeakTensorKeyDictionary()
+        self._quiet = 0
+        self._modes = (_ReadFns(self), _ReadOps(self))
+
+    def marked(self, tree):
+        """``tree`` with each tensor replaced by a marked copy."""
+        from torch.utils._pytree import tree_map
+
+        def mark(t):
+            if not isinstance(t, torch.Tensor):
+                return t
+            t = t.clone()
+            self._marks[t] = True
+            return t
+        return tree_map(mark, tree)
+
+    def on_device(self, t) -> bool:
+        return t.device.type != "cpu" or t in self._marks
+
+    def _record(self, op, t):
+        self.reads.append(HostRead(op, tuple(t.shape), _site()))
+
+    def __enter__(self):
+        for m in self._modes:
+            m.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for m in reversed(self._modes):
+            m.__exit__(*exc)
+        return False
+
+
+class _ReadFns(TorchFunctionMode):
+    def __init__(self, owner: HostReads):
+        super().__init__()
+        self.owner = owner
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        o = self.owner
+        op = _READ_FNS.get(func)
+        if op is None or o._quiet or not args \
+                or not isinstance(args[0], torch.Tensor) \
+                or not o.on_device(args[0]):
+            return func(*args, **kwargs)
+        o._record(op, args[0])
+        o._quiet += 1
+        try:
+            return func(*args, **kwargs)
+        finally:
+            o._quiet -= 1
+
+
+class _ReadOps(TorchDispatchMode):
+    def __init__(self, owner: HostReads):
+        super().__init__()
+        self.owner = owner
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        o = self.owner
+        ins = _tensors((args, kwargs))
+        dev = [t for t in ins if o.on_device(t)]
+        if func in _kernels.WORK:
+            o._quiet += 1
+            try:
+                out = func(*args, **kwargs)
+            finally:
+                o._quiet -= 1
+        else:
+            if dev and not o._quiet:
+                base = func._schema.name.partition("::")[2]
+                if base in _READ_OPS or (base == "index" and any(
+                        t is not None and t.dtype in (torch.bool, torch.uint8)
+                        for t in _tensors(args[1:]))):
+                    o._record(base, dev[0])
+                elif base in ("_to_copy", "copy_"):
+                    src = ins[-1]
+                    dst = ins[0] if base == "copy_" else kwargs.get("device")
+                    if src.device.type != "cpu" and dst is not None and \
+                            torch.device(getattr(dst, "device", dst)).type \
+                            == "cpu":
+                        o._record(base, src)
+            out = func(*args, **kwargs)
+        if dev:
+            for t in _tensors(out):
+                if t.device.type == "cpu":
+                    o._marks[t] = True
+        return out
+
+
+def host_reads(spec, params, engine_name: str, q_shape: tuple,
+               r_shape: tuple, *, batch_size: Optional[int] = None,
+               with_traceback: bool = True, mode: str = "align",
+               device="cpu", **options) -> List[HostRead]:
+    """The host reads of exactly the program a plan for these arguments
+    runs (fill plus traceback), on the zero batch ``analyze_plan`` counts.
+    On the CPU the plan's engine is handed marked copies of what it takes
+    (the queries, references, lengths and params, which the plan puts on
+    its device), so the reads of the lengths the plan keeps on the host are
+    not counted; on the card the program runs as it is, K1 and K2
+    included."""
+    plan, args = _plan_program(spec, params, engine_name, q_shape, r_shape,
+                               batch_size, with_traceback, mode, device,
+                               options)
+    det = HostReads()
+    if torch.device(device).type == "cpu":
+        engine = plan._engine
+
+        def device_side(spec, params, *tensors, **kw):
+            return engine(spec, det.marked(params), *det.marked(tensors),
+                          **kw)
+        plan._engine = device_side
+    with det:
+        plan._dispatch(*args)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return det.reads

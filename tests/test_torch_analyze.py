@@ -157,6 +157,109 @@ def test_r203_fires_on_64_bit_param_leaves():
 
 
 # ---------------------------------------------------------------------------
+# R3xx — transfers: where the program waits for the device
+# ---------------------------------------------------------------------------
+def _chatty(pe, how):
+    def chatty_pe(p, q, r, diag, up, left, i, j):
+        if how == "item":
+            i[0].item()
+        else:
+            print("cell", i, j)
+        return pe(p, q, r, diag, up, left, i, j)
+    return chatty_pe
+
+
+@pytest.mark.parametrize("how", ["item", "print"])
+def test_r301_fires_on_host_read_in_pe(how):
+    spec, params = pzoo.make("global_linear")
+    assert not _findings(spec, params, "R301")
+    bad = dataclasses.replace(spec, pe=_chatty(spec.pe, how))
+    found = _findings(bad, params, "R301")
+    assert found and all(f.severity == analyze.ERROR for f in found)
+    op = "item" if how == "item" else "repr"
+    assert op in found[0].message and "test_torch_analyze.py" in \
+        found[0].message
+
+
+def test_r302_fires_on_large_captured_tensor():
+    spec, params = pzoo.make("global_linear")
+    assert not _findings(spec, params, "R302")
+    baked = torch.zeros((512, 512), dtype=torch.float32)        # 1 MiB
+
+    def leaky_pe(p, q, r, diag, up, left, i, j):
+        s, ptr = spec.pe(p, q, r, diag, up, left, i, j)
+        return s + baked[0, 0].to(s.dtype), ptr
+
+    bad = dataclasses.replace(spec, pe=leaky_pe)
+    found = _findings(bad, params, "R302")
+    assert found and found[0].severity == analyze.WARNING
+    assert "baked" in found[0].message and "[512, 512]" in found[0].message
+    # over the error threshold the same capture is fatal
+    cfg = analyze.LintConfig(device="cpu", const_error_bytes=1 << 20)
+    found = _findings(bad, params, "R302", config=cfg)
+    assert found and found[0].severity == analyze.ERROR
+
+
+# where the port's eager program reads the device on the host: the walk's
+# early exit on every +tb point, the eager engines' fill bound
+R303_SITES = {"core/traceback.py:180:run_batched",
+              "core/reference.py:84:sweep",
+              "core/banded.py:67:run"}
+
+
+def test_r303_sites_over_the_default_sweep():
+    points, _ = analyze.enumerate_points()
+    report = analyze.lint_all(rules=["R303"], config=CPU, points=points)
+    by_point = {}
+    for f in report.findings:
+        assert f.rule == "R303" and f.severity == analyze.WARNING
+        assert "runtime/plan.py" not in f.message
+        site = f.message.split("host read at ", 1)[1].split(":", 3)
+        by_point.setdefault(f.where, set()).add(":".join(site[:3]))
+    for p in points:
+        want = set()
+        if p.with_traceback:
+            want.add("core/traceback.py:180:run_batched")
+        if p.engine == "reference":
+            want.add("core/reference.py:84:sweep")
+        if p.engine == "banded":
+            want.add("core/banded.py:67:run")
+        assert by_point.get(p.label, set()) == want, p.label
+    assert set().union(*by_point.values()) == R303_SITES
+
+
+def test_r303_off_without_hlo_rules():
+    spec, params = pzoo.make("global_linear")
+    cfg = analyze.LintConfig(device="cpu", hlo_rules=False)
+    assert _findings(spec, params, "R303")
+    assert not _findings(spec, params, "R303", config=cfg)
+
+
+@pytest.mark.parametrize("kernel", [name for (name, _, _)
+                                    in pzoo.KERNELS.values()])
+def test_r301_r302_match_jax_on_the_xla_engines(kernel):
+    """Per (kernel, engine) of the XLA engines both packages register, the
+    port's R301 and R302 findings equal JAX's (JAX without its HLO rules
+    and its Pallas engines)."""
+    from repro import analyze as janalyze
+    from repro.runtime import registry as jregistry
+    engines = [e for e in ("reference", "wavefront", "banded", "myers")
+               if e in registry.available_engines()
+               and e in jregistry.available_engines()]
+    port = analyze.lint_all(kernels=[kernel], engines=engines,
+                            rules=["R301", "R302"], config=CPU)
+    jax = janalyze.lint_all(kernels=[kernel], engines=engines,
+                            rules=["R301", "R302"],
+                            config=janalyze.LintConfig(hlo_rules=False))
+    assert port.points and jax.points
+
+    def kernel_of(where):
+        return where.split("×", 1)[0]
+    assert {(f.rule, kernel_of(f.where)) for f in port.findings} == \
+        {(f.rule, kernel_of(f.where)) for f in jax.findings} == set()
+
+
+# ---------------------------------------------------------------------------
 # R4xx — K1's budgets and the traceback store
 # ---------------------------------------------------------------------------
 def test_r401_fires_on_shared_memory_overflow():
@@ -291,20 +394,22 @@ def test_enumerate_points_derives_from_registries():
 
 def test_registry_sweep_is_clean():
     """The whole port registry at the default bucket and batch: no error
-    finding on the CPU."""
+    finding on the CPU, R303's host reads warnings only."""
     report = analyze.lint_all(config=CPU)
     assert report.ok, report.format_text(verbose=True)
     assert report.points > 30 and not report.errors
+    assert any(f.rule == "R303" for f in report.findings)
 
 
 def test_select_rules_prefixes():
     ids = {r.id for r in analyze.select_rules(["R4"])}
     assert ids == {"R401", "R402", "R403"}
+    ids = {r.id for r in analyze.select_rules(["R3"])}
+    assert ids == {"R301", "R302", "R303"}
     ids = {r.id for r in analyze.select_rules(None, ignore=["R4", "R5"])}
     assert ids and not any(i.startswith(("R4", "R5")) for i in ids)
-    assert not any(r.id.startswith("R3") for r in analyze.ALL_RULES)
     with pytest.raises(ValueError, match="unknown rule"):
-        analyze.select_rules(["R3"])          # left out: no jaxpr, no HLO
+        analyze.select_rules(["R9"])
 
 
 def test_crashing_rule_is_reported_not_swallowed():
@@ -346,3 +451,15 @@ def test_cli_exit_codes_and_json(capsys):
 
     assert main(["--rules", "R9x"]) == 2
     assert main(["--kernels", "no_such_kernel"]) == 2
+
+
+def test_cli_no_hlo_skips_r303(capsys):
+    from repro_torch.analyze.__main__ import main
+    args = ["--kernels", "global_linear", "--engines", "reference",
+            "--device", "cpu", "--rules", "R3", "--json"]
+    assert main(args) == 0
+    rules = {f["rule"] for f in json.loads(capsys.readouterr().out)
+             ["findings"]}
+    assert rules == {"R303"}
+    assert main(args + ["--no-hlo"]) == 0
+    assert not json.loads(capsys.readouterr().out)["findings"]

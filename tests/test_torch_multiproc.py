@@ -46,6 +46,8 @@ GQA_REPLICATED = "stablelm-12b@1x4"
 # 12 query heads over 3 on 4 'model' ranks: a rank's 3 query heads would
 # straddle the groups of 4 unevenly, so every rank keeps all the heads
 GQA_STRADDLING = "stablelm-12b+12x3@1x4"
+# olmo-1b with the int8 wire format and its error feedback (use_ef=True)
+EF = "olmo-1b!ef"
 
 
 def _batch(cfg, rng):
@@ -80,14 +82,14 @@ def train_runs(tmp_path_factory):
             loss, _ = jax.jit(lambda p, bb: jlm_loss(
                 cfg, model.forward(cfg, p, bb), bb))(state["params"], jb)
             jax_loss[arch] = float(loss)
-    for extra in (ACCUM, GQA_REPLICATED, GQA_STRADDLING):
-        cfg = jconfigs.get(extra.split(":")[0].split("@")[0].split("+")[0],
-                           reduced=True)
+    for extra in (ACCUM, GQA_REPLICATED, GQA_STRADDLING, EF):
+        cfg = jconfigs.get(extra.split(":")[0].split("@")[0].split("+")[0]
+                           .split("!")[0], reduced=True)
         np.savez(wd / f"batch_{extra}.npz",
                  **_batch(cfg, np.random.default_rng(0)))
     (wd / "archs.json").write_text(json.dumps(
         sorted(jconfigs.ARCH_NAMES) + [ACCUM, GQA_REPLICATED,
-                                       GQA_STRADDLING]))
+                                       GQA_STRADDLING, EF]))
     mp.run("train", 4, wd, timeout=420)
     return json.loads((wd / "result.json").read_text()), jax_loss
 
@@ -127,6 +129,26 @@ def test_sharded_step_with_accumulation(train_runs):
     assert "error" not in r, r
     assert abs(r["loss_sharded"] - r["loss_plain"]) < 1e-4, r
     _held_to_unsharded(r)
+
+
+def test_sharded_step_with_error_feedback(train_runs):
+    """``make_train_step(..., use_ef=True)``, JAX's train step's int8 wire
+    format with error feedback (``train/step.py``), inside the sharded
+    step: loss, gradients, grad norm and updated parameters as the
+    unsharded step's; ``ef_compress`` on the sharded gradients quantizes
+    against the same row scales (global over a split row) and keeps
+    g + e within 1e-3, its int8 codes at most one quantum from the
+    unsharded ones where f32 noise tips a rounding (under 1e-3 of them);
+    and the step carries exactly those residuals."""
+    r = train_runs[0][EF]
+    assert "error" not in r, r
+    assert abs(r["loss_sharded"] - r["loss_plain"]) < 1e-4, r
+    _held_to_unsharded(r)
+    g_s, g_p = r["grad_norm"]
+    assert abs(g_s - g_p) <= 1e-3 * abs(g_p), r
+    assert r["ef_scale_rel"] < 1e-3 and r["ef_sum_rel"] < 1e-3, r
+    assert r["ef_quanta"] <= 1.001 and r["ef_flipped"] < 1e-3, r
+    assert r["step_carries"], r
 
 
 def test_sharded_step_gqa_kv_heads_replicated(train_runs):

@@ -86,8 +86,9 @@ def job_train(rank, world, wd):
     against the unsharded step, for every arch in ``archs.json`` (an
     ``<arch>:accum<n>`` entry at ``accum_steps=n``, an
     ``<arch>+<heads>x<kv_heads>`` entry with those head counts, an
-    ``<arch>@<d>x<m>`` entry on a (d, m) mesh); a state from
-    ``jax_<arch>`` (a JAX-written checkpoint) where there is one."""
+    ``<arch>@<d>x<m>`` entry on a (d, m) mesh, an ``<arch>!ef`` entry with
+    int8 error feedback, ``use_ef=True``); a state from ``jax_<arch>`` (a
+    JAX-written checkpoint) where there is one."""
     import numpy as np
     import torch
     from repro_torch import checkpoint, configs
@@ -110,14 +111,16 @@ def job_train(rank, world, wd):
             sc = ShardCtx(mesh, TRAIN_RULES)
             name, _, accum = arch_.partition(":accum")
             name, _, heads = name.partition("+")
+            name, ef, _ = name.partition("!ef")
+            ef = bool(ef)
             cfg = configs.get(name, reduced=True)
             if accum:     # microbatches split from the placed batch
                 cfg = dataclasses.replace(cfg, accum_steps=int(accum))
             if heads:
                 h, kv = (int(n) for n in heads.split("x"))
                 cfg = dataclasses.replace(cfg, n_heads=h, n_kv_heads=kv)
-            astate = T.abstract_state(cfg, opt)
-            sh = sc.tree(astate, T.state_logical(cfg, opt))
+            astate = T.abstract_state(cfg, opt, use_ef=ef)
+            sh = sc.tree(astate, T.state_logical(cfg, opt, use_ef=ef))
             ck = wd / f"jax_{arch}"
             if ck.exists():
                 plain = checkpoint.restore(str(ck), 0, astate, "cpu")
@@ -125,10 +128,11 @@ def job_train(rank, world, wd):
                                              shardings=sh)
             else:
                 plain = T.make_state(cfg, opt,
-                                     torch.Generator().manual_seed(0), "cpu")
+                                     torch.Generator().manual_seed(0), "cpu",
+                                     use_ef=ef)
                 sharded = T.make_state(
                     cfg, opt, torch.Generator().manual_seed(0), "cpu",
-                    shardings=sh)
+                    use_ef=ef, shardings=sh)
             arrays = np.load(wd / f"batch_{arch}.npz")
             batch = {k: torch.as_tensor(arrays[k]) for k in arrays.files}
             dbatch = {k: place(v, logical_sharding(
@@ -138,10 +142,13 @@ def job_train(rank, world, wd):
             _, _, g_p = T.loss_and_grads(cfg, plain["params"], batch)
             grad_rel = max(_rel(_full(a), b)
                            for a, b in zip(leaves(g_s), leaves(g_p)))
+            if ef:
+                ef_cmp = _ef_compared(g_s, g_p, sharded["ef"], plain["ef"])
             lr = constant(1e-3)
-            sharded, m_s = T.make_train_step(cfg, opt, lr, sc=sc)(sharded,
-                                                                  dbatch)
-            plain, m_p = T.make_train_step(cfg, opt, lr)(plain, batch)
+            sharded, m_s = T.make_train_step(cfg, opt, lr, sc=sc,
+                                             use_ef=ef)(sharded, dbatch)
+            plain, m_p = T.make_train_step(cfg, opt, lr,
+                                           use_ef=ef)(plain, batch)
             param_rel = max(_rel(_full(a), b) for a, b in zip(
                 leaves(sharded["params"]), leaves(plain["params"])))
             ok_pl, ok_shape = _placed_as_resolved(sharded, sh)
@@ -150,10 +157,49 @@ def job_train(rank, world, wd):
                          "grad_rel": grad_rel, "param_rel": param_rel,
                          "placements": bool(ok_pl),
                          "local_shapes": bool(ok_shape)}
+            if ef:
+                ef_cmp["step_carries"] = all(torch.equal(
+                    _full(a), _full(b)) for a, b in zip(
+                        leaves(sharded["ef"]), leaves(ef_cmp.pop("ef"))))
+                out[arch].update(ef_cmp, grad_norm=[float(m_s["grad_norm"]),
+                                                    float(m_p["grad_norm"])])
         except NotImplementedError as e:
             out[arch] = {"error": f"NotImplementedError: {e}"}
     if rank == 0:
         (wd / "result.json").write_text(json.dumps(out))
+
+
+def _ef_compared(g_s, g_p, ef_s, ef_p):
+    """``ef_compress`` of the sharded and the unsharded gradients from the
+    same residuals.  Both quantize g + e to int8 codes against its row's
+    absmax; the gradients differ by f32 noise, so a code whose value sits
+    that close to a rounding boundary may round the other way, moving the
+    applied gradient one quantum (absmax / 127) and the new residual one
+    quantum back, while their sum g + e does not move.  Returns the scales'
+    and the sums' largest relative differences, the largest code
+    difference in quanta, the largest share of codes that differ, and the
+    sharded residuals (``ef``)."""
+    import torch
+    from repro_torch.models.params import leaves
+    from repro_torch.train import compress as C
+    F32 = torch.float32
+    cs, es = C.ef_compress(g_s, ef_s)
+    cp, ep = C.ef_compress(g_p, ef_p)
+    scale_rel = sum_rel = quanta = flipped = 0.0
+    for gs, gp, e0s, e0p, a, b, ea, eb in zip(
+            *(leaves(t) for t in (g_s, g_p, ef_s, ef_p, cs, cp, es, ep))):
+        xs = _full(gs).to(F32) + _full(e0s).to(F32)
+        xp = gp.to(F32) + e0p.to(F32)
+        amax = xp.abs().amax(-1, keepdim=True)
+        scale_rel = max(scale_rel, _rel(xs.abs().amax(-1, keepdim=True),
+                                        amax))
+        sum_rel = max(sum_rel, _rel(_full(a).to(F32) + _full(ea).to(F32),
+                                    b.to(F32) + eb.to(F32)))
+        codes = (_full(a).to(F32) - b.to(F32)).abs() / (amax / 127.0)
+        quanta = max(quanta, float(codes.max()))
+        flipped = max(flipped, float((codes > 0.5).to(F32).mean()))
+    return {"ef_scale_rel": scale_rel, "ef_sum_rel": sum_rel,
+            "ef_quanta": quanta, "ef_flipped": flipped, "ef": es}
 
 
 def job_fresh_state(rank, world, wd):
