@@ -47,6 +47,23 @@ Phases:
      buckets, on 0xFF blocks: integers bit-equal, float best within rtol
      1e-5 (max/min) / 2e-5 (logsumexp), best_j and pointers exact
      wherever best is bit-equal;
+  3c. K1 on PEs no hand-written functor instantiates, each functor
+     generated from the spec's torch PE (``kernels/wavefront/synth.py``):
+     the quickstart's ti/tv kernel, a PE that reads (i, j), an f32
+     max-plus PE over a user table, #2, #15 and the pair-HMM forward at
+     logsumexp with their family set to None, and three specs whose
+     combination no hand-written functor instantiates (#1 at min-plus,
+     the pair-HMM forward over the whole matrix, #16 edit distance with
+     no PE family); one nvcc per functor, all
+     at once (the ti/tv kernel's inside its plan's first dispatch); each
+     against the plain version at phase 3's buckets and each twin against
+     its hand-written functor on the same inputs (integers bit-equal);
+     ``run_pairs`` of 2048 ti/tv pairs on the ``wavefront`` engine (K1
+     launched, equal to the card's reference engine and to the CPU path,
+     cold and warm compile_s, a second parameter set building nothing);
+     #2's two functors in turns and the ti/tv kernel timed at batch 1024,
+     256x256; the hand-written instantiations' ptxas equal to
+     K1_HAND_PTXAS, entry by entry;
   4. main path: ``run_pairs`` with global affine (#2) on 8192 short DNA
      pairs (windows of 128-256 bases of a 1 Mb random reference, queries
      mutated at 8 %), block 1024, with traceback; checked against the CPU
@@ -332,6 +349,32 @@ MUFU_PER_SM_CLOCK = 16              # Hopper: 4 partitions x 4 SFU lanes
 F32_PER_SM_CLOCK = 128              # Hopper: 4 partitions x 32 FP32 lanes
 # genotyping phase: GATK HaplotypeCaller shapes (2 x 150 Illumina reads, an
 # assembly region of up to 300 bases plus 100 of padding, 30x depth)
+# phase 3c: K1 generated from a spec's torch PE (kernels/wavefront/synth.py):
+# its own generator, the ti/tv kernel's run_pairs (pairs, block), and the
+# phase's time budget in seconds
+GEN_SEED, GEN_PAIRS, GEN_BLOCK, GEN_PHASE_S = 17, 2048, 1024, 90
+# registers and spill bytes of K1's hand-written instantiations as nvcc
+# built them before the template took generated functors (kSlots, kIJ):
+# wavefront.cu's (instantiations, fewest and most registers, spill bytes)
+# and each of wavefront_ext.cu's (registers, spill bytes); phase 3c holds
+# the build to them
+K1_HAND_PTXAS = {
+    "K1": (80, 64, 80, 48),
+    "K1 ext": {
+        f"void <unnamed>::wavefront_kernel<<unnamed>::{pe}, {r}, {b}>"
+        f"(<unnamed>::KArgs)": v for pe, r, b, v in (
+            ("PairHmmBackwardPE<2>", 2, "false", (64, 0)),
+            ("PairHmmBackwardPE<2>", 2, "true", (78, 0)),
+            ("PairHmmBackwardPE<0>", 2, "false", (64, 0)),
+            ("PairHmmBackwardPE<0>", 2, "true", (64, 0)),
+            ("PairHmmForwardPE<2>", 2, "false", (78, 0)),
+            ("PairHmmForwardPE<2>", 2, "true", (78, 0)),
+            ("PairHmmForwardPE<0>", 2, "false", (64, 0)),
+            ("PairHmmForwardPE<0>", 2, "true", (64, 0)),
+            ("ViterbiPE", 0, "false", (64, 0)),
+            ("ProfilePE", 0, "false", (76, 0)),
+            ("DtwPE<<unnamed>::AbsCost>", 2, "false", (64, 0)),
+            ("DtwPE<<unnamed>::ComplexCost>", 0, "false", (64, 8)))}}
 GT_SITES, GT_HAP_LEN, GT_READ_LEN, GT_READS = 1024, 400, 150, 30
 GT_BLOCK = 1024
 E_COLI_LEN = 4_641_652             # E. coli K-12 MG1655, NC_000913.3
@@ -893,6 +936,373 @@ def phase_ext_vs_plain(rng):
           f"blocks left filled with 0xFF; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return max_rel
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: K1 on PEs no hand-written functor instantiates
+def _titv_sub(params, q, r):
+    """Transition (A<->G, C<->T) scores milder than transversion: the
+    quickstart's kernel (examples/quickstart.py), written in torch."""
+    import torch
+    is_transition = (q // 2 == r // 2) & (q != r)
+    return torch.where(q == r, params["match"],
+                       torch.where(is_transition, params["transition"],
+                                   params["transversion"]))
+
+
+def _best3(m, d, ins):
+    import torch
+    from repro_torch.core.kernels_zoo import common as C
+    best, ptr = m, torch.full(m.shape, C.P_DIAG, dtype=torch.int32,
+                              device=m.device)
+    ptr = torch.where(d > best, C.P_UP, ptr)
+    best = torch.maximum(best, d)
+    ptr = torch.where(ins > best, C.P_LEFT, ptr)
+    return torch.maximum(best, ins), ptr
+
+
+def _ij_pe(params, q, r, diag, up, left, i, j):
+    """Linear gaps one dearer on every third row and in odd blocks of 16
+    columns: a PE that reads the cell's (i, j)."""
+    import torch
+    sub = torch.where(q == r, params["match"], params["mismatch"])
+    d = up[:, 0] + params["gap"] - (i % 3 == 0).to(torch.int32)
+    ins = left[:, 0] + params["gap"] - (j // 16) % 2
+    best, ptr = _best3(diag[:, 0] + sub, d, ins)
+    return best[:, None], ptr
+
+
+def _ftab_pe(params, q, r, diag, up, left, i, j):
+    """f32 max-plus over a user 4 x 4 substitution table."""
+    s = params["S"][q.long().clamp(0, 3), r.long().clamp(0, 3)]
+    best, ptr = _best3(diag[:, 0] + s, up[:, 0] + params["gap"],
+                       left[:, 0] + params["gap"])
+    return best[:, None], ptr
+
+
+def _ftab_init(params, k):
+    import torch
+    return (params["gap"] * k.to(torch.float32))[..., None]
+
+
+def _gen_cases():
+    """(label, spec, params, hand-written twin or None) of phase 3c: the
+    ti/tv kernel, the (i, j) PE, the float-table PE, #2, #15 and the
+    pair-HMM forward at logsumexp with their family set to None, and #1 at
+    min-plus, the pair-HMM forward over the whole matrix and #16, which no
+    hand-written functor instantiates (K1's min-plus and whole-matrix
+    logsumexp paths and a PE with no family)."""
+    import dataclasses
+    import torch
+    from repro_torch import prob
+    from repro_torch.core import (DPKernelSpec, REGION_ALL, REGION_CORNER,
+                                  STOP_ORIGIN)
+    from repro_torch.core import kernels_zoo
+    from repro_torch.core.kernels_zoo import common as C
+    lin = dict(n_layers=1, init_row=C.linear_gap_init,
+               init_col=C.linear_gap_init, region=REGION_CORNER,
+               traceback=C.linear_tb(STOP_ORIGIN))
+    table = torch.tensor([[2.0, -1.5, -0.5, -1.5], [-1.5, 2.0, -1.5, -0.5],
+                          [-0.5, -1.5, 2.0, -1.5], [-1.5, -0.5, -1.5, 2.0]])
+    cases = [
+        ("ti/tv", DPKernelSpec(name="titv_global", pe=C.linear_pe(_titv_sub),
+                               **lin),
+         {"match": 2, "transition": -1, "transversion": -4, "gap": -2}, None),
+        ("(i, j) PE", DPKernelSpec(name="ij_linear", pe=_ij_pe, **lin),
+         {"match": 2, "mismatch": -3, "gap": -2}, None),
+        ("float table", DPKernelSpec(
+            name="ftab_linear", pe=_ftab_pe, n_layers=1,
+            init_row=_ftab_init, init_col=_ftab_init, region=REGION_CORNER,
+            score_dtype=torch.float32, traceback=C.linear_tb(STOP_ORIGIN)),
+         {"S": table, "gap": -1.25}, None)]
+    for kid in (2, 15):
+        hand, params = kernels_zoo.make(kid)
+        cases.append((f"#{kid} twin", dataclasses.replace(hand, family=None),
+                      params, hand))
+    hand = prob.cached_pairhmm("logsumexp")
+    cases.append(("pair-HMM forward logsumexp twin",
+                  dataclasses.replace(hand, family=None),
+                  prob.default_params(), hand))
+    cases.append(("#1 at min", *kernels_zoo.make(1, objective="min"), None))
+    cases.append(("pair-HMM forward over the whole matrix",
+                  dataclasses.replace(hand, region=REGION_ALL),
+                  prob.default_params(), None))
+    cases.append(("#16", *kernels_zoo.make(16), None))
+    return cases
+
+
+def _gen_codes(rng, spec, label, shape):
+    import numpy as np
+    hi = 20 if label.startswith("#15") else 5 if "pair-HMM" in label else 4
+    return rng.integers(0, hi, shape).astype(np.uint8)
+
+
+def _gen_hold(spec, got, want, what):
+    """Integer outputs bit-equal; float best within rtol 1e-5 (max) or 2e-5
+    (logsumexp), best_j and pointers exact where best is bit-equal
+    (``_hold_ext``).  Returns (largest relative error, pairs whose best is
+    bit-equal, pairs)."""
+    _, rerr, same, b = _hold_ext(spec, got, want, what)
+    return rerr, same, b
+
+
+def _gen_parity(rng, cases):
+    """Each generated functor against the plain version at phase 3's
+    buckets, and each twin against its hand-written functor on the same
+    inputs, every output on 0xFF blocks."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.wavefront import kernel as K
+    rel, n, equal, total, twins, twin_cases = 0.0, 0, 0, 0, 0, 0
+    for label, spec, params, hand in cases:
+        for bucket, batch in ((64, 16), (256, 64), (1024, 4)):
+            qs = _gen_codes(rng, spec, label, (batch, bucket))
+            rs = _gen_codes(rng, spec, label, (batch, bucket))
+            ql = rng.integers(bucket // 2, bucket + 1, batch).astype(np.int32)
+            rl = rng.integers(bucket // 2, bucket + 1, batch).astype(np.int32)
+            ql[0] = bucket
+            args = _fill_args(spec, params, qs, rs, ql, rl, DEVICE)
+            what = f"{label}, bucket {bucket}, batch {batch}"
+            kw = {"tb_pack": 1, "with_tb": spec.traceback is not None}
+            want = K.wavefront_fill_plain(spec, params, *args, **kw)
+            dirty = _dirty_allocator(*(w for w in want if w is not None))
+            got = K.wavefront_fill(spec, params, *args, **kw)
+            torch.cuda.synchronize()
+            check(got[1].data_ptr() in dirty, "K1's outputs did not land on "
+                  "the 0xFF blocks")
+            r, s, b = _gen_hold(spec, got, want, what)
+            rel, equal, total, n = max(rel, r), equal + s, total + b, n + 1
+            if hand is None:
+                continue
+            ref = K.wavefront_fill(hand, params, *args, **kw)
+            torch.cuda.synchronize()
+            same = all(torch.equal(g, h) for g, h in zip(got, ref)
+                       if g is not None)
+            if spec.is_sum:
+                r, _, _ = _gen_hold(spec, got, ref, f"{what} vs hand-written")
+                rel = max(rel, r)
+            else:
+                check(same, f"K1 generated != hand-written: {what}")
+            twins, twin_cases = twins + int(same), twin_cases + 1
+    return {"cases": n, "max_rel_err": rel, "best_bit_equal": equal,
+            "pairs": total, "twins_bit_equal": twins,
+            "twin_cases": twin_cases}
+
+
+def _gen_engine(rng, spec, params):
+    """The ti/tv kernel through ``run_pairs`` on the ``wavefront`` engine:
+    2048 windows of 200-256 bases of a random reference, 8 % mutated,
+    block 1024; the plan's first dispatch builds its functor (cold
+    compile_s), a cleared plan cache reloads it (warm), a second parameter
+    set reuses it; results equal the card's reference engine on every pair
+    and the CPU path on the first 64."""
+    import torch
+    from repro_torch.core import alphabets
+    from repro_torch.kernels.wavefront import kernel as K
+    from repro_torch.runtime import dispatch
+    from repro_torch.runtime import plan as plan_mod
+    genome = alphabets.random_dna(rng, 200_000)
+    pairs = _read_pairs(rng, genome, GEN_PAIRS, 200, 256, 0.08, 256)
+
+    def compile_s():
+        return [p["compile_s"] for p in plan_mod.plan_cache_info()["plans"]
+                if p["key"].kernel == spec.name and p["key"].engine ==
+                "wavefront"]
+    before = K.launches
+    t0 = time.perf_counter()
+    got = dispatch.run_pairs(spec, params, pairs, block=GEN_BLOCK)
+    torch.cuda.synchronize()
+    cold_wall = time.perf_counter() - t0
+    launches = K.launches - before
+    cold = compile_s()
+    check(launches == -(-GEN_PAIRS // GEN_BLOCK) and cold,
+          f"run_pairs on the ti/tv kernel launched K1 {launches} times")
+    plan_mod.clear_plan_cache(keep_stats=True)
+    t0 = time.perf_counter()
+    again = dispatch.run_pairs(spec, params, pairs, block=GEN_BLOCK)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    warm = compile_s()
+    _compare_results(again, got, "ti/tv run_pairs, warm")
+    want = dispatch.run_pairs(spec, params, pairs[:64], block=64,
+                              device="cpu")
+    _compare_results(got[:64], want, "ti/tv run_pairs")
+    t0 = time.perf_counter()
+    ref = dispatch.run_pairs(spec, params, pairs, block=GEN_BLOCK,
+                             engine_name="reference")
+    torch.cuda.synchronize()
+    ref_wall = time.perf_counter() - t0
+    _compare_results(got, ref, "ti/tv run_pairs on the reference engine")
+    libs = set(K._GEN_LIBS)
+    other = dict(params, transversion=-5, gap=-3)
+    got2 = dispatch.run_pairs(spec, other, pairs[:GEN_BLOCK],
+                              block=GEN_BLOCK)
+    check(set(K._GEN_LIBS) == libs, "a second parameter set of the ti/tv "
+          "kernel built another functor")
+    want2 = dispatch.run_pairs(spec, other, pairs[:16], block=16,
+                               device="cpu")
+    _compare_results(got2[:16], want2, "ti/tv run_pairs, second parameters")
+    check(any(int(a.score) != int(b.score) for a, b in zip(got2, got)),
+          "the second parameter set scored as the first")
+    return {"pairs": GEN_PAIRS, "launches": launches,
+            "cold_wall_s": cold_wall, "wall_s": wall,
+            "pairs_per_s": GEN_PAIRS / wall, "reference_wall_s": ref_wall,
+            "cold_compile_s": cold[0], "warm_compile_s": warm[0]}
+
+
+def _gen_timing(rng, cases, card):
+    """#2's hand-written and generated functors in turns (hand, generated,
+    generated, hand) and the ti/tv kernel at batch 1024, 256x256, tb_pack 2,
+    on windows of 240-256 bases (the shape of phase 6's timed block), by
+    kernel_device_ms, beside the plain version and the bound."""
+    import torch
+    from repro_torch.core import alphabets
+    from repro_torch.kernels.wavefront import kernel as K
+    from repro_torch.tune.cost import MEM_BYTES_PER_S, k1_bytes, pe_ops
+    by = {label: (spec, params, hand) for label, spec, params, hand in cases}
+    genome = alphabets.random_dna(rng, 200_000)
+    pairs = _read_pairs(rng, genome, 1024, 240, 256, 0.08, 256)
+    block = _blocks(pairs, 1024)[0]
+    (bq, br), qs, rs, ql, rl = block
+    cells = _live_in_band(ql, rl, None)
+    runs = {"#2 hand-written": (by["#2 twin"][2], by["#2 twin"][1]),
+            "#2 generated": by["#2 twin"][:2],
+            "ti/tv generated": by["ti/tv"][:2]}
+    args = {k: _fill_args(s, p, qs, rs, ql, rl, DEVICE)
+            for k, (s, p) in runs.items()}
+    before = K.launches
+    times = {k: [] for k in runs}
+    for k in ("#2 hand-written", "#2 generated", "#2 generated",
+              "#2 hand-written", "ti/tv generated"):
+        s, p = runs[k]
+        dev, _, _, _ = kernel_device_ms(
+            lambda: K.wavefront_fill(s, p, *args[k], tb_pack=2), "wavefront")
+        times[k] += dev
+    K.launches = before
+    s, p = runs["ti/tv generated"]
+    plain = []
+    plain_ms = cuda_time_ms(lambda: plain.append(K.wavefront_fill_plain(
+        s, p, *args["ti/tv generated"], tb_pack=2)), 1)
+    out = {}
+    for k, ts in times.items():
+        s, p = runs[k]
+        ops_ms = pe_ops(s, p) * cells / card["int32_ops_per_s"] * 1e3
+        bytes_ms = k1_bytes(s, 1024, bq, br, 2) / MEM_BYTES_PER_S * 1e3
+        ms = statistics.median(ts)
+        out[k] = {"ms": ms, "ms_range": [min(ts), max(ts)],
+                  "bound_ms": max(ops_ms, bytes_ms),
+                  "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                  "pe_ops": pe_ops(s, p)}
+        print(f"    K1 {k} at batch 1024, {bq}x{br}, tb_pack 2: device "
+              f"{_spread(ts)}; bound {out[k]['bound_ms']:.4f} ms by "
+              f"{out[k]['bound_by']} ({out[k]['pe_ops']} operations a cell, "
+              f"{cells} live cells); {100 * out[k]['bound_ms'] / ms:.1f} % "
+              f"of the bound", flush=True)
+    out["ti/tv generated"]["plain_ms"] = plain_ms
+    out["generated_over_hand"] = (out["#2 generated"]["ms"]
+                                  / out["#2 hand-written"]["ms"])
+    print(f"    #2 generated / hand-written: {out['generated_over_hand']:.4f};"
+          f" ti/tv plain version {plain_ms:.1f} ms", flush=True)
+    return out
+
+
+def _k1_hand_ptxas():
+    """Registers and spill bytes of the hand-written instantiations from the
+    kept ptxas reports, against K1_HAND_PTXAS."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.wavefront import kernel as K
+    out = {}
+    for name, src in (("K1", K.SOURCE), ("K1 ext", K.SOURCE_EXT)):
+        log = build.kept_report(src)
+        check(log is not None, f"no ptxas report kept for {src.name}")
+        rows = ptxas_table(log)
+        out[name] = {"instantiations": len(rows),
+                     "registers": [min(r[1] for r in rows),
+                                   max(r[1] for r in rows)],
+                     "spill_bytes": sum(r[2] for r in rows)}
+        if name == "K1 ext":
+            out[name]["entries"] = {r[0]: [r[1], r[2]] for r in rows}
+    want, got = K1_HAND_PTXAS, out["K1 ext"]["entries"]
+    diff = [f"K1 {what} {have} where {exp} was expected"
+            for what, have, exp in (
+                ("instantiations", out["K1"]["instantiations"], want["K1"][0]),
+                ("registers", out["K1"]["registers"], list(want["K1"][1:3])),
+                ("spill bytes", out["K1"]["spill_bytes"], want["K1"][3]))
+            if have != exp]
+    diff += [f"{e}: {got.get(e)} where {list(v)} was expected"
+             for e, v in want["K1 ext"].items() if got.get(e) != list(v)]
+    diff += [f"{e}: not expected" for e in got if e not in want["K1 ext"]]
+    check(not diff, "the hand-written K1 instantiations' ptxas lines "
+          "changed: " + "; ".join(diff))
+    out["unchanged"] = True
+    return out
+
+
+def phase_generated(card):
+    """3c: K1 on PEs no hand-written functor instantiates (see
+    ``_gen_cases``), each functor generated from the spec's torch PE by
+    ``kernels/wavefront/synth.py``: one nvcc per functor, all at once (the
+    ti/tv kernel's inside its plan's first dispatch, as a user meets it);
+    each against the plain version and each twin against its hand-written
+    functor; the ti/tv kernel through ``run_pairs``; #2's two functors and
+    the ti/tv kernel timed.  Its own generator, so the phases after it see
+    the data they always saw."""
+    import numpy as np
+    from repro_torch.kernels.wavefront import kernel as K
+    from repro_torch.kernels.wavefront import synth
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(GEN_SEED)
+    cases = _gen_cases()
+    syns = {label: synth.lower(spec, params)
+            for label, spec, params, _ in cases}
+    titv = cases[0]
+    with ThreadPoolExecutor(len(cases) - 1) as pool:
+        futs = {label: pool.submit(K.generated_lib, syn)
+                for label, syn in syns.items() if label != "ti/tv"}
+        engine = _gen_engine(rng, titv[1], titv[2])
+        built = {label: f.result()[1] for label, f in futs.items()}
+    built["ti/tv"] = K.generated_lib(syns["ti/tv"])[1]
+    build_wall = time.perf_counter() - t0
+    for label, b in built.items():
+        rows, syn = ptxas_table(b.ptxas_log), syns[label]
+        check(len(rows) == 1, f"{label}: {len(rows)} kernels in its unit")
+        ij = ", reads (i, j)" if syn.uses_ij else ""
+        print(f"    generated {label} ({syn.ops} operations a cell, UP "
+              f"0x{syn.up_mask:x}, DIAG 0x{syn.diag_mask:x}{ij}): built "
+              f"{b.path.name} in {b.seconds:.1f} s, {rows[0][1]} registers, "
+              f"{rows[0][2]} spill bytes", flush=True)
+    parity = _gen_parity(rng, cases)
+    timing = _gen_timing(rng, cases, card)
+    hand = _k1_hand_ptxas()
+    total = time.perf_counter() - t0
+    over = "" if total < GEN_PHASE_S else " (over its budget)"
+    print(f"[3c] K1 generated from {len(cases)} PEs: builds "
+          f"{max(b.seconds for b in built.values()):.1f} s the longest, "
+          f"{build_wall:.1f} s wall with the ti/tv run_pairs beside them; "
+          f"{parity['cases']} (PE, bucket) cases == plain (integers "
+          f"bit-equal, float best within rtol 1e-5 / 2e-5, largest "
+          f"relative error {parity['max_rel_err']:.3g}, best bit-equal on "
+          f"{parity['best_bit_equal']} of {parity['pairs']} pairs), the "
+          f"twins == their hand-written functors on "
+          f"{parity['twins_bit_equal']} of {parity['twin_cases']} cases "
+          f"bit for bit; ti/tv "
+          f"run_pairs: {engine['launches']} K1 launches, "
+          f"{engine['pairs_per_s']:.0f} pairs/s warm ({engine['wall_s']:.3f}"
+          f" s) against {engine['reference_wall_s']:.3f} s on the reference "
+          f"engine, compile_s cold {engine['cold_compile_s']:.2f} s, warm "
+          f"{engine['warm_compile_s']:.4f} s, a second parameter set built "
+          f"nothing; hand-written ptxas unchanged "
+          f"({hand['K1']['instantiations']} + "
+          f"{hand['K1 ext']['instantiations']} instantiations); phase "
+          f"{total:.1f} s{over}",
+          flush=True)
+    return {"functors": {label: {
+        "ops": syns[label].ops, "registers":
+            ptxas_table(b.ptxas_log)[0][1],
+        "spill_bytes": ptxas_table(b.ptxas_log)[0][2],
+        "build_s": b.seconds} for label, b in built.items()},
+        "build_wall_s": build_wall, "parity": parity, "engine": engine,
+        "timing": timing, "hand_ptxas": hand, "phase_s": total}
 
 
 def _genotyping_sites():
@@ -5571,6 +5981,7 @@ def main() -> int:
         rng = np.random.default_rng(SEED)
         max_err = _timed(phase_kernel_vs_plain, rng)
         ext_err = _timed(phase_ext_vs_plain, rng)
+        gen = _timed(phase_generated, card)
         genome = alphabets.random_dna(rng, 1_000_000)
         launches, blocks = _timed(phase_main_path, rng, genome)
         long_blocks = _timed(phase_long_reads, rng, genome)
@@ -5650,6 +6061,11 @@ def main() -> int:
                            mapper["k1_err"], service["k1_err"]),
         "mapper_extension": mapper["k1_extension"],
         "ext_families_max_rel_err": ext_err,
+        "generated": {
+            "source": "src/repro_torch/kernels/wavefront/synth.py",
+            "parity": "integers bit-equal to the plain version and to the "
+                      "hand-written twins; float best within rtol 1e-5 "
+                      "(max) / 2e-5 (logsumexp)", **gen},
         "genotyping": {k: geno[k] for k in (
             "launches", "ms", "ms_range", "bound_ms", "bound_by", "plain_ms",
             "max_rel_err", "event_ms", "host_us", "profiler_records")},

@@ -484,9 +484,10 @@ def _k1_geometry(ctx, cfg):
     return Qp, R, K1.strip_warps(Qp, ctx.point.batch_size or 1, sms), False
 
 
-def _ptxas_findings(source, label, where) -> Iterator[Finding]:
+def _ptxas_findings(source, label, where, include_dirs=()
+                    ) -> Iterator[Finding]:
     from repro_torch.kernels import build
-    log = build.kept_report(source)
+    log = build.kept_report(source, include_dirs)
     if log is None:
         yield Finding("R401", INFO,
                       f"no ptxas report kept for {label} "
@@ -537,9 +538,17 @@ def rule_k1_smem(ctx, cfg) -> Iterator[Finding]:
         yield Finding("R401", WARNING,
                       f"K1 needs {need} bytes of shared memory a block, over "
                       f"half the card's {limit}: one pair per SM", where)
-    gap_model = ctx.spec.family.family in K1.GAP_FAMILIES
-    src = K1.SOURCE if gap_model else K1.SOURCE_EXT
-    yield from _ptxas_findings(src, "K1", where)
+    # a generated PE is no gap model: its report is its own translation
+    # unit's, kept once it was built here
+    src = K1.source_of(ctx.spec, ctx.params)
+    if src is None:
+        yield Finding("R401", INFO,
+                      f"K1's functor for {ctx.spec.name} is generated from "
+                      f"its PE and not lowered for these parameters; "
+                      f"registers and spills unchecked", where)
+        return
+    include = (K1.CSRC,) if K1.is_generated(ctx.spec) else ()
+    yield from _ptxas_findings(src, "K1", where, include)
 
 
 def rule_k1_grid(ctx, cfg) -> Iterator[Finding]:

@@ -6,7 +6,10 @@ Each kernel source under ``kernels/*/csrc/`` is compiled by ``nvcc`` for
 (git-ignored), named by a hash of the source, the headers beside it
 (``*.cuh``) and the flags, so an edited source or header rebuilds and an
 unchanged one loads at once.  Two sources build
-concurrently when called from two threads (one lock per library).  Importing
+concurrently when called from two threads (one lock per library).  A
+generated source (K1's PE functors, ``kernels/wavefront/synth.py``) lives
+under ``build/repro_torch/gen/`` and names the directory of the headers it
+includes (``include_dirs``), whose ``*.cuh`` join its hash.  Importing
 this module builds nothing.
 """
 from __future__ import annotations
@@ -56,22 +59,26 @@ def nvcc_path() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _digest(source: Path) -> str:
+def _digest(source: Path, include_dirs=()) -> str:
     h = hashlib.sha256(source.read_bytes())
-    for header in sorted(source.parent.glob("*.cuh")):
-        h.update(header.read_bytes())
+    for d in (source.parent, *map(Path, include_dirs)):
+        for header in sorted(d.glob("*.cuh")):
+            h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
-def _key(source: Path) -> str:
-    return f"{source.stem}_{_digest(source)}"
+def _key(source: Path, include_dirs=()) -> str:
+    return f"{source.stem}_{_digest(source, include_dirs)}"
 
 
-def kept_report(source) -> str | None:
+def kept_report(source, include_dirs=()) -> str | None:
     """The ``-Xptxas -v`` report a build of ``source`` (as it is now) kept
     beside its library, or None when it has not been built here."""
-    report = BUILD_DIR / f"{_key(Path(source))}.ptxas.txt"
+    source = Path(source)
+    if not source.exists():
+        return None
+    report = BUILD_DIR / f"{_key(source, include_dirs)}.ptxas.txt"
     return report.read_text() if report.exists() else None
 
 
@@ -97,10 +104,11 @@ def ptxas_entries(log: str) -> list:
     return rows
 
 
-def load(source: Path) -> Built:
-    """Compile ``source`` (once per content hash) and load it."""
+def load(source: Path, include_dirs=()) -> Built:
+    """Compile ``source`` (once per content hash) and load it;
+    ``include_dirs`` go to nvcc as ``-I``."""
     source = Path(source)
-    key = _key(source)
+    key = _key(source, include_dirs)
     with _LOCK:
         lock = _LOCKS.setdefault(key, threading.Lock())
     with lock:
@@ -115,7 +123,9 @@ def load(source: Path) -> Built:
             log = report.read_text()
         else:
             tmp = BUILD_DIR / f"{key}.{os.getpid()}.tmp.so"
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+            cmd = [nvcc_path(), *NVCC_FLAGS,
+                   *(f"-I{d}" for d in include_dirs), "-o", str(tmp),
+                   str(source)]
             t0 = time.perf_counter()
             proc = subprocess.run(cmd, capture_output=True, text=True)
             seconds = time.perf_counter() - t0

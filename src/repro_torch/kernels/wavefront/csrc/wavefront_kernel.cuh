@@ -15,7 +15,10 @@
 // their PE functors: wavefront.cu the int32 max-plus gap-model families
 // (linear, affine, two-piece), wavefront_ext.cu DTW/sDTW (min-plus),
 // profile, Viterbi and the pair-HMM forward and backward (f32 max-plus and
-// logsumexp).  A PE functor declares
+// logsumexp).  Every other spec's PE is lowered from its torch graph by
+// kernels/wavefront/synth.py into a translation unit of its own under
+// build/repro_torch/gen/, which includes this header the same way.  A PE
+// functor declares
 //   Score     int or float, the score type of every layer;
 //   Char      the staged character type (uint8_t codes, int samples, or a
 //             struct of floats);
@@ -29,6 +32,12 @@
 //             diagonal cell;
 //   kTable    whether it reads the substitution / emission table;
 //   cell(p, tab, q, r, diag, up, left, out) -> pointer.
+// and may declare (the hand-written functors declare neither)
+//   kSlots    true: cell's p is the launch's Slots block (the scalar
+//             parameters of a generated PE), not Params, and the table
+//             holds Slots::n_words 32-bit words;
+//   kIJ       true: cell also takes the cell's 1-based (i, j), as the
+//             plain sweep passes them to the PE.
 //
 // Mapping.  One thread block fills one pair with G warps for its C
 // strips of 32 rows (G up to 8, fewer when the batch would overfill the
@@ -92,6 +101,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int N_PE = 32;
@@ -122,6 +133,27 @@ struct Params {
   int n_sub;
   float log_lambda, log_mu, t_mm, t_gm, gap_emission, fgap;
 };
+
+// The scalar parameters of a generated PE (synth.py MAX_SLOTS): each an
+// int64 value or the bits of a float or double; n_words: 32-bit words of
+// its tables (0: none).
+constexpr int MAX_SLOTS = 32;
+struct Slots {
+  long long s[MAX_SLOTS];
+  int n_words;
+};
+
+// The optional functor members kSlots and kIJ (false when not declared).
+template <class PE, class = void>
+struct HasSlots : std::false_type {};
+template <class PE>
+struct HasSlots<PE, std::void_t<decltype(PE::kSlots)>>
+    : std::integral_constant<bool, PE::kSlots> {};
+template <class PE, class = void>
+struct HasIJ : std::false_type {};
+template <class PE>
+struct HasIJ<PE, std::void_t<decltype(PE::kIJ)>>
+    : std::integral_constant<bool, PE::kIJ> {};
 
 template <class S> struct Far;
 template <> struct Far<int> {
@@ -328,6 +360,46 @@ struct KArgs {
   void* best;
   int* best_j;
   int B, Q, R, pack, with_tb, G, nch_log2;
+  Slots g;  // a generated PE's scalar parameters (unused by the others)
+};
+
+// A functor's cell() as it declares it: the hand-written ones take Params,
+// a generated one (kSlots) the Slots block, and a kIJ functor also the
+// cell's 1-based (i, j).  (One struct per form, so that the hand-written
+// functors' call compiles as it did before the others existed.)
+template <class PE, bool SLOTS = HasSlots<PE>::value,
+          bool IJ = HasIJ<PE>::value>
+struct CellCall {
+  template <class A, class Ch, class S>
+  __device__ __forceinline__ static int run(const A& a, const unsigned* tab,
+                                            Ch q, Ch r, const S* diag,
+                                            const S* up, const S* left,
+                                            S* out, int, int) {
+    return PE::cell(a.p, tab, q, r, diag, up, left, out);
+  }
+};
+template <class PE>
+struct CellCall<PE, false, true> {
+  template <class A, class Ch, class S>
+  __device__ __forceinline__ static int run(const A& a, const unsigned* tab,
+                                            Ch q, Ch r, const S* diag,
+                                            const S* up, const S* left,
+                                            S* out, int i, int j) {
+    return PE::cell(a.p, tab, q, r, diag, up, left, out, i, j);
+  }
+};
+template <class PE, bool IJ>
+struct CellCall<PE, true, IJ> {
+  template <class A, class Ch, class S>
+  __device__ __forceinline__ static int run(const A& a, const unsigned* tab,
+                                            Ch q, Ch r, const S* diag,
+                                            const S* up, const S* left,
+                                            S* out, int i, int j) {
+    if constexpr (IJ)
+      return PE::cell(a.g, tab, q, r, diag, up, left, out, i, j);
+    else
+      return PE::cell(a.g, tab, q, r, diag, up, left, out);
+  }
 };
 
 // The handoff ring one strip boundary carries: NK chunks of CH columns
@@ -379,7 +451,9 @@ __global__ void __launch_bounds__(MAX_WARPS * N_PE)
   constexpr S SENT = PE::sent();
   extern __shared__ __align__(16) unsigned char smem[];
   const int Q = a.Q, R = a.R, G = a.G, NCH = 1 << a.nch_log2;
-  const int sub_words = PE::kTable ? a.p.n_sub * a.p.n_sub : 0;
+  const int sub_words = !PE::kTable ? 0
+                        : HasSlots<PE>::value ? a.g.n_words
+                                              : a.p.n_sub * a.p.n_sub;
   const Layout lay =
       layout(sub_words, G, NCH, NU, Q, R, a.with_tb, (int)sizeof(Ch));
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bar);
@@ -613,7 +687,8 @@ __global__ void __launch_bounds__(MAX_WARPS * N_PE)
             }
           }
           S cur[L];
-          int ptr = PE::cell(a.p, tab, qc, sr[w - lane], diag, up, left, cur);
+          int ptr = CellCall<PE>::run(a, tab, qc, sr[w - lane], diag, up,
+                                      left, cur, i_glob, w - lane + 1);
           const bool valid = w >= v_lo && w <= v_hi;
           if (!valid) {
 #pragma unroll
@@ -672,7 +747,9 @@ __global__ void __launch_bounds__(MAX_WARPS * N_PE)
 template <class PE, int REGION, bool BANDED>
 int launch(const KArgs& a, cudaStream_t stream) {
   auto kern = wavefront_kernel<PE, REGION, BANDED>;
-  const int sub_words = PE::kTable ? a.p.n_sub * a.p.n_sub : 0;
+  const int sub_words = !PE::kTable ? 0
+                        : HasSlots<PE>::value ? a.g.n_words
+                                              : a.p.n_sub * a.p.n_sub;
   const size_t smem =
       layout(sub_words, a.G, 1 << a.nch_log2, popc(PE::UP | PE::DIAG), a.Q,
              a.R, a.with_tb, (int)sizeof(typename PE::Char))
@@ -718,6 +795,7 @@ inline KArgs make_args(const void* query, const void* ref,
   a.with_tb = with_tb;
   a.G = warps;
   a.nch_log2 = ring_log2;
+  a.g = Slots{};
   return a;
 }
 

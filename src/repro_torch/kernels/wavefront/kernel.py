@@ -8,9 +8,12 @@ per-(pair, strip, lane) best score, its first column, and the
 ``('chunk', 32, pack)`` pointer store; under a sum semiring the best is the
 lane's region mass folded with logaddexp.  A CUDA tensor goes to the CUDA
 kernel (``csrc/wavefront_kernel.cuh``, instantiated on the gap-model
-families by ``csrc/wavefront.cu`` and on the others by
-``csrc/wavefront_ext.cu``); a CPU tensor goes to ``wavefront_fill_plain``.
-Nothing falls back from one to the other.
+families by ``csrc/wavefront.cu``, on the others by
+``csrc/wavefront_ext.cu``, and on every other PE the lowering accepts by a
+translation unit ``synth.py`` generates from the spec's own torch PE,
+built at the spec's first launch); a CPU tensor goes to
+``wavefront_fill_plain``.  Nothing falls back from one to the other: a PE
+the lowering refuses, a failed build and a failed launch raise.
 
 The fill dispatches the operator ``repro_torch::wavefront_fill`` (see
 ``kernels/__init__.py``), counted by ``fill_work`` from shapes alone: the
@@ -35,6 +38,7 @@ from repro_torch.core import types as T
 from repro_torch.core.spec_utils import region_mask
 from repro_torch.core.traceback import pack_lanes
 from repro_torch.kernels import Work, call, register_work
+from repro_torch.kernels.wavefront import synth
 
 N_PE = 32               # lanes per strip: one warp, one lane per PE
 STRIP_WARPS = 8         # most warps per pair: strips in flight at once
@@ -101,12 +105,27 @@ _COUNT_LOCK = threading.Lock()
 
 
 def supports(spec: T.DPKernelSpec):
-    """None when K1 can fill ``spec``, else the reason it cannot."""
+    """None when K1 can fill ``spec``, else the reason it cannot: a
+    hand-written functor fills it (``hand_written``), or one that
+    ``synth.py`` generates from its PE (``synth.check``, cached per
+    spec)."""
+    if hand_written(spec) is None:
+        return None
+    return synth.check(spec)
+
+
+def is_generated(spec: T.DPKernelSpec) -> bool:
+    """Whether K1 runs ``spec`` through a functor generated from its PE
+    (every spec no hand-written functor instantiates)."""
+    return hand_written(spec) is not None
+
+
+def hand_written(spec: T.DPKernelSpec):
+    """None when a hand-written functor of ``csrc/wavefront.cu`` or
+    ``csrc/wavefront_ext.cu`` fills ``spec``, else why none does."""
     fam = spec.family
     if fam is None:
-        return (f"kernel {spec.name} has no compiled PE family (K1 "
-                f"compiles the int32 max-plus gap models, DTW and sDTW "
-                f"min-plus, profile, Viterbi and the pair-HMM)")
+        return f"kernel {spec.name} has no hand-written PE family"
     if fam.family in GAP_FAMILIES:
         if spec.objective != "max" or spec.score_dtype != _I32:
             return (f"kernel {spec.name}: K1's {fam.family} PE is int32 "
@@ -192,11 +211,15 @@ def ring_chunks(r_bucket: int, warps: int) -> int:
     return 1 << (need - 1).bit_length()
 
 
-def ring_layers(spec: T.DPKernelSpec) -> tuple:
+def ring_layers(spec: T.DPKernelSpec, syn=None) -> tuple:
     """The score layers K1 carries from the row above: those the PE reads
-    from the cell above or the diagonal (``PEFamily.ring_layers``; SH in
-    csrc/wavefront_kernel.cuh).  K1 shuffles them between lanes and holds
-    them in the handoff rings and the staged init row."""
+    from the cell above or the diagonal (``PEFamily.ring_layers``, or a
+    generated functor's ``UP | DIAG``; SH in csrc/wavefront_kernel.cuh).
+    K1 shuffles them between lanes and holds them in the handoff rings and
+    the staged init row.  ``syn``: the generated functor of the launch
+    (default: the one ``synth.check`` lowered)."""
+    if is_generated(spec):
+        return (syn or synth.probe(spec)).ring_layers
     return spec.family.ring_layers
 
 
@@ -205,22 +228,26 @@ def _align16(n: int) -> int:
 
 
 def smem_bytes(spec: T.DPKernelSpec, q_bucket: int, r_bucket: int,
-               warps: int, with_tb: bool = True) -> int:
+               warps: int, with_tb: bool = True, syn=None) -> int:
     """Dynamic shared memory of one K1 thread block (one pair), laid out
     as ``csrc/wavefront_kernel.cuh::layout``: the rings' mbarriers (full
     and empty per slot), the table (an int substitution matrix of at most
-    24 x 24, or the 5 x 5 f32 table of profile, Viterbi and pair-HMM), the
+    24 x 24, the 5 x 5 f32 table of profile, Viterbi and pair-HMM, or a
+    generated functor's tables and captured constants), the
     handoff rings (warps x slots x RING_CHUNK columns x ring layers, 4
     bytes each), the init row's ring layers, a 32-wavefront pointer tile
     per warp, and the pair's query and reference characters (the latter
     with REF_PAD characters each side) at ``char_bytes`` each."""
     q, r, g = int(q_bucket), int(r_bucket), int(warps)
     nch = ring_chunks(r, g)
-    nu = len(ring_layers(spec))
-    sub = spec.family.sub if spec.family else None
-    tab = (24 * 24 * 4 if sub == T.SUB_MATRIX else
-           TABLE_SIDE * TABLE_SIDE * 4 if sub in (T.SUB_SOP, T.SUB_EMISSION)
-           else 0)
+    nu = len(ring_layers(spec, syn))
+    if is_generated(spec):
+        tab = (syn or synth.probe(spec)).table_words * 4
+    else:
+        sub = spec.family.sub
+        tab = (24 * 24 * 4 if sub == T.SUB_MATRIX else
+               TABLE_SIDE * TABLE_SIDE * 4
+               if sub in (T.SUB_SOP, T.SUB_EMISSION) else 0)
     cb = char_bytes(spec)
     return (_align16(g * nch * 2 * 8) + _align16(tab)
             + _align16(g * nch * RING_CHUNK * nu * 4)
@@ -358,7 +385,7 @@ def fill_work(query, ref, init_row, init_col, lens, tb_pack, with_tb,
     spec = _CALL.spec
     B, Q, R = query.shape[0], query.shape[1], ref.shape[1]
     key = "int32" if spec.score_dtype == _I32 else "f32"
-    return Work({key: pe_ops(spec) * B * Q * R},
+    return Work({key: pe_ops(spec, _CALL.params) * B * Q * R},
                 k1_bytes(spec, B, Q, R, tb_pack, with_tb))
 
 
@@ -397,12 +424,55 @@ def _table(params, name, dev):
     return tab
 
 
+_GEN_LIBS: dict = {}
+_GEN_LOCK = threading.Lock()
+
+
+def generated_lib(syn):
+    """``(library, build)`` of a generated functor, built at its first use
+    in this process (nvcc, or the content-keyed library a build left)."""
+    with _GEN_LOCK:
+        hit = _GEN_LIBS.get(syn.digest)
+    if hit is None:
+        from repro_torch.kernels import build
+        built = build.load(syn.write(), include_dirs=(CSRC,))
+        lib = built.lib
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.wavefront_gen_fill_launch.argtypes = (
+            [i] + [p] * 6 + [i] + [p, i] + [p] * 3 + [i] * 9 + [p])
+        lib.wavefront_gen_fill_launch.restype = i
+        lib.wavefront_max_smem.argtypes = [i]
+        lib.wavefront_max_smem.restype = i
+        hit = (lib, built)
+        with _GEN_LOCK:
+            _GEN_LIBS[syn.digest] = hit
+    return hit
+
+
+def source_of(spec: T.DPKernelSpec, params=None):
+    """The CUDA source K1 builds for ``spec``: ``SOURCE`` or
+    ``SOURCE_EXT`` for a hand-written functor, else the generated
+    translation unit of ``params``' signature (None without ``params`` or
+    where the lowering refuses)."""
+    if not is_generated(spec):
+        return SOURCE if spec.family.family in GAP_FAMILIES else SOURCE_EXT
+    if params is None:
+        return None
+    try:
+        return synth.lower(spec, params).path()
+    except synth.Refused:
+        return None
+
+
 def _launch(spec, params, query, ref, init_row, init_col, lens, tb_pack,
             with_tb, warps=None):
     global launches
     fam = spec.family
-    gap_model = fam.family in GAP_FAMILIES
-    lib = _lib(SOURCE if gap_model else SOURCE_EXT)
+    gen = synth.lower(spec, params) if is_generated(spec) else None
+    if gen is not None:
+        lib = generated_lib(gen)[0]
+    else:
+        lib = _lib(SOURCE if fam.family in GAP_FAMILIES else SOURCE_EXT)
     dev = query.device
     B, Q = query.shape[:2]
     R = ref.shape[1]
@@ -414,7 +484,7 @@ def _launch(spec, params, query, ref, init_row, init_col, lens, tb_pack,
     if not explicit:
         warps = strip_warps(Q, B, torch.cuda.get_device_properties(
             index).multi_processor_count)
-    need = smem_bytes(spec, Q, R, warps, with_tb)
+    need = smem_bytes(spec, Q, R, warps, with_tb, gen)
     if need > limit:
         raise ValueError(
             f"kernel {spec.name}: reference bucket {R} at "
@@ -436,7 +506,13 @@ def _launch(spec, params, query, ref, init_row, init_col, lens, tb_pack,
                 RING_CHUNK)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if gap_model:
+        if gen is not None:
+            slots, table = gen.pack(params, dev)
+            arr = (ctypes.c_longlong * max(1, len(slots)))(*slots)
+            err = lib.wavefront_gen_fill_launch(
+                band, *data, table.data_ptr() if table is not None else None,
+                gen.table_words, arr, len(slots), *outs, *geometry, stream)
+        elif fam.family in GAP_FAMILIES:
             matrix = fam.sub == T.SUB_MATRIX
             sub = (params["sub"].to(device=dev, dtype=torch.int32)
                    .contiguous() if matrix else None)

@@ -31,7 +31,16 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Callable, Mapping, Optional
+from typing import Callable, Mapping, Optional, Protocol
+
+
+class Engine(Protocol):
+    """Matrix-fill back end: spec + params + a batch of padded pairs ->
+    DPResult."""
+
+    def __call__(self, spec, params, queries, refs, q_lens=None,
+                 r_lens=None, *, with_tb=True, **options):
+        ...
 
 
 @dataclasses.dataclass

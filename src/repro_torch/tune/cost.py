@@ -98,9 +98,18 @@ def device_model(device=None) -> DeviceModel:
         _max_sm_clock_hz(index) or H100.clock_hz)
 
 
-def pe_ops(spec) -> int:
+def pe_ops(spec, params=None) -> int:
     """Operations of one PE cell: ``PE_OPS`` for the int32 gap models,
-    ``OTHER_PE_OPS`` for K1's other families."""
+    ``OTHER_PE_OPS`` for K1's other hand-written families, and for a PE
+    K1 generates (``kernels/wavefront/synth.py``) the generated functor's
+    own count (``Synth.ops``: the live statements of its cell, each
+    weighted by what the card needs for it; the functor of ``params``'
+    signature, or of the probe parameters without them)."""
+    from repro_torch.kernels.wavefront import kernel as K1
+    if K1.is_generated(spec):
+        syn = (K1.synth.lower(spec, params) if params is not None
+               else K1.synth.probe(spec))
+        return syn.ops
     fam = spec.family
     return PE_OPS.get((fam.family, bool(fam.local)), OTHER_PE_OPS)
 

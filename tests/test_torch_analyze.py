@@ -280,14 +280,16 @@ def test_r401_fires_on_shared_memory_overflow():
 def test_r401_reports_ptxas_or_says_it_has_none(monkeypatch):
     from repro_torch.kernels import build
     spec, params = pzoo.make("global_linear")
-    monkeypatch.setattr(build, "kept_report", lambda source: None)
+    monkeypatch.setattr(build, "kept_report",
+                        lambda source, include_dirs=(): None)
     found = _findings(spec, params, "R401", engine="wavefront")
     assert [f.severity for f in found] == [analyze.INFO]
     assert "no ptxas report" in found[0].message
     log = ("ptxas info    : Compiling entry function '_Z1kv' for 'sm_90a'\n"
            "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill "
            "loads\nptxas info    : Used 255 registers\n")
-    monkeypatch.setattr(build, "kept_report", lambda source: log)
+    monkeypatch.setattr(build, "kept_report",
+                        lambda source, include_dirs=(): log)
     found = _findings(*pzoo.make("edit_distance"), "R401", engine="myers")
     assert any(f.severity == analyze.WARNING and "spills 16 bytes"
                in f.message for f in found)

@@ -65,3 +65,31 @@ def test_serving_and_obs_import_without_jax(pkg):
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def _jax_all(module_dir: str) -> list:
+    """``__all__`` of a JAX package module, read from its source (nothing
+    of the JAX package is imported here)."""
+    path = ROOT / "src" / "repro" / module_dir / "__init__.py"
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == "__all__"
+                for t in node.targets):
+            return list(ast.literal_eval(node.value))
+    raise AssertionError(f"no __all__ in {path}")
+
+
+@pytest.mark.parametrize("module", ["core", "runtime"])
+def test_front_end_names_match_the_jax_package(module):
+    """Each public name of ``repro.core`` and ``repro.runtime`` is
+    importable from the port's module of the same name, or is one of the
+    XLA-only names that module's docstring lists (``JAX_ONLY``)."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.{module}")
+    jax_only = getattr(mod, "JAX_ONLY", ())
+    for name in jax_only:
+        assert name in mod.__doc__, name
+    missing = [n for n in _jax_all(module)
+               if n not in jax_only and not hasattr(mod, n)]
+    assert not missing, f"repro_torch.{module} lacks {missing}"
+    assert set(mod.__all__) <= set(dir(mod))

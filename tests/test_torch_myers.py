@@ -174,10 +174,17 @@ def test_engine_admission_and_wrapper_checks(rng):
     linear, _ = pzoo.make(7)
     assert registry.engine_supports("myers", edit) is None
     assert "unit-cost" in registry.engine_supports("myers", linear)
-    assert "max-plus" in K1.supports(edit)
-    with pytest.raises(ValueError, match="cannot run"):
-        api.align(edit, {"max_dist": -1}, np.zeros(8, np.uint8),
-                  np.zeros(8, np.uint8), device="cpu")
+    # K1 has no hand-written edit functor; it runs #16 through one
+    # generated from the PE, which scores as K2 does
+    assert "family" in K1.hand_written(edit)
+    assert K1.supports(edit) is None and K1.is_generated(edit)
+    q = rng.integers(0, 4, 8).astype(np.uint8)
+    r = rng.integers(0, 4, 8).astype(np.uint8)
+    on_k1 = api.align(edit, {"max_dist": -1}, q, r, device="cpu",
+                      with_traceback=False)
+    on_k2 = api.align(edit, {"max_dist": -1}, q, r, engine_name="myers",
+                      device="cpu", with_traceback=False)
+    assert int(on_k1.score) == int(on_k2.score)
     assert [K.n_words(q) for q in (1, 64, 65, 256, 1024)] == [1, 1, 2, 4, 16]
     with pytest.raises(ValueError, match="1024"):
         K.n_words(1025)

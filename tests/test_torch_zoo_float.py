@@ -200,14 +200,36 @@ def test_make_knows_every_kernel():
 
 
 def test_supports_refuses_what_k1_does_not_instantiate():
-    assert "dtw" in K.supports(pzoo.make(9, band=8)[0])
-    assert "int32 max-plus" in K.supports(
+    """What K1 refuses now that it lowers any PE its lowering accepts
+    (``kernels/wavefront/synth.py``): vector characters (#9 banded, a
+    combination no hand-written functor instantiates), an op outside the
+    lowering, 64-bit scores.  The specs it refused before for want of a
+    hand-written functor (the edit kernels, #1 at objective min, the
+    pair-HMM over the whole matrix) run on a generated one; they are held
+    to JAX's wavefront engine in tests/test_torch_synth.py."""
+    assert "vector characters" in K.supports(pzoo.make(9, band=8)[0])
+    assert "dtw" in K.hand_written(pzoo.make(9, band=8)[0])
+    assert "int32 max-plus" in K.hand_written(
         pzoo.make(1, objective="min")[0])
     assert K.supports(prob.pairhmm(band=16)) is None
+    assert not K.is_generated(prob.pairhmm(band=16))
     spec = dataclasses.replace(prob.pairhmm(), region="all")
-    assert "last_row" in K.supports(spec)
+    assert "last_row" in K.hand_written(spec)
     from repro_torch.core.kernels_zoo import edit
-    assert "no compiled PE family" in K.supports(edit.edit_distance())
+    assert "no hand-written PE family" in K.hand_written(
+        edit.edit_distance())
+    for flipped in (pzoo.make(1, objective="min")[0], spec,
+                    edit.edit_distance()):
+        assert K.supports(flipped) is None and K.is_generated(flipped)
+
+    def sinh_pe(params, q, r, diag, up, left, i, j):
+        return torch.sinh(diag), torch.zeros_like(q, dtype=torch.int32)
+    odd = dataclasses.replace(prob.pairhmm(), name="sinh_hmm", pe=sinh_pe,
+                              family=None)
+    assert "aten.sinh" in K.supports(odd)
+    wide = dataclasses.replace(pzoo.make(1)[0], family=None,
+                               score_dtype=torch.int64)
+    assert "64-bit scores" in K.supports(wide)
 
 
 @pytest.mark.parametrize("which", ["pairhmm", "profile"])
