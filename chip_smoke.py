@@ -31,7 +31,8 @@ Phases:
   1. card identity (name, count, power limit, SM clock);
   2. build K1 (two sources: the gap-model families and the others), K2,
      K3, K4 and the backward kernels of K3 and K4 with nvcc, all at once,
-     and report ptxas registers /
+     with phase 3c's generated PE functors behind them on the cores the
+     shorter builds free, and report ptxas registers /
      spills (K1's instantiations for #2, #4, the mapper's extension and
      the pair-HMM forward at logsumexp, and every K2 instantiation, must
      not spill; every other-family instantiation is listed), and list the
@@ -54,8 +55,8 @@ Phases:
      logsumexp with their family set to None, and three specs whose
      combination no hand-written functor instantiates (#1 at min-plus,
      the pair-HMM forward over the whole matrix, #16 edit distance with
-     no PE family); one nvcc per functor, all
-     at once (the ti/tv kernel's inside its plan's first dispatch); each
+     no PE family); one nvcc per functor, in phase 2 (the ti/tv
+     kernel's inside its plan's first dispatch); each
      against the plain version at phase 3's buckets and each twin against
      its hand-written functor on the same inputs (integers bit-equal);
      ``run_pairs`` of 2048 ti/tv pairs on the ``wavefront`` engine (K1
@@ -63,7 +64,16 @@ Phases:
      cold and warm compile_s, a second parameter set building nothing);
      #2's two functors in turns and the ti/tv kernel timed at batch 1024,
      256x256; the hand-written instantiations' ptxas equal to
-     K1_HAND_PTXAS, entry by entry;
+     K1_HAND_PTXAS, entry by entry.  Over vector characters: #9
+     with a Sakoe-Chiba band of 8, #8 over the last row, Euclidean and
+     Chebyshev DTW over 3-channel samples, local profile alignment
+     through a matrix product, quality-aware alignment over (base, phred)
+     bytes, and the #8 and #9 twins, built in phase 2; each against
+     the plain version at phase 3's buckets (the twins bit-equal to their
+     hand-written functors), #9 band 8 through ``run_pairs`` on 2048 pairs
+     of 200-256 samples (equal to the card's reference engine and the CPU
+     path), the twins in turns with their hand-written functors and #9
+     band 8 alone timed at batch 1024, 256x256;
   4. main path: ``run_pairs`` with global affine (#2) on 8192 short DNA
      pairs (windows of 128-256 bases of a 1 Mb random reference, queries
      mutated at 8 %), block 1024, with traceback; checked against the CPU
@@ -79,7 +89,7 @@ Phases:
   T. the autotuner at the main paths' full shapes: #2 at batch 1024,
      256x256, #4 at batch 256, 1024x1024, and the pair-HMM forward at
      logsumexp at batch 1024, 256x512.  ``tune_point(mode="fill",
-     top_k=4)`` into a temporary table (each candidate bit-equal to the
+     top_k=2)`` into a temporary table (each candidate bit-equal to the
      default plan before it is timed), every measured candidate's K1 time
      alone (kernel_device_ms) beside its predicted time, the winner's
      speedup over the default; then ``get_plan`` with the table installed
@@ -89,7 +99,7 @@ Phases:
      R3xx counts are printed, and every linted point's plan runs once on
      the card under ``hlo_cost.HostReads`` (K1 and K2 launched) and reads
      the device on the host at exactly the sites R303 found on the CPU;
-  X. X-drop on the card: #4 and #2, 256 pairs of 200-400 bases each, at
+  X. X-drop on the card: #4 and #2, 64 pairs of 200-400 bases each, at
      two xdrop values and strip 8, through ``run_pairs(engine_name=
      "wavefront", xdrop=...)``: the first 32 equal to the CPU path (score,
      ends, starts, moves, CIGAR), wall times, K1 not launched by an X-drop
@@ -124,7 +134,7 @@ Phases:
      within 5e-4, the CPU path within 1e-4;
   S. the serving layer, data from SEED: ``AlignmentService(max_len=512,
      block=256, prefilter=0.1, pipeline_depth=2)`` under ``serve()`` with 2
-     workers, 8192 requests alternating #2 and #4, windows of 100-300 bases
+     workers, 4096 requests alternating #2 and #4, windows of 100-300 bases
      of a random 1 Mb reference mutated at 8 % (GASAL2's extension regime),
      about 10 % of the #2 queries unrelated junk.  A clean cold run (K1 and
      K2 counted, their arguments recorded): every unfiltered result (score,
@@ -134,10 +144,10 @@ Phases:
      inputs of the fullest launch (survivors, then length-1 dummy rows),
      bit for bit, and timed alone for their device share; requests/s,
      exact p50/p99 latency beside the gateway histogram's; a warm-started
-     run on the first 2048 requests, over the clean run's channel grid
+     run on the first 1024 requests, over the clean run's channel grid
      (compile_s at boot and while serving, a Chrome trace under build/
      that passes validate_chrome_trace, the workers' span totals); the
-     first 2048 requests warm-started with 1, 2, 2 and 1 workers in turns,
+     first 1024 requests warm-started with 1, 2, 2 and 1 workers in turns,
      each == the clean run; the whole stream under FaultPlan(seed=0, kill
      w0 at dispatch 1, launch failures p 0.1): bit-identical, no double
      completion, submitted == resolved + dead_lettered; the first 2048
@@ -145,8 +155,8 @@ Phases:
      edit_distance == plain K2's.  Then 256 of phase G's sites through
      ``GenotypingService`` (each call == phase G's), 4096 of phase 8's reads
      through ``ReadMappingService`` (SAM lines == map_reads), ``tiled_align``
-     of a 5 kb #2 pair (tile 256, overlap 64) on K1 == on the reference
-     engine, and #11-13 on ``banded`` (256 pairs of 200-400 bases) == the
+     of a 2.5 kb #2 pair (tile 256, overlap 64) on K1 == on the reference
+     engine, and #11-13 on ``banded`` (128 pairs of 200-400 bases) == the
      reference engine, #12 with xdrop 10 == the CPU;
   (K1 and K2 are timed by kernel_device_ms: the device time of 20
   launches captured in a CUDA graph and replayed between CUDA events, 5
@@ -483,24 +493,31 @@ LOGIT_FACTOR = 3.0
 FIELDS = ("score", "end_i", "end_j", "start_i", "start_j", "n_moves",
           "moves")
 # phase S, the serving layer: GASAL2's extension regime (PERF.md section 1),
-# requests of 100-300 bases in two channels, #2 and #4
+# requests of 100-300 bases in two channels, #2 and #4; the stream, the warm
+# run, the tiled pair and the banded pairs at half the depth they had (8192,
+# 2048, 5 kb, 256): on a host slow enough, the whole script took 1198 s of
+# its 1200 with them, most of it host Python (PERF.md section 7 lists what
+# each cut leaves unchecked)
 SV_KERNELS = ("global_affine", "local_affine")
-SV_REQUESTS, SV_LENS, SV_RATE, SV_JUNK = 8192, (100, 300), 0.08, 0.1
+SV_REQUESTS, SV_LENS, SV_RATE, SV_JUNK = 4096, (100, 300), 0.08, 0.1
 SV_MAX_LEN, SV_BLOCK, SV_PREFILTER, SV_DEPTH = 512, 256, 0.1, 2
 SV_WORKERS = 2
-SV_WARM = 2048                   # the warm run takes the stream's first
+SV_WARM = 1024                   # the warm run takes the stream's first
 SV_DEGRADE = 2048                # the degrade run takes the stream's first
 SV_WATERMARK = SV_DEGRADE - 4 * SV_BLOCK  # ... and its first batches degrade
 SV_SITES, SV_READS = 256, 4096
-# the tiled pair: 5 kb since PR 23 (10 kb took 64 s of the script's time
-# limit, 40 s of it on the reference engine)
-SV_TILE_LEN, SV_TILE, SV_OVERLAP = 5_000, 256, 64
-SV_BANDED_PAIRS, SV_BANDED_LENS, SV_XDROP = 256, (200, 400), 10
+# the tiled pair (10 kb took 64 s of the script's time limit, 40 s of it on
+# the reference engine)
+SV_TILE_LEN, SV_TILE, SV_OVERLAP = 2_500, 256, 64
+SV_BANDED_PAIRS, SV_BANDED_LENS, SV_XDROP = 128, (200, 400), 10
 # phase T: the autotuner's candidates kept by the cost model, timing
 # repeats per candidate, and rounds x launches of each K1 time alone
-TUNE_TOP_K, TUNE_ITERS, TUNE_ROUNDS, TUNE_LAUNCHES = 4, 20, 3, 10
-# phase X: X-drop pairs per kernel, their lengths, block, budgets and strip
-XD_PAIRS, XD_LENS, XD_BLOCK, XD_VALUES, XD_STRIP = 256, (200, 400), 256, \
+# (the model's best 2 beside the default: 4 before, cut for the script's
+# time limit as phase S's)
+TUNE_TOP_K, TUNE_ITERS, TUNE_ROUNDS, TUNE_LAUNCHES = 2, 20, 3, 10
+# phase X: X-drop pairs per kernel (256 before, cut for the script's time
+# limit as phase S's), their lengths, block, budgets and strip
+XD_PAIRS, XD_LENS, XD_BLOCK, XD_VALUES, XD_STRIP = 64, (200, 400), 256, \
     (4, 40), 8
 XD_HELD = 32
 # phase M, the placement path on a mesh of one rank: phase 4's windows
@@ -669,7 +686,12 @@ def phase_identity():
 
 
 def phase_build():
-    """One nvcc per kernel source, all started together."""
+    """One nvcc per kernel source, all started together, and behind them
+    one per PE functor phase 3c generates (but the ti/tv kernel's, which
+    its plan's first dispatch builds), lowered and built on the threads
+    the shorter sources free while K1's gap-model source, the longest,
+    builds.  Returns the kernel sources' builds and the generated ones'
+    (label: build)."""
     from repro_torch.core import kernels_zoo
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attn import kernel as K3
@@ -680,9 +702,18 @@ def phase_build():
     names = ("K1", "K1 ext", "K2", "K3", "K4", "K3 bwd", "K4 bwd")
     sources = (K1.SOURCE, K1.SOURCE_EXT, K2.SOURCE, K3.SOURCE, K4.SOURCE,
                K3.SOURCE_BWD, K4.SOURCE_BWD)
+    from repro_torch.kernels.wavefront import synth
+
+    def generate(spec, params):
+        return K1.generated_lib(synth.lower(spec, params))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
-        built = list(pool.map(build.load, sources))
+        futs = [pool.submit(build.load, src) for src in sources]
+        gen_futs = {label: pool.submit(generate, spec, params)
+                    for label, spec, params, _ in
+                    _gen_cases() + _gen_vector_cases() if label != "ti/tv"}
+        built = [f.result() for f in futs]
+        gen_built = {label: f.result()[1] for label, f in gen_futs.items()}
     tables = {}
     for name, b in zip(names, built):
         rows = ptxas_table(b.ptxas_log)
@@ -716,9 +747,9 @@ def phase_build():
     check(len(hit) == 1, "no K1 instantiation for the pair-HMM forward")
     check(hit[0][2] == 0, f"K1 pair-HMM forward spills {hit[0][2]} bytes")
     check(all(r[2] == 0 for r in tables["K2"]), "K2 spills registers")
-    print(f"    all {len(sources)} builds: {time.perf_counter() - t0:.1f} s "
-          f"wall", flush=True)
-    return built
+    print(f"    all {len(sources)} builds and {len(gen_built)} generated "
+          f"PE functors: {time.perf_counter() - t0:.1f} s wall", flush=True)
+    return built, gen_built
 
 
 def _fill_args(spec, params, qs, rs, ql, rl, dev):
@@ -1031,8 +1062,50 @@ def _gen_cases():
     return cases
 
 
+# phase 3c's labels of the vector-character cases (kernels_zoo/user_vector.py)
+VECTOR_LABELS = {"dtw_band": "(a) #9 band 8", "profile_last_row":
+                 "(b) #8 last row", "euclid": "(c) Euclidean DTW",
+                 "chebyshev": "(d) Chebyshev sDTW",
+                 "profile_local": "(e) local profile",
+                 "quality": "(f) quality"}
+
+
+def _gen_vector_cases():
+    """(label, spec, params, hand-written twin or None) of phase 3c's PEs
+    over vector characters (``kernels_zoo/user_vector.py``): (a) #9 with a
+    Sakoe-Chiba band of 8, (b) #8 over the last row, (c) Euclidean DTW over
+    3-channel f32 samples, band 16, (d) subsequence Chebyshev DTW over
+    3-channel samples, (e) local profile-to-profile alignment through a
+    matrix product, (f) quality-aware global alignment over (base, phred)
+    uint8 pairs with int32 scores, and the twins of #8 and #9 (family set
+    to None)."""
+    import dataclasses
+    from repro_torch.core import kernels_zoo
+    from repro_torch.core.kernels_zoo import user_vector
+    cases = [(VECTOR_LABELS[name], *user_vector.make(name), None)
+             for name in user_vector.NAMES]
+    for kid in (8, 9):
+        hand, params = kernels_zoo.make(kid)
+        cases.append((f"#{kid} twin", dataclasses.replace(hand, family=None),
+                      params, hand))
+    return cases
+
+
 def _gen_codes(rng, spec, label, shape):
+    """Characters of a phase 3c case: profile columns for (5,) f32, normal
+    samples for other f32 shapes, (base, phred) bytes with phred in 0-41
+    for (2,) uint8, codes of the case's alphabet for scalars."""
     import numpy as np
+    cs = tuple(spec.char_shape)
+    if spec.char_dtype.is_floating_point and cs == (5,):
+        counts = rng.multinomial(8, [0.22, 0.22, 0.22, 0.22, 0.12],
+                                 size=shape)
+        return (counts / 8).astype(np.float32)
+    if spec.char_dtype.is_floating_point:
+        return rng.normal(size=shape + cs).astype(np.float32)
+    if cs:
+        return np.stack([rng.integers(0, 4, shape),
+                         rng.integers(0, 42, shape)], -1).astype(np.uint8)
     hi = 20 if label.startswith("#15") else 5 if "pair-HMM" in label else 4
     return rng.integers(0, hi, shape).astype(np.uint8)
 
@@ -1061,6 +1134,9 @@ def _gen_parity(rng, cases):
             ql = rng.integers(bucket // 2, bucket + 1, batch).astype(np.int32)
             rl = rng.integers(bucket // 2, bucket + 1, batch).astype(np.int32)
             ql[0] = bucket
+            if spec.band is not None:   # corners in the band
+                rl = np.clip(ql + rng.integers(-8, 9, batch), 1,
+                             bucket).astype(np.int32)
             args = _fill_args(spec, params, qs, rs, ql, rl, DEVICE)
             what = f"{label}, bucket {bucket}, batch {batch}"
             kw = {"tb_pack": 1, "with_tb": spec.traceback is not None}
@@ -1089,13 +1165,41 @@ def _gen_parity(rng, cases):
             "twin_cases": twin_cases}
 
 
+def _run_pairs_held(spec, params, pairs, what):
+    """``run_pairs`` of ``pairs`` on the ``wavefront`` engine, block
+    GEN_BLOCK: K1 launched once a block; results equal the card's
+    reference engine on every pair and the CPU path on the first 64.
+    Returns (results, numbers)."""
+    import torch
+    from repro_torch.kernels.wavefront import kernel as K
+    from repro_torch.runtime import dispatch
+    before = K.launches
+    t0 = time.perf_counter()
+    got = dispatch.run_pairs(spec, params, pairs, block=GEN_BLOCK)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.launches - before
+    check(launches == -(-len(pairs) // GEN_BLOCK),
+          f"run_pairs on {what} launched K1 {launches} times")
+    t0 = time.perf_counter()
+    ref = dispatch.run_pairs(spec, params, pairs, block=GEN_BLOCK,
+                             engine_name="reference")
+    torch.cuda.synchronize()
+    ref_wall = time.perf_counter() - t0
+    _compare_results(got, ref, f"{what} run_pairs on the reference engine")
+    want = dispatch.run_pairs(spec, params, pairs[:64], block=64,
+                              device="cpu")
+    _compare_results(got[:64], want, f"{what} run_pairs")
+    return got, {"pairs": len(pairs), "launches": launches, "wall_s": wall,
+                 "pairs_per_s": len(pairs) / wall,
+                 "reference_wall_s": ref_wall}
+
+
 def _gen_engine(rng, spec, params):
-    """The ti/tv kernel through ``run_pairs`` on the ``wavefront`` engine:
-    2048 windows of 200-256 bases of a random reference, 8 % mutated,
-    block 1024; the plan's first dispatch builds its functor (cold
-    compile_s), a cleared plan cache reloads it (warm), a second parameter
-    set reuses it; results equal the card's reference engine on every pair
-    and the CPU path on the first 64."""
+    """The ti/tv kernel through ``run_pairs`` (``_run_pairs_held``): 2048
+    windows of 200-256 bases of a random reference, 8 % mutated; the
+    plan's first dispatch builds its functor (cold compile_s), a cleared
+    plan cache reloads it (warm), a second parameter set reuses it."""
     import torch
     from repro_torch.core import alphabets
     from repro_torch.kernels.wavefront import kernel as K
@@ -1107,16 +1211,10 @@ def _gen_engine(rng, spec, params):
     def compile_s():
         return [p["compile_s"] for p in plan_mod.plan_cache_info()["plans"]
                 if p["key"].kernel == spec.name and p["key"].engine ==
-                "wavefront"]
-    before = K.launches
-    t0 = time.perf_counter()
-    got = dispatch.run_pairs(spec, params, pairs, block=GEN_BLOCK)
-    torch.cuda.synchronize()
-    cold_wall = time.perf_counter() - t0
-    launches = K.launches - before
+                "wavefront" and p["key"].device != "cpu"]
+    got, out = _run_pairs_held(spec, params, pairs, "the ti/tv kernel")
     cold = compile_s()
-    check(launches == -(-GEN_PAIRS // GEN_BLOCK) and cold,
-          f"run_pairs on the ti/tv kernel launched K1 {launches} times")
+    check(bool(cold), "run_pairs on the ti/tv kernel left no plan")
     plan_mod.clear_plan_cache(keep_stats=True)
     t0 = time.perf_counter()
     again = dispatch.run_pairs(spec, params, pairs, block=GEN_BLOCK)
@@ -1124,15 +1222,6 @@ def _gen_engine(rng, spec, params):
     wall = time.perf_counter() - t0
     warm = compile_s()
     _compare_results(again, got, "ti/tv run_pairs, warm")
-    want = dispatch.run_pairs(spec, params, pairs[:64], block=64,
-                              device="cpu")
-    _compare_results(got[:64], want, "ti/tv run_pairs")
-    t0 = time.perf_counter()
-    ref = dispatch.run_pairs(spec, params, pairs, block=GEN_BLOCK,
-                             engine_name="reference")
-    torch.cuda.synchronize()
-    ref_wall = time.perf_counter() - t0
-    _compare_results(got, ref, "ti/tv run_pairs on the reference engine")
     libs = set(K._GEN_LIBS)
     other = dict(params, transversion=-5, gap=-3)
     got2 = dispatch.run_pairs(spec, other, pairs[:GEN_BLOCK],
@@ -1144,66 +1233,150 @@ def _gen_engine(rng, spec, params):
     _compare_results(got2[:16], want2, "ti/tv run_pairs, second parameters")
     check(any(int(a.score) != int(b.score) for a, b in zip(got2, got)),
           "the second parameter set scored as the first")
-    return {"pairs": GEN_PAIRS, "launches": launches,
-            "cold_wall_s": cold_wall, "wall_s": wall,
-            "pairs_per_s": GEN_PAIRS / wall, "reference_wall_s": ref_wall,
-            "cold_compile_s": cold[0], "warm_compile_s": warm[0]}
+    return dict(out, cold_wall_s=out["wall_s"], wall_s=wall,
+                pairs_per_s=GEN_PAIRS / wall, cold_compile_s=cold[0],
+                warm_compile_s=warm[0])
 
 
-def _gen_timing(rng, cases, card):
-    """#2's hand-written and generated functors in turns (hand, generated,
-    generated, hand) and the ti/tv kernel at batch 1024, 256x256, tb_pack 2,
-    on windows of 240-256 bases (the shape of phase 6's timed block), by
-    kernel_device_ms, beside the plain version and the bound."""
-    import torch
-    from repro_torch.core import alphabets
+def _signal_pairs(rng, n, lo, hi, spread):
+    """``n`` pairs of complex samples (2-channel f32), query lengths in
+    [lo, hi]: the reference the query plus noise of a third of its scale,
+    cut or extended at its end by up to ``spread`` samples."""
+    import numpy as np
+    pairs = []
+    for _ in range(n):
+        nq = int(rng.integers(lo, hi + 1))
+        nr = int(np.clip(nq + rng.integers(-spread, spread + 1), 1, hi))
+        q = rng.normal(size=(nq, 2)).astype(np.float32)
+        r = (q + rng.normal(scale=1 / 3, size=q.shape)).astype(np.float32)
+        r = np.concatenate([r, rng.normal(size=(max(0, nr - nq), 2)).astype(
+            np.float32)])[:nr]
+        pairs.append((q, r))
+    return pairs
+
+
+def _k1_bound(card, spec, params, n, bq, br, cells):
+    """The least time of a K1 fill at tb_pack 2: the PE's operations
+    (``pe_ops``) over ``cells`` live cells at the lane rate of its score
+    type (INT32 or FP32 lanes), or the bytes (``k1_bytes``' inputs, best
+    and best_j, and the packed pointers of the live cells only), whichever
+    is longer; beside it the bytes bound of the whole pointer store K1's
+    format writes (out of the band too)."""
+    import math
     from repro_torch.kernels.wavefront import kernel as K
     from repro_torch.tune.cost import MEM_BYTES_PER_S, k1_bytes, pe_ops
+    rate = (card["sms"] * F32_PER_SM_CLOCK * card["clock_hz"]
+            if spec.score_dtype.is_floating_point
+            else card["int32_ops_per_s"])
+    ops = pe_ops(spec, params)
+    ops_ms = ops * cells / rate * 1e3
+    store = k1_bytes(spec, n, bq, br, 2)
+    rest = k1_bytes(spec, n, bq, br, 2, with_tb=False)
+    slots = n * math.ceil(bq / K.N_PE) * K.N_PE * (K.N_PE + br - 1)
+    bytes_ms = (rest + (store - rest) * cells / slots) / MEM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "pe_ops": ops, "live_cells": cells, "ops_ms": ops_ms,
+            "bytes_ms": bytes_ms,
+            "store_bytes_ms": store / MEM_BYTES_PER_S * 1e3}
+
+
+def _gen_timing(card, runs, twins, alone, plain_of):
+    """K1 at batch 1024, tb_pack 2 by kernel_device_ms: each (hand-written,
+    generated) pair of ``twins`` in turns (hand, generated, generated,
+    hand) on the same inputs, then each label of ``alone``; the plain
+    version of ``plain_of`` once.  ``runs``: label -> (spec, params, fill
+    arguments, live cells, (bq, br)).  Each bound is ``_k1_bound``'s, a
+    hand-written functor's counted by its generated twin's PE (the same
+    function)."""
+    from repro_torch.core.spec_utils import params_on_device
+    from repro_torch.kernels.wavefront import kernel as K
+    # tables on the card: a CUDA graph captures no host-to-device copy
+    runs = {k: (s, params_on_device(p, DEVICE), *rest)
+            for k, (s, p, *rest) in runs.items()}
+    counted_by = {h: g for h, g in twins}
+    before = K.launches
+    times = {k: [] for k in runs}
+    for k in [k for h, g in twins for k in (h, g, g, h)] + list(alone):
+        s, p, args = runs[k][:3]
+        dev, _, _, _ = kernel_device_ms(
+            lambda: K.wavefront_fill(s, p, *args, tb_pack=2), "wavefront")
+        times[k] += dev
+    K.launches = before
+    s, p, args = runs[plain_of][:3]
+    plain = []
+    plain_ms = cuda_time_ms(lambda: plain.append(K.wavefront_fill_plain(
+        s, p, *args, tb_pack=2)), 1)
+    out = {}
+    for k, ts in times.items():
+        _, _, args, cells, (bq, br) = runs[k]
+        s, p = runs[counted_by.get(k, k)][:2]
+        ms = statistics.median(ts)
+        out[k] = dict(_k1_bound(card, s, p, args[0].shape[0], bq, br, cells),
+                      ms=ms, ms_range=[min(ts), max(ts)])
+        b = out[k]
+        print(f"    K1 {k} at batch {args[0].shape[0]}, {bq}x{br}, tb_pack "
+              f"2: device {_spread(ts)}; bound {b['bound_ms']:.4f} ms by "
+              f"{b['bound_by']} ({b['pe_ops']} operations a cell, {cells} "
+              f"live cells; the whole pointer store's bytes "
+              f"{b['store_bytes_ms']:.4f} ms); "
+              f"{100 * b['bound_ms'] / ms:.1f} % of the bound", flush=True)
+    out[plain_of]["plain_ms"] = plain_ms
+    out["generated_over_hand"] = {
+        g.split()[0]: out[g]["ms"] / out[h]["ms"] for h, g in twins}
+    print("    generated / hand-written: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in out["generated_over_hand"].items())
+        + f"; {plain_of} plain version {plain_ms:.1f} ms", flush=True)
+    return out
+
+
+def _dna_timing_runs(rng, cases):
+    """``_gen_timing``'s runs of #2's two functors and the ti/tv kernel on
+    windows of 240-256 bases (the shape of phase 6's timed block)."""
+    from repro_torch.core import alphabets
     by = {label: (spec, params, hand) for label, spec, params, hand in cases}
     genome = alphabets.random_dna(rng, 200_000)
     pairs = _read_pairs(rng, genome, 1024, 240, 256, 0.08, 256)
-    block = _blocks(pairs, 1024)[0]
-    (bq, br), qs, rs, ql, rl = block
+    (bq, br), qs, rs, ql, rl = _blocks(pairs, 1024)[0]
     cells = _live_in_band(ql, rl, None)
     runs = {"#2 hand-written": (by["#2 twin"][2], by["#2 twin"][1]),
             "#2 generated": by["#2 twin"][:2],
             "ti/tv generated": by["ti/tv"][:2]}
-    args = {k: _fill_args(s, p, qs, rs, ql, rl, DEVICE)
-            for k, (s, p) in runs.items()}
-    before = K.launches
-    times = {k: [] for k in runs}
-    for k in ("#2 hand-written", "#2 generated", "#2 generated",
-              "#2 hand-written", "ti/tv generated"):
-        s, p = runs[k]
-        dev, _, _, _ = kernel_device_ms(
-            lambda: K.wavefront_fill(s, p, *args[k], tb_pack=2), "wavefront")
-        times[k] += dev
-    K.launches = before
-    s, p = runs["ti/tv generated"]
-    plain = []
-    plain_ms = cuda_time_ms(lambda: plain.append(K.wavefront_fill_plain(
-        s, p, *args["ti/tv generated"], tb_pack=2)), 1)
-    out = {}
-    for k, ts in times.items():
-        s, p = runs[k]
-        ops_ms = pe_ops(s, p) * cells / card["int32_ops_per_s"] * 1e3
-        bytes_ms = k1_bytes(s, 1024, bq, br, 2) / MEM_BYTES_PER_S * 1e3
-        ms = statistics.median(ts)
-        out[k] = {"ms": ms, "ms_range": [min(ts), max(ts)],
-                  "bound_ms": max(ops_ms, bytes_ms),
-                  "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-                  "pe_ops": pe_ops(s, p)}
-        print(f"    K1 {k} at batch 1024, {bq}x{br}, tb_pack 2: device "
-              f"{_spread(ts)}; bound {out[k]['bound_ms']:.4f} ms by "
-              f"{out[k]['bound_by']} ({out[k]['pe_ops']} operations a cell, "
-              f"{cells} live cells); {100 * out[k]['bound_ms'] / ms:.1f} % "
-              f"of the bound", flush=True)
-    out["ti/tv generated"]["plain_ms"] = plain_ms
-    out["generated_over_hand"] = (out["#2 generated"]["ms"]
-                                  / out["#2 hand-written"]["ms"])
-    print(f"    #2 generated / hand-written: {out['generated_over_hand']:.4f};"
-          f" ti/tv plain version {plain_ms:.1f} ms", flush=True)
-    return out
+    return {k: (s, p, _fill_args(s, p, qs, rs, ql, rl, DEVICE), cells,
+                (bq, br)) for k, (s, p) in runs.items()}
+
+
+def _vector_timing_runs(rng, cases):
+    """``_gen_timing``'s runs of #8's and #9's two functors and (a) on
+    characters of 240-256 (a's references within its band of the query's
+    length), 1024 x 256x256; a twin's generated functor on its
+    hand-written one's inputs."""
+    import numpy as np
+    by = {label: (spec, params, hand) for label, spec, params, hand in cases}
+    n, bq = 1024, 256
+    runs = {}
+    for k in ("#8", "#9", "(a)"):
+        if k == "(a)":
+            spec, params = by["(a) #9 band 8"][:2]
+        else:
+            spec, params, _ = by[f"{k} twin"]
+        qs = _gen_codes(rng, spec, k, (n, bq))
+        rs = _gen_codes(rng, spec, k, (n, bq))
+        ql = rng.integers(240, bq + 1, n).astype(np.int32)
+        rl = rng.integers(240, bq + 1, n).astype(np.int32)
+        if spec.band is not None:
+            rl = np.clip(ql + rng.integers(-spec.band, spec.band + 1, n), 1,
+                         bq).astype(np.int32)
+        cells = _live_in_band(ql, rl, spec.band)
+        if k == "(a)":
+            runs["(a) generated"] = (spec, params, _fill_args(
+                spec, params, qs, rs, ql, rl, DEVICE), cells, (bq, bq))
+            continue
+        hand = by[f"{k} twin"][2]
+        args = _fill_args(hand, params, qs, rs, ql, rl, DEVICE)
+        runs[f"{k} hand-written"] = (hand, params, args, cells, (bq, bq))
+        runs[f"{k} generated"] = (spec, params, args, cells, (bq, bq))
+    return runs
 
 
 def _k1_hand_ptxas():
@@ -1238,31 +1411,35 @@ def _k1_hand_ptxas():
     return out
 
 
-def phase_generated(card):
+def phase_generated(card, gen_built):
     """3c: K1 on PEs no hand-written functor instantiates (see
     ``_gen_cases``), each functor generated from the spec's torch PE by
-    ``kernels/wavefront/synth.py``: one nvcc per functor, all at once (the
-    ti/tv kernel's inside its plan's first dispatch, as a user meets it);
+    ``kernels/wavefront/synth.py``: one nvcc per functor, all built in
+    phase 2 (``gen_built``) but the ti/tv kernel's, which builds inside
+    its plan's first dispatch, as a user meets it;
     each against the plain version and each twin against its hand-written
     functor; the ti/tv kernel through ``run_pairs``; #2's two functors and
-    the ti/tv kernel timed.  Its own generator, so the phases after it see
-    the data they always saw."""
+    the ti/tv kernel timed.  Then the PEs over vector characters
+    (``_gen_vector_cases``, built with the others) on a generator of their
+    own: each against the plain version, the #8 and #9 twins against
+    their hand-written functors, (a) through ``run_pairs``, the twins in
+    turns with their hand-written functors and (a) alone timed.  Its own
+    generators, so the phases after it see the data they always saw."""
     import numpy as np
     from repro_torch.kernels.wavefront import kernel as K
     from repro_torch.kernels.wavefront import synth
     t0 = time.perf_counter()
     rng = np.random.default_rng(GEN_SEED)
-    cases = _gen_cases()
+    cases, vcases = _gen_cases(), _gen_vector_cases()
     syns = {label: synth.lower(spec, params)
-            for label, spec, params, _ in cases}
+            for label, spec, params, _ in cases + vcases}
     titv = cases[0]
-    with ThreadPoolExecutor(len(cases) - 1) as pool:
-        futs = {label: pool.submit(K.generated_lib, syn)
-                for label, syn in syns.items() if label != "ti/tv"}
-        engine = _gen_engine(rng, titv[1], titv[2])
-        built = {label: f.result()[1] for label, f in futs.items()}
-    built["ti/tv"] = K.generated_lib(syns["ti/tv"])[1]
-    build_wall = time.perf_counter() - t0
+    engine = _gen_engine(rng, titv[1], titv[2])
+    built = dict(gen_built, **{"ti/tv": K.generated_lib(syns["ti/tv"])[1]})
+    check(all(K.generated_lib(syn)[1] is built[label]
+              for label, syn in syns.items()),
+          "phase 3c's functors are not the ones phase 2 built")
+    engine_wall = time.perf_counter() - t0
     for label, b in built.items():
         rows, syn = ptxas_table(b.ptxas_log), syns[label]
         check(len(rows) == 1, f"{label}: {len(rows)} kernels in its unit")
@@ -1272,13 +1449,27 @@ def phase_generated(card):
               f"{b.path.name} in {b.seconds:.1f} s, {rows[0][1]} registers, "
               f"{rows[0][2]} spill bytes", flush=True)
     parity = _gen_parity(rng, cases)
-    timing = _gen_timing(rng, cases, card)
+    timing = _gen_timing(card, _dna_timing_runs(rng, cases),
+                         [("#2 hand-written", "#2 generated")],
+                         ["ti/tv generated"], "ti/tv generated")
+    # the vector-character cases draw from a generator of their own, so the
+    # scalar cases above see the data they saw before them
+    vrng = np.random.default_rng(GEN_SEED + 1)
+    vparity = _gen_parity(vrng, vcases)
+    a_spec, a_params = vcases[0][1:3]
+    _, dtw = _run_pairs_held(a_spec, a_params, _signal_pairs(
+        vrng, GEN_PAIRS, 200, 256, a_spec.band), "#9 band 8")
+    vtiming = _gen_timing(card, _vector_timing_runs(vrng, vcases),
+                          [("#8 hand-written", "#8 generated"),
+                           ("#9 hand-written", "#9 generated")],
+                          ["(a) generated"], "(a) generated")
     hand = _k1_hand_ptxas()
     total = time.perf_counter() - t0
     over = "" if total < GEN_PHASE_S else " (over its budget)"
-    print(f"[3c] K1 generated from {len(cases)} PEs: builds "
-          f"{max(b.seconds for b in built.values()):.1f} s the longest, "
-          f"{build_wall:.1f} s wall with the ti/tv run_pairs beside them; "
+    print(f"[3c] K1 generated from {len(syns)} PEs: builds "
+          f"{max(b.seconds for b in built.values()):.1f} s the longest "
+          f"(the ti/tv kernel's {built['ti/tv'].seconds:.1f} s in its "
+          f"run_pairs, {engine_wall:.1f} s; the others in phase 2); "
           f"{parity['cases']} (PE, bucket) cases == plain (integers "
           f"bit-equal, float best within rtol 1e-5 / 2e-5, largest "
           f"relative error {parity['max_rel_err']:.3g}, best bit-equal on "
@@ -1291,7 +1482,16 @@ def phase_generated(card):
           f" s) against {engine['reference_wall_s']:.3f} s on the reference "
           f"engine, compile_s cold {engine['cold_compile_s']:.2f} s, warm "
           f"{engine['warm_compile_s']:.4f} s, a second parameter set built "
-          f"nothing; hand-written ptxas unchanged "
+          f"nothing; over vector characters {vparity['cases']} (PE, "
+          f"bucket) cases == plain (largest relative error "
+          f"{vparity['max_rel_err']:.3g}, best bit-equal on "
+          f"{vparity['best_bit_equal']} of {vparity['pairs']} pairs), the "
+          f"#8 and #9 twins == their hand-written functors on "
+          f"{vparity['twins_bit_equal']} of {vparity['twin_cases']} cases; "
+          f"#9 band 8 run_pairs: {dtw['launches']} K1 launches, "
+          f"{dtw['pairs_per_s']:.0f} pairs/s against "
+          f"{dtw['reference_wall_s']:.3f} s on the reference engine; "
+          f"hand-written ptxas unchanged "
           f"({hand['K1']['instantiations']} + "
           f"{hand['K1 ext']['instantiations']} instantiations); phase "
           f"{total:.1f} s{over}",
@@ -1301,8 +1501,10 @@ def phase_generated(card):
             ptxas_table(b.ptxas_log)[0][1],
         "spill_bytes": ptxas_table(b.ptxas_log)[0][2],
         "build_s": b.seconds} for label, b in built.items()},
-        "build_wall_s": build_wall, "parity": parity, "engine": engine,
-        "timing": timing, "hand_ptxas": hand, "phase_s": total}
+        "engine_wall_s": engine_wall, "parity": parity, "engine": engine,
+        "timing": timing, "vector": {"parity": vparity, "run_pairs": dtw,
+                                     "timing": vtiming},
+        "hand_ptxas": hand, "phase_s": total}
 
 
 def _genotyping_sites():
@@ -5976,12 +6178,12 @@ def main() -> int:
     dry_procs = {}
     try:
         card = _timed(phase_identity)
-        _timed(phase_build)
+        _, gen_built = _timed(phase_build)
         ptxas = _timed(entry_ptxas)
         rng = np.random.default_rng(SEED)
         max_err = _timed(phase_kernel_vs_plain, rng)
         ext_err = _timed(phase_ext_vs_plain, rng)
-        gen = _timed(phase_generated, card)
+        gen = _timed(phase_generated, card, gen_built)
         genome = alphabets.random_dna(rng, 1_000_000)
         launches, blocks = _timed(phase_main_path, rng, genome)
         long_blocks = _timed(phase_long_reads, rng, genome)

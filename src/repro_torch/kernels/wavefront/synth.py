@@ -15,14 +15,18 @@ a float as float32, a bool as bool), so that their values are launch
 arguments (the functor's ``Slots``) and not constants of the build;
 parameters of one or more dimensions are tables of at most 24 x 24 entries
 that the kernel stages in shared memory beside any constant tensor the PE
-captures.  ``q`` and ``r`` are ``(N,)`` tensors of the spec's character
-type, ``diag``, ``up`` and ``left`` three distinct ``(N, n_layers)``
-tensors of its score type, ``i`` and ``j`` int32 ``(N,)``.  The PE is
-traced at two lane counts and must give the same graph both times, so
-that dim 0 is the lane of every value.  A branch on data fails the trace;
-the refusal carries the trace's error.  Every aten op the graph holds must
-be one the lowering knows (``OPS``); a refusal names the op and the PE's
-source line.
+captures.  ``q`` and ``r`` are ``(N,) + char_shape`` tensors of the spec's
+character type, ``diag``, ``up`` and ``left`` three distinct ``(N,
+n_layers)`` tensors of its score type, ``i`` and ``j`` int32 ``(N,)``.  A
+vector character (``char_shape`` of up to ``MAX_CHAR`` entries) is the
+functor's ``GenChar``, a struct of its entries in row-major order (the
+order of the tensor's memory, so K1 stages it by ``sizeof``), and the
+lowering reads entry ``k`` as ``q.v[k]``.  The PE is traced at two lane
+counts and must give the same graph both times, so that dim 0 is the lane
+of every value.  A branch on data fails the trace; the refusal carries
+the trace's error.  Every aten op the graph holds must be one the
+lowering knows (``OPS``); a refusal names the op and the PE's source
+line.
 
 Semantics.  Each value keeps the dtype the trace recorded for it
 (``node.meta["val"]``), and the emitted C follows torch's CPU semantics op
@@ -30,29 +34,51 @@ by op: an explicit cast after each op (uint8 wraps at 256, ``.long()`` is
 64-bit), int32 and int64 add, sub, mul and neg through unsigned arithmetic
 (a wrap, as torch's, not undefined behaviour), integer ``floor_divide``
 and ``remainder`` with floor semantics (by a positive power of two, a
-shift and a mask), ``maximum``/``minimum``/``clamp`` that propagate NaN,
-f32 ``+``, ``-``, ``*`` as ``__f*_rn`` (nvcc contracts no FMA),
-``logaddexp`` as the template's ``log_add_exp`` with torch's guard for
-two equal infinities, shifts by torch's rules.  A table
-index wraps once below zero and clamps into the table, where torch would
-raise.  Dead values are dropped (the functor computes only what its
-outputs need), and the layers of ``up`` and ``diag`` left standing are
-its ``UP`` and ``DIAG`` masks: the layers K1 carries from row to row.
+shift and a mask), ``maximum``/``minimum``/``clamp``/``amax``/``amin``
+that propagate NaN (on f32 one ``max.NaN`` / ``min.NaN``, which also
+orders -0 below +0 as torch's CUDA kernels do), f32 ``+``, ``-``, ``*``,
+``/`` and ``sqrt`` as ``__f*_rn`` (nvcc contracts no FMA; an integer true
+division casts both sides to f32 first, as torch does), ``pow`` by a
+literal 2 as one multiply (torch's own ``x * x``), ``logaddexp`` as the
+template's ``log_add_exp`` with torch's guard for two equal infinities,
+shifts by torch's rules.
+Reductions run in a fixed order: ``sum`` over inner axes adds the terms
+in ascending row-major index order from the first term (f32 through
+``__fadd_rn``, integers through the unsigned wrap), ``amax``/``amin`` fold
+in the same order, and each output of ``mm`` (a lane value ``(N, K)``
+times a table or captured constant ``(K, M)``) is the ascending sum over
+``k`` of one ``__fmul_rn`` product each.  Torch's CPU kernels keep no such
+order: its ``sum`` is not the left-to-right sum at most widths, ``mm``
+(``aten.mm``) never is, and ``sqrt`` is 1 ulp off the correctly rounded
+root on some inputs, so a PE that reaches them agrees with its plain
+version to the parity contract's float tolerance and not bit for bit; a
+PE that spells its order out op by op (zoo #8's ``sop_sub``, #9's
+``_manhattan_complex``) is bit-equal.  A table index wraps once below
+zero and clamps into the table, where torch would raise.  Dead values are
+dropped (the functor computes only what its outputs need), and the layers
+of ``up`` and ``diag`` left standing are its ``UP`` and ``DIAG`` masks:
+the layers K1 carries from row to row.
 
-Scope.  Scalar characters (uint8 or int32 codes, f32 samples), int32 or
-f32 scores, the max, min and logsumexp objectives, values of bool, uint8,
-int32, int64 or f32 (float64 and 8- or 16-bit signed values are refused,
-as are division on floats and reshapes other than ``unsqueeze``).  A PE
-over vector characters (zoo #8 and #9) is refused by name.
+Scope.  Characters of uint8 or int32 codes or f32 samples, scalar or
+vectors of at most ``MAX_CHAR`` entries; int32 or f32 scores; the max, min
+and logsumexp objectives; values of bool, uint8, int32, int64 or f32
+(float64 and 8- or 16-bit signed values are refused, as are reshapes
+other than ``unsqueeze``, ``pow`` by anything but a literal 2, division
+with a rounding mode, ``mm`` of two lane values and reductions over the
+lane axis).
 
-Operation count.  ``Synth.ops`` counts what one cell needs: one for each
-live statement, except a cast within ints or within floats (none), an
-integer division or remainder by a literal power of two (one: a shift or
-a mask), by another literal (``CONST_DIV_OPS``: a multiply-high by a
-magic number, a shift and the floor fix-up) or by a value known only at
-run time (``DIV_OPS``: the CUDA C++ Programming Guide puts an integer
-division or modulo at up to 20 instructions), an exp or log
-(``TRANSCENDENTAL_OPS``) and a logaddexp (``LAE_OPS``).
+Operation count.  ``Synth.ops`` counts the lane operations one cell
+needs: one for each live statement, except a table read (none: a
+shared-memory load, whose index arithmetic is counted; #8's 25 reads of
+its 5 x 5 table are the same for every lane and every cell), a cast
+within ints or within floats (none), an integer division or remainder by
+a literal power of two (one: a shift or a mask), by another literal
+(``CONST_DIV_OPS``: a multiply-high by a magic number, a shift and the
+floor fix-up) or by a value known only at run time (``DIV_OPS``: the CUDA
+C++ Programming Guide puts an integer division or modulo at up to 20
+instructions), an exp or log (``TRANSCENDENTAL_OPS``), a logaddexp
+(``LAE_OPS``) and an f32 division or square root (``FDIV_OPS``,
+``FSQRT_OPS``: the fast path of nvcc's IEEE-rounded sequence).
 
 ``lower(spec, params)`` gives the ``Synth`` of one parameter signature
 (keys, kinds, table shapes and dtypes; never values), cached;
@@ -84,6 +110,7 @@ MAX_SLOTS = 32          # scalar parameters a functor reads (Slots in C)
 MAX_TABLE = 24 * 24     # entries of one table
 MAX_TABLES = 4          # tables (parameters and captured constants)
 MAX_LAYERS = 16
+MAX_CHAR = 24           # entries of one vector character
 LANES = (37, 41)        # the two lane counts the PE is traced at
 PROBE_SIDE = 24         # side of a probe table (see ``check``)
 
@@ -91,6 +118,11 @@ DIV_OPS = 20            # an integer division by a run-time value
 CONST_DIV_OPS = 4       # ... by a literal other than a power of two
 TRANSCENDENTAL_OPS = 4  # an exp, log or log1p
 LAE_OPS = 5             # a logaddexp
+# an f32 __fdiv_rn / __fsqrt_rn: the fast path of nvcc's IEEE-rounded
+# sequence on sm_90 (a MUFU reciprocal or reciprocal-root seed, the Newton
+# steps and the range check that guards the slow path), 8 instructions
+FDIV_OPS = 8
+FSQRT_OPS = 8
 
 _CTYPE = {torch.bool: "bool", torch.uint8: "uint8_t", torch.int32: "int",
           torch.int64: "long long", torch.float32: "float"}
@@ -254,7 +286,9 @@ class Synth:
     ``slots``: (key, dtype) of each scalar parameter the functor reads, in
     slot order; ``tables``: (key or None, dtype, shape, offset, words) of
     each table in the shared-memory block, ``words`` the constant's
-    32-bit words (None for a parameter, packed at launch)."""
+    32-bit words (None for a parameter, packed at launch);
+    ``char_struct``: the ``GenChar`` struct of a vector character (empty
+    for a scalar one; the functor's ``Char`` either way)."""
     name: str
     functor: str
     source: str
@@ -268,7 +302,8 @@ class Synth:
     table_words: int
     ops: int
     score_ctype: str
-    char_ctype: str
+    char_shape: tuple
+    char_struct: str
     region: int
     banded: bool
 
@@ -361,13 +396,20 @@ class _OpFrames(torch.utils._python_dispatch.TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
+# make_fx patches process-wide state while it traces, so two threads (two
+# service workers lowering their first specs) must not trace at once
+_TRACE_LOCK = threading.Lock()
+
+
 def _trace(spec, params, n):
-    """(graph module, op frames) of ``spec.pe`` at ``n`` lanes."""
+    """(graph module, op frames) of ``spec.pe`` at ``n`` lanes, one trace
+    at a time in the process."""
     from torch.fx.experimental.proxy_tensor import make_fx
     keys = [k for k, v in params.items() if _as_tensor(v) is not None]
     vals = [_as_tensor(params[k]) for k in keys]
     fixed = {k: v for k, v in params.items() if k not in keys}
     L, dt, cdt = spec.n_layers, spec.score_dtype, spec.char_dtype
+    cs = tuple(spec.char_shape)
     frames = _OpFrames()
 
     def pe(vals, q, r, diag, up, left, i, j):
@@ -376,49 +418,53 @@ def _trace(spec, params, n):
         with frames:
             return spec.pe(p, q, r, diag, up, left, i, j)
 
-    args = (vals, torch.zeros(n, dtype=cdt), torch.zeros(n, dtype=cdt),
+    args = (vals, torch.zeros((n,) + cs, dtype=cdt),
+            torch.zeros((n,) + cs, dtype=cdt), torch.zeros(n, L, dtype=dt),
             torch.zeros(n, L, dtype=dt), torch.zeros(n, L, dtype=dt),
-            torch.zeros(n, L, dtype=dt), torch.zeros(n, dtype=torch.int32),
+            torch.zeros(n, dtype=torch.int32),
             torch.zeros(n, dtype=torch.int32))
     from torch.utils._python_dispatch import _disable_current_modes
-    with _disable_current_modes():
+    with _TRACE_LOCK, _disable_current_modes():
         gm = make_fx(pe, tracing_mode="fake")(*args)
     return gm, frames.frames, keys
 
 
-def _same_graph(g1, g2, n1, n2) -> Optional[str]:
+def _same_graph(g1, g2, n1, n2):
     """None when the traces at n1 and n2 lanes are one graph with the lane
-    as dim 0 of every value, else what differs."""
+    as dim 0 of every value, else (the node at fault or None, what
+    differs)."""
     a, b = list(g1.graph.nodes), list(g2.graph.nodes)
     if len(a) != len(b):
-        return f"the graph has {len(a)} nodes at {n1} lanes, {len(b)} at {n2}"
+        return None, (f"the graph has {len(a)} nodes at {n1} lanes, "
+                      f"{len(b)} at {n2}")
     names = {}
     for x, y in zip(a, b):
         names[x.name] = y.name
         if x.op != y.op or x.target != y.target:
-            return f"{x.target} at {n1} lanes is {y.target} at {n2}"
+            return x, f"{x.target} at {n1} lanes is {y.target} at {n2}"
+        args = f"{x.target}'s arguments differ with the lane count"
         fx_, _ = torch.utils._pytree.tree_flatten((x.args, x.kwargs))
         fy_, _ = torch.utils._pytree.tree_flatten((y.args, y.kwargs))
         if len(fx_) != len(fy_):
-            return f"{x.target}'s arguments differ with the lane count"
+            return x, args
         for u, w in zip(fx_, fy_):
             if isinstance(u, torch.fx.Node):
                 if not isinstance(w, torch.fx.Node) or \
                         names.get(u.name) != w.name:
-                    return f"{x.target}'s inputs differ with the lane count"
+                    return x, f"{x.target}'s inputs differ with the lane count"
             elif isinstance(u, (int, float)) and not isinstance(u, bool):
                 if not (u == w or (u == n1 and w == n2)):
-                    return f"{x.target}'s arguments differ with the lane count"
+                    return x, args
             elif u != w and not (isinstance(u, torch.Tensor)):
-                return f"{x.target}'s arguments differ with the lane count"
+                return x, args
         vx, vy = x.meta.get("val"), y.meta.get("val")
         if isinstance(vx, torch.Tensor):
             if not isinstance(vy, torch.Tensor) or vx.dim() != vy.dim():
-                return f"{x.target}'s value differs with the lane count"
+                return x, f"{x.target}'s value differs with the lane count"
             for d, (p, q) in enumerate(zip(vx.shape, vy.shape)):
                 if p != q and not (d == 0 and (p, q) == (n1, n2)):
-                    return (f"{x.target} moves the lane off dim 0 (shape "
-                            f"{tuple(vx.shape)} at {n1} lanes)")
+                    return x, (f"{x.target} moves the lane off dim 0 "
+                               f"(shape {tuple(vx.shape)} at {n1} lanes)")
     return None
 
 
@@ -583,9 +629,8 @@ class _Lower:
 
     def maxmin(self, a, b, t, sym):
         if t.is_floating_point:
-            return self.op(t, f"(({{0}} != {{0}}) ? {{0}} : ({{1}} != {{1}})"
-                              f" ? {{1}} : ({{0}} {sym} {{1}} ? {{0}} : "
-                              f"{{1}}))", a, b)
+            fn = "syn_fmax" if sym == ">" else "syn_fmin"
+            return self.op(t, f"{fn}({{0}}, {{1}})", a, b)
         return self.op(t, f"({{0}} {sym} {{1}} ? {{0}} : {{1}})", a, b)
 
     def shift(self, a, b, t, left):
@@ -612,8 +657,7 @@ class _Lower:
                 continue
             which = ("q", "r", "diag", "up", "left", "i", "j")[k - nk]
             if which in ("q", "r"):
-                self.env[node.name] = V(cdt, True, (), _arr(
-                    self.leaf(cdt, which, tag=(which,))))
+                self.env[node.name] = self.chars(which)
             elif which in ("i", "j"):
                 self.env[node.name] = V(torch.int32, True, (), _arr(
                     self.leaf(torch.int32, which, tag=("ij",))))
@@ -636,6 +680,19 @@ class _Lower:
             else:
                 self.refuse(node, f"is a graph node of kind {node.op}")
         return self.outputs(out)
+
+    def chars(self, which):
+        """``q`` or ``r``: a lane value of the character's shape whose
+        entries are the struct's ``v[k]``, row-major (a scalar character
+        is the argument itself)."""
+        cdt, cs = self.spec.char_dtype, tuple(self.spec.char_shape)
+        if not cs:
+            return V(cdt, True, (), _arr(self.leaf(cdt, which,
+                                                   tag=(which,))))
+        el = np.empty(math.prod(cs), dtype=object)
+        for k in range(el.size):
+            el[k] = self.leaf(cdt, f"{which}.v[{k}]", tag=(which,))
+        return V(cdt, True, cs, el.reshape(cs))
 
     def param(self, key, node):
         val = node.meta["val"]
@@ -675,8 +732,8 @@ class _Lower:
         if dtype == torch.bool:
             read = f"(tab[{off} + {{0}}] != 0u)"
 
-        def lazy(k):
-            return self.op(dtype, read, k, tag=("tab", t))
+        def lazy(k):            # a shared-memory load: no lane operation
+            return self.op(dtype, read, k, weight=0, tag=("tab", t))
         return V(dtype, False, shape, lazy=lazy, lo=self)
 
     def constant(self, t, node):
@@ -832,6 +889,9 @@ def _bitwise(sym):
 def _unary(kind):
     def h(lo, node, t):
         a = lo.value(node.args[0], node)
+        if kind == "sqrt":
+            return lo.ew(node, [a], lambda x: lo.op(
+                t, "__fsqrt_rn({0})", lo.cast(x, t), weight=FSQRT_OPS), t)
         if kind in ("exp", "log", "log1p"):
             if not t.is_floating_point:
                 lo.refuse(node, "is a transcendental op on integers")
@@ -855,6 +915,34 @@ def _unary(kind):
             t, f"({{0}} < 0 ? ({_CTYPE[t]})(({u})0 - ({u}){{0}}) : {{0}})",
             lo.cast(x, t)), t)
     return h
+
+
+def _true_div(lo, node, t):
+    """``a / b``: f32 ``__fdiv_rn`` of both sides cast to the result type
+    (an integer true division divides in f32, as torch does)."""
+    if node.kwargs.get("rounding_mode") is not None or len(node.args) > 2:
+        lo.refuse(node, "divides with a rounding mode, which the lowering "
+                        "does not (write a // b for floor division)")
+    a, b = (lo.value(x, node) for x in node.args[:2])
+    return lo.ew(node, [a, b], lambda x, y: lo.op(
+        t, "__fdiv_rn({0}, {1})", lo.cast(x, t), lo.cast(y, t),
+        weight=FDIV_OPS), t)
+
+
+def _pow(lo, node, t):
+    """``x ** 2`` as one multiply, which is what torch computes for it; any
+    other exponent is refused."""
+    e = node.args[1]
+    if isinstance(e, torch.fx.Node) or e != 2:
+        power = "a traced value" if isinstance(e, torch.fx.Node) else repr(e)
+        lo.refuse(node, f"raises to the power {power}; the lowering takes "
+                        f"only a literal exponent 2 (x * x)")
+    a = lo.value(node.args[0], node)
+
+    def square(x):
+        x = lo.cast(x, t)
+        return lo.arith("*", x, x, t)
+    return lo.ew(node, [a], square, t)
 
 
 def _logaddexp(lo, node, t):
@@ -1031,6 +1119,63 @@ def _index(lo, node, t):
     return V(x.dtype, base.lane, el.shape, el)
 
 
+def _reduce(kind):
+    """``sum`` (``dim_IntList``), ``amax`` or ``amin`` over inner axes: the
+    terms in ascending row-major order of the reduced axes, folded from
+    the first one (an add, or a NaN-propagating max / min), in the result
+    type (an integer sum is int64, as torch's)."""
+    def h(lo, node, t):
+        x = lo.value(node.args[0], node)
+        nd = len(x.shape) + (1 if x.lane else 0)
+        dims = node.args[1] if len(node.args) > 1 else node.kwargs.get("dim")
+        keep = node.args[2] if len(node.args) > 2 else \
+            node.kwargs.get("keepdim", False)
+        if not dims:
+            lo.refuse(node, "reduces over every axis, the lane axis too")
+        ds = sorted({_dim(node, d, nd) for d in dims})
+        if x.lane:
+            if ds[0] == 0:
+                lo.refuse(node, "reduces over the lane axis")
+            ds = [d - 1 for d in ds]
+        rest = [d for d in range(len(x.shape)) if d not in ds]
+        shape = tuple(x.shape[d] for d in rest)
+        terms = np.transpose(x.el, rest + ds).reshape(shape + (-1,))
+        if terms.shape[-1] == 0:
+            lo.refuse(node, "reduces an empty axis")
+        out = np.empty(shape, dtype=object)
+        for idx in np.ndindex(*shape) if shape else [()]:
+            es = [lo.cast(e, t) for e in terms[idx]]
+            acc = es[0]
+            for e in es[1:]:
+                acc = (lo.arith("+", acc, e, t) if kind == "sum" else
+                       lo.maxmin(acc, e, t, ">" if kind == "amax" else "<"))
+            out[idx] = acc
+        if keep:
+            out = np.expand_dims(out, tuple(ds))
+        return V(t, x.lane, out.shape, out)
+    return h
+
+
+def _mm(lo, node, t):
+    """A lane value ``(N, K)`` times a table or captured constant ``(K,
+    M)``: each output the ascending sum over ``k`` of one product each."""
+    a, b = (lo.value(x, node) for x in node.args[:2])
+    if not a.lane or b.lane or len(a.shape) != 1 or len(b.shape) != 2:
+        lo.refuse(node, "multiplies in a way the lowering does not place: "
+                        "mm takes a lane value (N, K) times a table or "
+                        "captured constant (K, M)")
+    (k_in,), (_, m_out) = a.shape, b.shape
+    out = np.empty(m_out, dtype=object)
+    for m in range(m_out):
+        acc = None
+        for k in range(k_in):
+            prod = lo.arith("*", lo.cast(a.el[k], t), lo.cast(b.el[k, m], t),
+                            t)
+            acc = prod if acc is None else lo.arith("+", acc, prod, t)
+        out[m] = acc
+    return V(t, True, (m_out,), out)
+
+
 OPS = {
     "add": _binary("add"), "sub": _binary("sub"), "rsub": _binary("rsub"),
     "mul": _binary("mul"),
@@ -1046,7 +1191,10 @@ OPS = {
     "__rshift__": _bitwise(">>"), "bitwise_left_shift": _bitwise("<<"),
     "bitwise_right_shift": _bitwise(">>"),
     "neg": _unary("neg"), "abs": _unary("abs"), "exp": _unary("exp"),
-    "log": _unary("log"), "log1p": _unary("log1p"),
+    "log": _unary("log"), "log1p": _unary("log1p"), "sqrt": _unary("sqrt"),
+    "div": _true_div, "pow": _pow,
+    "sum": _reduce("sum"), "amax": _reduce("amax"), "amin": _reduce("amin"),
+    "mm": _mm,
     "logaddexp": _logaddexp,
     "clamp": _clamp("both"), "clamp_min": _clamp("min"),
     "clamp_max": _clamp("max"),
@@ -1077,6 +1225,30 @@ __device__ __forceinline__ I syn_rem(I a, I b) {
   if (b == 0 || b == -1) return 0;
   const I r = a % b;
   return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
+}""",
+    "syn_fmax(": """\
+// torch.maximum on f32: a NaN in either gives NaN; on the card one
+// max.NaN (+0 above -0, as torch's CUDA maximum)
+__device__ __forceinline__ float syn_fmax(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+#else
+  return (a != a) ? a : (b != b) ? b : (a > b ? a : b);
+#endif
+}""",
+    "syn_fmin(": """\
+// torch.minimum on f32: a NaN in either gives NaN; on the card one
+// min.NaN (-0 below +0, as torch's CUDA minimum)
+__device__ __forceinline__ float syn_fmin(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+#else
+  return (a != a) ? a : (b != b) ? b : (a < b ? a : b);
+#endif
 }""",
     "syn_lae(": """\
 // torch.logaddexp: two equal infinities give themselves, else the
@@ -1113,10 +1285,24 @@ def _emit(lo, outs, ptr):
     return body, tags, ops
 
 
+def _char_struct(spec) -> str:
+    """The ``GenChar`` struct of a vector character ("" for a scalar
+    one): its entries in row-major order, passed by value."""
+    cs = tuple(spec.char_shape)
+    if not cs:
+        return ""
+    return (f"// a character of shape {cs}, its entries row-major\n"
+            f"struct GenChar {{\n  {_CTYPE[spec.char_dtype]} "
+            f"v[{math.prod(cs)}];\n}};")
+
+
 def _functor(spec, body, up, dg, uses_ij, kTable):
-    S, C = _CTYPE[spec.score_dtype], _CTYPE[spec.char_dtype]
+    S = _CTYPE[spec.score_dtype]
+    struct = _char_struct(spec)
+    C = "GenChar" if struct else _CTYPE[spec.char_dtype]
     ij = ", int i, int j" if uses_ij else ""
     return "\n".join([
+        *([struct, ""] if struct else []),
         f"// the PE of kernel {spec.name}, lowered from its torch graph",
         f"struct GenPE : Scores<{S}, {OBJECTIVES[spec.objective]}> {{",
         f"  using Char = {C};",
@@ -1164,11 +1350,11 @@ extern "C" int wavefront_gen_fill_launch(
 
 
 def _scope(spec) -> Optional[str]:
-    if tuple(spec.char_shape) != ():
-        return (f"kernel {spec.name}: its PE reads vector characters "
-                f"(char_shape {tuple(spec.char_shape)}); K1 lowers PEs over "
-                f"scalar characters only (vector characters are not lowered "
-                f"yet)")
+    n = math.prod(spec.char_shape)
+    if n > MAX_CHAR:
+        return (f"kernel {spec.name}: its characters have {n} entries "
+                f"(char_shape {tuple(spec.char_shape)}); K1 lowers "
+                f"characters of at most {MAX_CHAR}")
     if spec.char_dtype not in CHAR_DTYPES:
         return (f"kernel {spec.name}: characters of {spec.char_dtype}; K1 "
                 f"lowers uint8 or int32 codes and float32 samples")
@@ -1204,8 +1390,16 @@ def _lower(spec, params) -> Synth:
     (g1, frames, keys), (g2, _, _) = graphs
     diff = _same_graph(g1, g2, *LANES)
     if diff:
+        node, what = diff
+        where = frames.get(node.target) if node is not None else None
+        users = sorted({str(u.target) for u in node.users}) if node else []
+        hint = ("; mm takes a lane value (N, K) times a table or captured "
+                "constant (K, M), not two lane values"
+                if "aten.mm.default" in users else "")
         raise Refused(f"kernel {spec.name}: its PE's graph depends on the "
-                      f"lane count: {diff}")
+                      f"lane count: {what}{f' ({where})' if where else ''}"
+                      f"{', feeding ' + ', '.join(users) if users else ''}"
+                      f"{hint}")
     lo = _Lower(spec, g1, frames, keys, params, LANES[0])
     outs, ptr = lo.run()
     body, tags, ops = _emit(lo, outs, ptr)
@@ -1244,7 +1438,8 @@ def _lower(spec, params) -> Synth:
         slots=tuple(lo.slots), tables=tuple(lo.tables),
         table_words=lo.words if used_tabs else 0, ops=ops,
         score_ctype=_CTYPE[spec.score_dtype],
-        char_ctype=_CTYPE[spec.char_dtype], region=region, banded=banded)
+        char_shape=tuple(spec.char_shape), char_struct=_char_struct(spec),
+        region=region, banded=banded)
 
 
 _CACHE: dict = {}
@@ -1298,10 +1493,14 @@ class _Probe(dict):
 def _probe_params(spec):
     """A parameter dict the PE runs on, found by running it eagerly on a
     few lanes: every key it reads is a scalar until the PE only runs with
-    that key as a table of PROBE_SIDE x PROBE_SIDE (or PROBE_SIDE) entries."""
+    that key as a table of PROBE_SIDE x PROBE_SIDE (or PROBE_SIDE) entries,
+    or, over vector characters of K entries on their last axis, K x K (or
+    K), the shape a table the PE multiplies or indexes by a character
+    entry takes."""
     L, n = spec.n_layers, 4
-    args = (torch.zeros(n, dtype=spec.char_dtype),
-            torch.ones(n, dtype=spec.char_dtype),
+    ch = (n,) + tuple(spec.char_shape)
+    args = (torch.zeros(ch, dtype=spec.char_dtype),
+            torch.ones(ch, dtype=spec.char_dtype),
             torch.zeros(n, L, dtype=spec.score_dtype),
             torch.ones(n, L, dtype=spec.score_dtype),
             torch.zeros(n, L, dtype=spec.score_dtype),
@@ -1317,8 +1516,12 @@ def _probe_params(spec):
     p, err = attempt({})
     if err is None:
         return dict(p)
+    shapes = [(PROBE_SIDE, PROBE_SIDE), (PROBE_SIDE,)]
+    if spec.char_shape:
+        k = spec.char_shape[-1]
+        shapes += [(k, k), (k,)]
     for key in list(p.read):
-        for shape in ((PROBE_SIDE, PROBE_SIDE), (PROBE_SIDE,)):
+        for shape in shapes:
             q, e = attempt({key: shape})
             if e is None:
                 return dict(q)

@@ -2,25 +2,32 @@
 spec's torch PE to a CUDA PE functor, and the port's ``wavefront`` engine
 runs every spec the lowering accepts.
 
-(a) every zoo spec with scalar characters, lowered with its ``family``
-set to None, and the quickstart's ti/tv kernel: the emitted ``cell``,
-compiled as host C++ (``g++ -ffp-contract=off``, with ``__device__`` and
-``__forceinline__`` empty and host versions of the ``__f*_rn``
-intrinsics and ``log_add_exp``) and called through ctypes on 4096 random
-lanes that include the sentinels, equals the PE: int bit-equal, f32
-within the parity contract (rtol 2e-5).  The C cell gets the sentinel in
-every layer of ``up`` and ``diag`` its masks leave out, as K1 passes them.
-(b) the derived UP/DIAG masks of the family specs equal
-``core/types.py``'s table.  (c) ``align`` and ``run_pairs`` on the CPU
-through the port's ``wavefront`` engine equal the JAX package's
+(a) every zoo spec, lowered with its ``family`` set to None, the
+quickstart's ti/tv kernel and the user PEs below, over scalar and vector
+characters: the emitted ``cell``, compiled as host C++ (``g++
+-ffp-contract=off``, with ``__device__`` and ``__forceinline__`` empty and
+host versions of the ``__f*_rn`` intrinsics and ``log_add_exp``) and
+called through ctypes on 4096 random lanes that include the sentinels,
+equals the PE: int and the f32 PEs that spell their order out (#8, #9 and
+their variants) bit-equal, the sum/mm/sqrt PEs within 1e-6 of their terms'
+magnitudes, other f32 within the parity contract (rtol 2e-5).  The C cell
+gets the sentinel in every layer of ``up`` and ``diag`` its masks leave
+out, as K1 passes them.  (b) the derived UP/DIAG masks of the family specs
+equal ``core/types.py``'s table.  (c) ``align`` and ``run_pairs`` on the
+CPU through the port's ``wavefront`` engine equal the JAX package's
 ``wavefront`` and ``reference`` engines on the same specs written in
 ``jnp``: the ti/tv kernel, a PE that reads ``i`` and ``j``, a float
-max-plus PE with a user table, and the specs K1 refused before it took
-any PE (the edit kernels, #1 at objective min, the pair-HMM forward over
-the whole matrix); int exact, float rtol 1e-5.  (d) refusals: an op
-outside the lowering and a branch on data.  (e) on the card (gpu
-marker): generated twins of #2, #15 and the pair-HMM forward equal their
-hand-written functors.  JAX is imported inside the CPU tests only.
+max-plus PE with a user table, the specs K1 refused before it took any PE
+(the edit kernels, #1 at objective min, the pair-HMM forward over the
+whole matrix), and the vector-character cases (#9 with a Sakoe-Chiba
+band, #8 over the last row, Euclidean and Chebyshev DTW over 3-channel
+samples, local profile alignment through a matrix product,
+quality-aware alignment over (base, phred) bytes); int exact, float rtol
+1e-5.  (d) refusals: an op outside the lowering, a branch on data, a
+character of 25 entries, ``pow`` by 3, ``mm`` of two lane values.  (e) on
+the card (gpu marker): generated twins of #2, #15, the pair-HMM forward,
+#8 and #9 equal their hand-written functors.  JAX is imported inside the
+CPU tests only.
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ from repro_torch.core import api
 from repro_torch.core import kernels_zoo as pzoo
 from repro_torch.core import types as T
 from repro_torch.core.kernels_zoo import common as C
+from repro_torch.core.kernels_zoo import user_vector as UV
 from repro_torch.kernels.wavefront import kernel as K
 from repro_torch.kernels.wavefront import synth
 from repro_torch.runtime import dispatch, get_plan
@@ -183,6 +191,20 @@ USER = {"titv": (titv_spec, TITV_PARAMS), "ij": (ij_spec, IJ_PARAMS),
         "float_ops": (lambda: ops_spec(torch.float32), FLOAT_OPS_PARAMS)}
 
 
+# ---------------------------------------------------------------------------
+# PEs over vector characters (``kernels_zoo/user_vector.py``): (a) #9 with a
+# Sakoe-Chiba band, (b) #8 over the last row, (c) Euclidean DTW over
+# 3-channel samples, (d) subsequence Chebyshev DTW, (e) local
+# profile-to-profile alignment through a matrix product, (f) quality-aware
+# global alignment over (base, phred) bytes
+VECTOR = {name: ((lambda name=name: UV.make(name)[0]), UV.make(name)[1])
+          for name in UV.NAMES}
+USER.update(VECTOR)
+# the cases whose PE reaches sum, mm or sqrt: torch's CPU kernels keep no
+# fixed order, so the cell agrees within a tolerance, not bit for bit
+ROUNDED = {"euclid", "profile_local"}
+
+
 def _zoo_case(name):
     """(spec with family None, params) of a zoo kernel, a pair-HMM case or
     a user PE."""
@@ -200,7 +222,8 @@ def _zoo_case(name):
 
 
 CELL_CASES = SCALAR_ZOO + PAIRHMM + [16, 17, "titv", "ij", "ftab",
-                                     "int_ops", "float_ops"]
+                                     "int_ops", "float_ops", 8, 9,
+                                     *VECTOR]
 
 
 # ---------------------------------------------------------------------------
@@ -220,6 +243,7 @@ static inline float __fadd_rn(float a, float b) { return a + b; }
 static inline float __fsub_rn(float a, float b) { return a - b; }
 static inline float __fmul_rn(float a, float b) { return a * b; }
 static inline float __fdiv_rn(float a, float b) { return a / b; }
+static inline float __fsqrt_rn(float a) { return sqrtf(a); }
 static inline double __dadd_rn(double a, double b) { return a + b; }
 static inline double __dsub_rn(double a, double b) { return a - b; }
 static inline double __dmul_rn(double a, double b) { return a * b; }
@@ -263,7 +287,7 @@ static inline float log_add_exp(float a, float b) {
 
 
 def _shim(k, syn):
-    S, Ch, L = syn.score_ctype, syn.char_ctype, syn.n_layers
+    S, Ch, L = syn.score_ctype, "GenPE::Char", syn.n_layers
     ij = ", i[t], j[t]" if syn.uses_ij else ""
     return f"""
 namespace s{k} {{
@@ -314,10 +338,25 @@ def host_cells(tmp_path_factory):
     return out
 
 
+def _chars(rng, spec, n):
+    """``n`` random characters of a vector-character spec: profile columns
+    for (5,) f32, normal samples for other f32 shapes, (base, phred) bytes
+    (bases past the alphabet included) for (2,) uint8."""
+    cs = tuple(spec.char_shape)
+    if spec.char_dtype == torch.uint8:
+        base = rng.integers(0, 6, n)
+        return np.stack([base, rng.integers(0, 42, n)], 1).astype(np.uint8)
+    if cs == (5,):
+        return pzoo.profile.make_profile(rng, n)
+    return rng.normal(size=(n,) + cs).astype(np.float32)
+
+
 def _lanes(rng, spec, n):
     """Random lanes: characters of the spec's alphabet and some past it,
     neighbour scores with both sentinels mixed in, i and j in [1, 3000]."""
-    if spec.char_dtype == torch.uint8:
+    if spec.char_shape:
+        q, r = _chars(rng, spec, n), _chars(rng, spec, n)
+    elif spec.char_dtype == torch.uint8:
         q = rng.integers(0, 25, n).astype(np.uint8)
         r = rng.integers(0, 25, n).astype(np.uint8)
         q[::97], r[::89] = 255, 30
@@ -351,8 +390,32 @@ def _masked(x, mask, sent):
     return x
 
 
+def _magnitude(name, q, r, params, diag, up, left):
+    """Per lane, the sum of the magnitudes of the terms the cell adds
+    (f64): the cost's terms and its result, and the finite neighbour
+    scores."""
+    q, r = q.astype(np.float64), r.astype(np.float64)
+    if name == "euclid":
+        sq = ((q - r) ** 2).sum(-1)
+        terms = sq + np.sqrt(sq)
+    else:
+        s = np.asarray(params["S"], np.float64)
+        terms = np.abs(q[:, :, None] * s[None] * r[:, None, :]).sum((1, 2))
+    for x in (diag, up, left):
+        a = np.abs(x.astype(np.float64))
+        terms = terms + np.where(a < 1e29, a, 0.0).max(1)
+    return terms
+
+
 @pytest.mark.parametrize("name", CELL_CASES, ids=str)
 def test_host_compiled_cell_equals_the_pe(name, host_cells):
+    """Integer cells and #8, #9 and the PEs that spell their order out
+    (the band and last-row variants, the Chebyshev PE's max and division)
+    bit-equal; the sum, mm and sqrt cases (``ROUNDED``) within 1e-6 of the
+    sum of the magnitudes of the terms each lane adds, since torch's CPU
+    sum and mm keep no left-to-right order and its sqrt is 1 ulp off on
+    some inputs (a few f32 roundings of those terms); the other f32 PEs
+    within the parity contract's rtol 2e-5."""
     spec, params, syn, fn = host_cells[name]
     rng = np.random.default_rng(zlib.crc32(str(name).encode()))
     q, r, diag, up, left, i, j = _lanes(rng, spec, LANES)
@@ -376,7 +439,11 @@ def test_host_compiled_cell_equals_the_pe(name, host_cells):
     ptrs = [sl, tab, *args, out, ptr]
     fn(LANES, *(a.ctypes.data_as(ctypes.c_void_p) for a in ptrs))
     np.testing.assert_array_equal(ptr.astype(np.int64) & 0xFF, want_p)
-    if spec.score_dtype.is_floating_point:
+    if name in ROUNDED:
+        mag = _magnitude(name, q, r, params, diag, up, left)
+        err = np.abs(out.astype(np.float64) - want_s)[:, 0]
+        assert (err <= 1e-6 * mag).all(), float((err / mag).max())
+    elif spec.score_dtype.is_floating_point and not spec.char_shape:
         np.testing.assert_allclose(out, want_s, rtol=F32_RTOL, atol=0)
     else:
         np.testing.assert_array_equal(out, want_s)
@@ -489,6 +556,106 @@ def _jax_specs():
     }
 
 
+def _jax_vector_specs():
+    """(JAX spec, JAX params, port spec, port params) of the vector-
+    character cases: the zoo's #9 and #8 as JAX's zoo makes them (#8 over
+    the last row by ``dataclasses.replace`` on both sides, since
+    ``profile()`` sets its region itself), the user PEs written in ``jnp``
+    per cell, as JAX's engines vmap them."""
+    import jax.numpy as jnp
+    from repro.core import DPKernelSpec as JSpec
+    from repro.core import kernels_zoo as jzoo
+    from repro.core.kernels_zoo import common as JC
+
+    def step(c, diag, up, left):
+        best, ptr = diag[0], jnp.int32(JC.P_DIAG)
+        ptr = jnp.where(up[0] < best, JC.P_UP, ptr)
+        best = jnp.minimum(best, up[0])
+        ptr = jnp.where(left[0] < best, JC.P_LEFT, ptr)
+        best = jnp.minimum(best, left[0])
+        return (c + best)[None], ptr
+
+    def euclid_pe(params, q, r, diag, up, left, i, j):
+        return step(jnp.sqrt(jnp.sum((q - r) ** 2)), diag, up, left)
+
+    def cheb_pe(params, q, r, diag, up, left, i, j):
+        return step(jnp.max(jnp.abs(q - r)) / params["scale"], diag, up,
+                    left)
+
+    def prof_sub(params, q, r):
+        return jnp.sum((q @ params["S"]) * r)
+
+    def qual_sub(params, q, r):
+        mis = 1 + jnp.minimum(q[1], r[1]).astype(jnp.int32) // 10
+        return jnp.where(q[0] == r[0], params["match"], -mis)
+
+    def far(params, k):
+        return jnp.where(k == 0, 0.0, 1e30).astype(jnp.float32)[..., None]
+
+    def free(params, k):
+        return jnp.zeros(jnp.shape(k) + (1,), jnp.float32)
+
+    f32, i32 = jnp.float32, jnp.int32
+    lin = dict(n_layers=1, ptr_bits=JC.LINEAR_PTR_BITS)
+    dtw_f = dict(lin, objective="min", score_dtype=f32, char_shape=(3,),
+                 char_dtype=f32)
+    jspecs = {
+        "dtw_band": jzoo.make(9, band=8),
+        "profile_last_row": (dataclasses.replace(
+            jzoo.make(8)[0], region=T.REGION_LAST_ROW), jzoo.make(8)[1]),
+        "euclid": (JSpec(name="euclid_dtw", pe=euclid_pe, init_row=far,
+                         init_col=far, region=REGION_CORNER, band=16,
+                         traceback=JC.linear_tb(STOP_ORIGIN), **dtw_f),
+                   {}),
+        "chebyshev": (JSpec(name="chebyshev_sdtw", pe=cheb_pe,
+                            init_row=free, init_col=far,
+                            region=T.REGION_LAST_ROW,
+                            traceback=JC.linear_tb(T.STOP_TOP_ROW),
+                            **dtw_f), {"scale": f32(0.5)}),
+        "profile_local": (JSpec(name="profile_local",
+                                pe=JC.linear_pe(prof_sub, local=True),
+                                init_row=free, init_col=free,
+                                region=T.REGION_ALL, score_dtype=f32,
+                                char_shape=(5,), char_dtype=f32,
+                                traceback=JC.linear_tb(T.STOP_PTR_END),
+                                **lin),
+                          {"S": jnp.asarray(UV.PROFILE_S.numpy()),
+                           "gap": f32(-1.0)}),
+        "quality": (JSpec(name="quality_global", pe=JC.linear_pe(qual_sub),
+                          init_row=JC.linear_gap_init,
+                          init_col=JC.linear_gap_init, region=REGION_CORNER,
+                          char_shape=(2,), char_dtype=jnp.uint8,
+                          traceback=JC.linear_tb(STOP_ORIGIN), **lin),
+                    {"match": i32(2), "gap": i32(-3)}),
+    }
+    out = {}
+    for name, (jspec, jparams) in jspecs.items():
+        mk, params = VECTOR[name]
+        if name in ("dtw_band", "profile_last_row"):
+            params = pzoo.from_reference_params(
+                {k: np.asarray(v) for k, v in jparams.items()})
+        out[name] = (jspec, jparams, mk(), params)
+    return out
+
+
+def _vector_pairs(rng, spec, n, lo, hi):
+    """``n`` pairs of the spec's characters, query lengths in [lo, hi):
+    the reference is the query with a quarter of its characters drawn
+    anew, cut or extended at its end by up to 8 (so a banded corner stays
+    in band and a local alignment has something to find)."""
+    out = []
+    for _ in range(n):
+        nq = int(rng.integers(lo, hi))
+        q = _chars(rng, spec, nq)
+        r = q.copy()
+        redraw = rng.random(nq) < 0.25
+        r[redraw] = _chars(rng, spec, int(redraw.sum()))
+        nr = max(1, nq + int(rng.integers(-8, 9)))
+        r = np.concatenate([r, _chars(rng, spec, max(0, nr - nq))])[:nr]
+        out.append((q, r))
+    return out
+
+
 def _flipped(name):
     """(JAX spec, JAX params, port spec, port params) of the specs K1
     refused before it took any PE."""
@@ -568,6 +735,45 @@ def test_user_pes_match_jax_engines(name):
             == 96
 
 
+@pytest.mark.parametrize("name", list(VECTOR))
+def test_vector_pes_match_jax_engines(name):
+    """The vector-character cases on the port's ``wavefront`` engine (K1's
+    plain version here; a functor generated from the PE on the card)
+    equal JAX's ``wavefront`` and ``reference`` engines pair by pair
+    through ``align`` and as a batch through ``run_pairs``: the quality PE
+    exactly (scores, end cells, moves), the f32 ones to the parity
+    contract (scores to rtol 1e-5, exact end cells, the same path)."""
+    from repro.core import align as jalign
+    jspec, jparams, spec, params = _jax_vector_specs()[name]
+    assert K.supports(spec) is None and K.is_generated(spec)
+    pairs = _vector_pairs(np.random.default_rng(zlib.crc32(name.encode())),
+                          spec, 4, 20, 60)
+    floating = spec.score_dtype.is_floating_point
+    got_all = dispatch.run_pairs(spec, params, pairs, block=4, device="cpu")
+    for (q, r), batched in zip(pairs, got_all):
+        got = api.align(spec, params, q, r, device="cpu")
+        for engine in ("wavefront", "reference"):
+            want = jalign(jspec, jparams, q, r, engine_name=engine)
+            _hold(want, got, floating)
+            _hold(want, batched, floating)
+
+
+def test_banded_dtw_scores_as_jax_on_the_default_engine():
+    """``align(*make(9, band=8), q, r)`` on two seeded 2-channel signals
+    of 40 and 44 samples: the port's default engine scores what JAX's
+    ``wavefront`` and ``reference`` engines score (73.928)."""
+    from repro.core import align as jalign
+    from repro.core import kernels_zoo as jzoo
+    rng = np.random.default_rng(0)
+    q = rng.normal(size=(40, 2)).astype(np.float32)
+    r = rng.normal(size=(44, 2)).astype(np.float32)
+    got = api.align(*pzoo.make(9, band=8), q, r, device="cpu")
+    for engine in ("wavefront", "reference"):
+        want = jalign(*jzoo.make(9, band=8), q, r, engine_name=engine)
+        _hold(want, got, True)
+    assert abs(float(got.score) - 73.928) < 1e-3
+
+
 @pytest.mark.parametrize("name", [16, 17, "min1", "hmm_all"], ids=str)
 def test_specs_k1_refused_before_run_on_its_engine(name):
     """The edit kernels (no PE family), #1 at objective min and the
@@ -633,17 +839,113 @@ def test_refused_pes_name_why_and_never_run(which):
 
 
 def test_scope_refusals():
-    """What K1 still refuses: vector characters, 64-bit scores."""
+    """What K1 still refuses: 64-bit scores.  A PE over vector characters
+    (#8 with its family set to None) is supported, through a generated
+    functor."""
     profile = dataclasses.replace(pzoo.make(8)[0], family=None)
-    assert "vector characters" in K.supports(profile)
+    assert K.supports(profile) is None and K.is_generated(profile)
     wide = dataclasses.replace(pzoo.make(1)[0], family=None,
                                score_dtype=torch.int64)
     assert "64-bit scores" in K.supports(wide)
 
 
+def _wide_pe(params, q, r, diag, up, left, i, j):
+    return UV.dtw_step((q - r).abs().sum(-1), diag, up, left)
+
+
+def _cube_pe(params, q, r, diag, up, left, i, j):
+    return UV.dtw_step(((q - r) ** 3).abs().sum(-1), diag, up, left)
+
+
+def _lanes_mm_pe(params, q, r, diag, up, left, i, j):
+    return UV.dtw_step((q @ r.T).sum(-1), diag, up, left)
+
+
+@pytest.mark.parametrize("which", ["char25", "pow3", "mm_lanes"])
+def test_vector_refusals_name_why_and_never_run(which):
+    """The vector-character lowering's limits: a character of 25 entries
+    (over ``MAX_CHAR``), ``pow`` by 3, and ``mm`` of two lane values (the
+    reference transposed moves the lane off dim 0, into ``aten.mm``).
+    Each refusal names the kernel and its cause (the op and the PE's
+    source line where an op is at fault) and raises before any launch."""
+    pe = {"char25": _wide_pe, "pow3": _cube_pe, "mm_lanes": _lanes_mm_pe}
+    n = 25 if which == "char25" else 3
+    spec = DPKernelSpec(name=f"vec_{which}", n_layers=1, pe=pe[which],
+                        init_row=UV.far_init, init_col=UV.far_init,
+                        objective="min", score_dtype=torch.float32,
+                        char_shape=(n,), char_dtype=torch.float32)
+    why = K.supports(spec)
+    assert why is not None and spec.name in why
+    if which == "char25":
+        assert "25 entries" in why and str(synth.MAX_CHAR) in why
+    else:
+        op = "aten.pow" if which == "pow3" else "aten.mm"
+        assert op in why and "test_torch_synth.py:" in why, why
+    before = K.launches
+    with pytest.raises(ValueError, match=f"cannot run kernel {spec.name}"):
+        get_plan(spec, "wavefront", (32,), (32,), device="cpu")
+    with pytest.raises(ValueError, match=spec.name):
+        K.wavefront_fill(spec, {}, torch.zeros(1, 32, n),
+                         torch.zeros(1, 8, n), torch.zeros(1, 9, 1),
+                         torch.zeros(1, 33, 1),
+                         torch.tensor([[32, 8]], dtype=torch.int32))
+    assert K.launches == before
+
+
+@pytest.mark.parametrize("name", list(VECTOR))
+def test_vector_specs_route_to_generated_functors(name):
+    """Each vector-character case runs on K1 through a functor generated
+    from its PE; #8 and #9 as the zoo makes them keep their hand-written
+    functors; the probe lowers each with vector probe inputs, finding the
+    profile tables' 5 x 5 shape, and the planners read it."""
+    from repro_torch.tune.cost import pe_ops
+    mk, params = VECTOR[name]
+    spec = mk()
+    assert K.supports(spec) is None and K.is_generated(spec)
+    probed = synth.probe(spec)
+    real = synth.lower(spec, params)
+    assert probed.char_shape == real.char_shape == tuple(spec.char_shape)
+    assert real.char_struct.startswith("// a character") and \
+        real.char_struct in real.functor
+    assert "using Char = GenChar;" in real.functor
+    if name in ("profile_last_row", "profile_local"):
+        assert [t[2] for t in probed.tables] == [(5, 5)]
+        assert probed.ops == real.ops
+    assert pe_ops(spec, params) == real.ops > 0
+    assert K.smem_bytes(spec, 64, 64, 2, syn=real) > 0
+    from repro_torch.analyze import lint_point, point_for
+    report = lint_point(point_for(spec, params, "wavefront", (64, 64), 4),
+                        rules=["R4"])
+    assert not [f for f in report.findings if f.severity == "error"]
+    assert any(f.rule == "R401" for f in report.findings)
+    for kid in (8, 9):
+        hand = pzoo.make(kid)[0]
+        assert K.supports(hand) is None and not K.is_generated(hand)
+
+
+def test_lowering_from_threads():
+    """Service workers lower their first specs from several threads at
+    once: make_fx patches process-wide state, so concurrent traces must
+    not break each other (each would be refused, and the refusal cached).
+    Sixteen fresh specs lowered from eight threads all give the functor a
+    lowering in this thread gives."""
+    from concurrent.futures import ThreadPoolExecutor
+    cases = []
+    for k in range(16):
+        spec, params = _zoo_case([2, 4, 8, 9, 15, "titv", "euclid",
+                                  "quality"][k % 8])
+        cases.append((dataclasses.replace(spec, name=f"threads_{k}"),
+                      params))
+    with ThreadPoolExecutor(8) as pool:
+        got = list(pool.map(lambda c: synth.lower(*c), cases))
+    for (spec, params), syn in zip(cases, got):
+        again = synth._lower(spec, params)
+        assert syn.digest == again.digest
+
+
 # ---------------------------------------------------------------------------
 # (e) on the card
-TWINS = [2, 15, ("forward", "logsumexp")]
+TWINS = [2, 15, ("forward", "logsumexp"), 8, 9]
 
 
 @pytest.mark.gpu
@@ -651,7 +953,8 @@ TWINS = [2, 15, ("forward", "logsumexp")]
 def test_cuda_generated_twin_equals_hand_written(name):
     """A functor generated from a zoo PE gives the bits of the hand-written
     functor on the same inputs (int32 scores, pointers, end columns
-    bit-equal; the logsumexp twin within 2e-5)."""
+    bit-equal; #8 and #9, whose PEs spell their f32 order out, bit-equal
+    too; the logsumexp twin within 2e-5)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (K1 is CUDA C++ with no CPU mode)")
     from repro_torch.kernels.wavefront import ops
@@ -661,8 +964,16 @@ def test_cuda_generated_twin_equals_hand_written(name):
     rng = np.random.default_rng(5)
     hi = 20 if name == 15 else 4
     for B, Q, R in [(16, 64, 64), (8, 256, 256), (3, 1024, 1024)]:
-        qs = torch.as_tensor(rng.integers(0, hi, (B, Q)).astype(np.uint8))
-        rs = torch.as_tensor(rng.integers(0, hi, (B, R)).astype(np.uint8))
+        if hand.char_shape:
+            qs = torch.as_tensor(_chars(rng, hand, B * Q).reshape(
+                (B, Q) + hand.char_shape))
+            rs = torch.as_tensor(_chars(rng, hand, B * R).reshape(
+                (B, R) + hand.char_shape))
+        else:
+            qs = torch.as_tensor(rng.integers(0, hi, (B, Q)).astype(
+                np.uint8))
+            rs = torch.as_tensor(rng.integers(0, hi, (B, R)).astype(
+                np.uint8))
         ql = torch.as_tensor(rng.integers(Q // 2, Q + 1, B).astype(np.int32))
         rl = torch.as_tensor(rng.integers(R // 2, R + 1, B).astype(np.int32))
         q_l, r_l = ql.cuda(), rl.cuda()

@@ -201,14 +201,15 @@ def test_make_knows_every_kernel():
 
 def test_supports_refuses_what_k1_does_not_instantiate():
     """What K1 refuses now that it lowers any PE its lowering accepts
-    (``kernels/wavefront/synth.py``): vector characters (#9 banded, a
-    combination no hand-written functor instantiates), an op outside the
-    lowering, 64-bit scores.  The specs it refused before for want of a
-    hand-written functor (the edit kernels, #1 at objective min, the
-    pair-HMM over the whole matrix) run on a generated one; they are held
-    to JAX's wavefront engine in tests/test_torch_synth.py."""
-    assert "vector characters" in K.supports(pzoo.make(9, band=8)[0])
-    assert "dtw" in K.hand_written(pzoo.make(9, band=8)[0])
+    (``kernels/wavefront/synth.py``): an op outside the lowering, 64-bit
+    scores.  The specs it refused before for want of a hand-written
+    functor (the edit kernels, #1 at objective min, the pair-HMM over the
+    whole matrix, and #9 banded, over vector characters) run on a
+    generated one; they are held to JAX's wavefront engine in
+    tests/test_torch_synth.py."""
+    banded_dtw = pzoo.make(9, band=8)[0]
+    assert K.supports(banded_dtw) is None and K.is_generated(banded_dtw)
+    assert "dtw" in K.hand_written(banded_dtw)
     assert "int32 max-plus" in K.hand_written(
         pzoo.make(1, objective="min")[0])
     assert K.supports(prob.pairhmm(band=16)) is None
