@@ -7,10 +7,33 @@ from __future__ import annotations
 
 import numpy as np
 
+from repro_torch.obs import trace as obs_trace
 from repro_torch.runtime import plan as plan_mod
 
 from . import types as T
 from .api import as_codes
+
+
+def _align(spec, params, queries, refs, q_lens, r_lens, engine_name,
+           device, **plan_kw):
+    """The batch entry's body: the codes' copy to ``device``, the plan and
+    its call, under the ``batch.align`` span (its copy under
+    ``batch.h2d``)."""
+    with obs_trace.span("batch.align", cat="batch") as sp:
+        dev = plan_mod.resolve_device(device)
+        with obs_trace.span("batch.h2d", cat="batch"):
+            queries = as_codes(queries, spec.char_dtype, dev)
+            refs = as_codes(refs, spec.char_dtype, dev)
+        n = queries.shape[0]
+        sp.set(n=n, bucket=(queries.shape[1], refs.shape[1]))
+        if q_lens is None:
+            q_lens = np.full((n,), queries.shape[1], np.int32)
+        if r_lens is None:
+            r_lens = np.full((n,), refs.shape[1], np.int32)
+        plan = plan_mod.get_plan(spec, engine_name, tuple(queries.shape[1:]),
+                                 tuple(refs.shape[1:]), batch_size=n,
+                                 device=dev, **plan_kw)
+        return plan(params, queries, refs, q_lens, r_lens)
 
 
 def align_batch(spec: T.DPKernelSpec, params, queries, refs,
@@ -22,19 +45,9 @@ def align_batch(spec: T.DPKernelSpec, params, queries, refs,
     engine schedule (None = the tuned or hand-picked defaults), as in
     ``get_plan``.  Lengths given on the host keep the traceback bound free
     of a device synchronisation."""
-    dev = plan_mod.resolve_device(device)
-    queries = as_codes(queries, spec.char_dtype, dev)
-    refs = as_codes(refs, spec.char_dtype, dev)
-    n = queries.shape[0]
-    if q_lens is None:
-        q_lens = np.full((n,), queries.shape[1], np.int32)
-    if r_lens is None:
-        r_lens = np.full((n,), refs.shape[1], np.int32)
-    plan = plan_mod.get_plan(spec, engine_name, tuple(queries.shape[1:]),
-                             tuple(refs.shape[1:]), batch_size=n,
-                             with_traceback=with_traceback, strip=strip,
-                             tb_pack=tb_pack, device=dev)
-    return plan(params, queries, refs, q_lens, r_lens)
+    return _align(spec, params, queries, refs, q_lens, r_lens, engine_name,
+                  device, with_traceback=with_traceback, strip=strip,
+                  tb_pack=tb_pack)
 
 
 def make_sharded_aligner(spec: T.DPKernelSpec, mesh, axis: str = "data",
@@ -50,18 +63,8 @@ def make_sharded_aligner(spec: T.DPKernelSpec, mesh, axis: str = "data",
     dev = plan_mod.resolve_device(device or mesh.device_type)
 
     def aligner(params, queries, refs, q_lens=None, r_lens=None):
-        queries = as_codes(queries, spec.char_dtype, dev)
-        refs = as_codes(refs, spec.char_dtype, dev)
-        n = queries.shape[0]
-        if q_lens is None:
-            q_lens = np.full((n,), queries.shape[1], np.int32)
-        if r_lens is None:
-            r_lens = np.full((n,), refs.shape[1], np.int32)
-        plan = plan_mod.get_plan(
-            spec, engine_name, tuple(queries.shape[1:]),
-            tuple(refs.shape[1:]), batch_size=n,
-            with_traceback=with_traceback, device=dev, mesh=mesh,
-            mesh_axis=axis)
-        return plan(params, queries, refs, q_lens, r_lens)
+        return _align(spec, params, queries, refs, q_lens, r_lens,
+                      engine_name, dev, with_traceback=with_traceback,
+                      mesh=mesh, mesh_axis=axis)
 
     return aligner

@@ -44,6 +44,13 @@ class Built:
 _LOADED: dict[str, Built] = {}
 _LOCKS: dict[str, threading.Lock] = {}
 _LOCK = threading.Lock()
+_THREAD = threading.local()     # seconds this thread has spent in load()
+
+
+def thread_load_seconds() -> float:
+    """Wall seconds the calling thread has spent in :func:`load` (builds,
+    loads and waits on another thread's build of the same library)."""
+    return getattr(_THREAD, "seconds", 0.0)
 
 
 def nvcc_path() -> str:
@@ -107,7 +114,14 @@ def ptxas_entries(log: str) -> list:
 def load(source: Path, include_dirs=()) -> Built:
     """Compile ``source`` (once per content hash) and load it;
     ``include_dirs`` go to nvcc as ``-I``."""
-    source = Path(source)
+    t0 = time.perf_counter()
+    try:
+        return _load(Path(source), include_dirs)
+    finally:
+        _THREAD.seconds = thread_load_seconds() + time.perf_counter() - t0
+
+
+def _load(source: Path, include_dirs) -> Built:
     key = _key(source, include_dirs)
     with _LOCK:
         lock = _LOCKS.setdefault(key, threading.Lock())

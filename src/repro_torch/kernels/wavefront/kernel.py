@@ -39,6 +39,7 @@ from repro_torch.core.spec_utils import region_mask
 from repro_torch.core.traceback import pack_lanes
 from repro_torch.kernels import Work, call, register_work
 from repro_torch.kernels.wavefront import synth
+from repro_torch.obs import trace as obs_trace
 
 N_PE = 32               # lanes per strip: one warp, one lane per PE
 STRIP_WARPS = 8         # most warps per pair: strips in flight at once
@@ -395,12 +396,22 @@ register_work(_fill_op, fill_work)
 _LIBS: dict = {}
 
 
+def _load(source, include_dirs=()):
+    """``kernels/build.py::load`` of a K1 source under a ``k1.library``
+    span, whose args say whether it was built and in how many seconds."""
+    from repro_torch.kernels import build
+    with obs_trace.span("k1.library", cat="k1") as sp:
+        built = build.load(source, include_dirs=include_dirs)
+        sp.set(source=Path(source).name, built=built.seconds > 0,
+               seconds=built.seconds)
+    return built
+
+
 def _lib(source=SOURCE):
     """The loaded library of one K1 source, built at its first use."""
     lib = _LIBS.get(source)
     if lib is None:
-        from repro_torch.kernels import build
-        lib = build.load(source).lib
+        lib = _load(source).lib
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if source == SOURCE:
             lib.wavefront_fill_launch.argtypes = (
@@ -434,8 +445,7 @@ def generated_lib(syn):
     with _GEN_LOCK:
         hit = _GEN_LIBS.get(syn.digest)
     if hit is None:
-        from repro_torch.kernels import build
-        built = build.load(syn.write(), include_dirs=(CSRC,))
+        built = _load(syn.write(), include_dirs=(CSRC,))
         lib = built.lib
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.wavefront_gen_fill_launch.argtypes = (

@@ -283,15 +283,18 @@ class CompileLedger:
         self._entries: "collections.OrderedDict[str, dict]" = \
             collections.OrderedDict()
 
-    def record(self, key: str, compile_s: float) -> None:
-        """One plan compiled (first dispatch): remember its cost."""
+    def record(self, key: str, compile_s: float,
+               library_s: float = 0.0) -> None:
+        """One plan compiled (first dispatch): remember its cost and the
+        part of it spent building or loading kernel libraries."""
         with self._lock:
             e = self._entries.get(key)
             if e is None:
-                e = {"compile_s": 0.0, "compiles": 0,
+                e = {"compile_s": 0.0, "library_s": 0.0, "compiles": 0,
                      "calls": 0, "hits": 0}
                 self._entries[key] = e
             e["compile_s"] += float(compile_s)
+            e["library_s"] += float(library_s)
             e["compiles"] += 1
             self._entries.move_to_end(key)
             while len(self._entries) > self.cap:
@@ -322,8 +325,9 @@ class CompileLedger:
 COMPILE_LEDGER = CompileLedger()
 
 
-def record_compile(key: str, compile_s: float) -> None:
-    COMPILE_LEDGER.record(key, compile_s)
+def record_compile(key: str, compile_s: float,
+                   library_s: float = 0.0) -> None:
+    COMPILE_LEDGER.record(key, compile_s, library_s)
 
 
 def compile_ledger_snapshot() -> Dict[str, dict]:

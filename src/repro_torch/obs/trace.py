@@ -1,21 +1,29 @@
-"""Span tracing: where the gateway's cycles actually go (copy of
-``repro.obs.trace``, with a ``torch.profiler`` bridge).
+"""Span tracing: where the port's host cycles go (copy of
+``repro.obs.trace``, with ``torch.profiler`` as a second sink).
 
 DP-HLS's performance story (PE occupancy, fill vs. traceback split, I/O
 stalls) is told with stage-level attribution; this module is the
-host-runtime equivalent for the serving gateway and the mapper ladder.
-A *span* is a named ``[t0, t1)`` interval on one thread (monotonic
-clock); every dispatcher stage — batch formation, launch, harvest,
-retries, supervision — brackets itself with one, and the exporter in
-:mod:`repro_torch.obs.export` turns the collected spans into a
-Perfetto-loadable Chrome trace, one track per thread.
+host-runtime equivalent for the batch entry, the plan cache, K1's
+wrapper, the serving gateway and the mapper ladder.  A *span* is a named
+``[t0, t1)`` interval on one thread.  One ``span(...)`` call feeds two
+sinks:
+
+* **the ring** (on after :func:`enable`): spans land, with their args, in
+  per-thread ring buffers on the monotonic clock; the exporter in
+  :mod:`repro_torch.obs.export` turns them into a Perfetto-loadable
+  Chrome trace, one track per thread;
+* **the profiler** (on while a ``torch.profiler`` session records): the
+  span also opens a ``torch.profiler.record_function(name)`` range, so it
+  appears in the profiler's own timeline, on its clock, as a
+  ``user_annotation`` event beside the kernels, copies and CUDA runtime
+  calls it causes.  That is what names the host cause of a device idle
+  gap.
 
 Design constraints, in order:
 
-* **Near-zero overhead when off.**  Tracing is disabled by default and
-  gated by one process-global flag: the disabled ``span(...)`` call is a
-  single branch returning a shared no-op context manager, and
-  ``@traced`` functions skip straight to the wrapped callable.
+* **Near-zero overhead when off.**  With both sinks off, ``span(...)`` is
+  one branch on the ring's flag and the profiler's, returning a shared
+  no-op context manager: no span object is made.
 * **Thread-safe without a hot-path lock.**  Spans land in a *per-thread*
   ring buffer (``threading.local``) that only its owner writes; the
   global registry of rings is only locked at ring creation and at
@@ -34,31 +42,27 @@ Usage::
     events = trace.snapshot()           # {"spans": [...], "counters": ...}
     trace.disable()
 
-The optional ``torch.profiler`` bridge (:func:`annotate`) brackets device
-launches with ``torch.profiler.record_function`` ranges, so a
-``torch.profiler`` trace of the card carries the gateway's stage names
-beside the kernels they launched; it is off unless
-:func:`enable_profiler_bridge` is called.
+Instants and counters go to the ring only.
 """
 from __future__ import annotations
 
 import collections
-import functools
 import threading
 import time
 from typing import Any, Dict, List, NamedTuple, Optional
 
+from torch.autograd import profiler as _profiler
+
 __all__ = [
     "Span", "CounterSample", "enable", "disable", "enabled", "span",
-    "instant", "traced", "counter", "snapshot", "spans", "counters",
-    "dropped", "clear", "enable_profiler_bridge", "disable_profiler_bridge",
-    "annotate",
+    "instant", "counter", "snapshot", "spans", "counters", "dropped",
+    "clear",
 ]
 
 # -- the global switch -------------------------------------------------------
-# read on every span() call; writes only via enable()/disable()
+# read on every span() call; writes only via enable()/disable().  The
+# profiler's own flag (``_profiler._is_profiler_enabled``) is the second.
 _ENABLED = False
-_PROFILER_BRIDGE = False
 
 _DEFAULT_CAPACITY = 4096
 _CAPACITY = _DEFAULT_CAPACITY
@@ -190,9 +194,11 @@ _NOOP = _NoopSpan()
 
 
 class _SpanCM:
-    """Context manager recording one span on exit (unless dropped)."""
+    """Context manager for one span: a profiler range while it is open
+    (when a profiler session records) and a ring record on exit (when the
+    ring was on at the start, unless dropped)."""
 
-    __slots__ = ("name", "cat", "args", "t0", "_dropped")
+    __slots__ = ("name", "cat", "args", "t0", "_dropped", "_ring", "_rf")
 
     def __init__(self, name: str, cat: str, args: Optional[dict]):
         self.name = name
@@ -200,16 +206,23 @@ class _SpanCM:
         self.args = args
         self.t0 = 0.0
         self._dropped = False
+        self._ring = _ENABLED
+        self._rf = None
 
     def __enter__(self):
+        if _profiler._is_profiler_enabled:
+            self._rf = _profiler.record_function(self.name)
+            self._rf.__enter__()
         self.t0 = _now()
         return self
 
     def __exit__(self, *exc):
-        if not self._dropped:
+        if self._ring and not self._dropped:
             r = _ring()
             r.push(Span(self.name, self.cat, self.t0, _now(), r.tid,
                         self.args))
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
         return False
 
     def set(self, **args):
@@ -222,16 +235,19 @@ class _SpanCM:
         return self
 
     def drop(self):
-        """Suppress this span (e.g. batch formation found nothing)."""
+        """Suppress this span's ring record (e.g. batch formation found
+        nothing); a profiler range already open stays."""
         self._dropped = True
         return self
 
 
 def span(name: str, cat: str = "gw", **args):
-    """A context manager timing one named interval on this thread.
+    """A context manager timing one named interval on this thread, in the
+    ring (after :func:`enable`) and in a recording ``torch.profiler``
+    session.
 
-    Disabled tracing returns a shared no-op — the call is one branch."""
-    if not _ENABLED:
+    With both off it returns a shared no-op: the call is one branch."""
+    if not (_ENABLED or _profiler._is_profiler_enabled):
         return _NOOP
     return _SpanCM(name, cat, args or None)
 
@@ -251,30 +267,6 @@ def counter(name: str, value, **_ignored) -> None:
         return
     with _COUNTER_LOCK:
         _COUNTERS.append(CounterSample(name, _now(), float(value)))
-
-
-def traced(fn=None, *, name: Optional[str] = None, cat: str = "fn"):
-    """Decorator form: time every call of ``fn`` as one span.
-
-    Works bare (``@traced``) or configured
-    (``@traced(name="map.extend", cat="mapper")``).  Disabled tracing
-    goes straight to the wrapped callable (one branch).
-    """
-    def deco(f):
-        label = name or f.__qualname__
-
-        @functools.wraps(f)
-        def wrapper(*a, **kw):
-            if not _ENABLED:
-                return f(*a, **kw)
-            cm = _SpanCM(label, cat, None)
-            with cm:
-                return f(*a, **kw)
-        return wrapper
-
-    if fn is not None:
-        return deco(fn)
-    return deco
 
 
 # -- read-out ----------------------------------------------------------------
@@ -304,25 +296,3 @@ def snapshot() -> Dict[str, Any]:
     """Everything the exporter needs, as one JSON-friendly dict."""
     return {"spans": spans(), "counters": counters(),
             "dropped": dropped(), "enabled": _ENABLED}
-
-
-# -- the optional torch.profiler bridge -------------------------------------
-def enable_profiler_bridge() -> None:
-    """Bracket device launches with ``torch.profiler.record_function``
-    ranges (visible in ``torch.profiler`` traces).  Off by default."""
-    global _PROFILER_BRIDGE
-    _PROFILER_BRIDGE = True
-
-
-def disable_profiler_bridge() -> None:
-    global _PROFILER_BRIDGE
-    _PROFILER_BRIDGE = False
-
-
-def annotate(name: str):
-    """A ``torch.profiler.record_function(name)`` range when the profiler
-    bridge is on, else the shared no-op context manager."""
-    if not _PROFILER_BRIDGE:
-        return _NOOP
-    import torch
-    return torch.profiler.record_function(name)

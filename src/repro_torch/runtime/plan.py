@@ -11,7 +11,11 @@ launch (an align plan's traceback walk waits for the fill), the cold cost
 that a service's ``warm_start=`` moves to boot.  It is recorded under a
 ``plan.compile`` span and in the compile ledger
 (``repro_torch.obs.metrics``), which outlives
-``clear_plan_cache(keep_stats=True)``.  Defaults that JAX keys on
+``clear_plan_cache(keep_stats=True)``; the ledger's ``library_s`` is the
+part of it spent building or loading kernel libraries
+(``kernels/build.py::load``).  Every call runs under ``plan.get`` (the
+lookup) and ``plan.run`` (the call, its host lengths under ``plan.lens``)
+spans (``repro_torch.obs.trace``).  Defaults that JAX keys on
 ``jax.default_backend()`` key on the plan's explicit device instead, and
 ``PlanKey.device`` splits the cache.  When a caller passes no schedule
 option, ``get_plan`` consults the port's tuning table
@@ -40,6 +44,7 @@ import torch
 import repro_torch.core.traceback as tb_mod
 import repro_torch.core.types as T
 from repro_torch.core.spec_utils import resolve_tb_pack
+from repro_torch.kernels import build
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 
@@ -143,30 +148,34 @@ class CompiledPlan:
         self.fill = registry.engine_fill(engine_name, self._opts)
 
     def _run(self, params, queries, refs, q_lens, r_lens):
-        n = queries.shape[0]
-        ql_host = _host_lens(q_lens, n)
-        rl_host = _host_lens(r_lens, n)
-        dev = queries.device
-        ql = ql_host.to(dev, non_blocking=True)
-        rl = rl_host.to(dev, non_blocking=True)
-        key = self.key
-        kw = dict(self._opts)
-        if self._bound:
-            # one shared fill bound, known on the host (for a single pair
-            # it is the pair's own q_len + r_len, the engine's default)
-            kw["live_bound"] = int((ql_host + rl_host).max()) if n else 0
-        res = self._engine(self.spec, params, queries, refs, ql, rl,
-                           with_tb=key.mode == "fill" or key.with_traceback,
-                           **kw)
-        if key.mode == "fill":
-            return res
-        if key.with_traceback:
-            (q, *_), (r, *_) = key.bucket_shape
-            bound = int((ql_host + rl_host).max()) + 1 if n else 0
-            return tb_mod.run_batched(self.spec, res, max_len=q + r + 1,
-                                      step_bound=bound)
-        return T.Alignment(score=res.score, end_i=res.end_i,
-                           end_j=res.end_j)
+        with obs_trace.span("plan.run", cat="plan"):
+            n = queries.shape[0]
+            key = self.key
+            bounded = self._bound or key.with_traceback
+            with obs_trace.span("plan.lens", cat="plan"):
+                ql_host = _host_lens(q_lens, n)
+                rl_host = _host_lens(r_lens, n)
+                dev = queries.device
+                ql = ql_host.to(dev, non_blocking=True)
+                rl = rl_host.to(dev, non_blocking=True)
+                # one shared fill bound, known on the host (for a single
+                # pair it is the pair's own q_len + r_len, the engine's
+                # default)
+                live = int((ql_host + rl_host).max()) if bounded and n else 0
+            kw = dict(self._opts)
+            if self._bound:
+                kw["live_bound"] = live
+            res = self._engine(self.spec, params, queries, refs, ql, rl,
+                               with_tb=key.mode == "fill"
+                               or key.with_traceback, **kw)
+            if key.mode == "fill":
+                return res
+            if key.with_traceback:
+                (q, *_), (r, *_) = key.bucket_shape
+                return tb_mod.run_batched(self.spec, res, max_len=q + r + 1,
+                                          step_bound=live + 1 if n else 0)
+            return T.Alignment(score=res.score, end_i=res.end_i,
+                               end_j=res.end_j)
 
     def __call__(self, params, query, ref, q_len=None, r_len=None):
         if self.compile_s is None:
@@ -178,10 +187,12 @@ class CompiledPlan:
     def _first_call(self, params, query, ref, q_len, r_len):
         kstr = plan_key_str(self.key)
         with obs_trace.span("plan.compile", cat="plan", key=kstr):
+            lib0 = build.thread_load_seconds()
             t0 = time.perf_counter()
             out = self._dispatch(params, query, ref, q_len, r_len)
             compile_s = time.perf_counter() - t0
-        obs_metrics.record_compile(kstr, compile_s)
+        obs_metrics.record_compile(
+            kstr, compile_s, library_s=build.thread_load_seconds() - lib0)
         obs_metrics.REGISTRY.counter("plan_compiles_total").inc()
         obs_metrics.REGISTRY.histogram("plan_compile_s").observe(compile_s)
         self.compile_s = compile_s
@@ -420,46 +431,51 @@ def get_plan(spec: T.DPKernelSpec, engine_name: str,
     With ``mesh`` (a ``DeviceMesh``) the plan shards the batch over
     ``mesh_axis``; the mesh joins the cache key, so distinct meshes never
     share a plan."""
-    dev = resolve_device(device)
-    if mesh is None:
-        mesh_axis = "data"   # meaningless unsharded; do not split on it
-    reason = registry.engine_supports(engine_name, spec)
-    if reason is not None:
-        raise ValueError(f"engine {engine_name!r} cannot run kernel "
-                         f"{spec.name}: {reason}")
-    wtb = bool(with_traceback and spec.traceback is not None)
-    if wtb and mode == "align" and not registry.engine_traceback(engine_name):
-        raise ValueError(f"engine {engine_name!r} is score-only; pass "
-                         f"with_traceback=False for kernel {spec.name}")
-    requested = {"strip": strip, "tb_pack": tb_pack, "xdrop": xdrop,
-                 "strip_warps": strip_warps}
-    if all(v is None for v in requested.values()):
-        tuned = _tuned_defaults(spec.name, engine_name,
-                                (q_shape[0], r_shape[0]), batch_size, dev)
-        if tuned:
-            requested.update(tuned)
-    opts = resolve_engine_options(spec, engine_name, requested, dev)
-    cache_key = (spec, engine_name, tuple(q_shape), tuple(r_shape),
-                 batch_size, wtb, mode, str(dev), mesh, mesh_axis,
-                 *(opts[k] for k in sorted(_NEUTRAL_OPTS)))
-    with _LOCK:
-        plan = _CACHE.get(cache_key)
-        if plan is not None:
-            _STATS["hits"] += 1
-            plan.hits += 1
-            obs_metrics.REGISTRY.counter("plan_cache_hits_total").inc()
+    with obs_trace.span("plan.get", cat="plan") as sp:
+        dev = resolve_device(device)
+        if mesh is None:
+            mesh_axis = "data"   # meaningless unsharded; do not split on it
+        reason = registry.engine_supports(engine_name, spec)
+        if reason is not None:
+            raise ValueError(f"engine {engine_name!r} cannot run kernel "
+                             f"{spec.name}: {reason}")
+        wtb = bool(with_traceback and spec.traceback is not None)
+        if wtb and mode == "align" and \
+                not registry.engine_traceback(engine_name):
+            raise ValueError(f"engine {engine_name!r} is score-only; pass "
+                             f"with_traceback=False for kernel {spec.name}")
+        requested = {"strip": strip, "tb_pack": tb_pack, "xdrop": xdrop,
+                     "strip_warps": strip_warps}
+        if all(v is None for v in requested.values()):
+            tuned = _tuned_defaults(spec.name, engine_name,
+                                    (q_shape[0], r_shape[0]), batch_size, dev)
+            if tuned:
+                requested.update(tuned)
+        opts = resolve_engine_options(spec, engine_name, requested, dev)
+        cache_key = (spec, engine_name, tuple(q_shape), tuple(r_shape),
+                     batch_size, wtb, mode, str(dev), mesh, mesh_axis,
+                     *(opts[k] for k in sorted(_NEUTRAL_OPTS)))
+        with _LOCK:
+            plan = _CACHE.get(cache_key)
+            if plan is not None:
+                _STATS["hits"] += 1
+                plan.hits += 1
+                sp.set(cache="hit")
+                obs_metrics.REGISTRY.counter("plan_cache_hits_total").inc()
+                return plan
+            _STATS["misses"] += 1
+            sp.set(cache="miss")
+            obs_metrics.REGISTRY.counter("plan_cache_misses_total").inc()
+            key = PlanKey(kernel=spec.name, engine=engine_name,
+                          bucket_shape=(tuple(q_shape), tuple(r_shape)),
+                          batch_size=batch_size, with_traceback=wtb,
+                          mode=mode, device=str(dev),
+                          semiring=spec.semiring.name,
+                          placement=_placement(mesh, mesh_axis), **opts)
+            plan = CompiledPlan(key, spec, engine_name, mesh=mesh,
+                                mesh_axis=mesh_axis)
+            _CACHE[cache_key] = plan
             return plan
-        _STATS["misses"] += 1
-        obs_metrics.REGISTRY.counter("plan_cache_misses_total").inc()
-        key = PlanKey(kernel=spec.name, engine=engine_name,
-                      bucket_shape=(tuple(q_shape), tuple(r_shape)),
-                      batch_size=batch_size, with_traceback=wtb, mode=mode,
-                      device=str(dev), semiring=spec.semiring.name,
-                      placement=_placement(mesh, mesh_axis), **opts)
-        plan = CompiledPlan(key, spec, engine_name, mesh=mesh,
-                            mesh_axis=mesh_axis)
-        _CACHE[cache_key] = plan
-        return plan
 
 
 def _placement(mesh, mesh_axis: str) -> Optional[str]:

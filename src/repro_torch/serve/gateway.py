@@ -546,7 +546,7 @@ class Gateway:
                     survivors: List = []
                     out = None
                 else:
-                    with obs_trace.annotate(f"gw.launch/{name}"):
+                    with obs_trace.span(f"gw.launch/{name}", cat="gateway"):
                         survivors, out = ch.launch(bucket, jobs, block)
         except BaseException as exc:
             with self._lock:

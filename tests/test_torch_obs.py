@@ -2,12 +2,14 @@
 tracer, the metrics registry and the trace export as ``tests/test_obs.py``
 holds JAX's, the same snapshots from both packages' registries, the plan
 cache's compile ledger and ``totals`` across
-``clear_plan_cache(keep_stats=True)``, the ``torch.profiler`` bridge, and
-the spans the ported gateway, dispatcher, plan cache and mapper emit."""
+``clear_plan_cache(keep_stats=True)``, the spans' second sink (a recording
+``torch.profiler`` session), and the spans the batch entry, plan cache,
+K1's wrapper, gateway, dispatcher and mapper emit."""
 from __future__ import annotations
 
 import json
 import threading
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -25,15 +27,13 @@ from repro_torch.serve import (AlignRequest, AlignmentService, FaultPlan,
 
 @pytest.fixture(autouse=True)
 def _clean_trace():
-    """Every test starts and ends with tracing off, empty, at the default
-    ring capacity and with the profiler bridge off."""
+    """Every test starts and ends with tracing off, empty and at the
+    default ring capacity."""
     trace.disable()
-    trace.disable_profiler_bridge()
     trace.clear()
     trace._CAPACITY = trace._DEFAULT_CAPACITY
     yield
     trace.disable()
-    trace.disable_profiler_bridge()
     trace.clear()
     trace._CAPACITY = trace._DEFAULT_CAPACITY
 
@@ -50,21 +50,18 @@ def _svc(**kw):
 
 # -- trace -------------------------------------------------------------------
 def test_disabled_path_emits_nothing():
+    """With the ring off and no profiler recording, every span is the one
+    shared no-op."""
     assert not trace.enabled()
+    assert not torch.autograd.profiler._is_profiler_enabled
     with trace.span("x", cat="t", a=1) as sp:
         sp.set(b=2)
     trace.instant("y", cat="t")
     trace.counter("z", 3.0)
-
-    @trace.traced
-    def f(v):
-        return v + 1
-
-    assert f(1) == 2
     assert trace.spans() == [] and trace.counters() == []
     assert trace.dropped() == 0
     assert trace.span("a") is trace.span("b") is trace._NOOP
-    assert trace.annotate("gw.launch/x") is trace._NOOP
+    assert trace.span("gw.launch/x", cat="gateway", n=1) is trace._NOOP
 
 
 def test_enable_disable_round_trip():
@@ -102,21 +99,19 @@ def test_span_drop_instant_and_exception():
     assert trace.dropped() == 0
 
 
-def test_traced_decorator_bare_and_configured():
+def test_span_feeds_the_ring_and_the_profiler_together():
+    """With the ring on inside a profile, one span lands in both sinks;
+    a dropped span leaves the ring and keeps its profiler range."""
+    from torch.profiler import ProfilerActivity, profile
     trace.enable()
-
-    @trace.traced
-    def plain():
-        return 1
-
-    @trace.traced(name="map.extend", cat="mapper")
-    def named():
-        return 2
-
-    assert plain() == 1 and named() == 2
-    names = {(s.name, s.cat) for s in trace.spans()}
-    assert ("map.extend", "mapper") in names
-    assert any(n.endswith("plain") and c == "fn" for n, c in names)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with trace.span("both", cat="t", n=1):
+            torch.ones(4).sum()
+        with trace.span("dropped", cat="t") as sp:
+            sp.drop()
+    assert [(s.name, s.args) for s in trace.spans()] == [("both", {"n": 1})]
+    names = {e.key for e in prof.key_averages()}
+    assert {"both", "dropped"} <= names
 
 
 def test_ring_wraparound_and_clear():
@@ -163,14 +158,19 @@ def test_concurrent_workers_interleave_without_loss():
 
 
 def test_profiler_bridge_names_launches_in_a_torch_profile():
+    """A span opens a profiler range while a session records, with the
+    ring off, and is the no-op again once the session ends."""
     from torch.profiler import ProfilerActivity, profile
-    assert trace.annotate("gw.launch/global_affine") is trace._NOOP
-    trace.enable_profiler_bridge()
+    assert trace.span("gw.launch/global_affine") is trace._NOOP
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        with trace.annotate("gw.launch/global_affine"):
+        sp = trace.span("gw.launch/global_affine", cat="gateway")
+        assert sp is not trace._NOOP
+        with sp:
             torch.ones(4).sum()
     names = {e.key for e in prof.key_averages()}
     assert "gw.launch/global_affine" in names
+    assert trace.spans() == []
+    assert trace.span("gw.launch/global_affine") is trace._NOOP
 
 
 # -- metrics: the port's registry against JAX's ------------------------------
@@ -222,7 +222,7 @@ def test_compile_ledger_caps_oldest_first():
     led.record("c", 3.0)
     snap = led.snapshot()
     assert set(snap) == {"a", "c"}
-    assert snap["a"] == {"compile_s": 1.5, "compiles": 2,
+    assert snap["a"] == {"compile_s": 1.5, "library_s": 0.0, "compiles": 2,
                          "calls": 0, "hits": 0}
     led.update_usage("a", calls=10, hits=9)
     led.update_usage("b", calls=5, hits=5)
@@ -432,3 +432,128 @@ def test_mapper_spans():
     assert set(spans) == {"map.seed_chain", "map.screen", "map.extend"}
     assert spans["map.seed_chain"].args == {"n": 4}
     assert spans["map.extend"].args["n"] <= spans["map.screen"].args["n"]
+
+
+# -- the batch entry's, plan's and K1 wrapper's spans ------------------------
+# each span of one align_batch call and the span it nests in
+_ALIGN_NEST = {"batch.h2d": "batch.align", "plan.get": "batch.align",
+               "plan.tune_lookup": "plan.get", "plan.run": "batch.align",
+               "plan.lens": "plan.run", "k1.prep": "plan.run",
+               "k1.launch": "plan.run", "k1.fold": "plan.run"}
+_ALIGN_SPANS = {"batch.align", *_ALIGN_NEST}
+
+
+def _aligner(kernel: int, with_tb: bool):
+    """A function running one align_batch of three pairs of a zoo kernel on
+    the CPU (one spec, so one plan across calls)."""
+    from repro_torch.core import kernels_zoo
+    from repro_torch.core.batch import align_batch
+    spec, params = kernels_zoo.make(kernel)
+    rng = np.random.default_rng(kernel)
+    q = rng.integers(0, 4, (3, 16)).astype(np.uint8)
+    r = rng.integers(0, 4, (3, 24)).astype(np.uint8)
+    return lambda: align_batch(spec, params, q, r, [16, 9, 12], [24, 20, 7],
+                               with_traceback=with_tb, device="cpu")
+
+
+def _nested(inner, outer, eps=0.01) -> bool:
+    return outer[0] - eps <= inner[0] and inner[1] <= outer[1] + eps
+
+
+def _check_nesting(intervals: dict) -> None:
+    """``intervals`` maps a span's name to its (start, end) intervals: each
+    span of ``_ALIGN_NEST`` lies inside one of its parent's."""
+    assert _ALIGN_SPANS <= set(intervals), sorted(intervals)
+    for child, parent in _ALIGN_NEST.items():
+        for iv in intervals[child]:
+            assert any(_nested(iv, p) for p in intervals[parent]), \
+                (child, iv, parent, intervals[parent])
+
+
+@pytest.mark.parametrize("kernel,with_tb", [(2, True), (4, False), (4, True)])
+def test_align_batch_spans_nest_in_a_torch_profile(tmp_path, kernel,
+                                                   with_tb):
+    """One align_batch on the CPU under torch.profiler: the entry's, the
+    plan's and K1's spans are user_annotation events of the exported
+    trace, each inside its parent, with the ring off."""
+    from torch.profiler import ProfilerActivity, profile
+    align = _aligner(kernel, with_tb)
+    align()                                      # the plan made and warm
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        align()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    intervals: dict = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e.get("ph") == "X":
+            s = float(e["ts"])
+            intervals.setdefault(e["name"], []).append(
+                (s, s + float(e["dur"])))
+    _check_nesting(intervals)
+    assert len(intervals["batch.align"]) == 1
+    assert len(intervals["k1.launch"]) == 1
+    assert trace.spans() == []
+
+
+@pytest.mark.parametrize("kernel,with_tb", [(2, True), (4, False)])
+def test_align_batch_spans_fill_the_ring(kernel, with_tb):
+    """The same call with the ring on records the same names, nested the
+    same way, with the batch's size and bucket and the plan cache's hit
+    or miss as args."""
+    plan_mod.clear_plan_cache()
+    align = _aligner(kernel, with_tb)
+    trace.enable()
+    align()
+    align()
+    spans = trace.spans()
+    intervals: dict = {}
+    for s in spans:
+        intervals.setdefault(s.name, []).append((s.t0, s.t1))
+    _check_nesting(intervals)
+    assert [s.args["cache"] for s in spans if s.name == "plan.get"] == \
+        ["miss", "hit"]
+    aligns = [s for s in spans if s.name == "batch.align"]
+    assert [s.args for s in aligns] == [{"n": 3, "bucket": (16, 24)}] * 2
+    assert [s.name for s in spans].count("plan.compile") == 1
+    plan_mod.clear_plan_cache()
+
+
+def test_k1_library_span_and_the_ledgers_library_s(monkeypatch):
+    """``k1.library`` times K1's library load with its source, whether it
+    was built and the build's seconds; a plan's first dispatch records
+    the seconds its thread spent in ``build.load`` as ``library_s``."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.wavefront import kernel as K
+
+    def fake_load(source, include_dirs=()):
+        build._THREAD.seconds = build.thread_load_seconds() + 0.25
+        return build.Built(lib=None, path=Path(source), ptxas_log="",
+                           seconds=1.5)
+
+    monkeypatch.setattr(build, "load", fake_load)
+    trace.enable()
+    built = K._load(K.SOURCE)
+    assert built.seconds == 1.5
+    (sp,) = [s for s in trace.spans() if s.name == "k1.library"]
+    assert sp.cat == "k1" and sp.args == {
+        "source": Path(K.SOURCE).name, "built": True, "seconds": 1.5}
+
+    plan_mod.clear_plan_cache()
+    from repro_torch.core import kernels_zoo
+    spec, params = kernels_zoo.make(2)
+    plan = plan_mod.get_plan(spec, "wavefront", (16,), (16,), batch_size=2,
+                             device="cpu")
+    real_run = plan._run
+
+    def run_loading(*a):
+        fake_load(K.SOURCE)
+        return real_run(*a)
+
+    monkeypatch.setattr(plan, "_run", run_loading)
+    q = torch.zeros((2, 16), dtype=torch.uint8)
+    plan(params, q, q, [16, 16], [16, 16])
+    (entry,) = plan_mod.plan_cache_info()["compile_ledger"].values()
+    assert entry["library_s"] == pytest.approx(0.25)
+    assert entry["compile_s"] >= 0.0
+    plan_mod.clear_plan_cache()
